@@ -1,0 +1,35 @@
+"""MESH core in PyTorch: the port's counterpart of ``repro.core``.
+
+* ``hypergraph`` — the ``HyperGraph`` structure (bipartite incidence COO,
+  int32 id tensors on one device).
+* ``api``        — the programming model: ``Program`` / ``ProcedureOut``,
+  message combiners, ``tree_map`` over attribute and message trees.
+* ``engine``     — the single-device superstep executor (``compute``).
+* ``executor``   — the ``Engine`` facade, local backend.
+* ``device``     — where entry points run (the card unless asked).
+"""
+from repro_torch.core.api import (
+    Program,
+    ProcedureOut,
+    constant_initial_msg,
+    tree_leaves,
+    tree_map,
+)
+from repro_torch.core.engine import compute, deliver, superstep_pair
+from repro_torch.core.executor import Engine, ExecutionConfig, Result
+from repro_torch.core.hypergraph import HyperGraph
+
+__all__ = [
+    "Engine",
+    "ExecutionConfig",
+    "HyperGraph",
+    "ProcedureOut",
+    "Program",
+    "Result",
+    "compute",
+    "constant_initial_msg",
+    "deliver",
+    "superstep_pair",
+    "tree_leaves",
+    "tree_map",
+]

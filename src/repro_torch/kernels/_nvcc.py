@@ -1,0 +1,87 @@
+"""Build and load the port's CUDA kernels: ``nvcc`` into a shared
+library with a plain C interface, loaded with ``ctypes``.
+
+A kernel is built at its first use, from the sources in the package's
+``csrc/``, into ``build/kernels/`` at the root of the checkout; the
+library's file name carries a hash of its sources and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
+Nothing is built when a module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str | None:
+    """The ``nvcc`` on ``PATH``, else the toolkit's default location."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    return str(default) if default.exists() else None
+
+
+def build(name: str, sources: tuple[str, ...]) -> Path:
+    """Compile ``csrc/<sources>`` into ``build/kernels/<name>-<hash>.so``
+    unless that file exists; returns its path."""
+    paths = [CSRC / s for s in sources]
+    h = hashlib.sha256()
+    for p in paths:
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            f"nvcc not found: cannot build the {name!r} kernel (needs the "
+            "CUDA toolkit on PATH or under CUDA_HOME)"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Build beside the target and rename into place, so a concurrent
+    # build never loads a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, paths)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed building {name!r} (exit {proc.returncode}):\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
+
+
+def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:
+    """Build (if needed) and load a kernel library once per process."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name, sources)))
+            _LOADED[name] = lib
+        return lib

@@ -1,0 +1,133 @@
+"""Fused incidence delivery — the delivery-kernel registry.
+
+``repro_torch.core.engine.deliver`` routes through here when a
+``DeliveryLayout`` is supplied (the ``delivery='pallas_fused'`` design
+point: in the port it means "the fused layout path").  One fused data
+path, three lowerings:
+
+* ``cuda`` — the hand-written Hopper kernel
+  (``fused.deliver_fused_cuda``), one launch per degree class;
+* ``plain`` — the same per-class contract in stock torch ops
+  (``fused.deliver_fused_plain``), the kernel's oracle;
+* ``ell`` — the layout's sliced-ELL tables through stock torch ops
+  (``xla.deliver_ell_leaf``), the host lowering.
+
+``select_lowering`` picks ``cuda`` for CUDA tensors and ``ell`` on the
+CPU; an explicit ``lowering=`` of ``ell`` or ``plain`` is accepted on
+any device.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+
+from repro_torch.core.api import tree_map
+from repro_torch.kernels.deliver.fused import (
+    deliver_fused_classes,
+    deliver_fused_cuda,
+    deliver_fused_plain,
+    layout_from_numpy,
+)
+from repro_torch.kernels.deliver.layout import (
+    ClassPlan,
+    DeliveryLayout,
+    build_delivery_layout,
+    classify_degrees,
+    layout_pair,
+    plan_degree_classes,
+    plan_ell_width,
+    tile_block_bounds,
+)
+from repro_torch.kernels.deliver.xla import deliver_ell_leaf
+from repro_torch.sparse.segment import MONOIDS
+
+__all__ = [
+    "DELIVERY_MODES",
+    "LOWERINGS",
+    "ClassPlan",
+    "DeliveryLayout",
+    "build_delivery_layout",
+    "classify_degrees",
+    "deliver_ell_leaf",
+    "deliver_fused_classes",
+    "deliver_fused_cuda",
+    "deliver_fused_plain",
+    "fused_deliver",
+    "layout_from_numpy",
+    "layout_pair",
+    "plan_degree_classes",
+    "plan_ell_width",
+    "select_lowering",
+    "tile_block_bounds",
+]
+
+# The ``ExecutionConfig.delivery`` axis values (as in the JAX package).
+DELIVERY_MODES = ("auto", "xla", "pallas_fused")
+LOWERINGS = ("cuda", "plain", "ell")
+
+Pytree = Any
+
+
+def select_lowering(device) -> str:
+    """``cuda`` for CUDA tensors, ``ell`` on the CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "ell"
+
+
+def _pallas_leaf(leaf, layout, monoid, active, *, lowering):
+    """Shape-normalize one leaf for the per-class 2-D kernels."""
+    shape = tuple(leaf.shape)
+    msgs2d = leaf.reshape(shape[0], math.prod(shape[1:]))
+    if monoid.name == "or":
+        # The kernel has no bool path: lower "or" as int32 max.
+        out = _pallas_leaf(
+            msgs2d.to(torch.int32), layout, MONOIDS["max"], active,
+            lowering=lowering,
+        )
+        # > 0, not a bool cast: empty destinations hold the max identity
+        # (iinfo.min), which must read back as False.
+        return (out > 0).reshape((layout.n_dst,) + shape[1:])
+    ident = monoid.identity(msgs2d.dtype)
+    msgs_aug = torch.cat([
+        msgs2d,
+        torch.full((1, msgs2d.shape[1]), ident, dtype=msgs2d.dtype,
+                   device=msgs2d.device),
+    ]).contiguous()
+    act_aug = None
+    if active is not None:
+        act_aug = torch.cat([
+            active.to(torch.int32),
+            torch.ones(1, dtype=torch.int32, device=active.device),
+        ])
+    out = deliver_fused_classes(
+        msgs_aug, act_aug, layout, monoid.name, lowering=lowering
+    )
+    return out.reshape((layout.n_dst,) + shape[1:])
+
+
+def fused_deliver(
+    out_msg: Pytree,
+    active,
+    layout: DeliveryLayout,
+    program,
+    lowering: str | None = None,
+) -> Pytree:
+    """Deliver + combine a message tree through the fused layout.
+
+    Drop-in for the reference gather/mask/segment path of
+    ``repro_torch.core.engine.deliver`` on the monoid path (the caller
+    guarantees ``program.reducer is None`` and no ``edge_transform``);
+    per-leaf monoids resolve exactly as in the reference.
+    """
+    def one(leaf):
+        monoid = program.monoid_for(leaf)
+        low = lowering or select_lowering(leaf.device)
+        if low not in LOWERINGS:
+            raise ValueError(f"lowering must be one of {LOWERINGS}, "
+                             f"got {low!r}")
+        if low == "ell":
+            return deliver_ell_leaf(leaf, layout, monoid, active)
+        return _pallas_leaf(leaf, layout, monoid, active, lowering=low)
+
+    return tree_map(one, out_msg)
