@@ -5,7 +5,8 @@
 * ``api``        — the programming model: ``Program`` / ``ProcedureOut``,
   message combiners, ``tree_map`` over attribute and message trees.
 * ``engine``     — the single-device superstep executor (``compute``).
-* ``executor``   — the ``Engine`` facade, local backend.
+* ``executor``   — the ``Engine`` facade, local backend: ``run`` for
+  iterative specs, ``analyze`` for batch analytics (``AnalyticsSpec``).
 * ``device``     — where entry points run (the card unless asked).
 """
 from repro_torch.core.api import (
@@ -16,10 +17,18 @@ from repro_torch.core.api import (
     tree_map,
 )
 from repro_torch.core.engine import compute, deliver, superstep_pair
-from repro_torch.core.executor import Engine, ExecutionConfig, Result
+from repro_torch.core.executor import (
+    AnalyticsResult,
+    AnalyticsSpec,
+    Engine,
+    ExecutionConfig,
+    Result,
+)
 from repro_torch.core.hypergraph import HyperGraph
 
 __all__ = [
+    "AnalyticsResult",
+    "AnalyticsSpec",
     "Engine",
     "ExecutionConfig",
     "HyperGraph",

@@ -1,12 +1,21 @@
 """One API, many design points: the ``Engine`` facade, in PyTorch.
 
-This slice of the port runs the local backend on the bipartite
-representation: ``Engine(...).run(spec)`` resolves the ``delivery`` axis
-(reference gather/mask/segment path vs the fused degree-class layout,
-which on the card runs the hand-written CUDA kernel) and executes the
-superstep loop of ``repro_torch.core.engine``.  The chosen design point
-and the measured wall, dispatch and device-wait times come back on the
-``Result``.
+The port runs the local backend.  ``Engine(...).run(spec)`` takes an
+``AlgorithmSpec`` on the bipartite representation: it resolves the
+``delivery`` axis (reference gather/mask/segment path vs the fused
+degree-class layout, which on the card runs the hand-written CUDA
+kernel) and executes the superstep loop of ``repro_torch.core.engine``.
+The chosen design point and the measured wall, dispatch and device-wait
+times come back on the ``Result``.
+
+``Engine(...).analyze(spec)`` takes an ``AnalyticsSpec`` (batch
+analytics: the h-motif census, exact or sampled, and pair
+intersections).  It resolves the representation (bipartite, or
+``clique``: the materialized pair-size table of the dual hypergraph),
+the intersection kernel (``bitset``, which on the card runs the
+hand-written CUDA kernel, or ``merge``) and the census mode with the
+JAX package's cost models, and returns an ``AnalyticsResult``.
+``submit`` dispatches on the spec's type.
 
 Design axes this slice does not port raise ``NotImplementedError``
 naming their ROADMAP.md item; none is silently ignored.
@@ -36,6 +45,8 @@ from repro_torch.kernels.deliver.layout import RESIDUAL_WEIGHT
 REPRESENTATIONS = ("auto", "bipartite", "clique")
 BACKENDS = ("auto", "local", "replicated", "sharded")
 INTERSECT_KERNELS = ("auto", "bitset", "merge")
+ANALYTICS_TASKS = ("hmotif_census", "pair_intersections")
+ANALYTICS_MODES = ("auto", "exact", "sample")
 
 Pytree = Any
 
@@ -51,7 +62,6 @@ _CLIQUE = "item 5: core/clique.py and the clique representation"
 _DISTRIBUTED = "item 10: core/distributed.py"
 _CHECKPOINT = "item 8: faults/checkpoint.py"
 _SERVING = "item 6: core/serving.py"
-_ANALYTICS = "item 7: motifs/ and Engine.analyze"
 _OBS_FAULTS = "item 8: obs/ and faults/"
 _DISK_CACHE = "item 9: serve/cache.py"
 
@@ -61,9 +71,11 @@ class ExecutionConfig:
     """Every design choice from the paper, in one place (the JAX
     package's fields; see ``repro.core.executor.ExecutionConfig``).
 
-    Values of axes that this slice does not port raise
-    ``NotImplementedError``: ``representation='clique'``, a
-    ``replicated`` or ``sharded`` backend, and ``checkpoint_every``.
+    Values of axes that the port does not run yet raise
+    ``NotImplementedError``: a ``replicated`` or ``sharded`` backend
+    and ``checkpoint_every`` here, ``representation='clique'`` when an
+    ``AlgorithmSpec`` is resolved (``Engine.analyze`` takes it: there it
+    means the dual hypergraph's materialized pair-size table).
     ``jit`` is accepted and has no effect: PyTorch runs eagerly.
     ``delivery``: ``xla`` (reference gather -> mask -> segment reduce),
     ``pallas_fused`` (the fused layout path: the CUDA kernel on the card,
@@ -113,8 +125,6 @@ class ExecutionConfig:
                 f"delivery must be one of {DELIVERY_MODES}, "
                 f"got {self.delivery!r}"
             )
-        if self.representation == "clique":
-            raise _not_ported("representation='clique'", _CLIQUE)
         if self.backend in ("replicated", "sharded"):
             raise _not_ported(f"backend={self.backend!r}", _DISTRIBUTED)
         if self.checkpoint_every is not None:
@@ -140,6 +150,82 @@ class Result:
     partition_stats: Any = None
     superstep_stats: Any = None
     supersteps_executed: Any = None
+    decision: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalyticsSpec:
+    """A batch analytics workload — the non-iterative counterpart of
+    ``AlgorithmSpec``, consumed by ``Engine.analyze`` (the JAX package's
+    fields and checks).
+
+    Attributes:
+      hg: the input hypergraph (on the Engine's device).
+      task: ``hmotif_census`` (classify connected 3-hyperedge patterns
+        into the 26 h-motif classes) or ``pair_intersections``
+        (intersection size per hyperedge pair).
+      mode: census only — ``exact`` enumerates every connected triple,
+        ``sample`` runs the uniform linked-pair estimator, ``auto``
+        picks by the overlap-pair budget below.
+      n_samples / seed / confidence: sampling-estimator parameters.
+      pairs: ``pair_intersections`` only — optional ``(ea, eb)`` id
+        arrays; ``None`` = every overlapping pair.
+      exact_pair_budget: ``mode="auto"`` runs exact while the overlap
+        graph has at most this many linked pairs.
+      tile: pair-batch tile size of the intersection paths on the CPU
+        (on the card the bitset kernel takes a batch in one launch).
+    """
+
+    hg: HyperGraph
+    task: str = "hmotif_census"
+    mode: str = "auto"
+    n_samples: int = 4000
+    seed: int = 0
+    confidence: float = 0.95
+    pairs: Any = None
+    exact_pair_budget: int = 200_000
+    tile: int = 2048
+    name: str = "hmotifs"
+
+    def __post_init__(self):
+        if self.task not in ANALYTICS_TASKS:
+            raise ValueError(
+                f"task must be one of {ANALYTICS_TASKS}, got {self.task!r}"
+            )
+        if self.mode not in ANALYTICS_MODES:
+            raise ValueError(
+                f"mode must be one of {ANALYTICS_MODES}, got {self.mode!r}"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalyticsResult:
+    """What a batch analytics execution produced, plus its design point.
+
+    Attributes:
+      value: ``Census`` (exact) / ``CensusEstimate`` (sampled) for the
+        census task; ``(pairs, sizes)`` host arrays for
+        ``pair_intersections``.
+      representation: ``clique`` = pairwise intersections materialized
+        from the dual clique expansion; ``bipartite`` = derived on the
+        fly from the incidence by the kernel.
+      kernel: ``bitset`` | ``merge`` — the intersection kernel path.
+      backend: ``local``.
+      mode: ``exact`` | ``sample`` (census task; ``None`` otherwise).
+      decision: cost-model numbers behind each ``auto`` choice, plus
+        ``measured``: ``wall_s`` split into ``preprocess_s`` (overlap
+        pairs and graph, index build, triple enumeration or sampling),
+        ``intersect_s`` (the ``intersect_calls`` batch calls, copies
+        included) and ``classify_s`` (cardinalities, table lookups,
+        classification, histogram).
+    """
+
+    value: Any
+    config: ExecutionConfig
+    representation: str
+    kernel: str
+    backend: str
+    mode: str | None = None
     decision: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
 
@@ -285,6 +371,7 @@ class Engine:
     >>> eng = Engine()                    # on the card
     >>> res = eng.run(pagerank_spec(hg))
     >>> res.value, res.decision["measured"]
+    >>> eng.analyze(AnalyticsSpec(hg)).value.counts   # h-motif census
 
     ``device``: where specs must live and run (default ``cuda``; raises
     when no card is present — pass ``device="cpu"`` for the host).
@@ -327,6 +414,10 @@ class Engine:
     def _resolve_representation(self, spec, cfg) -> tuple[str, dict]:
         if cfg.representation == "bipartite":
             return "bipartite", {"reason": "explicitly configured"}
+        if cfg.representation == "clique":
+            raise _not_ported(
+                "representation='clique' for an AlgorithmSpec", _CLIQUE
+            )
         touches = getattr(spec, "touches_hyperedge_state", True)
         has_program = getattr(spec, "clique_program", None) is not None
         if not touches and has_program:
@@ -471,23 +562,244 @@ class Engine:
         )
 
     def submit(self, spec, **overrides: Any):
-        """Dispatch on spec type: an ``AlgorithmSpec`` runs (``run``);
-        batch analytics specs wait for their slice."""
+        """The unified entry point: dispatch on spec type.
+
+        ``AlgorithmSpec`` -> iterative superstep execution (``run``),
+        ``AnalyticsSpec`` -> batch analytics (``analyze``).
+        """
+        if isinstance(spec, AnalyticsSpec):
+            return self.analyze(spec, **overrides)
         from repro_torch.algorithms.spec import AlgorithmSpec
 
         if isinstance(spec, AlgorithmSpec):
             return self.run(spec, **overrides)
         raise TypeError(
-            "Engine.submit takes an AlgorithmSpec in this port, got "
-            f"{type(spec).__name__} (batch analytics: ROADMAP.md queue 1, "
-            f"{_ANALYTICS})"
+            "Engine.submit takes an AlgorithmSpec or AnalyticsSpec, got "
+            f"{type(spec).__name__}"
         )
 
     def compile(self, spec, **overrides: Any):
         raise _not_ported("Engine.compile", _SERVING)
 
-    def analyze(self, spec, **overrides: Any):
-        raise _not_ported("Engine.analyze", _ANALYTICS)
+    # -- batch analytics -----------------------------------------------------
+
+    def _resolve_analytics(
+        self, spec: AnalyticsSpec, cfg: ExecutionConfig, n_pairs: int
+    ) -> tuple[ExecutionConfig, str | None, dict]:
+        """Resolve the batch design point given the overlap-pair count
+        (the JAX package's cost models, numbers and reasons).
+
+        Returns ``(resolved_config, mode, decision)``: representation
+        weighs the dual clique expansion against the incidence via
+        ``clique_edge_budget``; the kernel axis is
+        ``select_intersect_kernel``; the backend is local (the sharded
+        one is not ported).
+        """
+        from repro_torch.motifs import select_intersect_kernel
+
+        decision: dict[str, Any] = {}
+
+        if cfg.intersect_kernel == "auto":
+            kernel, kernel_why = select_intersect_kernel(spec.hg)
+        else:
+            kernel = cfg.intersect_kernel
+            kernel_why = {"reason": "explicitly configured"}
+        decision["kernel"] = kernel_why
+
+        if cfg.representation == "auto":
+            # The paper's §IV-A tradeoff, applied to the *dual*: clique
+            # expansion of the dual materializes every pairwise
+            # intersection; choose it only while the expansion stays
+            # within the same edge budget the iterative path uses.
+            dual_edges = 2 * n_pairs
+            budget = cfg.clique_edge_budget * max(spec.hg.nnz, 1)
+            representation = "clique" if dual_edges <= budget else "bipartite"
+            decision["representation"] = {
+                "dual_clique_edges": dual_edges,
+                "bipartite_edges": int(spec.hg.nnz),
+                "edge_budget": float(budget),
+                "reason": (
+                    "dual expansion within edge budget: materialize "
+                    "pair intersections"
+                    if representation == "clique"
+                    else "dual expansion exceeds edge budget: derive "
+                    "intersections from the incidence"
+                ),
+            }
+        else:
+            representation = cfg.representation
+            decision["representation"] = {"reason": "explicitly configured"}
+
+        # ExecutionConfig already refused "replicated" and "sharded".
+        decision["backend"] = (
+            {"reason": "explicitly configured"}
+            if cfg.backend == "local"
+            else {"reason": "no mesh available"}
+        )
+
+        mode: str | None = None
+        if spec.task == "hmotif_census":
+            enumerable = spec.hg.n_hyperedges < (1 << 21)
+            if spec.mode != "auto":
+                mode = spec.mode
+                decision["mode"] = {"reason": "explicitly configured"}
+            else:
+                mode = (
+                    "exact"
+                    if enumerable and n_pairs <= spec.exact_pair_budget
+                    else "sample"
+                )
+                decision["mode"] = {
+                    "n_overlap_pairs": n_pairs,
+                    "exact_pair_budget": spec.exact_pair_budget,
+                    "reason": (
+                        "overlap graph within exact budget"
+                        if mode == "exact"
+                        else "overlap graph too large: sample linked pairs"
+                    ),
+                }
+            if mode == "exact" and not enumerable:
+                raise ValueError(
+                    "mode='exact' needs n_hyperedges < 2^21; use "
+                    "mode='sample'"
+                )
+
+        resolved = dataclasses.replace(
+            cfg,
+            representation=representation,
+            backend="local",
+            intersect_kernel=kernel,
+            partition_strategy="none",
+        )
+        return resolved, mode, decision
+
+    def resolve_analytics(
+        self, spec: AnalyticsSpec, **overrides: Any
+    ) -> tuple[ExecutionConfig, str | None, dict]:
+        """Resolve every ``"auto"`` analytics choice WITHOUT executing.
+
+        Runs the host-side overlap-pair discovery (the quantity every
+        cost term turns on) but no intersection kernels.
+        """
+        from repro_torch.motifs import overlap_pairs_with_counts
+
+        cfg = (
+            dataclasses.replace(self.config, **overrides)
+            if overrides
+            else self.config
+        )
+        pairs, _ = overlap_pairs_with_counts(spec.hg)
+        return self._resolve_analytics(spec, cfg, len(pairs))
+
+    def analyze(
+        self, spec: AnalyticsSpec, **overrides: Any
+    ) -> AnalyticsResult:
+        """Execute a batch ``AnalyticsSpec`` at the configured design
+        point — the batch-mode twin of ``run``.
+
+        >>> res = Engine().analyze(AnalyticsSpec(hg))
+        >>> res.value.counts, res.kernel, res.decision["measured"]
+        """
+        from repro_torch import motifs
+
+        if not isinstance(spec, AnalyticsSpec):
+            raise TypeError(
+                "Engine.analyze takes an AnalyticsSpec, got "
+                f"{type(spec).__name__}"
+            )
+        hg = spec.hg
+        if hg.device.type != self.device.type:
+            raise ValueError(
+                f"spec lives on {hg.device}, this Engine runs on "
+                f"{self.device}; build the hypergraph with "
+                f"device={self.device.type!r}"
+            )
+        cfg = (
+            dataclasses.replace(self.config, **overrides)
+            if overrides
+            else self.config
+        )
+        t_start = time.perf_counter()
+        # Overlap-pair discovery is the O(sum deg^2) host-side
+        # preprocessing step; skip it when nothing consumes it — an
+        # explicit pair batch on a pinned bipartite representation
+        # needs only the kernel.
+        need_pairs = (
+            spec.task == "hmotif_census"
+            or spec.pairs is None
+            or cfg.representation in ("auto", "clique")
+        )
+        pairs = n_shared = None
+        if need_pairs:
+            pairs, n_shared = motifs.overlap_pairs_with_counts(hg)
+        resolved, mode, decision = self._resolve_analytics(
+            spec, cfg, len(pairs) if pairs is not None else 0
+        )
+        index = motifs.build_index(hg, resolved.intersect_kernel)
+        pair_sizes = (
+            motifs.materialize_pair_sizes(hg, pairs, n_shared)
+            if resolved.representation == "clique"
+            else None
+        )
+        og = (
+            motifs.build_overlap_graph(hg, pairs)
+            if spec.task == "hmotif_census"
+            else None
+        )
+        timings: dict[str, Any] = {
+            "preprocess_s": time.perf_counter() - t_start,
+            "intersect_s": 0.0, "intersect_calls": 0, "classify_s": 0.0,
+        }
+
+        if spec.task == "pair_intersections":
+            if spec.pairs is not None:
+                ea = np.asarray(spec.pairs[0], np.int64)
+                eb = np.asarray(spec.pairs[1], np.int64)
+            else:
+                ea, eb = pairs[:, 0], pairs[:, 1]
+            if pair_sizes is not None:
+                t0 = time.perf_counter()
+                e = np.int64(hg.n_hyperedges)
+                lo, hi = np.minimum(ea, eb), np.maximum(ea, eb)
+                sizes = motifs.pair_sizes_lookup(pair_sizes, lo * e + hi)
+                # The materialized table holds overlapping a < b pairs
+                # only; |e ∩ e| = |e| must not fall through to 0.
+                self_pair = ea == eb
+                if self_pair.any():
+                    sizes = np.where(
+                        self_pair, index.cardinalities()[ea], sizes
+                    )
+                timings["classify_s"] += time.perf_counter() - t0
+            else:
+                sizes = motifs.batch_intersections(
+                    index, ea, eb, tile=spec.tile, axis=resolved.axis,
+                    timings=timings,
+                ).astype(np.int64)
+            value: Any = (np.stack([ea, eb], axis=1), sizes)
+        elif mode == "exact":
+            value = motifs.exact_census(
+                hg, index=index, tile=spec.tile, axis=resolved.axis,
+                pair_sizes=pair_sizes, og=og, timings=timings,
+            )
+        else:
+            value = motifs.sampled_census(
+                hg, spec.n_samples, seed=spec.seed,
+                confidence=spec.confidence, index=index, tile=spec.tile,
+                axis=resolved.axis, og=og, pair_sizes=pair_sizes,
+                timings=timings,
+            )
+        decision = {**decision, "measured": {
+            "wall_s": time.perf_counter() - t_start, **timings,
+        }}
+        return AnalyticsResult(
+            value=value,
+            config=resolved,
+            representation=resolved.representation,
+            kernel=resolved.intersect_kernel,
+            backend=resolved.backend,
+            mode=mode,
+            decision=decision,
+        )
 
     def explain(self, spec, hg=None, **overrides: Any):
         raise _not_ported("Engine.explain", _OBS_FAULTS)

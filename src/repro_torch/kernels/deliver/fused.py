@@ -23,6 +23,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.kernels import check_operand
 from repro_torch.kernels.deliver.layout import DeliveryLayout
 from repro_torch.sparse.segment import MONOIDS, scatter_fold
 
@@ -69,20 +70,6 @@ def deliver_fused_plain(
     out = torch.full((n_rows + 1, msgs_aug.shape[1]), ident,
                      dtype=msgs_aug.dtype, device=msgs_aug.device)
     return scatter_fold(out, idx, rows, monoid_name)[:n_rows]
-
-
-def _check(name: str, t: torch.Tensor, dtype, ndim: int, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if dtype is not None and t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got shape "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -135,10 +122,10 @@ def deliver_fused_cuda(
         raise ValueError(
             f"kernel takes monoids {sorted(_MONOIDS)}, got {monoid_name!r}"
         )
-    _check("msgs_aug", msgs_aug, None, 2, dev)
-    _check("src", src, torch.int32, 1, dev)
-    _check("dst", dst, torch.int32, 1, dev)
-    _check("bounds", bounds, torch.int32, 2, dev)
+    check_operand("msgs_aug", msgs_aug, None, 2, dev)
+    check_operand("src", src, torch.int32, 1, dev)
+    check_operand("dst", dst, torch.int32, 1, dev)
+    check_operand("bounds", bounds, torch.int32, 2, dev)
     n_src_aug, d = msgs_aug.shape
     nnz_pad = src.shape[0]
     if dst.shape[0] != nnz_pad:
@@ -152,7 +139,7 @@ def deliver_fused_cuda(
         raise ValueError(f"bounds must be [{n_tiles}, 2], got "
                          f"{tuple(bounds.shape)}")
     if act_aug is not None:
-        _check("act_aug", act_aug, torch.int32, 1, dev)
+        check_operand("act_aug", act_aug, torch.int32, 1, dev)
         if act_aug.shape[0] != n_src_aug:
             raise ValueError(f"act_aug has {act_aug.shape[0]} rows, "
                              f"msgs_aug {n_src_aug}")

@@ -1,5 +1,6 @@
-"""The port on the card: the fused delivery kernel and the Engine's main
-path through it.
+"""The port on the card: the fused delivery kernel, the bitset
+intersection kernels, and the Engine's paths through them (``run`` and
+``analyze``).
 
 Every test here is marked ``cuda`` and skips without a CUDA card and
 ``nvcc``.  The file imports nothing of JAX, so it runs where the card is:
@@ -15,9 +16,16 @@ from repro_torch.algorithms import (
     pagerank_spec,
     shortest_paths_spec,
 )
-from repro_torch.core import Engine
+from repro_torch.core import AnalyticsSpec, Engine
 from repro_torch.data import powerlaw_hypergraph
 from repro_torch.kernels import _nvcc
+from repro_torch.kernels.isect import (
+    isect_cuda,
+    isect_fused_cuda,
+    isect_fused_plain,
+    isect_plain,
+    pair_intersect_bitset,
+)
 from repro_torch.kernels.deliver import (
     build_delivery_layout,
     deliver_fused_cuda,
@@ -126,3 +134,89 @@ def test_cuda_engine_fused_matches_cpu_reference(card):
                 np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
         for a, b in zip(got.superstep_stats, want.superstep_stats):
             assert torch.equal(a.cpu(), b)
+
+
+def _words(rng, shape):
+    """Random int32 words, a third of them with bit 31 set and some all
+    ones."""
+    x = rng.integers(-2**31, 2**31, shape, dtype=np.int64)
+    x[rng.random(shape) < 0.05] = -1
+    return torch.as_tensor(x.astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 7, 101, 104, 256])
+def test_cuda_isect_kernels_equal_plain(card, w):
+    rng = np.random.default_rng(w)
+    e, p = 3000, 20000
+    bits = _words(rng, (e, w)).to(card)
+    ids = [torch.as_tensor(rng.integers(0, e, p).astype(np.int32),
+                           device=card) for _ in range(3)]
+    ids[0][:500] = 7                                   # a hot row
+    ids[1][:100] = ids[0][:100]                        # self pairs
+    before = (isect_cuda.launches, isect_fused_cuda.launches)
+    for ec in (None, ids[2]):
+        got = isect_fused_cuda(bits, ids[0], ids[1], ec)
+        want = isect_fused_plain(bits, ids[0], ids[1], ec)
+        assert torch.equal(got, want), (w, ec is not None)
+    a = bits.index_select(0, ids[0])
+    b = bits.index_select(0, ids[1])
+    assert torch.equal(isect_cuda(a, b), isect_plain(a, b))
+    assert torch.equal(isect_cuda(bits, bits),
+                       isect_fused_plain(bits, *(torch.arange(
+                           e, dtype=torch.int32, device=card),) * 2))
+    assert torch.equal(pair_intersect_bitset(bits, ids[0], ids[1],
+                                             fused=False),
+                       isect_fused_plain(bits, ids[0], ids[1]))
+    torch.cuda.synchronize()
+    assert (isect_cuda.launches, isect_fused_cuda.launches) == (
+        before[0] + 3, before[1] + 2)
+    # an empty batch launches nothing
+    empty = torch.zeros(0, dtype=torch.int32, device=card)
+    assert isect_fused_cuda(bits, empty, empty).shape == (0,)
+    assert isect_fused_cuda.launches == before[1] + 2
+
+
+@pytest.mark.cuda
+def test_cuda_isect_wrapper_rejects_what_the_kernel_does_not_take(card):
+    bits = torch.zeros((10, 8), dtype=torch.int32, device=card)
+    ids = torch.zeros(4, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="int32"):
+        isect_fused_cuda(bits.long(), ids, ids)
+    with pytest.raises(TypeError, match="int32"):
+        isect_fused_cuda(bits, ids.long(), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        isect_cuda(bits.t().contiguous().t(), bits)
+    with pytest.raises(ValueError, match="is on cpu"):
+        isect_fused_cuda(bits, ids.cpu(), ids)
+    with pytest.raises(ValueError, match="ids"):
+        isect_fused_cuda(bits, ids, ids[:3])
+
+
+@pytest.mark.cuda
+def test_cuda_engine_analyze_kernel_matches_merge_and_cpu(card):
+    hg_cpu = powerlaw_hypergraph(3316, 1000, mean_cardinality=4, seed=2,
+                                 device="cpu")
+    hg_gpu = powerlaw_hypergraph(3316, 1000, mean_cardinality=4, seed=2,
+                                 device=card)
+    for spec_kw in (dict(mode="sample", n_samples=300),
+                    dict(mode="exact"),
+                    dict(task="pair_intersections")):
+        want = Engine(device="cpu").analyze(AnalyticsSpec(hg_cpu, **spec_kw))
+        before = isect_fused_cuda.launches
+        got = Engine(device=card, intersect_kernel="bitset",
+                     representation="bipartite").analyze(
+            AnalyticsSpec(hg_gpu, **spec_kw))
+        merge = Engine(device=card, intersect_kernel="merge").analyze(
+            AnalyticsSpec(hg_gpu, **spec_kw))
+        assert got.kernel == "bitset" and merge.kernel == "merge"
+        assert isect_fused_cuda.launches > before
+        for res in (got, merge):
+            if spec_kw.get("task") == "pair_intersections":
+                for x, y in zip(res.value, want.value):
+                    assert np.array_equal(x, y)
+                continue
+            for f in ("counts", "n_triples") if res.mode == "exact" else (
+                    "counts", "ci_low", "ci_high", "n_triples_seen"):
+                assert np.array_equal(getattr(res.value, f),
+                                      getattr(want.value, f)), f

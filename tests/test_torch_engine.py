@@ -184,8 +184,13 @@ def test_halting_semantics_and_host_syncs():
     ({"backend": "mesh"}, ValueError),
 ])
 def test_unported_axes_raise(overrides, exc):
+    # "clique" constructs (Engine.analyze takes it) and raises once an
+    # AlgorithmSpec is resolved; the others raise in ExecutionConfig.
+    spec = talg.pagerank_spec(
+        _carry(j_powerlaw(30, 20, mean_cardinality=3, seed=2)), iters=1)
     with pytest.raises(exc, match="ROADMAP|must be one of"):
-        ExecutionConfig(**overrides)
+        Engine(device="cpu", config=ExecutionConfig(**overrides)).resolve(
+            spec)
 
 
 @pytest.mark.parametrize("kw", ["mesh", "plan", "tracer", "disk_cache",
@@ -199,9 +204,11 @@ def test_unported_methods_and_wrong_inputs_raise():
     thg = _carry(j_powerlaw(60, 40, mean_cardinality=4, seed=1))
     eng = Engine(device="cpu")
     spec = talg.pagerank_spec(thg, iters=2)
-    for method in (eng.compile, eng.analyze, eng.explain):
+    for method in (eng.compile, eng.explain):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             method(spec)
+    with pytest.raises(TypeError, match="AnalyticsSpec"):
+        eng.analyze(spec)
     with pytest.raises(NotImplementedError, match="clique"):
         eng.resolve(spec._replace(touches_hyperedge_state=False,
                                   clique_program=lambda g: g))
