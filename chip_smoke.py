@@ -9,8 +9,9 @@ and nothing of the JAX package.  Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``), the torch / CUDA
    versions, and the builds of the kernels from
-   ``src/repro_torch/csrc/`` (``deliver_fused.cu`` and ``isect.cu``, one
-   ``nvcc`` each, started together, timed);
+   ``src/repro_torch/csrc/`` (``deliver_fused.cu``, ``isect.cu``,
+   ``segsum.cu`` and ``flash.cu``, one ``nvcc`` each, started together,
+   timed);
 2. kernel vs plain: on both delivery layouts of the DBLP regime at full
    scale, every degree class, ``deliver_fused_cuda`` against
    ``deliver_fused_plain`` for sum/min/max/prod/or, float32 and int32,
@@ -44,7 +45,27 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    Timings: per census batch the kernel, its plain version and the
    bound (CUDA events, L2 flushed, median of 20), and ``analyze``'s wall
    time split into host preprocessing, intersection calls and
-   classification.
+   classification;
+7. segment sum on the DBLP incidences at full scale (2,838,951 into
+   782,659 hyperedges): ``segment_sum_mxu`` unsorted (K2a, the
+   generator's order) and ``sorted_dst=True`` (K2b, ``sorted_by_dst``'s
+   order) on float32 D = 1 and 64 and bfloat16 D = 64, launches counted,
+   each against its plain version with ``tests/test_kernels.py``'s
+   tolerance; K2b bitwise equal over two runs; K2a on shuffled ids; one
+   segment taking every edge, an E that is no multiple of ``block_e``,
+   ids outside ``[0, N)`` dropped, E = 0 giving zeros without a launch.
+   Timings: kernel, plain version and ``index_add_`` beside the byte
+   bound (CUDA events, L2 flushed, median of 20);
+8. attention through ``flash_attention`` (K4) at llama3.2-1b's width
+   (32 heads of 64): bfloat16 causal S = 32,768 (``prefill_32k``'s
+   length, one sequence of its batch), float32 causal S = 4,096,
+   bfloat16 bidirectional S = 4,096, causal S = 32,000 (no block
+   multiple); and at gemma3-12b's (16 heads of 256), bfloat16 causal
+   S = 8,192.  Launches counted; each against its plain version (float32
+   2e-5, bfloat16 3e-2).  Timings: kernel, plain version and
+   ``scaled_dot_product_attention`` beside the larger of the byte bound
+   and the operation bound (flops over the tensor-core or float32 FMA
+   rate, exps over the MUFU rate; median of 3).
 
 Prints the kernel line (JSON) and, last, the device line (JSON).  Exits
 non-zero, printing no result, when there is no card.
@@ -102,15 +123,15 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
-def time_cuda(fn, flush):
-    """Median ms of ``fn()`` over ``N_TIMED`` runs, each after an L2
+def time_cuda(fn, flush, n_timed=N_TIMED, n_warm=N_WARM):
+    """Median ms of ``fn()`` over ``n_timed`` runs, each after an L2
     flush, timed with CUDA events around the call alone."""
     import torch
 
-    for _ in range(N_WARM):
+    for _ in range(n_warm):
         fn()
     times = []
-    for _ in range(N_TIMED):
+    for _ in range(n_timed):
         flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -245,11 +266,14 @@ def build_kernels():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _nvcc
-    from repro_torch.kernels.deliver import fused
-    from repro_torch.kernels.isect import isect
+    from repro_torch.kernels.deliver.fused import _kernel_lib as fused_lib
+    from repro_torch.kernels.flash.flash import _kernel_lib as flash_lib
+    from repro_torch.kernels.isect.isect import _kernel_lib as isect_lib
+    from repro_torch.kernels.segsum.segsum import _kernel_lib as segsum_lib
 
     sources = {"deliver_fused": ("deliver_fused.cu",),
-               "isect": ("isect.cu",)}
+               "isect": ("isect.cu",), "segsum": ("segsum.cu",),
+               "flash": ("flash.cu",)}
 
     def one(item):
         t0 = time.perf_counter()
@@ -258,8 +282,8 @@ def build_kernels():
 
     with ThreadPoolExecutor(len(sources)) as pool:
         seconds = dict(pool.map(one, sources.items()))
-    fused._kernel_lib()
-    isect._kernel_lib()
+    for load in (fused_lib, isect_lib, segsum_lib, flash_lib):
+        load()
     return seconds
 
 
@@ -575,6 +599,327 @@ def analytics_path(dev, hg_a, triples, batches, host_uni):
     return k3a_launches, k3b_launches
 
 
+def card_rates():
+    """(SMs, max SM clock in Hz) of card 0, from torch and nvidia-smi."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0]) * 1e6
+    return sms, clock
+
+
+def segsum_tol(e, n, dtype):
+    """``tests/test_kernels.py``'s tolerance for a segment sum: bf16
+    rounding grows with a segment's depth (~e/n addends)."""
+    import torch
+
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    return tol, tol * 10 * max(1.0, (e / n) ** 0.5 / 3.0)
+
+
+def check_close(tag, got, want, rtol, atol):
+    """Fails unless ``got`` is within tolerance of ``want`` (float32
+    compare); returns the max abs error."""
+    import torch
+
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{tag}: {tuple(got.shape)} {got.dtype} vs {tuple(want.shape)} "
+             f"{want.dtype}")
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item() if g.numel() else 0.0
+    if not torch.allclose(g, w, rtol=rtol, atol=atol):
+        fail(f"{tag}: max abs err {err} over rtol {rtol} atol {atol}")
+    return err
+
+
+def segsum_phase(hg, flush):
+    """Phase 7: K2a and K2b through ``segment_sum_mxu`` on the DBLP
+    incidences at full scale (the main path, launches counted), each
+    against its plain version, the edge cases, and the timings.  Returns
+    the two kernels' entries of the kernel line."""
+    import torch
+
+    from repro_torch.kernels.segsum import (
+        csr_row_offsets,
+        segment_sum_mxu,
+        segsum_cuda,
+        segsum_plain,
+        segsum_sorted_cuda,
+        segsum_sorted_plain,
+    )
+
+    t0 = time.perf_counter()
+    dev = hg.dst.device
+    n, e = hg.n_hyperedges, hg.nnz
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dst = hg.dst.contiguous()                       # the generator's order
+    order = torch.sort(dst, stable=True).indices    # as sorted_by_dst()
+    dst_s = hg.sorted_by_dst().dst.contiguous()
+    if not torch.equal(dst_s, dst[order]):
+        fail("sorted_by_dst() is not the stable sort of dst")
+    off = csr_row_offsets(dst_s, n)
+    configs = []
+    for dtype, d in ((torch.float32, 1), (torch.float32, 64),
+                     (torch.bfloat16, 64)):
+        msgs = torch.randn(e, d, generator=gen, device=dev).to(dtype)
+        configs.append((dtype, d, msgs, msgs[order].contiguous()))
+
+    # -- the main path: the entry point, unsorted and sorted ------------------
+    segsum_cuda.launches = 0
+    segsum_sorted_cuda.launches = 0
+    outs = [(segment_sum_mxu(m, dst, n),
+             segment_sum_mxu(m_s, dst_s, n, sorted_dst=True))
+            for _, _, m, m_s in configs]
+    launches = (segsum_cuda.launches, segsum_sorted_cuda.launches)
+    if launches != (len(configs), len(configs)):
+        fail(f"segment_sum_mxu launched K2a/K2b {launches} times, expected "
+             f"{len(configs)} each")
+    log(f"  main path: {len(configs)} configs x (unsorted, sorted) through "
+        f"segment_sum_mxu: K2a {launches[0]} launches, K2b {launches[1]}")
+
+    err = {"segsum": 0.0, "segsum_sorted": 0.0}
+    perm = torch.randperm(e, generator=gen, device=dev)
+    dst_p = dst[perm].contiguous()
+    for (dtype, d, m, m_s), (got, got_s) in zip(configs, outs):
+        rtol, atol = segsum_tol(e, n, dtype)
+        tag = f"{str(dtype)[6:]} D={d}"
+        err["segsum"] = max(err["segsum"], check_close(
+            f"K2a {tag}", got, segsum_plain(m, dst, n), rtol, atol))
+        err["segsum_sorted"] = max(err["segsum_sorted"], check_close(
+            f"K2b {tag}", got_s, segsum_sorted_plain(m_s, off, n), rtol,
+            atol))
+        if not same_bits(got_s, segsum_sorted_cuda(m_s, off, n)):
+            fail(f"K2b {tag}: two runs differ")
+        m_p = m[perm].contiguous()
+        err["segsum"] = max(err["segsum"], check_close(
+            f"K2a {tag} shuffled", segsum_cuda(m_p, dst_p, n),
+            segsum_plain(m_p, dst_p, n), rtol, atol))
+        check_close(f"K2a vs K2b {tag}", got, got_s, rtol, atol)
+
+    # -- edge cases ----------------------------------------------------------
+    # One segment takes every edge: integer-valued messages, so that
+    # every order of the 2.8 M additions gives the same float32 bits.
+    m_int = torch.randint(-8, 9, (e, 64), generator=gen, device=dev).float()
+    zeros = torch.zeros_like(dst)
+    want = segsum_plain(m_int, zeros, 3)
+    for sorted_dst in (False, True):
+        if not same_bits(segment_sum_mxu(m_int, zeros, 3,
+                                         sorted_dst=sorted_dst), want):
+            fail(f"one segment (sorted={sorted_dst}) != plain, bitwise")
+    del m_int
+    m1 = configs[1][2]                              # float32, D = 64
+    cut = 512 * 1000 + 77                           # not a block_e multiple
+    rtol, atol = segsum_tol(cut, n, torch.float32)
+    check_close("E not a block_e multiple (K2a)",
+                segment_sum_mxu(m1[:cut], dst[:cut], n),
+                segsum_plain(m1[:cut], dst[:cut], n), rtol, atol)
+    check_close("E not a block_e multiple (K2b)",
+                segment_sum_mxu(configs[1][3][:cut], dst_s[:cut], n,
+                                sorted_dst=True),
+                segsum_plain(configs[1][3][:cut], dst_s[:cut], n), rtol,
+                atol)
+    rtol, atol = segsum_tol(e, n, torch.float32)
+    bad = dst.clone()
+    hit = torch.rand(e, generator=gen, device=dev) < 0.01
+    bad[hit] = torch.tensor([-1, n, n + 5, 2**31 - 1], dtype=torch.int32,
+                            device=dev)[torch.randint(
+                                4, (int(hit.sum()),), generator=gen,
+                                device=dev)]
+    keep = ~hit
+    check_close("ids outside [0, N) dropped (K2a)",
+                segment_sum_mxu(m1, bad, n),
+                segsum_plain(m1[keep], dst[keep], n), rtol, atol)
+    pad = lambda x, lo, hi: torch.cat([lo, x, hi])
+    bad_s = pad(dst_s, torch.full((100,), -3, dtype=torch.int32, device=dev),
+                torch.tensor([n] * 100 + [2**31 - 1] * 5, dtype=torch.int32,
+                             device=dev))
+    m_pad = pad(configs[1][3], torch.ones(100, 64, device=dev),
+                torch.ones(105, 64, device=dev))
+    check_close("ids outside [0, N) dropped (K2b)",
+                segment_sum_mxu(m_pad, bad_s, n, sorted_dst=True),
+                segsum_plain(configs[1][3], dst_s, n), rtol, atol)
+    before = (segsum_cuda.launches, segsum_sorted_cuda.launches)
+    for sorted_dst in (False, True):
+        z = segment_sum_mxu(m1[:0], dst[:0], n, sorted_dst=sorted_dst)
+        if z.shape != (n, 64) or z.any():
+            fail("E = 0 does not give zeros")
+    if (segsum_cuda.launches, segsum_sorted_cuda.launches) != before:
+        fail("E = 0 launched a kernel")
+    log(f"phase 7: K2a/K2b checks passed (max abs err K2a "
+        f"{err['segsum']:.3g}, K2b {err['segsum_sorted']:.3g}; K2b bitwise "
+        f"repeatable; one segment, E = {cut}, dropped ids, E = 0) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- timings -------------------------------------------------------------
+    t0 = time.perf_counter()
+    entries = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                      "library_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0}
+               for name in ("segsum", "segsum_sorted")}
+    for dtype, d, m, m_s in configs:
+        size = m.element_size()
+        base = e * d * size + 4 * e + n * d * size
+        runs = {
+            "segsum": (lambda: segsum_cuda(m, dst, n),
+                       lambda: segsum_plain(m, dst, n),
+                       lambda: torch.zeros(n, d, dtype=dtype, device=dev)
+                       .index_add_(0, dst, m), base),
+            "segsum_sorted": (lambda: segsum_sorted_cuda(m_s, off, n),
+                              lambda: segsum_sorted_plain(m_s, off, n),
+                              lambda: torch.zeros(n, d, dtype=dtype,
+                                                  device=dev)
+                              .index_add_(0, dst_s, m_s),
+                              base + 4 * (n + 1)),
+        }
+        for name, (kernel, plain, library, n_bytes) in runs.items():
+            k_ms = time_cuda(kernel, flush)
+            p_ms = time_cuda(plain, flush)
+            l_ms = time_cuda(library, flush)
+            b_s, o_s = n_bytes / HBM_BYTES_PER_S, e * d / FP32_OPS_PER_S
+            ent = entries[name]
+            for key, val in (("ms", k_ms), ("plain_ms", p_ms),
+                             ("library_ms", l_ms), ("bytes_s", b_s),
+                             ("ops_s", o_s)):
+                ent[key] += val
+            log(f"  {'K2a' if name == 'segsum' else 'K2b'} "
+                f"{str(dtype)[6:]} D={d}: kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
+                f"{max(b_s, o_s) * 1e3:.4f} ms ({n_bytes / 1e6:.1f} MB)")
+        m_p = m[perm].contiguous()
+        p_ms = time_cuda(lambda: segsum_cuda(m_p, dst_p, n), flush)
+        e_ms = time_cuda(lambda: segment_sum_mxu(m_s, dst_s, n,
+                                                 sorted_dst=True), flush)
+        del m_p
+        log(f"    K2a on shuffled ids {p_ms:.4f} ms; "
+            f"segment_sum_mxu(sorted_dst=True) with its check and offsets "
+            f"{e_ms:.4f} ms")
+    for ent in entries.values():
+        b_s, o_s = ent.pop("bytes_s"), ent.pop("ops_s")
+        ent["bound_ms"] = max(b_s, o_s) * 1e3
+        ent["bound_by"] = "bytes" if b_s >= o_s else "operations"
+    log(f"phase 7: timed in {time.perf_counter() - t0:.1f} s (L2 flushed, "
+        f"median of {N_TIMED}; index_add_ into the type of msgs)")
+    for name, launched in zip(entries, launches):
+        entries[name]["launches"] = launched
+        entries[name]["max_abs_err"] = err[name]
+    return entries
+
+
+# (label, dtype, causal, B, H, S, D): llama3.2-1b's attention width
+# (32 heads of 64) and gemma3-12b's (16 heads of 256).
+FLASH_CASES = (
+    ("llama3.2-1b prefill_32k, one sequence", "bfloat16", True, 1, 32,
+     32768, 64),
+    ("llama3.2-1b float32", "float32", True, 1, 32, 4096, 64),
+    ("llama3.2-1b bidirectional", "bfloat16", False, 1, 32, 4096, 64),
+    ("gemma3-12b", "bfloat16", True, 1, 16, 8192, 256),
+    ("llama3.2-1b S=32000 (ragged)", "bfloat16", True, 1, 32, 32000, 64),
+)
+TENSOR_FLOPS_PER_CLOCK_PER_SM = 4096   # dense bf16: 989.4 TFLOP/s at
+                                       # 1830 MHz on 132 SMs
+FMA_FLOPS_PER_CLOCK_PER_SM = 256       # float32: 128 FMA lanes
+EX2_PER_CLOCK_PER_SM = 16              # MUFU
+
+
+def flash_bound(dtype, causal, b, h, s, d, sms, clock):
+    """(bytes s, operations s) of one attention call: q, k, v, out once
+    over the memory rate; the larger of its flops over the tensor (bf16)
+    or FMA (f32) rate and its exps over the MUFU rate.  Causal keeps
+    S (S + 1) / 2 of the S^2 (query, key) pairs."""
+    import torch
+
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    size = torch.tensor([], dtype=dtype).element_size()
+    per_clock = (TENSOR_FLOPS_PER_CLOCK_PER_SM if dtype == torch.bfloat16
+                 else FMA_FLOPS_PER_CLOCK_PER_SM)
+    flops_s = 4 * d * pairs / (per_clock * sms * clock)
+    exps_s = pairs / (EX2_PER_CLOCK_PER_SM * sms * clock)
+    return 4 * b * h * s * d * size / HBM_BYTES_PER_S, max(flops_s, exps_s)
+
+
+def flash_phase(dev, flush, sms, clock):
+    """Phase 8: K4 through ``flash_attention`` at the attention widths of
+    llama3.2-1b and gemma3-12b (the main path, launches counted), each
+    against its plain version, and the timings.  Returns the kernel's
+    entry of the kernel line."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import (
+        flash_attention,
+        flash_cuda,
+        flash_plain,
+    )
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(8)
+    inputs = []
+    for _, dtype_name, _, b, h, s, d in FLASH_CASES:
+        dtype = getattr(torch, dtype_name)
+        inputs.append(tuple(torch.randn(b, h, s, d, generator=gen,
+                                        device=dev).to(dtype)
+                            for _ in range(3)))
+    flash_cuda.launches = 0
+    outs = [flash_attention(*qkv, causal=case[2])
+            for case, qkv in zip(FLASH_CASES, inputs)]
+    launches = flash_cuda.launches
+    if launches != len(FLASH_CASES):
+        fail(f"flash_attention launched K4 {launches} times, expected "
+             f"{len(FLASH_CASES)}")
+    log(f"  main path: {len(FLASH_CASES)} flash_attention calls, K4 "
+        f"{launches} launches")
+    plain = lambda qkv, causal: flash_plain(*qkv, causal=causal,
+                                            block_q=4096, block_k=4096)
+    max_err = 0.0
+    for case, qkv, got in zip(FLASH_CASES, inputs, outs):
+        label, dtype_name, causal = case[:3]
+        tol = 2e-5 if dtype_name == "float32" else 3e-2
+        err = check_close(f"K4 {label}", got, plain(qkv, causal), tol, tol)
+        max_err = max(max_err, err)
+        if not torch.isfinite(got).all():
+            fail(f"K4 {label}: non-finite output")
+        lib = F.scaled_dot_product_attention(*qkv, is_causal=causal)
+        lib_err = (got.float() - lib.float()).abs().max().item()
+        log(f"  {label}: K4 == plain within {tol} (max abs err {err:.3g}; "
+            f"{lib_err:.3g} from scaled_dot_product_attention)")
+    del outs
+    log(f"phase 8: K4 checks passed in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    ent = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    bytes_s = ops_s = 0.0
+    for case, qkv in zip(FLASH_CASES, inputs):
+        label, dtype_name, causal, b, h, s, d = case
+        reps = dict(n_timed=3, n_warm=1)
+        k_ms = time_cuda(lambda: flash_cuda(*qkv, causal=causal), flush,
+                         **reps)
+        p_ms = time_cuda(lambda: plain(qkv, causal), flush, **reps)
+        l_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+            *qkv, is_causal=causal), flush, **reps)
+        b_s, o_s = flash_bound(getattr(torch, dtype_name), causal, b, h, s,
+                               d, sms, clock)
+        for key, val in (("ms", k_ms), ("plain_ms", p_ms),
+                         ("library_ms", l_ms)):
+            ent[key] += val
+        bytes_s += b_s
+        ops_s += o_s
+        mask = "causal" if causal else "bidirectional"
+        kind = "bytes" if b_s >= o_s else "operations"
+        log(f"  {label} ({dtype_name}, {mask}, B={b} H={h} S={s} D={d}): "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, "
+            f"bound {max(b_s, o_s) * 1e3:.4f} ms ({kind})")
+    log(f"phase 8: timed in {time.perf_counter() - t0:.1f} s (median of 3)")
+    ent["bound_ms"] = max(bytes_s, ops_s) * 1e3
+    ent["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
+    ent["launches"] = launches
+    ent["max_abs_err"] = max_err
+    return ent
+
+
 def main() -> int:
     import torch
 
@@ -740,7 +1085,8 @@ def main() -> int:
                 f"pairs, {m['host_syncs']} host syncs")
     log(f"phase 4: timed in {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
-    del fwd, bwd, hg, eng, pr, sp, cc, pr_f, pr_x, sp_f, sp_x, cc_f, cc_x
+    # hg stays for phase 7.
+    del fwd, bwd, eng, pr, sp, cc, pr_f, pr_x, sp_f, sp_x, cc_f, cc_x
 
     # -- phase 5: intersection kernels vs plain at Apache scale ---------------
     hg_a, bits, triples, batches, isect_err, host_uni = (
@@ -752,18 +1098,24 @@ def main() -> int:
 
     # -- timings of the intersection kernels -----------------------------------
     t0 = time.perf_counter()
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True,
-    ).stdout.split()[0]) * 1e6
+    sms, clock = card_rates()
     popc_rate = sms * POPC_PER_CLOCK_PER_SM * clock
     log(f"timings: {sms} SMs x {POPC_PER_CLOCK_PER_SM} popc/clock x "
         f"{clock / 1e6:.0f} MHz = {popc_rate:.4g} popcounts/s; L2 flushed "
         "before each run; median of 20")
     isect_entries = time_isect(bits, batches, flush, popc_rate)
     log(f"timings: done in {time.perf_counter() - t0:.1f} s; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 7: segment sum (K2a, K2b) at DBLP scale -------------------------
+    t0 = time.perf_counter()
+    segsum_entries = segsum_phase(hg, flush)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s in all")
+
+    # -- phase 8: attention (K4) at llama3.2-1b and gemma3-12b widths -----------
+    t0 = time.perf_counter()
+    flash_entry = flash_phase(dev, flush, sms, clock)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -792,6 +1144,25 @@ def main() -> int:
             "max_abs_err": float(isect_err),
             **isect_entries[name],
             "library_ms": None,  # torch has no popcount op
+        })
+    for name, source, replaces, entry in (
+            ("segsum", "segsum.cu", "segsum/segsum.py:125",
+             segsum_entries["segsum"]),
+            ("segsum_sorted", "segsum.cu", "segsum/segsum.py:157",
+             segsum_entries["segsum_sorted"]),
+            ("flash", "flash.cu", "flash/flash.py:93", flash_entry)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": entry["launches"],
+            "max_abs_err": entry["max_abs_err"],
+            "ms": entry["ms"],
+            "plain_ms": entry["plain_ms"],
+            "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"],
+            "library_ms": entry["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,11 @@ deliver/ - fused incidence delivery: gather + live mask + monoid
 isect/   - bitset intersection: AND + popcount over hyperedge member
            rows, per pair or triple, rows pre-gathered or gathered in
            the kernel (CUDA, ``csrc/isect.cu``).
+segsum/  - segment sum of message rows by destination id, in any order
+           (atomics) or dst-sorted (one block per tile of rows, no
+           atomics) (CUDA, ``csrc/segsum.cu``).
+flash/   - attention forward with an online softmax, causal or
+           bidirectional, head dim up to 256 (CUDA, ``csrc/flash.cu``).
 
 Each kernel has a plain PyTorch version beside it in the same module
 (the CPU path and the kernel's oracle) and a launch counter on its

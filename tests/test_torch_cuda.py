@@ -1,6 +1,7 @@
 """The port on the card: the fused delivery kernel, the bitset
-intersection kernels, and the Engine's paths through them (``run`` and
-``analyze``).
+intersection kernels, the Engine's paths through them (``run`` and
+``analyze``), and the segment-sum and attention kernels through their
+entry points.
 
 Every test here is marked ``cuda`` and skips without a CUDA card and
 ``nvcc``.  The file imports nothing of JAX, so it runs where the card is:
@@ -30,6 +31,18 @@ from repro_torch.kernels.deliver import (
     build_delivery_layout,
     deliver_fused_cuda,
     deliver_fused_plain,
+)
+from repro_torch.kernels.flash import (
+    attention_ref,
+    flash_attention,
+    flash_cuda,
+    flash_plain,
+)
+from repro_torch.kernels.segsum import (
+    segment_sum_mxu,
+    segsum_cuda,
+    segsum_plain,
+    segsum_sorted_cuda,
 )
 from repro_torch.sparse.segment import MONOIDS
 
@@ -220,3 +233,122 @@ def test_cuda_engine_analyze_kernel_matches_merge_and_cpu(card):
                     "counts", "ci_low", "ci_high", "n_triples_seen"):
                 assert np.array_equal(getattr(res.value, f),
                                       getattr(want.value, f)), f
+
+
+def _segsum_tol(e, n, dtype):
+    """``tests/test_kernels.py``'s tolerance for a segment sum."""
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    return dict(rtol=tol, atol=tol * 10 * max(1.0, (e / n) ** 0.5 / 3.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 64, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_segsum_kernels_equal_plain(card, dtype, d):
+    rng = np.random.default_rng(d)
+    e, n = 50000, 3000
+    msgs = torch.as_tensor(rng.standard_normal((e, d)).astype(np.float32),
+                           device=card).to(dtype)
+    dst = rng.integers(-5, n + 5, e).astype(np.int32)
+    dst[:2000] = 17                                    # a long row
+    ids = torch.as_tensor(dst, device=card)
+    order = torch.sort(ids, stable=True).indices
+    ms, ids_s = msgs[order].contiguous(), ids[order].contiguous()
+    tol = _segsum_tol(e, n, dtype)
+    before = (segsum_cuda.launches, segsum_sorted_cuda.launches)
+    got = segment_sum_mxu(msgs, ids, n, block_e=300)
+    got_s = segment_sum_mxu(ms, ids_s, n, sorted_dst=True, block_n=50)
+    again = segment_sum_mxu(ms, ids_s, n, sorted_dst=True, block_n=50)
+    torch.cuda.synchronize()
+    assert (segsum_cuda.launches, segsum_sorted_cuda.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert got.dtype == dtype and got.shape == (n, d)
+    want = segsum_plain(msgs, ids, n).float()
+    torch.testing.assert_close(got.float(), want, **tol)
+    torch.testing.assert_close(got_s.float(), want, **tol)
+    assert torch.equal(got_s, again)                   # K2b: same bits
+    # Ids outside [0, N) are dropped: the same sums as without them.
+    keep = (ids >= 0) & (ids < n)
+    torch.testing.assert_close(
+        got.float(), segsum_plain(msgs[keep], ids[keep], n).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sorted_dst", [False, True])
+def test_cuda_segsum_edge_cases(card, sorted_dst):
+    """E = 0 gives zeros without a launch; ids all outside [0, N) give
+    zeros; one segment takes every edge; an infinite message stays in its
+    own row."""
+    launches = lambda: (segsum_cuda.launches, segsum_sorted_cuda.launches)
+    before = launches()
+    empty = segment_sum_mxu(torch.zeros(0, 4, device=card),
+                            torch.zeros(0, dtype=torch.int32, device=card),
+                            9, sorted_dst=sorted_dst)
+    assert empty.shape == (9, 4) and not empty.any()
+    assert launches() == before
+    ones = torch.ones(5000, 2, device=card)
+    out = torch.full((5000,), 11, dtype=torch.int32, device=card)
+    assert not segment_sum_mxu(ones, out, 11, sorted_dst=sorted_dst).any()
+    assert not segment_sum_mxu(ones, -out, 11, sorted_dst=False).any()
+    one = segment_sum_mxu(ones, torch.zeros_like(out), 3,
+                          sorted_dst=sorted_dst)
+    assert torch.equal(one[0], torch.full((2,), 5000.0, device=card))
+    assert not one[1:].any()
+    msgs = torch.tensor([[1.0], [float("inf")], [2.0], [3.0]], device=card)
+    ids = torch.tensor([0, 1, 2, 70], dtype=torch.int32, device=card)
+    got = segment_sum_mxu(msgs, ids, 3, sorted_dst=sorted_dst)
+    assert got.ravel().tolist() == [1.0, float("inf"), 2.0]
+
+
+@pytest.mark.cuda
+def test_cuda_segsum_wrapper_rejects_what_the_kernel_does_not_take(card):
+    msgs = torch.zeros(6, 2, device=card)
+    ids = torch.zeros(6, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        segsum_cuda(msgs.double(), ids, 3)
+    with pytest.raises(TypeError, match="int32"):
+        segsum_cuda(msgs, ids.long(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        segsum_cuda(torch.zeros(2, 6, device=card).t(), ids, 3)
+    with pytest.raises(ValueError, match="is on cpu"):
+        segsum_cuda(msgs, ids.cpu(), 3)
+    with pytest.raises(ValueError, match="num_segments"):
+        segsum_sorted_cuda(msgs, ids[:3], 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d", [(200, 64), (128, 40), (256, 256), (70, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_kernel_equals_plain(card, causal, dtype, s, d):
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.as_tensor(
+        rng.standard_normal((2, 3, s, d)).astype(np.float32) * scale,
+        device=card).to(dtype) for scale in (0.3, 0.3, 1.0))
+    before = flash_cuda.launches
+    got = flash_attention(q, k, v, causal=causal, block_k=s if not causal
+                          else 128)
+    torch.cuda.synchronize()
+    assert flash_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for want in (flash_plain(q, k, v, causal=causal),
+                 attention_ref(q, k, v, causal=causal)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
+    q = torch.zeros(1, 2, 16, 8, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_cuda(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="float32"):
+        flash_cuda(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_cuda(q.transpose(2, 3), q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 1, 4, 300, device=card)
+        flash_cuda(big, big, big)
+    with pytest.raises(ValueError, match="multiple of block_k"):
+        flash_attention(q, q[:, :, :10], q[:, :, :10], causal=False)
