@@ -75,17 +75,14 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool = True, block_q: int = 128,
-               block_k: int = 128) -> torch.Tensor:
-    """K4 through the CUDA kernel: same arguments and result as
-    ``flash_plain``.  A CPU tensor takes the plain version (with
-    ``block_q`` / ``block_k``, which the kernel does not read: its tiles
-    are 64 queries by 64 keys); a CUDA tensor launches the kernel
-    (counted in ``flash_cuda.launches``) or raises.  ``D`` may be 1 to
-    256."""
+               causal: bool = True) -> torch.Tensor:
+    """K4 through the CUDA kernel: same result as ``flash_plain`` (the
+    kernel's tiles are its own, 64 queries by 64 keys).  A CPU tensor
+    takes the plain version with its default blocks; a CUDA tensor
+    launches the kernel (counted in ``flash_cuda.launches``) or raises.
+    ``D`` may be 1 to 256."""
     if q.device.type == "cpu":
-        return flash_plain(q, k, v, causal=causal, block_q=block_q,
-                           block_k=block_k)
+        return flash_plain(q, k, v, causal=causal)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"no attention kernel for device {dev}")

@@ -24,9 +24,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``ValueError``) when ``Sk`` is not a multiple of ``block_k``.  With
     causal ``Sq > Sk`` the JAX kernel lets the zero padding keys at
     positions up to a query's own into its softmax; here, as in
-    ``attention_ref``, keys past ``Sk`` do not exist.  ``block_q`` and
-    ``block_k`` are also the plain version's query and key blocks; the
-    kernel's tiles are its own (64 by 64).
+    ``attention_ref``, keys past ``Sk`` do not exist.  ``block_q`` is
+    taken for the JAX signature and checked, and ``block_k`` serves that
+    ``Sk`` check only: the kernel's tiles are its own (64 by 64), and the
+    plain version on a CPU tensor runs with its default blocks.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, H, S, D]")
@@ -38,4 +39,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"block_k (pad-free Sk): Sk {k.shape[2]}, block_k "
                          f"{block_k}")
     return flash_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                      causal=causal, block_q=block_q, block_k=block_k)
+                      causal=causal)

@@ -4,7 +4,6 @@ versions."""
 from repro_torch.kernels.segsum.ops import csr_row_offsets, segment_sum_mxu
 from repro_torch.kernels.segsum.ref import segment_sum_ref
 from repro_torch.kernels.segsum.segsum import (
-    segsum_dispatch,
     segsum_cuda,
     segsum_plain,
     segsum_sorted_cuda,
@@ -15,7 +14,6 @@ __all__ = [
     "csr_row_offsets",
     "segment_sum_mxu",
     "segment_sum_ref",
-    "segsum_dispatch",
     "segsum_cuda",
     "segsum_plain",
     "segsum_sorted_cuda",

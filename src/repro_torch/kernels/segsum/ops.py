@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.segsum.segsum import segsum_dispatch
+from repro_torch.kernels.segsum.segsum import segsum_cuda, segsum_sorted_cuda
 
 
 def csr_row_offsets(dst: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -69,11 +69,10 @@ def segment_sum_mxu(
         # Clamp before narrowing so that no id wraps into range.
         dst = dst.clamp(-1, num_segments).to(torch.int32)
     dst = dst.to(msgs.device).contiguous()
-    row_offsets = None
-    if sorted_dst:
-        if not bool((dst[1:] >= dst[:-1]).all()):
-            raise ValueError("sorted_dst=True needs non-decreasing dst ids "
-                             "(see HyperGraph.sorted_by_dst)")
-        row_offsets = csr_row_offsets(dst, num_segments)
-    return segsum_dispatch(msgs, dst, num_segments, row_offsets,
-                           block_n=block_n, block_e=block_e)
+    if not sorted_dst:
+        return segsum_cuda(msgs, dst, num_segments, block_e=block_e)
+    if not bool((dst[1:] >= dst[:-1]).all()):
+        raise ValueError("sorted_dst=True needs non-decreasing dst ids "
+                         "(see HyperGraph.sorted_by_dst)")
+    return segsum_sorted_cuda(msgs, csr_row_offsets(dst, num_segments),
+                              num_segments, block_n=block_n)

@@ -1,20 +1,8 @@
 """Plain oracle for the segment-sum kernels, as the JAX package's
-``repro.kernels.segsum.ref`` (``jax.ops.segment_sum``)."""
-from __future__ import annotations
+``repro.kernels.segsum.ref`` (``jax.ops.segment_sum``): the kernels' own
+plain version, ``segsum.segsum_plain`` (float32 sums, ids outside
+``[0, num_segments)`` dropped, the type of ``msgs`` returned), under the
+oracle's name."""
+from repro_torch.kernels.segsum.segsum import segsum_plain as segment_sum_ref
 
-import torch
-
-
-def segment_sum_ref(msgs: torch.Tensor, dst: torch.Tensor,
-                    num_segments: int) -> torch.Tensor:
-    """``msgs [E, D]`` scatter-summed by ``dst [E]`` into
-    ``[num_segments, D]``: float32 sums, ids outside ``[0, num_segments)``
-    dropped (sent to a spare row that is cut off), the type of ``msgs``
-    returned."""
-    d = msgs.shape[1]
-    ids = dst.long()
-    ids = torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
-    out = torch.zeros(num_segments + 1, d, dtype=torch.float32,
-                      device=msgs.device)
-    out.scatter_add_(0, ids[:, None].expand(-1, d), msgs.float())
-    return out[:num_segments].to(msgs.dtype)
+__all__ = ["segment_sum_ref"]

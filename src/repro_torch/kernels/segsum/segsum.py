@@ -12,10 +12,9 @@ Two forms, as the two bodies of the JAX package's
 Both wrap the hand-written Hopper kernels in ``repro_torch/csrc/segsum.cu``
 (see the note in the source).  ``segsum_plain`` / ``segsum_sorted_plain``
 are their plain PyTorch versions: the CPU path and the oracle the
-kernels are held against on the card.  ``segsum_dispatch`` is the
-counterpart of ``segsum_pallas`` itself: it takes the sorted form when
-given row offsets (the TPU's ``tile_bounds``) and the unsorted one
-otherwise.
+kernels are held against on the card (``ref.segment_sum_ref`` is
+``segsum_plain`` under the JAX oracle's name).  ``ops.segment_sum_mxu``
+chooses the form, as ``segsum_pallas`` does by its ``tile_bounds``.
 
 Every form sums in float32 and returns the type of ``msgs`` (float32 or
 bfloat16); ids outside ``[0, N)`` are dropped.
@@ -173,16 +172,3 @@ def segsum_sorted_cuda(msgs: torch.Tensor, row_offsets: torch.Tensor,
 
 segsum_sorted_cuda.launches = 0
 
-
-def segsum_dispatch(msgs: torch.Tensor, dst: torch.Tensor,
-                    num_segments: int,
-                    row_offsets: torch.Tensor | None = None, *,
-                    block_n: int = 128, block_e: int = 512) -> torch.Tensor:
-    """The counterpart of the TPU's ``segsum_pallas``: the sorted form
-    (K2b) when ``row_offsets`` of the dst-sorted ids are given, else the
-    unsorted form (K2a).  Each runs its kernel on a CUDA tensor and its
-    plain version on a CPU one."""
-    if row_offsets is not None:
-        return segsum_sorted_cuda(msgs, row_offsets, num_segments,
-                                  block_n=block_n)
-    return segsum_cuda(msgs, dst, num_segments, block_e=block_e)
