@@ -11,7 +11,8 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    versions, and the builds of the kernels from
    ``src/repro_torch/csrc/`` (``deliver_fused.cu``, ``isect.cu``,
    ``segsum.cu`` and ``flash.cu``, one ``nvcc`` each, started together,
-   timed);
+   timed), with ``ptxas``'s registers, spills and shared memory for
+   each ``flash`` template;
 2. kernel vs plain: on both delivery layouts of the DBLP regime at full
    scale, every degree class, ``deliver_fused_cuda`` against
    ``deliver_fused_plain`` for sum/min/max/prod/or, float32 and int32,
@@ -57,20 +58,23 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    ids outside ``[0, N)`` dropped, E = 0 giving zeros without a launch.
    Timings: kernel, plain version and ``index_add_`` into float32
    beside the byte bound (CUDA events, L2 flushed, median of 20);
-8. attention through ``flash_attention`` (K4) at llama3.2-1b's width
-   (32 heads of 64): bfloat16 causal S = 32,768 (``prefill_32k``'s
-   length, one sequence of its batch), float32 causal S = 4,096,
-   bfloat16 bidirectional S = 4,096, causal S = 32,040 (no multiple of
-   the 64-key tile: partial last key and query tiles); and at
-   gemma3-12b's (16 heads of 256), bfloat16 causal S = 8,192.  Launches
-   counted; each against its plain version, elementwise (float32 2e-5,
-   bfloat16 rtol 1e-2 atol 5e-3) and per row relative to the row's
-   largest value (float32 1e-4, bfloat16 2e-2), a limit that two planted
-   faults (a dropped key tile, late denominators 5% high) must exceed.
-   Timings: kernel, plain version and
+8. attention through ``flash_attention`` (K4: bfloat16 on the tensor
+   cores, float32 on the FMA units) at llama3.2-1b's width (32 heads of
+   64): bfloat16 causal S = 32,768 (``prefill_32k``'s length, one
+   sequence of its batch), float32 causal S = 4,096, bfloat16
+   bidirectional S = 4,096, causal S = 32,040 (no multiple of the key
+   tiles: partial last key and query tiles); at gemma3-12b's (16 heads
+   of 256), bfloat16 causal S = 8,192; and at command-r-plus-104b's (96
+   heads of 128), bfloat16 causal S = 8,192.  Launches counted; each
+   against its plain version, elementwise (float32 2e-5, bfloat16 rtol
+   1e-2 atol 5e-3) and per row relative to the row's largest value
+   (float32 1e-4, bfloat16 2e-2), a limit that two planted faults (a
+   dropped key tile, late denominators 5% high) must exceed; the first
+   case bitwise equal over two runs.  Timings: kernel, plain version and
    ``scaled_dot_product_attention`` beside the larger of the byte bound
    and the operation bound (flops over the tensor-core or float32 FMA
-   rate, exps over the MUFU rate; median of 3).
+   rate, exps over the MUFU rate; median of 3), the kernel's share of
+   its bound and its TFLOP/s.
 
 Prints the kernel line (JSON) and, last, the device line (JSON).  Exits
 non-zero, printing no result, when there is no card.
@@ -290,6 +294,39 @@ def build_kernels():
     for load in (fused_lib, isect_lib, segsum_lib, flash_lib):
         load()
     return seconds
+
+
+def ptxas_summary(text):
+    """(kernel, registers, spill store bytes, spill load bytes, smem
+    bytes) per entry function in ``nvcc -Xptxas -v`` output; the flash
+    templates named by their parameters."""
+    import re
+
+    rows, name, spill = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                          name)
+            f = re.search(r"flash_kernelI(\w)Li(\d+)E", name)
+            if t:
+                name = (f"bf16 wgmma DP={t.group(1)} BK={t.group(2)}, "
+                        f"{t.group(3)} block(s) per SM")
+            elif f:
+                name = f"float32 fma NJ={f.group(2)}"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), *spill,
+                         int(m.group(2) or 0)))
+            name, spill = None, (0, 0)
+    return rows
 
 
 def card_ids(x, dev):
@@ -824,18 +861,22 @@ def segsum_phase(hg, flush):
 
 
 # (label, dtype, causal, B, H, S, D): llama3.2-1b's attention width
-# (32 heads of 64) and gemma3-12b's (16 heads of 256).
+# (32 heads of 64), gemma3-12b's (16 heads of 256) and
+# command-r-plus-104b's (96 heads of 128): one case for each of the
+# bfloat16 kernel's head-dim templates.
 FLASH_CASES = (
     ("llama3.2-1b prefill_32k, one sequence", "bfloat16", True, 1, 32,
      32768, 64),
     ("llama3.2-1b float32", "float32", True, 1, 32, 4096, 64),
     ("llama3.2-1b bidirectional", "bfloat16", False, 1, 32, 4096, 64),
     ("gemma3-12b", "bfloat16", True, 1, 16, 8192, 256),
-    # 32,040 is no multiple of the kernel's 64-key tile or the JAX
-    # wrapper's 128: the last key and query tiles are partial.
+    # 32,040 is no multiple of the kernels' 64- or 128-key tiles or the
+    # JAX wrapper's 128: the last key and query tiles are partial.
     ("llama3.2-1b S=32040 (partial tiles)", "bfloat16", True, 1, 32, 32040,
      64),
+    ("command-r-plus-104b", "bfloat16", True, 1, 96, 8192, 128),
 )
+FLASH_REPEAT_CASE = 0  # the bfloat16 case checked bitwise over two runs
 # Limits of K4 against its plain version.  Elementwise (rtol, atol): f32
 # as tests/test_kernels.py; bf16 from the readings (one bf16 step, the
 # outputs of late rows about 1/sqrt(row) in size).  Per row, the largest
@@ -851,14 +892,20 @@ FMA_FLOPS_PER_CLOCK_PER_SM = 256       # float32: 128 FMA lanes
 EX2_PER_CLOCK_PER_SM = 16              # MUFU
 
 
+def flash_pairs(causal, b, h, s):
+    """(query, key) pairs one attention call keeps: causal keeps
+    S (S + 1) / 2 of the S^2."""
+    return b * h * (s * (s + 1) // 2 if causal else s * s)
+
+
 def flash_bound(dtype, causal, b, h, s, d, sms, clock):
     """(bytes s, operations s) of one attention call: q, k, v, out once
-    over the memory rate; the larger of its flops over the tensor (bf16)
-    or FMA (f32) rate and its exps over the MUFU rate.  Causal keeps
-    S (S + 1) / 2 of the S^2 (query, key) pairs."""
+    over the memory rate; the larger of its flops (4 D per pair kept)
+    over the tensor (bf16) or FMA (f32) rate and its exps over the MUFU
+    rate."""
     import torch
 
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    pairs = flash_pairs(causal, b, h, s)
     size = torch.tensor([], dtype=dtype).element_size()
     per_clock = (TENSOR_FLOPS_PER_CLOCK_PER_SM if dtype == torch.bfloat16
                  else FMA_FLOPS_PER_CLOCK_PER_SM)
@@ -913,6 +960,14 @@ def flash_phase(dev, flush, sms, clock):
              f"{len(FLASH_CASES)}")
     log(f"  main path: {len(FLASH_CASES)} flash_attention calls, K4 "
         f"{launches} launches")
+    case = FLASH_CASES[FLASH_REPEAT_CASE]
+    again = flash_cuda(*inputs[FLASH_REPEAT_CASE], causal=case[2])
+    torch.cuda.synchronize()
+    if not same_bits(again.view(torch.int16), outs[FLASH_REPEAT_CASE].view(
+            torch.int16)):
+        fail(f"K4 {case[0]}: two runs differ in their bits")
+    log(f"  {case[0]}: bitwise equal over two runs")
+    del again
     plain = lambda qkv, causal: flash_plain(*qkv, causal=causal,
                                             block_q=4096, block_k=4096)
     max_err = 0.0
@@ -977,10 +1032,14 @@ def flash_phase(dev, flush, sms, clock):
         ops_s += o_s
         mask = "causal" if causal else "bidirectional"
         kind = "bytes" if b_s >= o_s else "operations"
+        bound_ms = max(b_s, o_s) * 1e3
+        tflops = 4 * d * flash_pairs(causal, b, h, s) / (k_ms * 1e-3) / 1e12
         log(f"  {label} ({dtype_name}, {mask}, B={b} H={h} S={s} D={d}): "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, "
-            f"bound {max(b_s, o_s) * 1e3:.4f} ms ({kind})")
-    log(f"phase 8: timed in {time.perf_counter() - t0:.1f} s (median of 3)")
+            f"bound {bound_ms:.4f} ms ({kind}); {bound_ms / k_ms:.1%} of "
+            f"the bound, {tflops:.1f} TFLOP/s, {k_ms / l_ms:.2f}x sdpa")
+    log(f"phase 8: timed in {time.perf_counter() - t0:.1f} s (median of 3;"
+        f" {sms} SMs at {clock / 1e6:.0f} MHz)")
     ent["bound_ms"] = max(bytes_s, ops_s) * 1e3
     ent["bound_by"] = "bytes" if bytes_s >= ops_s else "operations"
     ent["launches"] = launches
@@ -1024,6 +1083,15 @@ def main() -> int:
     log(f"phase 1: built " + ", ".join(
         f"{k} in {v:.1f} s" for k, v in built.items())
         + f" (together {time.perf_counter() - t0:.1f} s)")
+    from repro_torch.kernels import _nvcc
+
+    flash_log = _nvcc.build_log("flash", ("flash.cu",))
+    for name, regs, st, ld, smem in ptxas_summary(flash_log):
+        log(f"  ptxas flash {name}: {regs} registers, spills {st} B stored "
+            f"/ {ld} B loaded, {smem} B static smem")
+    for line in flash_log.splitlines():
+        if "wgmma" in line and "Performance Loss" in line:
+            log(f"  ptxas: {line.strip()}")
 
     # -- phase 2: kernel vs plain at DBLP scale --------------------------------
     dev = torch.device("cuda")

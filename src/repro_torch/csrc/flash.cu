@@ -20,28 +20,73 @@
 // Bound: for the shapes attention runs at (S in the thousands), the
 // arithmetic: 4 D flops and one exp per (query, key) pair against
 // 2 D (q, k, v, out) elements moved per row.  The card's rate for that
-// arithmetic is its tensor cores (bfloat16) or its float32 FMA units.
-// This kernel is the simple first version, on the FMA units:
+// arithmetic is its tensor cores (bfloat16) or its float32 FMA units;
+// at D = 64 the exps (16 per clock per SM on the MUFU) take as long as
+// the bfloat16 products.  Two kernels, chosen by the type:
+//
+// bfloat16: tc::flash_wgmma_kernel, on the tensor cores.
+//   * one block of two warpgroups (256 threads) per (batch * head,
+//     128-query tile), longest causal tiles first; each warpgroup owns
+//     64 query rows.  The head dim is padded to DP = 64, 128 or 256
+//     (zero columns add nothing to q . k; output columns past D are not
+//     stored); keys come BK = 128 at a time at DP = 64, else 64;
+//   * S = Q K^T is wgmma m64nBKk16 with Q and K in shared memory (the
+//     first k-step overwrites S, so its old registers are not kept
+//     alive); O += P V is wgmma m64nDPk16 with P as the register
+//     operand, converted in place from S's float32 accumulator fragment
+//     (the bf16 rounding of p the TPU kernel makes before AV is exactly
+//     this conversion), and V read from shared memory through the
+//     descriptor's transpose flag;
+//   * Q, K and V tiles are stored in the 128-byte-swizzled layout the
+//     descriptors name: rows of 64 bf16 (128 bytes), 16-byte chunk c of
+//     row r at chunk c ^ (r % 8), in blocks of 64 columns;
+//   * K and V sit in a ring of two stages; tile t + 1 is in flight while
+//     tile t is in the products.  One thread fills a stage by TMA, 3-D
+//     maps [bh, S, D] in boxes of 64 columns, so that rows past Sk and
+//     columns past D read as zeros within a head, and every thread waits
+//     on the stage's mbarrier.  TMA needs rows 16-byte aligned
+//     (D % 8 == 0); for other D every thread stores the tiles element by
+//     element into the same layout, with no overlap (a fallback only);
+//   * the online softmax runs in registers: each thread holds two rows'
+//     columns 8j + 2 (lane % 4) + {0, 1}; a row's max takes two quad
+//     shuffles, its sum is kept per thread and folded once at the end;
+//     the max is taken over raw scores and scaled, and
+//     p = 2^(s * scale * log2 e - m) is one FFMA and one ex2.approx.ftz
+//     (the sentinel scaled alike): this differs from the TPU kernel's
+//     e^(s * scale - m) only by float32 rounding (and by flushing p below
+//     2^-126, which is below every sum's last bit); masks are computed
+//     only on tiles that cross the diagonal or Sk, from per-row limits
+//     against constant columns, and a warpgroup skips causal tiles wholly
+//     above its diagonal (there every p is exactly 0 and m does not
+//     move, so the result is unchanged);
+//   * registers are capped at 128 for DP = 64 so that two blocks share an
+//     SM and hide each other's softmax and waits; wider ones run one
+//     block per SM;
+//   * shared memory: 2 DP (128 + 2 * 2 * BK) bytes, two mbarriers and
+//     1 KB for alignment: 83,008 / 99,392 / 197,696 bytes at DP = 64 /
+//     128 / 256.
+//   Not done here (later work): a producer warp with setmaxnreg,
+//   ping-pong between the warpgroups so one's softmax hides under the
+//   other's products, S of the next tile on the tensor cores under the
+//   softmax of this one (tried: without setmaxnreg its registers do not
+//   fit, and ptxas serialises the wgmma), persistent blocks.
+//
+// float32: f32::flash_kernel, IEEE float32 products on the FMA units
+// (tensor cores would mean TF32):
 //   * one block of 256 threads per (batch * head, 64-query tile), with
 //     the longest causal tiles launched first; the Q tile stays in shared
-//     memory, and K and V stream through it 64 keys at a time, converted
-//     to float32 once on load (no TF32 anywhere: float32 inputs keep
-//     IEEE float32 products);
+//     memory, and K and V stream through it 64 keys at a time;
 //   * each thread holds a 4 x 4 block of the score tile and a
 //     4 x ceil(D / 16) block of the accumulator in registers; tiles are
 //     stored with an odd row stride so that the lanes of a warp read
 //     distinct banks; a row's 16 threads form half a warp and reduce its
 //     max and sum with shuffles;
-//   * causal tiles wholly above the diagonal are skipped: there every p
-//     is exactly 0 in float32 and the running max does not move, so the
-//     result is unchanged;
+//   * causal tiles wholly above the diagonal are skipped;
 //   * D up to 256: the three tiles plus the P tile take up to 214,016
 //     bytes of dynamic shared memory, so the launch opts in above 48 KB.
-// Not done here (later work): the tensor cores (mma.sync / wgmma) with
-// bfloat16 operands, TMA or cp.async staging of K and V in a ring of
-// tiles, and larger per-thread blocks; shared-memory bandwidth, not the
-// FMA units, caps this version.
+//   Shared-memory bandwidth, not the FMA units, caps this version.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,24 +94,19 @@
 
 namespace {
 
+namespace f32 {
+
 constexpr int kBQ = 64;       // queries per block
 constexpr int kBK = 64;       // keys per streamed tile
 constexpr int kThreads = 256;  // 16 x 16
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask sentinel
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // p as the AV product sees it: rounded to v's type.
 template <typename T>
@@ -219,11 +259,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Dynamic shared memory of the kernel at head dim d: Q, K, V tiles with
+// an odd row stride, and the P tile.
+int smem_bytes(int d) {
+  return ((kBQ + 2 * kBK) * (d + 1) + kBQ * (kBK + 1)) * 4;
+}
+
 template <typename T, int NJ>
 int launch_nj(const void* q, const void* k, const void* v, void* o, int bh,
               int sq, int sk, int d, float scale, int causal,
               cudaStream_t stream) {
-  const int smem = ((kBQ + 2 * kBK) * (d + 1) + kBQ * (kBK + 1)) * 4;
+  const int smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -257,12 +303,561 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   return launch_nj<T, 16>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
 }
 
+}  // namespace f32
+
+namespace tc {
+
+constexpr int kBQ = 128;      // queries per block: two warpgroups of 64
+constexpr int kThreads = 256;
+constexpr int kStages = 2;    // K/V ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf2 = -1e30f * kLog2e;  // the sentinel, pre-scaled
+
+// Dynamic shared memory of the DP-wide kernel with BK-key tiles: Q, then
+// kStages (K, V) pairs, then one 8-byte mbarrier per stage (64 bytes
+// kept), plus room to align the base to 1,024 bytes (one 128-byte
+// swizzle atom of 8 rows).
+constexpr int smem_bytes(int dp, int bk) {
+  return 2 * dp * (kBQ + 2 * kStages * bk) + 64 + 1024;
+}
+
+// The padded head dim and the key tile for a head dim d in [1, 256].
+__host__ __device__ constexpr int padded_dim(int d) {
+  return d <= 64 ? 64 : d <= 128 ? 128 : 256;
+}
+__host__ __device__ constexpr int key_tile(int dp) {
+  return dp == 64 ? 128 : 64;
+}
+// Blocks per SM the registers are capped for (__launch_bounds__): at
+// DP = 64 two blocks' warpgroups hide each other's softmax and waits in
+// 128 registers; wider accumulators run one block (two blocks at DP =
+// 128 measured slower on an H100).
+__host__ __device__ constexpr int min_blocks(int dp) {
+  return dp == 64 ? 2 : 1;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// mbarriers in shared memory: a stage's tile has landed once its
+// barrier's phase flips.
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// TMA: one [64 columns, rows, 1] box of a [bh, S, D] tensor at (col, row,
+// head) into shared memory, 128-byte swizzled as the map says; rows past
+// S and columns past D are zero.  Completion counts on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int row, int head,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head),
+      "r"(bar)
+      : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory (st.shared)
+// visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Pins registers in place around the asynchronous products: the compiler
+// may neither move a write before the wgmma.fence nor a read before the
+// wgmma.wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units.  The swizzle
+// atoms are 1,024-byte aligned, so the base offset is 0.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// The accumulator registers of a wgmma, as inline-asm operands: c is
+// "+f" (accumulate) or "=f" (overwrite).
+#define WG_ACC8(c, i)                                                   \
+  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]),          \
+      c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
+#define WG_ACC32(c, i) \
+  WG_ACC8(c, i), WG_ACC8(c, i + 8), WG_ACC8(c, i + 16), WG_ACC8(c, i + 24)
+#define WG_ACC64(c) WG_ACC32(c, 0), WG_ACC32(c, 32)
+#define WG_ACC128(c) WG_ACC64(c), WG_ACC32(c, 64), WG_ACC32(c, 96)
+#define WG_D32                                                           \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31"
+#define WG_D64                                                           \
+  WG_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63"
+#define WG_D128                                                          \
+  WG_D64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, " \
+  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "   \
+  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, "     \
+  "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "     \
+  "%125, %126, %127"
+
+// S (+)= A B^T over one k-step of 16: A [64 x 16] and B [N x 16], both
+// K-major in shared memory; N = 64 or 128 keys.  The first k-step
+// overwrites S (its registers are outputs only, so their old values are
+// not kept alive), the others accumulate.
+#define WG_SS_ASM(NN, DLIST, ACC, C, IA, IB, IP, SCALE_D)                  \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"           \
+               "wgmma.mma_async.sync.aligned.m64n" NN                     \
+               "k16.f32.bf16.bf16 {" DLIST "}, %" IA ", %" IB             \
+               ", p, 1, 1, 0, 0;\n}\n"                                     \
+               : ACC(C)                                                   \
+               : "l"(da), "l"(db), "r"(SCALE_D))
+#define WG_SS(NN, R, DLIST, ACC, IA, IB, IP)                               \
+  __device__ __forceinline__ void wgmma_ss(float(&d)[R], uint64_t da,     \
+                                           uint64_t db, bool accumulate) { \
+    if (accumulate) {                                                     \
+      WG_SS_ASM(NN, DLIST, ACC, "+f", IA, IB, IP, 1);                     \
+    } else {                                                              \
+      WG_SS_ASM(NN, DLIST, ACC, "=f", IA, IB, IP, 0);                     \
+    }                                                                     \
+  }
+#define WG_ACC32_0(c) WG_ACC32(c, 0)
+WG_SS("64", 32, WG_D32, WG_ACC32_0, "32", "33", "34")
+WG_SS("128", 64, WG_D64, WG_ACC64, "64", "65", "66")
+
+// D += A B over one k-step of 16: A [64 x 16] bf16 in registers, B
+// [16 x N] MN-major in shared memory (the transpose flag); N = 64, 128
+// or 256 columns.
+#define WG_RS(NN, R, DLIST, ACC, IA, IB, IP)                               \
+  __device__ __forceinline__ void wgmma_rs(                               \
+      float(&d)[R], const uint32_t(&a)[4], uint64_t db) {                 \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"         \
+                 "wgmma.mma_async.sync.aligned.m64n" NN                   \
+                 "k16.f32.bf16.bf16 {" DLIST "}, {" IA "}, %" IB          \
+                 ", p, 1, 1, 1;\n}\n"                                      \
+                 : ACC("+f")                                              \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),   \
+                   "r"(1));                                               \
+  }
+WG_RS("64", 32, WG_D32, WG_ACC32_0, "%32, %33, %34, %35", "36", "37")
+WG_RS("128", 64, WG_D64, WG_ACC64, "%64, %65, %66, %67", "68", "69")
+WG_RS("256", 128, WG_D128, WG_ACC128, "%128, %129, %130, %131", "132", "133")
+
+// 2^x on the MUFU, denormal results flushed to 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Rows [row0, row0 + R) of a [len, d] bf16 slab into a swizzled [R, DP]
+// tile at shared address dst, element by element, as TMA would lay it
+// out: 16-byte chunk c (columns 8c .. 8c + 7) of row r goes to
+// (c / 8) * R * 128 + r * 128 + ((c % 8) ^ (r % 8)) * 16.  Rows at or
+// past len and columns at or past d are zero.
+template <int R, int DP>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* __restrict__ src,
+                                          int row0, int len, int d) {
+  constexpr int kRowChunks = DP / 8;
+  constexpr int kChunks = R * kRowChunks;
+  static_assert(kChunks % kThreads == 0, "whole passes over the tile");
+#pragma unroll
+  for (int i = 0; i < kChunks / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c / kRowChunks;
+    const int c8 = c % kRowChunks;
+    const uint32_t to = dst + (c8 >> 3) * (R * 128) + r * 128 +
+                        (((c8 & 7) ^ (r & 7)) << 4);
+    const int row = row0 + r;
+    const int col = c8 * 8;
+    const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t lo = 0, hi = 0;
+      if (row < len) {
+        const long long at = (long long)row * d + col + 2 * e;
+        if (col + 2 * e < d) lo = s16[at];
+        if (col + 2 * e + 1 < d) hi = s16[at + 1];
+      }
+      w[e] = lo | (hi << 16);
+    }
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(to),
+                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                 : "memory");
+  }
+}
+
+// tma: Q, K and V come by TMA through the three maps (rows 16-byte
+// aligned: D % 8 == 0 and aligned bases); otherwise element by element,
+// and the maps are unused.
+template <int DP, int BK, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ o, int bh, int sq, int sk,
+                   int d, float scale_log2, int causal, int n_qtiles,
+                   int tma, const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v) {
+  constexpr int kQBytes = kBQ * DP * 2;
+  constexpr int kKVBytes = BK * DP * 2;  // one of K or V
+  constexpr int kNS = BK / 2;            // score registers per thread
+  constexpr int kNO = DP / 2;            // output registers per thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t s_kv = base + kQBytes;  // stage st: K at s_kv + 2 st kKV
+  const uint32_t s_bar = s_kv + kStages * 2 * kKVBytes;  // 8 B per stage
+
+  const int wg = threadIdx.x >> 7;       // warpgroup: rows 64 wg ..
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // and r0 + 8, of the 64 rows
+  const int cq = 2 * (lane & 3);           // column in each 8-column chunk
+
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);  // longest first
+  const long long g = blockIdx.x % bh;   // batch * head
+  const int q0 = qt * kBQ;
+  const int q0w = q0 + 64 * wg;          // this warpgroup's first query
+  const __nv_bfloat16* qg = q + g * sq * d;
+  const __nv_bfloat16* kg = k + g * sk * d;
+  const __nv_bfloat16* vg = v + g * sk * d;
+  // A masked score in raw (unscaled) units: -1e30 once scaled.
+  const float neg_raw = kNegInf2 / scale_log2;
+
+  // Causal: keys past the tile's last query are masked for all its rows.
+  const int k_end = causal ? min(sk, q0 + kBQ) : sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  // Descriptors of this warpgroup's Q rows and of the first K and V
+  // stage; a k-step or stage moves the start address (16-byte units).
+  const uint64_t desc_q = make_desc(s_q + wg * (64 * 128), 16, 1024);
+  const uint64_t desc_k = make_desc(s_kv, 16, 1024);
+  const uint64_t desc_v = make_desc(s_kv + kKVBytes, BK * 128, 1024);
+
+  // K(j) and V(j) go to stage j % kStages; a stage's offset in the
+  // descriptors is in 16-byte units.
+  auto stage_of = [](int j) {
+    return (uint32_t)((j % kStages) * (2 * kKVBytes / 16));
+  };
+  // Copies K(j) and V(j) into their stage: by TMA, one thread issuing
+  // DP / 64 boxes of each against the stage's barrier (plus Q's with
+  // tile 0); or by every thread, element by element.
+  auto load_kv = [&](int j) {
+    const uint32_t dst = s_kv + (j % kStages) * 2 * kKVBytes;
+    if (tma) {
+      if (threadIdx.x == 0) {
+        const uint32_t bar = s_bar + 8 * (j % kStages);
+        mbar_expect(bar, 2 * kKVBytes + (j == 0 ? kQBytes : 0));
+        if (j == 0) {
+#pragma unroll
+          for (int c = 0; c < DP / 64; ++c)
+            tma_load(s_q + c * (kBQ * 128), &map_q, 64 * c, q0, (int)g, bar);
+        }
+#pragma unroll
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load(dst + c * (BK * 128), &map_k, 64 * c, j * BK, (int)g, bar);
+          tma_load(dst + kKVBytes + c * (BK * 128), &map_v, 64 * c, j * BK,
+                   (int)g, bar);
+        }
+      }
+    } else {
+      if (j == 0) load_tile<kBQ, DP>(s_q, qg, q0, sq, d);
+      load_tile<BK, DP>(dst, kg, j * BK, sk, d);
+      load_tile<BK, DP>(dst + kKVBytes, vg, j * BK, sk, d);
+    }
+  };
+  // Waits until K(j), V(j) (and Q with tile 0) are in shared memory and
+  // visible to every thread's wgmma.
+  auto wait_kv = [&](int j) {
+    if (tma) {
+      mbar_wait(s_bar + 8 * (j % kStages), (j / kStages) & 1);
+    } else {
+      fence_proxy_async();
+      __syncthreads();
+    }
+  };
+
+  if (tma && threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) mbar_init(s_bar + 8 * st);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  load_kv(0);  // Q and the first K/V tile
+
+  float acc[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegInf2, kNegInf2};
+  float l[2] = {0.0f, 0.0f};             // this thread's part of each row
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // Tile t + 1 is copied while tile t is in the products.
+    if (t + 1 < n_tiles) load_kv(t + 1);
+    wait_kv(t);
+    const int k0 = t * BK;
+    // A causal tile wholly above this warpgroup's diagonal is skipped:
+    // every p there is exactly 0 and m does not move, so the result is
+    // unchanged.
+    if (!(causal && k0 > q0w + 63)) {
+      // S = Q K^T in raw units over the padded width (zero columns add
+      // nothing).
+      float sc[kNS];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        // 32 bytes per k-step inside a 64-column block of rows.
+        const uint32_t col = ((kk & 3) << 5) >> 4;
+        wgmma_ss(sc, desc_q + (kk >> 2) * (kBQ * 128 / 16) + col,
+                 desc_k + stage_of(t) + (kk >> 2) * (BK * 128 / 16) + col,
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // Online softmax in the log2 domain.  Score i of this thread is
+      // row r0 + 8 h, h = (i >> 1) & 1, and key k0 + cq + jc with
+      // jc = 8 (i >> 2) + (i & 1), a constant: the masks compare it with
+      // per-row limits.
+      if (k0 + BK > sk || (causal && k0 + BK - 1 > q0w)) {
+        const int key_lim = sk - k0 - cq;     // keys: jc < key_lim
+        const int diag = q0w + r0 - k0 - cq;  // causal: jc <= diag + 8 h
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int jc = 8 * (i >> 2) + (i & 1);
+          if (jc >= key_lim) {
+            sc[i] = -INFINITY;  // no such key: p = 0
+          } else if (causal && jc > diag + 8 * ((i >> 1) & 1)) {
+            sc[i] = neg_raw;
+          }
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+      float corr[2], neg_m[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h] * scale_log2);
+        corr[h] = ex2(m[h] - m_new);
+        m[h] = m_new;
+        neg_m[h] = -m_new;
+        l[h] *= corr[h];
+      }
+      uint32_t p[BK / 16][4];
+#pragma unroll
+      for (int i = 0; i < kNS; i += 2) {
+        const int h = (i >> 1) & 1;
+        // p = 2^(s scale log2 e - m): one FFMA and one MUFU op.
+        const float p0 = ex2(fmaf(sc[i], scale_log2, neg_m[h]));
+        const float p1 = ex2(fmaf(sc[i + 1], scale_log2, neg_m[h]));
+        l[h] += p0 + p1;  // unrounded float32 p
+        p[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int i = 0; i < kNO; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+      // O += P V, P from registers.
+      fence_regs(acc);
+      fence_regs(p);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // 16 keys = two 8-row groups (2,048 bytes) per k-step.
+        wgmma_rs(acc, p[kk], desc_v + stage_of(t) + kk * (16 * 128 / 16));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0w + r0 + 8 * h;
+    if (r >= sq) continue;
+    const float den = fmaxf(l[h], 1e-30f);
+    __nv_bfloat16* orow = o + (g * sq + r) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;
+      const float a = acc[4 * j + 2 * h] / den;
+      const float b = acc[4 * j + 2 * h + 1] / den;
+      if (col + 1 < d && (d & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(a, b);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16_rn(a);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16_rn(b);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from libcuda, looked up at run time (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The TMA map of a [bh, len, d] bf16 tensor read in boxes of 64 columns
+// by `rows` rows of one head, 128-byte swizzled; out-of-range elements
+// read as zero.  Returns false if the encoding is refused.
+bool make_map(CUtensorMap* map, const void* ptr, int bh, int len, int d,
+              int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)len,
+                              (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
+                                 (cuuint64_t)d * 2 * (cuuint64_t)len};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           int sq, int sk, int d, float scale, int causal,
+           cudaStream_t stream) {
+  constexpr int kBK = key_tile(DP);
+  constexpr int kSmem = smem_bytes(DP, kBK);
+  constexpr int kMinBlocks = min_blocks(DP);
+  static_assert(kSmem <= 232448, "fits one SM's shared memory");
+  auto kernel = flash_wgmma_kernel<DP, kBK, kMinBlocks>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qtiles = (sq + kBQ - 1) / kBQ;
+  const long long blocks = (long long)n_qtiles * bh;
+  if (blocks > 0x7fffffffLL) return -1;
+  // TMA wherever every row starts 16 bytes aligned (its map's stride
+  // must be a multiple of 16 bytes): d % 8 == 0 and aligned bases.
+  const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  const int tma = d % 8 == 0 && aligned;
+  CUtensorMap map_q = {}, map_k = {}, map_v = {};
+  if (tma && !(make_map(&map_q, q, bh, sq, d, kBQ) &&
+               make_map(&map_k, k, bh, sk, d, kBK) &&
+               make_map(&map_v, v, bh, sk, d, kBK))) {
+    return -2;
+  }
+  kernel<<<(unsigned)blocks, kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      bh, sq, sk, d, scale * kLog2e, causal, n_qtiles, tma, map_q, map_k,
+      map_v);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
+             int sq, int sk, int d, float scale, int causal,
+             cudaStream_t st) {
+  switch (padded_dim(d)) {
+    case 64:
+      return launch<64>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+    case 128:
+      return launch<128>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+    default:
+      return launch<256>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// C entry point, bound with ctypes.  q, o [bh, sq, d] and k, v
-// [bh, sk, d], contiguous; dtype 0 = float32, 1 = bfloat16.  Returns -1
-// for arguments the kernel does not take (d outside [1, 256], an empty
-// side), else cudaGetLastError().
+// C entry points, bound with ctypes.  q, o [bh, sq, d] and k, v
+// [bh, sk, d], contiguous; dtype 0 = float32 (the FMA kernel),
+// 1 = bfloat16 (the tensor-core kernel).  Returns -1 for arguments the
+// kernels do not take (d outside [1, 256], an empty side), -2 if the
+// TMA map cannot be made, else cudaGetLastError().
 extern "C" int flash_launch(const void* q, const void* k, const void* v,
                             void* o, int bh, int sq, int sk, int d,
                             float scale, int causal, int dtype,
@@ -270,11 +865,23 @@ extern "C" int flash_launch(const void* q, const void* k, const void* v,
   if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 256) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return launch<float>(q, k, v, o, bh, sq, sk, d, scale, causal != 0, st);
+    return f32::launch<float>(q, k, v, o, bh, sq, sk, d, scale,
+                              causal != 0, st);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, scale,
-                                 causal != 0, st);
+    return tc::dispatch(q, k, v, o, bh, sq, sk, d, scale, causal != 0, st);
+  }
+  return -1;
+}
+
+// Dynamic shared memory, in bytes, that flash_launch asks for at head
+// dim d and dtype (as above); -1 for what it does not take.
+extern "C" int flash_smem_bytes(int d, int dtype) {
+  if (d <= 0 || d > 256) return -1;
+  if (dtype == 0) return f32::smem_bytes(d);
+  if (dtype == 1) {
+    const int dp = tc::padded_dim(d);
+    return tc::smem_bytes(dp, tc::key_tile(dp));
   }
   return -1;
 }

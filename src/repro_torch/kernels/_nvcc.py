@@ -5,6 +5,8 @@ A kernel is built at its first use, from the sources in the package's
 ``csrc/``, into ``build/kernels/`` at the root of the checkout; the
 library's file name carries a hash of its sources and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
+``nvcc``'s output, with ``ptxas``'s registers, spills and shared memory
+per kernel, is kept beside the library (``build_log``).
 Nothing is built when a module is imported.
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOCK = threading.Lock()
@@ -70,11 +72,18 @@ def build(name: str, sources: tuple[str, ...]) -> Path:
                 f"nvcc failed building {name!r} (exit {proc.returncode}):\n"
                 f"{proc.stdout}{proc.stderr}"
             )
+        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build_log(name: str, sources: tuple[str, ...]) -> str:
+    """``nvcc``'s output from building ``name`` (built if needed)."""
+    log = build(name, sources).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str, sources: tuple[str, ...]) -> ctypes.CDLL:

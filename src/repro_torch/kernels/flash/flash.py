@@ -1,19 +1,23 @@
 """FlashAttention forward (causal or bidirectional MHA with an online
-softmax) in one CUDA kernel.
+softmax) in one CUDA kernel per type.
 
 ``flash_cuda`` (K4, the TPU's ``repro.kernels.flash.flash.flash_pallas``)
-wraps the hand-written Hopper kernel in ``repro_torch/csrc/flash.cu``
-(see the note in the source); ``flash_plain`` is its plain PyTorch
-version, the same recurrence over key blocks in stock torch ops: the CPU
-path and the oracle the kernel is held against on the card.  Both use
-the TPU kernel's numbers: float32 scores scaled by ``1 / sqrt(D)``, the
-finite mask sentinel ``-1e30``, a float32 running max, denominator and
-accumulator, ``p`` rounded to the type of ``v`` before the product, and
-the denominator clamped at ``1e-30``.
+wraps the hand-written Hopper kernels in ``repro_torch/csrc/flash.cu``
+(see the note in the source): bfloat16 on the tensor cores (``wgmma``,
+K and V in a ring of tiles filled by TMA), float32 on the FMA units
+(IEEE float32 products).  ``flash_plan`` is the tiling each one launches with.
+``flash_plain`` is their plain PyTorch version, the same recurrence over
+key blocks in stock torch ops: the CPU path and the oracle the kernels
+are held against on the card.  All use the TPU kernel's numbers: float32
+scores scaled by ``1 / sqrt(D)``, the finite mask sentinel ``-1e30``, a
+float32 running max, denominator and accumulator, ``p`` rounded to the
+type of ``v`` before the product, and the denominator clamped at
+``1e-30``.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -22,6 +26,43 @@ from repro_torch.kernels.flash.ref import NEG_INF
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block can use
+
+
+class FlashPlan(NamedTuple):
+    """How ``csrc/flash.cu`` tiles one head dim and type."""
+
+    kernel: str       # "wgmma" (bfloat16, tensor cores) or "fma" (float32)
+    head_dim: int     # the width the kernel computes over, >= D
+    block_q: int      # queries per block
+    block_k: int      # keys per streamed tile
+    stages: int       # K/V tiles in the shared-memory ring
+    smem_bytes: int   # dynamic shared memory per block
+
+
+def flash_plan(d: int, dtype: torch.dtype) -> FlashPlan:
+    """The tiling ``flash_launch`` picks for head dim ``d`` and ``dtype``,
+    as the source computes it (the card tests hold the two equal).
+
+    bfloat16: ``d`` padded to 64, 128 or 256 (the ``wgmma`` widths), 128
+    queries (two warpgroups of 64), 128 keys a tile at width 64 and 64
+    above, a ring of two K/V stages, their two mbarriers (64 bytes kept)
+    and 1 KB to align the 128-byte swizzle atoms.
+    float32: 64 queries by 64 keys, the accumulator in ``16 * NJ``
+    columns (``NJ`` = ``ceil(d / 16)`` rounded up to a power of two) and
+    Q, K, V, P tiles in float32 with an odd row stride."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    if dtype == torch.bfloat16:
+        dp = 64 if d <= 64 else 128 if d <= 128 else 256
+        bq, bk, stages = 128, (128 if dp == 64 else 64), 2
+        return FlashPlan("wgmma", dp, bq, bk, stages,
+                         2 * dp * (bq + 2 * stages * bk) + 64 + 1024)
+    if dtype == torch.float32:
+        nj = 1 << (-(-d // 16) - 1).bit_length()
+        return FlashPlan("fma", 16 * nj, 64, 64, 1,
+                         ((64 + 2 * 64) * (d + 1) + 64 * 65) * 4)
+    raise TypeError(f"attention takes float32 or bfloat16, got {dtype}")
 
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -71,15 +112,17 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p]
         lib.flash_launch.restype = ctypes.c_int
+        lib.flash_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_smem_bytes.restype = ctypes.c_int
     return lib
 
 
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True) -> torch.Tensor:
-    """K4 through the CUDA kernel: same result as ``flash_plain`` (the
-    kernel's tiles are its own, 64 queries by 64 keys).  A CPU tensor
-    takes the plain version with its default blocks; a CUDA tensor
-    launches the kernel (counted in ``flash_cuda.launches``) or raises.
+    """K4 through the CUDA kernels: same result as ``flash_plain`` (the
+    kernels' tiles are their own, ``flash_plan``'s).  A CPU tensor takes
+    the plain version with its default blocks; a CUDA tensor launches the
+    kernel for its type (counted in ``flash_cuda.launches``) or raises.
     ``D`` may be 1 to 256."""
     if q.device.type == "cpu":
         return flash_plain(q, k, v, causal=causal)

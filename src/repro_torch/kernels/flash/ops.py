@@ -11,8 +11,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 128) -> torch.Tensor:
     """MHA forward, ``[B, H, S, D]`` layout (``q [B, H, Sq, D]``,
     ``k, v [B, H, Sk, D]``, float32 or bfloat16) -> ``[B, H, Sq, D]`` in
-    the type of ``q``: the hand-written CUDA kernel (``csrc/flash.cu``) on
-    a CUDA tensor, its plain version on a CPU one.  JAX's ``interpret``
+    the type of ``q``: the hand-written CUDA kernels (``csrc/flash.cu``;
+    bfloat16 on the tensor cores, float32 on the FMA units) on a CUDA
+    tensor, their plain version on a CPU one.  JAX's ``interpret``
     flag has no counterpart.
 
     The JAX package pads ``Sq`` and ``Sk`` up to multiples of ``block_q``
@@ -26,8 +27,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     positions up to a query's own into its softmax; here, as in
     ``attention_ref``, keys past ``Sk`` do not exist.  ``block_q`` is
     taken for the JAX signature and checked, and ``block_k`` serves that
-    ``Sk`` check only: the kernel's tiles are its own (64 by 64), and the
-    plain version on a CPU tensor runs with its default blocks.
+    ``Sk`` check only: the kernels' tiles are their own (``flash_plan``),
+    and the plain version on a CPU tensor runs with its default blocks.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, H, S, D]")

@@ -37,7 +37,10 @@ from repro_torch.kernels.flash import (
     flash_attention,
     flash_cuda,
     flash_plain,
+    flash_plan,
 )
+from repro_torch.kernels.flash.flash import DTYPES as FLASH_DTYPES
+from repro_torch.kernels.flash.flash import _kernel_lib as flash_lib
 from repro_torch.kernels.segsum import (
     segment_sum_mxu,
     segsum_cuda,
@@ -316,15 +319,23 @@ def test_cuda_segsum_wrapper_rejects_what_the_kernel_does_not_take(card):
         segsum_sorted_cuda(msgs, ids[:3], 3)
 
 
+def _flash_qkv(rng, dev, dtype, sq, sk, d, b=2, h=3):
+    return tuple(torch.as_tensor(
+        rng.standard_normal((b, h, s, d)).astype(np.float32) * scale,
+        device=dev).to(dtype) for s, scale in ((sq, 0.3), (sk, 0.3),
+                                               (sk, 1.0)))
+
+
+# Head dims 8, 40, 64, 96, 128 and 256 (every wgmma width, padded and
+# not), and 20 (no multiple of 8: the element-wise tile loads).
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,d", [(200, 64), (128, 40), (256, 256), (70, 8)])
+@pytest.mark.parametrize("s,d", [(200, 64), (128, 40), (256, 256), (70, 8),
+                                 (333, 96), (257, 128), (90, 20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_kernel_equals_plain(card, causal, dtype, s, d):
     rng = np.random.default_rng(s + d)
-    q, k, v = (torch.as_tensor(
-        rng.standard_normal((2, 3, s, d)).astype(np.float32) * scale,
-        device=card).to(dtype) for scale in (0.3, 0.3, 1.0))
+    q, k, v = _flash_qkv(rng, card, dtype, s, s, d)
     before = flash_cuda.launches
     got = flash_attention(q, k, v, causal=causal, block_k=s if not causal
                           else 128)
@@ -336,6 +347,73 @@ def test_cuda_flash_kernel_equals_plain(card, causal, dtype, s, d):
                  attention_ref(q, k, v, causal=causal)):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+# (Sq, Sk, D, causal): causal Sq < Sk and Sq > Sk with a ragged Sk, one
+# query and one key, and Sk no multiple of the 128- or 64-key tile.
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk,d,causal", [
+    (100, 300, 64, True), (300, 100, 64, True), (300, 129, 128, True),
+    (1, 1, 64, True), (1, 1, 128, False), (1, 77, 256, False),
+    (5, 200, 256, True), (64, 130, 64, False), (200, 65, 256, False),
+    (129, 257, 96, True),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_ragged_shapes_equal_plain(card, dtype, sq, sk, d,
+                                              causal):
+    rng = np.random.default_rng(sq * 7 + sk + d)
+    q, k, v = _flash_qkv(rng, card, dtype, sq, sk, d, b=1, h=2)
+    before = flash_cuda.launches
+    got = flash_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    for want in (flash_plain(q, k, v, causal=causal),
+                 attention_ref(q, k, v, causal=causal)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_unaligned_rows_equal_plain(card, causal):
+    """Operands that start 2 bytes past a 16-byte boundary cannot be read
+    by TMA; the bfloat16 kernel loads them element by element."""
+    rng = np.random.default_rng(5)
+    shape = (1, 2, 150, 64)
+    n = int(np.prod(shape))
+    q, k, v = (torch.as_tensor(rng.standard_normal(n + 1).astype(
+        np.float32) * scale, device=card).to(torch.bfloat16)[1:].view(shape)
+        for scale in (0.3, 0.3, 1.0))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    got = flash_cuda(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), flash_plain(
+        q, k, v, causal=causal).float(), rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_cuda_flash_bf16_is_bitwise_repeatable(card, d):
+    """No atomics: two launches give the same bits."""
+    rng = np.random.default_rng(d)
+    q, k, v = _flash_qkv(rng, card, torch.bfloat16, 700, 700, d)
+    first = flash_cuda(q, k, v, causal=True)
+    second = flash_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), second.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_plan_matches_the_kernel(card):
+    """``flash_plan``'s shared memory is what the source launches with."""
+    lib = flash_lib()
+    for dtype, code in FLASH_DTYPES.items():
+        for d in range(1, 257):
+            assert lib.flash_smem_bytes(d, code) == flash_plan(
+                d, dtype).smem_bytes, (dtype, d)
+        assert lib.flash_smem_bytes(257, code) == -1
 
 
 @pytest.mark.cuda

@@ -8,8 +8,8 @@ in interpret mode) and its ``attention_ref`` oracle on the same numpy
 inputs from a seed, with the tolerance of ``tests/test_kernels.py``
 (float32 2e-5, bfloat16 3e-2): the ``(B, H, S, D)`` sweep, causal and
 bidirectional, a length that is not a block multiple, and the cases the
-wrapper refuses.  The card-only tests of the kernel are in
-``test_torch_cuda.py``.
+wrapper refuses; and the tiling the kernels launch with.  The card-only
+tests of the kernels are in ``test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +23,9 @@ from repro_torch.kernels.flash import (
     flash_attention,
     flash_cuda,
     flash_plain,
+    flash_plan,
 )
+from repro_torch.kernels.flash.flash import SMEM_LIMIT
 
 SWEEP = [(2, 3, 256, 64), (1, 2, 128, 32), (2, 2, 384, 64), (1, 1, 128, 128)]
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -128,3 +130,41 @@ def test_flash_cpu_takes_the_plain_version():
     assert torch.equal(flash_cuda(*t), flash_plain(*t))
     flash_attention(*t, causal=False, block_k=32)
     assert flash_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plan_fits_one_block_at_every_head_dim(dtype):
+    """Every D in 1..256 gets a width that covers it and a tiling whose
+    dynamic shared memory one Hopper block can have; bfloat16 takes the
+    tensor-core kernel at a ``wgmma`` width, float32 the FMA kernel."""
+    widths = set()
+    for d in range(1, 257):
+        plan = flash_plan(d, dtype)
+        assert plan.head_dim >= d
+        assert 0 < plan.smem_bytes <= SMEM_LIMIT
+        widths.add(plan.head_dim)
+        if dtype == torch.bfloat16:
+            assert plan.kernel == "wgmma"
+            # wgmma: 64 rows per warpgroup, k-steps of 16, N a multiple of
+            # 8 up to 256; a ring of at least two K/V stages.
+            assert plan.block_q % 64 == 0 and plan.stages >= 2
+            assert plan.head_dim % 16 == 0 and plan.block_k % 16 == 0
+            assert plan.head_dim <= 256 and plan.block_k <= 256
+            assert plan.head_dim == min(w for w in (64, 128, 256) if w >= d)
+        else:
+            assert plan.kernel == "fma"
+    if dtype == torch.bfloat16:
+        assert widths == {64, 128, 256}
+        assert [flash_plan(d, dtype).smem_bytes for d in (64, 128, 256)] \
+            == [83_008, 99_392, 197_696]
+    else:
+        assert widths == {16, 32, 64, 128, 256}
+        assert flash_plan(256, dtype).smem_bytes == 214_016
+
+
+def test_flash_plan_rejects_what_the_kernels_do_not_take():
+    for d in (0, 257):
+        with pytest.raises(ValueError, match="head dim"):
+            flash_plan(d, torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_plan(64, torch.float16)
