@@ -14,27 +14,40 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    timed), with ``ptxas``'s registers, spills and shared memory for
    each ``flash`` template;
 2. kernel vs plain: on both delivery layouts of the DBLP regime at full
-   scale, every degree class, ``deliver_fused_cuda`` against
-   ``deliver_fused_plain`` for sum/min/max/prod/or, float32 and int32,
-   D = 1 and 4, with and without sender activity.  Bitwise for
-   min/max/or/prod and integer-valued payloads; ``rtol = atol = 1e-5``
-   for random float sums;
+   scale, and on a bucket-padded v->he layout (a tenth of the
+   incidences dead, so some hyperedges have live degree 0; every class
+   padded to twice its rows, so half the slots are dead), the leaf
+   kernel (``deliver_leaf_cuda``, one launch over every class) against
+   ``deliver_fused_classes(..., lowering="plain")``, and every class
+   through a one-class plan (``deliver_fused_cuda``) against
+   ``deliver_fused_plain``, for sum/min/max/prod/or, float32 and int32,
+   D = 1 and 4, with no activity, int32 activity and (the leaf) bool
+   activity.  Bitwise for min/max/or/prod and integer-valued payloads;
+   ``rtol = atol = 1e-5`` for random float sums;
 3. the main path: ``Engine(device="cuda").run`` with
    ``delivery="pallas_fused"`` against ``delivery="xla"`` — PageRank-30
    (1e-5 relative), SSSP from vertex 0 (bitwise, equal activity stats)
    and connected components (bitwise) — and the kernel's launch count
-   over each fused run against the count the layouts imply;
+   over each fused run: exactly one per leaf and direction, pairs x
+   (fwd leaves + bwd leaves);
 4. timings (CUDA events, L2 flushed before each run, warm-up, median of
-   20): per class and direction the kernel, its plain version and the
-   port's ``xla`` delivery of the same leaf, beside the memory bound;
-   end-to-end PageRank-30 and SSSP wall time, fused vs ``xla``;
+   20; beside them the device time of 20 flushed calls queued back to
+   back, less the flushes, which leaves out the host's share of a
+   call): per class and direction the kernel through a one-class plan and
+   its plain version beside the memory bound; per leaf the one launch
+   against the sum of its class bounds, its plain version and the
+   port's ``xla`` delivery of the same leaf; end-to-end PageRank-30 and
+   SSSP wall time, fused vs ``xla``;
 5. intersection kernels vs plain, bitwise, on the Apache regime at full
    scale (the bitset index built by the port's ``build_index`` on the
    card): ``isect_fused_cuda`` (K3b) on 4,194,304 uniform pairs, as many
    Zipf-skewed pairs, self pairs and the census's own sampled triples
    (its three pair batches and its triple batch); ``isect_cuda`` (K3a)
    on the gathered uniform pairs and on the whole index; both on a
-   random ``[78,080, 101]`` bitset with bit 31 set in many words;
+   random ``[78,080, 101]`` bitset with bit 31 set in many words; and
+   the run cache's cases (alternating ids, runs across the 32-pair
+   chunks, runs of one, P = 33 and 1, triples) at W = 1, 3, 101, 104,
+   200 and on an unaligned base;
 6. the analytics path: ``Engine(device="cuda").analyze(AnalyticsSpec(hg))``
    on Apache at full scale must resolve to bitset / bipartite / local /
    sample with the reference's reasons, launch K3a once and K3b four
@@ -44,9 +57,10 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    ``auto`` resolves to exact + bitset) against the ``clique``
    representation; a tiny exact census against a python-set oracle.
    Timings: per census batch the kernel, its plain version and the
-   bound (CUDA events, L2 flushed, median of 20), and ``analyze``'s wall
-   time split into host preprocessing, intersection calls and
-   classification;
+   bound (CUDA events, L2 flushed, median of 20), the L2 row traffic a
+   kernel without the run cache would read beside the L2 read rate
+   measured on the table, and ``analyze``'s wall time split into host
+   preprocessing, intersection calls and classification;
 7. segment sum on the DBLP incidences at full scale (2,838,951 into
    782,659 hyperedges): ``segment_sum_mxu`` unsorted (K2a, the
    generator's order) and ``sorted_dst=True`` (K2b, ``sorted_by_dst``'s
@@ -152,6 +166,30 @@ def time_cuda(fn, flush, n_timed=N_TIMED, n_warm=N_WARM):
     return statistics.median(times)
 
 
+def time_device(fn, flush, n=N_TIMED):
+    """Mean device ms of ``fn()`` after an L2 flush, without the host's
+    share: ``n`` flushes and calls queued back to back (the flush gives
+    the host a head start, so the card never waits on it), less the same
+    ``n`` flushes alone, over ``n``."""
+    import torch
+
+    def queued(call):
+        for _ in range(N_WARM):
+            flush.zero_()
+            call()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            flush.zero_()
+            call()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    return (queued(fn) - queued(lambda: None)) / n
+
+
 def payloads(rng, n_src, d, dtype_name, monoid):
     """(payload, exact) pairs for one kernel check: host numpy, seeded."""
     import numpy as np
@@ -176,19 +214,38 @@ def payloads(rng, n_src, d, dtype_name, monoid):
 
 
 def check_kernel(layouts, rng):
-    """Phase 2: every class of both layouts, kernel vs plain."""
+    """Phase 2: every layout, the leaf kernel (one launch over every
+    class, ``deliver_leaf_cuda``) against ``deliver_fused_classes(...,
+    lowering="plain")``, and every class through a one-class plan
+    (``deliver_fused_cuda``) against ``deliver_fused_plain``."""
     import torch
 
     from repro_torch.kernels.deliver.fused import (
+        deliver_fused_classes,
         deliver_fused_cuda,
         deliver_fused_plain,
+        deliver_leaf_cuda,
     )
     from repro_torch.sparse.segment import MONOIDS
 
-    dev = torch.device("cuda")
+    dev = layouts[0][1].device
     n_checks, max_err = 0, 0.0
     cases = [("float32", m) for m in ("sum", "min", "max", "prod")]
     cases += [("int32", m) for m in ("sum", "min", "max", "prod", "or")]
+
+    def same(tag, got, want, exact):
+        nonlocal n_checks, max_err
+        torch.cuda.synchronize()
+        if exact:
+            if not same_bits(got, want):
+                fail(f"kernel != plain (bitwise) {tag}")
+        else:
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+                fail(f"kernel !~ plain {tag}: max abs err {err}")
+        n_checks += 1
+
     for direction, lay in layouts:
         n_src = lay.n_src
         for d in (1, 4):
@@ -201,10 +258,24 @@ def check_kernel(layouts, rng):
                     msgs_aug = torch.cat([
                         msgs, torch.full((1, d), ident, dtype=msgs.dtype,
                                          device=dev)]).contiguous()
-                    act = torch.as_tensor(
-                        (rng.random(n_src + 1) < 0.7).astype("int32"),
-                        device=dev)
-                    act[-1] = 1
+                    live = torch.as_tensor(rng.random(n_src) < 0.7,
+                                           device=dev)
+                    act = torch.cat([live.to(torch.int32),
+                                     torch.ones(1, dtype=torch.int32,
+                                                device=dev)])
+                    # The leaf: no activity, int32 activity, bool activity.
+                    for act_aug, active in ((None, None), (act, act[:-1]),
+                                            (act, live)):
+                        got = deliver_leaf_cuda(msgs, active, lay,
+                                                kernel_monoid)
+                        want = deliver_fused_classes(
+                            msgs_aug, act_aug, lay, kernel_monoid,
+                            lowering="plain")
+                        if monoid == "or":
+                            got, want = got > 0, want > 0
+                        same((direction, "leaf", monoid, dtype_name, d,
+                              None if active is None else active.dtype),
+                             got, want, exact)
                     for act_aug in (None, act):
                         for c in range(lay.n_classes):
                             args = (msgs_aug, act_aug, lay.class_src[c],
@@ -214,23 +285,26 @@ def check_kernel(layouts, rng):
                                       block_e=lay.class_block_e[c])
                             got = deliver_fused_cuda(*args, **kw)
                             want = deliver_fused_plain(*args, **kw)
-                            torch.cuda.synchronize()
-                            tag = (direction, c, monoid, dtype_name, d,
-                                   act_aug is not None)
                             if monoid == "or":
                                 got, want = got > 0, want > 0
-                            if exact:
-                                if not same_bits(got, want):
-                                    fail(f"kernel != plain (bitwise) {tag}")
-                            else:
-                                err = (got - want).abs().max().item()
-                                max_err = max(max_err, err)
-                                if not torch.allclose(got, want, rtol=1e-5,
-                                                      atol=1e-5):
-                                    fail(f"kernel !~ plain {tag}: max abs "
-                                         f"err {err}")
-                            n_checks += 1
+                            same((direction, c, monoid, dtype_name, d,
+                                  act_aug is not None), got, want, exact)
     return n_checks, max_err
+
+
+def padded_layout(hg, rng):
+    """The DBLP v->he layout with a tenth of the incidences masked dead
+    (so some hyperedges have live degree 0) and every class's rows
+    padded to twice the bucket (dead slots)."""
+    import numpy as np
+
+    from repro_torch.kernels.deliver import build_delivery_layout
+
+    mask = (rng.random(hg.nnz) < 0.9).astype(np.int32)
+    args = (hg.src, hg.dst, mask, hg.n_vertices, hg.n_hyperedges)
+    rows = build_delivery_layout(*args).class_rows
+    return build_delivery_layout(
+        *args, class_rows_pad=tuple(2 * r for r in rows), device=hg.device)
 
 
 def leaf_counts(spec):
@@ -250,22 +324,20 @@ def leaf_counts(spec):
 
 def run_fused_counted(eng, spec):
     """One fused run with the launch counter zeroed just before and read
-    just after; checks it against the count the layouts imply."""
+    just after; checks it against one launch per leaf and direction."""
     from repro_torch.kernels.deliver.fused import deliver_fused_cuda
 
-    fwd, bwd = eng._delivery_layouts(spec.hg0)  # built before counting
+    eng._delivery_layouts(spec.hg0)  # built before counting
     n_fwd, n_bwd = leaf_counts(spec)
-    per_pair = fwd.n_classes * n_fwd + bwd.n_classes * n_bwd
     deliver_fused_cuda.launches = 0
     res = eng.run(spec, delivery="pallas_fused")
     launches = deliver_fused_cuda.launches
     pairs = res.decision["measured"]["pairs_run"]
     log(f"  {spec.name}: fused launches {launches} = {pairs} pairs x "
-        f"({fwd.n_classes} fwd classes x {n_fwd} leaves + "
-        f"{bwd.n_classes} bwd classes x {n_bwd} leaves)")
-    if launches != pairs * per_pair or launches == 0:
-        fail(f"{spec.name}: {launches} launches, layouts imply "
-             f"{pairs * per_pair}")
+        f"({n_fwd} fwd leaves + {n_bwd} bwd leaves), one launch per leaf")
+    if launches != pairs * (n_fwd + n_bwd) or launches == 0:
+        fail(f"{spec.name}: {launches} launches, expected one per leaf: "
+             f"{pairs * (n_fwd + n_bwd)}")
     return res, launches
 
 
@@ -327,6 +399,86 @@ def ptxas_summary(text):
                          int(m.group(2) or 0)))
             name, spill = None, (0, 0)
     return rows
+
+
+def time_delivery(hg, fwd, bwd, flush):
+    """Phase 4's kernel timings: per class the one-class launch, per leaf
+    the one launch against the sum of its class bounds, its plain
+    version and the ``xla`` lowering.  Returns the K1 entry's numbers,
+    summed over the two leaves."""
+    import torch
+
+    from repro_torch.core import Program, deliver
+    from repro_torch.kernels.deliver import fused
+
+    dev = hg.dst.device
+    sum_prog = Program(procedure=None, combiner="sum")
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "library_ms": 0.0}
+    log("phase 4: float32 sum, D=1, no activity (PageRank's v->he leaf); "
+        "L2 flushed before each run; median of 20")
+    for name, lay, src, dst, n_dst in (
+            ("fwd", fwd, hg.src, hg.dst, hg.n_hyperedges),
+            ("bwd", bwd, hg.dst, hg.src, hg.n_vertices)):
+        msgs = torch.rand(lay.n_src, 1, device=dev)
+        msgs_aug = torch.cat([msgs, torch.zeros(1, 1, device=dev)])
+        leaf_bound = 0.0
+        for c in range(lay.n_classes):
+            args = (msgs_aug, None, lay.class_src[c], lay.class_dst[c],
+                    lay.class_bounds[c], lay.class_rows[c], "sum")
+            kw = dict(block_n=lay.block_n, block_e=lay.class_block_e[c])
+            k_ms = time_cuda(lambda: fused.deliver_fused_cuda(*args, **kw),
+                             flush)
+            k_dev = time_device(
+                lambda: fused.deliver_fused_cuda(*args, **kw), flush)
+            p_ms = time_cuda(lambda: fused.deliver_fused_plain(*args, **kw),
+                             flush)
+            lanes = int(lay.class_src[c].shape[0])
+            rows = lay.class_rows[c]
+            real = lay.class_dst[c] < rows
+            nnz_c = int(real.sum())
+            msg_rows = int(torch.unique(lay.class_src[c][real]).numel())
+            # Each input read once, each output written once: the src and
+            # dst index streams, the tile table, the message rows the
+            # class references, the output rows (all 4-byte words).  The
+            # same count whatever runs it: one class or a whole leaf.
+            n_bytes = 4 * (2 * lanes + lay.class_bounds[c].numel()
+                           + msg_rows + rows)
+            bound = max(n_bytes / HBM_BYTES_PER_S, nnz_c / FP32_OPS_PER_S)
+            leaf_bound += bound * 1e3
+            span = fused.class_span(lanes, rows, lay.block_n)
+            log(f"  {name} class {c} (width {lay.class_widths[c]}, rows "
+                f"{rows}, lanes {lanes}, blocks {-(-rows // span)} of "
+                f"{span} rows): one-class launch {k_ms * 1e3:.1f} us "
+                f"(device {k_dev * 1e3:.1f} us), "
+                f"plain {p_ms * 1e3:.1f} us, bound {bound * 1e6:.1f} us "
+                f"({n_bytes / 1e6:.2f} MB, {nnz_c} real lanes, {msg_rows} "
+                f"message rows)")
+        msgs_1d = msgs[:, 0].contiguous()
+        f_ms = time_cuda(
+            lambda: fused.deliver_leaf_cuda(msgs, None, lay, "sum"), flush)
+        f_dev = time_device(
+            lambda: fused.deliver_leaf_cuda(msgs, None, lay, "sum"), flush)
+        p_ms = time_cuda(
+            lambda: fused.deliver_fused_classes(msgs_aug, None, lay, "sum",
+                                                lowering="plain"), flush)
+        x_ms = time_cuda(
+            lambda: deliver(msgs_1d, None, src, dst, n_dst, sum_prog), flush)
+        totals["ms"] += f_ms
+        totals["plain_ms"] += p_ms
+        totals["bound_ms"] += leaf_bound
+        totals["library_ms"] += x_ms
+        log(f"  {name} leaf: fused delivery, one launch (all classes, rows "
+            f"written to their destinations) {f_ms * 1e3:.1f} us (device "
+            f"{f_dev * 1e3:.1f} us) against the sum of its class bounds "
+            f"{leaf_bound * 1e3:.1f} us ({leaf_bound / f_ms:.1%}; of the "
+            f"device time {leaf_bound / f_dev:.1%}); plain (per class + "
+            f"inv_perm "
+            f"gather) {p_ms * 1e3:.1f} us; xla lowering (index_select "
+            f"gather + where + scatter_reduce: stock calls, not one) "
+            f"{x_ms * 1e3:.1f} us")
+
+    return totals
 
 
 def card_ids(x, dev):
@@ -402,7 +554,82 @@ def check_isect(bits, rng, dev, batches):
     card = isect_cuda(bits, bits)
     if not torch.equal(isect_fused_cuda(bits, ids, ids), card):
         fail("self pairs do not give |e|")
+
+    # The run cache: id shapes that stress it, at every width class of
+    # the kernel (one word, words, the census's int4 row, the loop past
+    # 128 words) and on an unaligned base (the word path at W = 104).
+    for w_case in (1, 3, 101, 104, 200, "104 unaligned"):
+        w_r = 104 if w_case == "104 unaligned" else w_case
+        words = rng.integers(-2**31, 2**31, (5000 * w_r + 1,),
+                             dtype=np.int64)
+        words[rng.random(words.shape) < 0.05] = -1
+        flat = card_ids(words, dev)
+        table = (flat[1:] if w_case == "104 unaligned"
+                 else flat[:-1]).view(5000, w_r)
+        if (w_case == "104 unaligned") != (table.data_ptr() % 16 != 0):
+            fail("the unaligned case is not unaligned")
+        for case, abc in run_cases(rng, 5000).items():
+            abc = tuple(card_ids(x, dev) for x in abc)
+            same(f"K3b W={w_case} {case} ({len(abc[0])})",
+                 isect_fused_cuda(table, *abc),
+                 isect_fused_plain(table, *abc, tile=PLAIN_TILE))
+            if len(abc) == 2:
+                ua, ub = (table.index_select(0, x) for x in abc)
+                same(f"K3a W={w_case} {case}", isect_cuda(ua, ub),
+                     isect_plain(ua, ub, tile=PLAIN_TILE))
     return n_checks, max_err, host_uni
+
+
+def run_cases(rng, e):
+    """Id streams (host arrays) that stress the kernel's run cache:
+    alternating ids, runs that cross the 32-pair chunks and the blocks'
+    turns (lengths around 32 and 256, and long ones), P no multiple of
+    32, runs of one, and triples mixing a long run with changing ids."""
+    import numpy as np
+
+    def runs(lengths, p):
+        return np.repeat(rng.integers(0, e, len(lengths)), lengths)[:p]
+
+    p = 300_007
+    long_runs = rng.choice([1, 31, 32, 33, 255, 256, 257, 5000], 4 * p // 32)
+    alt = np.tile(rng.integers(0, e, 2), p // 2 + 1)[:p]
+    ones = rng.integers(0, e, p)
+    a = runs(long_runs, p)
+    return {
+        "alternating": (alt, np.roll(alt, 1)),
+        "runs across chunks": (a, runs(long_runs[::-1], p)),
+        "run of one vs runs": (ones, a),
+        "P=33": (a[:33], ones[:33]),
+        "P=1": (a[:1], ones[:1]),
+        "triples: runs, alternating, ones": (a, alt, ones),
+        "triples: same run": (a, a, a),
+    }
+
+
+def l2_read_rate(bits):
+    """Bytes/s of a repeated streaming read of ``bits`` from L2: one
+    ``torch.sum`` over the table read 16 times (a stride-0 view), warm,
+    median of 20.  A torch reduction's rate: a floor on the card's L2
+    read rate, not its peak."""
+    import torch
+
+    flat = bits.view(torch.float32).reshape(1, -1)
+    reads = flat.expand(16, -1)
+    for _ in range(3):
+        reads.sum(dim=1)
+    times = []
+    for _ in range(20):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        reads.sum(dim=1)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    rate = 16 * bits.numel() * 4 / (statistics.median(times) * 1e-3)
+    log(f"  L2 read rate: torch.sum over the {bits.numel() * 4 / 1e6:.1f} "
+        f"MB table read 16 times, warm: {rate / 1e12:.3f} TB/s")
+    return rate
 
 
 def isect_bound(p, n_ids, w, unique_rows, popc_rate):
@@ -429,6 +656,7 @@ def time_isect(bits, batches, flush, popc_rate):
 
     e, w = bits.shape
     fused = {"ms": 0.0, "plain_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0}
+    l2_rate = l2_read_rate(bits)
     for name, abc in batches.items():
         k_ms = time_cuda(lambda: isect_fused_cuda(bits, *abc), flush)
         p_ms = time_cuda(
@@ -440,19 +668,24 @@ def time_isect(bits, batches, flush, popc_rate):
         fused["plain_ms"] += p_ms
         fused["bytes_s"] += b_s
         fused["ops_s"] += o_s
+        # What a kernel without the run cache reads from L2: every id's
+        # row, every pair (not the bound: the rows come from L2).
+        l2_bytes = p * len(abc) * w * 4
         log(f"  K3b {name}: P={p} W={w} rows={rows}: kernel "
             f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
             f"{max(b_s, o_s) * 1e3:.4f} ms (bytes {b_s * 1e3:.4f} ms, "
             f"popcounts {o_s * 1e3:.4f} ms); {p * w / (k_ms * 1e-3):.4g} "
-            f"popcounts/s")
+            f"popcounts/s; L2 row traffic uncached {l2_bytes / 1e9:.2f} GB "
+            f"= {l2_bytes / l2_rate * 1e3:.4f} ms at the measured L2 rate")
     k_ms = time_cuda(lambda: isect_cuda(bits, bits), flush)
+    k_dev = time_device(lambda: isect_cuda(bits, bits), flush)
     p_ms = time_cuda(lambda: isect_plain(bits, bits, tile=PLAIN_TILE),
                      flush)
     # a and b are the same [E, W] table: one input, read once.
     b_s = (4 * e * w + 4 * e) / HBM_BYTES_PER_S
     o_s = e * w / popc_rate
     log(f"  K3a whole index (cardinalities): E={e} W={w}: kernel "
-        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+        f"{k_ms:.4f} ms (device {k_dev:.4f} ms), plain {p_ms:.4f} ms, bound "
         f"{max(b_s, o_s) * 1e3:.4f} ms (bytes {b_s * 1e3:.4f} ms, "
         f"popcounts {o_s * 1e3:.4f} ms)")
     entries = {
@@ -1061,7 +1294,7 @@ def main() -> int:
         pagerank_spec,
         shortest_paths_spec,
     )
-    from repro_torch.core import Engine, Program, deliver
+    from repro_torch.core import Engine
     from repro_torch.data import make_dataset
     from repro_torch.kernels.deliver import fused
 
@@ -1109,8 +1342,21 @@ def main() -> int:
             f"lanes {tuple(int(a.shape[0]) for a in lay.class_src)} "
             f"max_blocks {lay.class_max_blocks} block_e {lay.class_block_e}")
     rng = np.random.default_rng(0)
+    padded = padded_layout(hg, rng)
+    p_plan = fused.leaf_plan(padded)
+    log(f"  fwd padded: widths {padded.class_widths} rows "
+        f"{padded.class_rows}; {int((p_plan.slot_dst < 0).sum())} dead "
+        f"slots, {p_plan.zero_dst.numel()} zero-degree destinations")
+    for name, lay in (("fwd", fwd), ("bwd", bwd)):
+        plan = fused.leaf_plan(lay)
+        log(f"  {name} leaf plan: classes in launch order {plan.order}, "
+            f"spans {plan.spans} rows, blocks {plan.blocks} "
+            f"({sum(plan.blocks)} in one launch), "
+            f"{plan.zero_dst.numel()} zero-degree destinations")
     t0 = time.perf_counter()
-    n_checks, max_err = check_kernel((("fwd", fwd), ("bwd", bwd)), rng)
+    n_checks, max_err = check_kernel(
+        (("fwd", fwd), ("bwd", bwd), ("fwd padded", padded)), rng)
+    del padded, p_plan
     log(f"phase 2: {n_checks} kernel-vs-plain checks passed "
         f"(max abs err on random float sums {max_err:.3g}) in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1160,54 +1406,7 @@ def main() -> int:
     # -- phase 4: timings ------------------------------------------------------
     t0 = time.perf_counter()
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
-    sum_prog = Program(procedure=None, combiner="sum")
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "library_ms": 0.0}
-    log("phase 4: float32 sum, D=1, no activity (PageRank's v->he leaf); "
-        "L2 flushed before each run; median of 20")
-    for name, lay, src, dst, n_dst in (
-            ("fwd", fwd, hg.src, hg.dst, hg.n_hyperedges),
-            ("bwd", bwd, hg.dst, hg.src, hg.n_vertices)):
-        msgs = torch.rand(lay.n_src, 1, device=dev)
-        msgs_aug = torch.cat([msgs, torch.zeros(1, 1, device=dev)])
-        for c in range(lay.n_classes):
-            args = (msgs_aug, None, lay.class_src[c], lay.class_dst[c],
-                    lay.class_bounds[c], lay.class_rows[c], "sum")
-            kw = dict(block_n=lay.block_n, block_e=lay.class_block_e[c])
-            k_ms = time_cuda(lambda: fused.deliver_fused_cuda(*args, **kw),
-                             flush)
-            p_ms = time_cuda(lambda: fused.deliver_fused_plain(*args, **kw),
-                             flush)
-            lanes = int(lay.class_src[c].shape[0])
-            rows = lay.class_rows[c]
-            real = lay.class_dst[c] < rows
-            nnz_c = int(real.sum())
-            msg_rows = int(torch.unique(lay.class_src[c][real]).numel())
-            # Each input read once, each output written once: the src and
-            # dst index streams, the tile table, the message rows the
-            # class references, the output rows (all 4-byte words).
-            n_bytes = 4 * (2 * lanes + lay.class_bounds[c].numel()
-                           + msg_rows + rows)
-            bound = max(n_bytes / HBM_BYTES_PER_S, nnz_c / FP32_OPS_PER_S)
-            totals["ms"] += k_ms
-            totals["plain_ms"] += p_ms
-            totals["bound_ms"] += bound * 1e3
-            log(f"  {name} class {c} (width {lay.class_widths[c]}, rows "
-                f"{rows}, lanes {lanes}, blocks {lay.class_max_blocks[c]}): "
-                f"kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, "
-                f"bound {bound * 1e6:.1f} us ({n_bytes / 1e6:.2f} MB, "
-                f"{nnz_c} real lanes, {msg_rows} message rows)")
-        msgs_1d = msgs[:, 0].contiguous()
-        x_ms = time_cuda(
-            lambda: deliver(msgs_1d, None, src, dst, n_dst, sum_prog), flush)
-        f_ms = time_cuda(
-            lambda: fused.deliver_fused_classes(msgs_aug, None, lay, "sum"),
-            flush)
-        totals["library_ms"] += x_ms
-        log(f"  {name} leaf: fused delivery (all classes + inv_perm "
-            f"assembly) {f_ms * 1e3:.1f} us; xla lowering (index_select "
-            f"gather + where + scatter_reduce: stock calls, not one) "
-            f"{x_ms * 1e3:.1f} us")
+    totals = time_delivery(hg, fwd, bwd, flush)
 
     walls = {}
     for label, spec in (("pagerank-30", pr), ("sssp", sp)):

@@ -6,9 +6,11 @@ point: in the port it means "the fused layout path").  One fused data
 path, three lowerings:
 
 * ``cuda`` — the hand-written Hopper kernel
-  (``fused.deliver_fused_cuda``), one launch per degree class;
-* ``plain`` — the same per-class contract in stock torch ops
-  (``fused.deliver_fused_plain``), the kernel's oracle;
+  (``fused.deliver_leaf_cuda``), one launch per leaf over every degree
+  class, the rows written straight to their destinations;
+* ``plain`` — the per-class contract in stock torch ops
+  (``fused.deliver_fused_plain``) assembled with ``inv_perm``, the
+  kernel's oracle;
 * ``ell`` — the layout's sliced-ELL tables through stock torch ops
   (``xla.deliver_ell_leaf``), the host lowering.
 
@@ -23,12 +25,16 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.api import tree_map
 from repro_torch.kernels.deliver.fused import (
+    LeafPlan,
+    class_span,
     deliver_fused_classes,
     deliver_fused_cuda,
     deliver_fused_plain,
+    deliver_leaf_cuda,
+    deliver_leaf_plain,
     layout_from_numpy,
+    leaf_plan,
 )
 from repro_torch.kernels.deliver.layout import (
     ClassPlan,
@@ -48,15 +54,20 @@ __all__ = [
     "LOWERINGS",
     "ClassPlan",
     "DeliveryLayout",
+    "LeafPlan",
     "build_delivery_layout",
+    "class_span",
     "classify_degrees",
     "deliver_ell_leaf",
     "deliver_fused_classes",
     "deliver_fused_cuda",
     "deliver_fused_plain",
+    "deliver_leaf_cuda",
+    "deliver_leaf_plain",
     "fused_deliver",
     "layout_from_numpy",
     "layout_pair",
+    "leaf_plan",
     "plan_degree_classes",
     "plan_ell_width",
     "select_lowering",
@@ -76,7 +87,7 @@ def select_lowering(device) -> str:
 
 
 def _pallas_leaf(leaf, layout, monoid, active, *, lowering):
-    """Shape-normalize one leaf for the per-class 2-D kernels."""
+    """Shape-normalize one leaf for the 2-D kernels."""
     shape = tuple(leaf.shape)
     msgs2d = leaf.reshape(shape[0], math.prod(shape[1:]))
     if monoid.name == "or":
@@ -88,21 +99,8 @@ def _pallas_leaf(leaf, layout, monoid, active, *, lowering):
         # > 0, not a bool cast: empty destinations hold the max identity
         # (iinfo.min), which must read back as False.
         return (out > 0).reshape((layout.n_dst,) + shape[1:])
-    ident = monoid.identity(msgs2d.dtype)
-    msgs_aug = torch.cat([
-        msgs2d,
-        torch.full((1, msgs2d.shape[1]), ident, dtype=msgs2d.dtype,
-                   device=msgs2d.device),
-    ]).contiguous()
-    act_aug = None
-    if active is not None:
-        act_aug = torch.cat([
-            active.to(torch.int32),
-            torch.ones(1, dtype=torch.int32, device=active.device),
-        ])
-    out = deliver_fused_classes(
-        msgs_aug, act_aug, layout, monoid.name, lowering=lowering
-    )
+    fn = deliver_leaf_cuda if lowering == "cuda" else deliver_leaf_plain
+    out = fn(msgs2d.contiguous(), active, layout, monoid.name)
     return out.reshape((layout.n_dst,) + shape[1:])
 
 
@@ -129,5 +127,10 @@ def fused_deliver(
         if low == "ell":
             return deliver_ell_leaf(leaf, layout, monoid, active)
         return _pallas_leaf(leaf, layout, monoid, active, lowering=low)
+
+    # Imported here: repro_torch.core imports this package, so a
+    # module-level import would be circular when this package is
+    # imported first.
+    from repro_torch.core.api import tree_map
 
     return tree_map(one, out_msg)

@@ -11,12 +11,15 @@ Two forms, as in the JAX package's ``repro.kernels.isect.isect``:
   census's ``a & b & c``).
 
 Both wrap the hand-written Hopper kernel in ``repro_torch/csrc/isect.cu``
-(a group of lanes per pair striding over the words, 16-byte loads when
-``W % 4 == 0``, ``__popc``, a shuffle tree per group; see the note in the
-source).  ``isect_plain`` / ``isect_fused_plain`` are their plain
-PyTorch versions, tiled over pairs so the temporaries stay
-``tile x W``: the CPU path and the oracle the kernel is held against on
-the card.  The words are int32 holding the reference's uint32 bits.
+(a persistent grid whose warps take 32 pairs at a time, each lane one
+16-byte slice of a row when ``W % 4 == 0``; K3b keeps the rows whose id
+repeats from the pair before in registers, K3a streams its rows through
+a shared-memory ring filled by ``cp.async``; a transposed shuffle
+reduction leaves lane i with pair i's total; see the note in the
+source).  ``isect_plain`` / ``isect_fused_plain``
+are their plain PyTorch versions, tiled over pairs so the temporaries
+stay ``tile x W``: the CPU path and the oracle the kernel is held
+against on the card.  The words are int32 holding the reference's uint32 bits.
 """
 from __future__ import annotations
 
@@ -125,7 +128,8 @@ def isect_cuda(a: torch.Tensor, b: torch.Tensor, *,
         return out.zero_()
     rc = _kernel_lib().isect_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), int(w), int(p),
-        _vec(w, a, b), torch.cuda.current_stream(dev).cuda_stream,
+        _vec(w, a, b),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"isect kernel launch failed: error {rc}")
@@ -169,7 +173,8 @@ def isect_fused_cuda(bits: torch.Tensor, ea: torch.Tensor,
     rc = _kernel_lib().isect_fused_launch(
         bits.data_ptr(), ea.data_ptr(), eb.data_ptr(),
         ec.data_ptr() if ec is not None else None, out.data_ptr(), int(w),
-        int(p), _vec(w, bits), torch.cuda.current_stream(dev).cuda_stream,
+        int(p), _vec(w, bits),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"isect_fused kernel launch failed: error {rc}")

@@ -1,7 +1,7 @@
-"""The port on the card: the fused delivery kernel, the bitset
-intersection kernels, the Engine's paths through them (``run`` and
-``analyze``), and the segment-sum and attention kernels through their
-entry points.
+"""The port on the card: the fused delivery kernel (per class and one
+launch per leaf), the bitset intersection kernels (their run cache
+too), the Engine's paths through them (``run`` and ``analyze``), and
+the segment-sum and attention kernels through their entry points.
 
 Every test here is marked ``cuda`` and skips without a CUDA card and
 ``nvcc``.  The file imports nothing of JAX, so it runs where the card is:
@@ -17,7 +17,7 @@ from repro_torch.algorithms import (
     pagerank_spec,
     shortest_paths_spec,
 )
-from repro_torch.core import AnalyticsSpec, Engine
+from repro_torch.core import AnalyticsSpec, Engine, Program
 from repro_torch.data import powerlaw_hypergraph
 from repro_torch.kernels import _nvcc
 from repro_torch.kernels.isect import (
@@ -31,6 +31,9 @@ from repro_torch.kernels.deliver import (
     build_delivery_layout,
     deliver_fused_cuda,
     deliver_fused_plain,
+    deliver_leaf_cuda,
+    fused_deliver,
+    leaf_plan,
 )
 from repro_torch.kernels.flash import (
     attention_ref,
@@ -102,6 +105,81 @@ def test_cuda_kernel_equals_plain(card, monoid, dtype):
             want = deliver_fused_plain(*args, **kw).cpu().numpy()
             assert _same_bits(got, want), (monoid, dtype, c)
     assert deliver_fused_cuda.launches == before + 2 * lay.n_classes
+
+
+def _leaf_layouts(rng, card):
+    """A layout with hubs (a class of long rows: spans below the tile),
+    30% dead incidences and 300 destinations of degree 0; unpadded and
+    with every class padded to twice its rows (dead slots)."""
+    n_src, n_dst, nnz = 5000, 3000, 60000
+    src = rng.integers(0, n_src, nnz).astype(np.int32)
+    dst = rng.integers(0, n_dst - 300, nnz).astype(np.int32)
+    dst[:12000] = rng.integers(0, 60, 12000)
+    mask = (rng.random(nnz) > 0.3).astype(np.int32)
+    lay = build_delivery_layout(src, dst, mask, n_src, n_dst, device=card)
+    pad = build_delivery_layout(
+        src, dst, mask, n_src, n_dst, device=card,
+        class_rows_pad=tuple(2 * r for r in lay.class_rows))
+    return n_src, (lay, pad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("monoid", ["sum", "min", "max", "prod", "or"])
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_cuda_leaf_kernel_equals_plain(card, monoid, dtype):
+    rng = np.random.default_rng(6)
+    n_src, layouts = _leaf_layouts(rng, card)
+    prog = Program(procedure=None, combiner=monoid)
+    for lay in layouts:
+        plan = leaf_plan(lay)
+        assert plan.zero_dst.numel() >= 300
+        assert min(plan.spans) < lay.block_n
+        for shape in ((n_src,), (n_src, 3)):
+            x = (rng.random(shape) > 0.5 if monoid == "or"
+                 else _payload(rng, monoid, dtype, shape))
+            msgs = torch.as_tensor(x, device=card)
+            live = torch.as_tensor(rng.random(n_src) > 0.4, device=card)
+            for active in (None, live, live.to(torch.int32)):
+                before = deliver_fused_cuda.launches
+                got = fused_deliver(msgs, active, lay, prog, lowering="cuda")
+                assert deliver_fused_cuda.launches == before + 1
+                want = fused_deliver(msgs, active, lay, prog,
+                                     lowering="plain")
+                assert _same_bits(got.cpu().numpy(), want.cpu().numpy()), (
+                    monoid, dtype, shape, lay.class_rows,
+                    None if active is None else active.dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_leaf_kernel_is_bitwise_repeatable(card):
+    rng = np.random.default_rng(8)
+    n_src, layouts = _leaf_layouts(rng, card)
+    msgs = torch.as_tensor(rng.standard_normal((n_src, 4)).astype(
+        np.float32), device=card)
+    for lay in layouts:
+        first = deliver_leaf_cuda(msgs, None, lay, "sum")
+        again = deliver_leaf_cuda(msgs, None, lay, "sum")
+        assert torch.equal(first.view(torch.int32), again.view(torch.int32))
+        want = fused_deliver(msgs, None, lay,
+                             Program(procedure=None, combiner="sum"),
+                             lowering="plain")
+        torch.testing.assert_close(first, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_leaf_wrapper_rejects_what_the_kernel_does_not_take(card):
+    rng = np.random.default_rng(9)
+    n_src, (lay, _) = _leaf_layouts(rng, card)
+    msgs = torch.zeros(n_src, 2, device=card)
+    with pytest.raises(TypeError, match="float32 or int32"):
+        deliver_leaf_cuda(msgs.double(), None, lay, "sum")
+    with pytest.raises(ValueError, match="rows"):
+        deliver_leaf_cuda(msgs[1:], None, lay, "sum")
+    with pytest.raises(ValueError, match="monoids"):
+        deliver_leaf_cuda(msgs, None, lay, "or")
+    with pytest.raises(ValueError, match="active"):
+        deliver_leaf_cuda(msgs, torch.ones(3, dtype=torch.bool, device=card),
+                          lay, "sum")
 
 
 @pytest.mark.cuda
@@ -191,6 +269,41 @@ def test_cuda_isect_kernels_equal_plain(card, w):
     empty = torch.zeros(0, dtype=torch.int32, device=card)
     assert isect_fused_cuda(bits, empty, empty).shape == (0,)
     assert isect_fused_cuda.launches == before[1] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1, 3, 101, 104, 200, "104 unaligned"])
+def test_cuda_isect_run_cache_edge_cases(card, w):
+    """Id shapes that stress the register run cache, bitwise against the
+    plain version: runs across the 32-pair chunks and across a warp's
+    turns of the grid-stride loop (P well above one grid's pairs),
+    alternating ids, runs of one, P of 1, 31 and 33, triples."""
+    rng = np.random.default_rng(11)
+    e = 2000
+    w_r = 104 if w == "104 unaligned" else w
+    flat = _words(rng, (e * w_r + 1,)).to(card)
+    bits = (flat[1:] if w == "104 unaligned" else flat[:-1]).view(e, w_r)
+    assert (bits.data_ptr() % 16 != 0) == (w == "104 unaligned")
+
+    def runs(lengths, p):
+        return np.repeat(rng.integers(0, e, len(lengths)), lengths)[:p]
+
+    p = 600_001
+    lengths = rng.choice([1, 2, 31, 32, 33, 64, 255, 256, 257, 3000],
+                         p // 16)
+    a, b = runs(lengths, p), runs(lengths[::-1], p)
+    alt = np.tile(rng.integers(0, e, 2), p)[:p]
+    ones = rng.integers(0, e, p)
+    cases = [(a, b), (alt, np.roll(alt, 1)), (ones, a), (a[:33], b[:33]),
+             (a[:1], b[:1]), (a[:31], alt[:31]), (a, alt, ones), (a, a, a),
+             (alt, b, a)]
+    for ids in cases:
+        t = [torch.as_tensor(x.astype(np.int32), device=card) for x in ids]
+        assert torch.equal(isect_fused_cuda(bits, *t),
+                           isect_fused_plain(bits, *t)), (w, len(ids[0]))
+        if len(t) == 2:
+            ga, gb = (bits.index_select(0, x) for x in t)
+            assert torch.equal(isect_cuda(ga, gb), isect_plain(ga, gb))
 
 
 @pytest.mark.cuda

@@ -9,6 +9,11 @@
 * **K1 plain version**: ``deliver_fused_plain`` on a carried-over JAX
   layout equals ``deliver_fused_pallas(..., interpret=True)`` per class —
   bitwise on exact payloads, ``rtol = atol = 1e-5`` on float sums.
+* **K1 launch plan**: the leaf kernel's plan (slot -> destination map,
+  zero-degree destinations, spans, launch order) applied to the plain
+  class partials equals the JAX ``deliver_fused_classes(...,
+  interpret=True)``, every destination written once; on padded layouts
+  too.
 * **Delivery lowerings**: the port's ``fused_deliver`` (``ell``,
   ``plain``, and ``cuda``, which takes the plain version for CPU
   tensors) equals the JAX reference ``deliver``.
@@ -26,18 +31,22 @@ from repro.kernels.deliver import classify_degrees as j_classify
 from repro.kernels.deliver import plan_degree_classes as j_plan_classes
 from repro.kernels.deliver import plan_ell_width as j_plan_ell
 from repro.kernels.deliver import tile_block_bounds as j_tile_bounds
+from repro.kernels.deliver.fused import deliver_fused_classes as j_classes
 from repro.kernels.deliver.fused import deliver_fused_pallas
 from repro.kernels.deliver.layout import ClassPlan as JClassPlan
 from repro_torch.core.api import Program
 from repro_torch.kernels.deliver import (
     ClassPlan,
     build_delivery_layout,
+    class_span,
     classify_degrees,
     deliver_fused_cuda,
     deliver_fused_plain,
+    deliver_leaf_plain,
     fused_deliver,
     layout_from_numpy,
     layout_pair,
+    leaf_plan,
     plan_degree_classes,
     plan_ell_width,
     tile_block_bounds,
@@ -293,9 +302,12 @@ def test_zero_destinations_and_layout_pair():
 # K1: the kernel's plain version vs the Pallas kernel (interpret mode)
 # --------------------------------------------------------------------------
 
-def _k1_inputs(case):
+def _k1_inputs(case, pad=False):
     src, dst, mask, n_src, n_dst, monoid, msg, active = case
     j = j_build(src, dst, mask, n_src, n_dst, block_n=8, block_e=16)
+    if pad:
+        j = j_build(src, dst, mask, n_src, n_dst, block_n=8, block_e=16,
+                    class_rows_pad=tuple(2 * r for r in j.class_rows))
     kmonoid = "max" if monoid == "or" else monoid
     x = msg.reshape(n_src, -1)
     if monoid == "or":
@@ -352,6 +364,82 @@ def test_k1_plain_float_sum_within_tolerance():
     active = rng.random(n_src) > 0.3
     _k1_compare((src, dst, None, n_src, n_dst, "sum", msg, active),
                 exact=False)
+
+
+def _k1_leaf_compare(case, pad=False):
+    j, kmonoid, msgs_aug, act_aug = _k1_inputs(case, pad)
+    t = layout_from_numpy(j)
+    plan = leaf_plan(t)
+    want = np.asarray(j_classes(
+        jnp.asarray(msgs_aug),
+        jnp.asarray(act_aug) if act_aug is not None else None, j, kmonoid,
+        interpret=True,
+    ))
+    m = torch.as_tensor(msgs_aug)
+    a = torch.as_tensor(act_aug) if act_aug is not None else None
+    # The plan's assembly, as the kernel does it, on the plain partials.
+    out = torch.empty((t.n_dst, m.shape[1]), dtype=m.dtype)
+    written = torch.zeros(t.n_dst, dtype=torch.int64)
+    for c in range(t.n_classes):
+        part = deliver_fused_plain(
+            m, a, t.class_src[c], t.class_dst[c], t.class_bounds[c],
+            t.class_rows[c], kmonoid, block_n=t.block_n,
+            block_e=t.class_block_e[c])
+        slots = plan.slot_dst[plan.slot_base[c]:
+                              plan.slot_base[c] + t.class_rows[c]].long()
+        out[slots[slots >= 0]] = part[slots >= 0]
+        written[slots[slots >= 0]] += 1
+    out[plan.zero_dst.long()] = MONOIDS[kmonoid].identity(m.dtype)
+    written[plan.zero_dst.long()] += 1
+    assert bool((written == 1).all())
+    _assert_bitwise(out.numpy(), want, kmonoid)
+    leaf = deliver_leaf_plain(m[:-1], a[:-1] if a is not None else None, t,
+                              kmonoid)
+    _assert_bitwise(leaf.numpy(), want, kmonoid)
+    # The kernel's side of the plan: spans that tile the classes, the
+    # widest class launched first.
+    for c in range(t.n_classes):
+        span = plan.spans[c]
+        assert t.block_n % span == 0 or span % t.block_n == 0
+        assert plan.blocks[c] * span >= t.class_rows[c]
+    assert sorted(plan.order) == list(range(t.n_classes))
+    widths = [t.class_widths[c] for c in plan.order]
+    assert widths == sorted(widths, reverse=True)
+    return plan
+
+
+@given(incidence_case())
+@settings(max_examples=8)
+def test_k1_leaf_plan_equals_pallas_interpret(case):
+    _k1_leaf_compare(case)
+
+
+@pytest.mark.parametrize("monoid", MONOID_NAMES)
+def test_k1_leaf_plan_padded_and_zero_degree(monoid):
+    rng = np.random.default_rng(13)
+    n_src, n_dst, nnz = 70, 120, 900
+    src = rng.integers(0, n_src, nnz).astype(np.int32)
+    dst = rng.integers(0, n_dst - 30, nnz).astype(np.int32)   # 30 empty
+    dst[:300] = rng.integers(0, 3, 300)                       # a few hubs
+    mask = (rng.random(nnz) > 0.2).astype(np.float32)
+    msg = _payload(rng, monoid, "int32", (n_src, 2))
+    case = (src, dst, mask, n_src, n_dst, monoid, msg, rng.random(n_src) > 0.4)
+    plan = _k1_leaf_compare(case, pad=True)
+    assert plan.zero_dst.numel() >= 30
+    assert bool((plan.slot_dst < 0).any())
+
+
+def test_class_span_follows_row_length():
+    # DBLP's fwd classes at full scale: short rows span four tiles, a
+    # lane a row; longer rows a tile or less, about four edges a lane.
+    assert class_span(1115136, 1048576, 128) == 512
+    assert class_span(900096, 262144, 128) == 512
+    assert class_span(557568, 65536, 128) == 128
+    assert class_span(266752, 8192, 128) == 32
+    assert class_span(100, 8, 8) == 128
+    assert class_span(0, 0, 128) == 512
+    assert class_span(10**6, 96, 96) == 12
+    assert class_span(10, 10, 4096) == 512
 
 
 # --------------------------------------------------------------------------
