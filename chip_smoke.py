@@ -12,7 +12,7 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    ``src/repro_torch/csrc/`` (``deliver_fused.cu``, ``isect.cu``,
    ``segsum.cu`` and ``flash.cu``, one ``nvcc`` each, started together,
    timed), with ``ptxas``'s registers, spills and shared memory for
-   each ``flash`` template;
+   each ``flash`` template and each ``segsum`` kernel;
 2. kernel vs plain: on both delivery layouts of the DBLP regime at full
    scale, and on a bucket-padded v->he layout (a tenth of the
    incidences dead, so some hyperedges have live degree 0; every class
@@ -23,7 +23,8 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    ``deliver_fused_plain``, for sum/min/max/prod/or, float32 and int32,
    D = 1 and 4, with no activity, int32 activity and (the leaf) bool
    activity.  Bitwise for min/max/or/prod and integer-valued payloads;
-   ``rtol = atol = 1e-5`` for random float sums;
+   ``rtol = atol = 1e-5`` for random float sums (the plain version run
+   in float64);
 3. the main path: ``Engine(device="cuda").run`` with
    ``delivery="pallas_fused"`` against ``delivery="xla"`` — PageRank-30
    (1e-5 relative), SSSP from vertex 0 (bitwise, equal activity stats)
@@ -71,7 +72,9 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    segment taking every edge, an E that is no multiple of ``block_e``,
    ids outside ``[0, N)`` dropped, E = 0 giving zeros without a launch.
    Timings: kernel, plain version and ``index_add_`` into float32
-   beside the byte bound (CUDA events, L2 flushed, median of 20);
+   beside the byte bound (CUDA events, L2 flushed, median of 20); K2a
+   on shuffled ids (its sum over the three configs is the kernel line's
+   ``shuffled_ms``) and on the one segment, beside ``index_add_``;
 8. attention through ``flash_attention`` (K4: bfloat16 on the tensor
    cores, float32 on the FMA units) at llama3.2-1b's width (32 heads of
    64): bfloat16 causal S = 32,768 (``prefill_32k``'s length, one
@@ -217,7 +220,8 @@ def check_kernel(layouts, rng):
     """Phase 2: every layout, the leaf kernel (one launch over every
     class, ``deliver_leaf_cuda``) against ``deliver_fused_classes(...,
     lowering="plain")``, and every class through a one-class plan
-    (``deliver_fused_cuda``) against ``deliver_fused_plain``."""
+    (``deliver_fused_cuda``) against ``deliver_fused_plain`` (for random
+    float sums run in float64 and rounded to float32)."""
     import torch
 
     from repro_torch.kernels.deliver.fused import (
@@ -258,6 +262,11 @@ def check_kernel(layouts, rng):
                     msgs_aug = torch.cat([
                         msgs, torch.full((1, d), ident, dtype=msgs.dtype,
                                          device=dev)]).contiguous()
+                    # Random float sums: the plain version runs in float64
+                    # and is rounded once, so that its own float32 atomics
+                    # (an order that changes from run to run) do not move
+                    # the reference by as much as the tolerance.
+                    ref_aug = msgs_aug if exact else msgs_aug.double()
                     live = torch.as_tensor(rng.random(n_src) < 0.7,
                                            device=dev)
                     act = torch.cat([live.to(torch.int32),
@@ -269,8 +278,8 @@ def check_kernel(layouts, rng):
                         got = deliver_leaf_cuda(msgs, active, lay,
                                                 kernel_monoid)
                         want = deliver_fused_classes(
-                            msgs_aug, act_aug, lay, kernel_monoid,
-                            lowering="plain")
+                            ref_aug, act_aug, lay, kernel_monoid,
+                            lowering="plain").to(msgs.dtype)
                         if monoid == "or":
                             got, want = got > 0, want > 0
                         same((direction, "leaf", monoid, dtype_name, d,
@@ -284,7 +293,8 @@ def check_kernel(layouts, rng):
                             kw = dict(block_n=lay.block_n,
                                       block_e=lay.class_block_e[c])
                             got = deliver_fused_cuda(*args, **kw)
-                            want = deliver_fused_plain(*args, **kw)
+                            want = deliver_fused_plain(
+                                ref_aug, *args[1:], **kw).to(msgs.dtype)
                             if monoid == "or":
                                 got, want = got > 0, want > 0
                             same((direction, c, monoid, dtype_name, d,
@@ -382,11 +392,18 @@ def ptxas_summary(text):
             t = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                           name)
             f = re.search(r"flash_kernelI(\w)Li(\d+)E", name)
+            k = re.search(r"(k2a_[a-z]+|segsum_sorted_kernel)(I.*?Li(\d+)E)?",
+                          name)
             if t:
                 name = (f"bf16 wgmma DP={t.group(1)} BK={t.group(2)}, "
                         f"{t.group(3)} block(s) per SM")
             elif f:
                 name = f"float32 fma NJ={f.group(2)}"
+            elif k:
+                dtype = "bf16" if "bfloat16" in name else "float32"
+                name = k.group(1) + (f" {dtype} VEC={k.group(3)}"
+                                     if k.group(3) else
+                                     f" {dtype}" if "sorted" in name else "")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -991,7 +1008,6 @@ def segsum_phase(hg, flush):
         if not same_bits(segment_sum_mxu(m_int, zeros, 3,
                                          sorted_dst=sorted_dst), want):
             fail(f"one segment (sorted={sorted_dst}) != plain, bitwise")
-    del m_int
     m1 = configs[1][2]                              # float32, D = 64
     cut = 512 * 1000 + 77                           # not a block_e multiple
     rtol, atol = segsum_tol(cut, n, torch.float32)
@@ -1040,6 +1056,7 @@ def segsum_phase(hg, flush):
     entries = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                       "library_ms": 0.0, "bytes_s": 0.0, "ops_s": 0.0}
                for name in ("segsum", "segsum_sorted")}
+    entries["segsum"]["shuffled_ms"] = 0.0
     # The library call computes K2's function: float32 sums (bf16
     # messages cast by ``.float()``), rounded to the type of msgs; for
     # float32 both casts are no-ops.
@@ -1077,9 +1094,19 @@ def segsum_phase(hg, flush):
         e_ms = time_cuda(lambda: segment_sum_mxu(m_s, dst_s, n,
                                                  sorted_dst=True), flush)
         del m_p
+        entries["segsum"]["shuffled_ms"] += p_ms
         log(f"    K2a on shuffled ids {p_ms:.4f} ms; "
             f"segment_sum_mxu(sorted_dst=True) with its check and offsets "
             f"{e_ms:.4f} ms")
+    # One tile takes every edge: its work items meet in K2a's combine
+    # tree, which must not serialise on one block.
+    k_ms = time_cuda(lambda: segsum_cuda(m_int, zeros, 3), flush)
+    l_ms = time_cuda(lambda: torch.zeros(3, 64, device=dev).index_add_(
+        0, zeros, m_int), flush)
+    log(f"  K2a one segment (E = {e} into row 0, float32 D=64): kernel "
+        f"{k_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
+        f"{(e * 64 * 4 + 4 * e) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    del m_int
     for ent in entries.values():
         b_s, o_s = ent.pop("bytes_s"), ent.pop("ops_s")
         ent["bound_ms"] = max(b_s, o_s) * 1e3
@@ -1325,6 +1352,10 @@ def main() -> int:
     for line in flash_log.splitlines():
         if "wgmma" in line and "Performance Loss" in line:
             log(f"  ptxas: {line.strip()}")
+    for name, regs, st, ld, smem in ptxas_summary(
+            _nvcc.build_log("segsum", ("segsum.cu",))):
+        log(f"  ptxas segsum {name}: {regs} registers, spills {st} B "
+            f"stored / {ld} B loaded, {smem} B static smem")
 
     # -- phase 2: kernel vs plain at DBLP scale --------------------------------
     dev = torch.device("cuda")
@@ -1499,6 +1530,8 @@ def main() -> int:
             "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"],
         })
+    next(k for k in kernels if k["name"] == "segsum")["shuffled_ms"] = (
+        segsum_entries["segsum"]["shuffled_ms"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

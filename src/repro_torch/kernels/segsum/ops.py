@@ -39,10 +39,11 @@ def segment_sum_mxu(
     host sync; a ``ValueError`` if not).  The CSR row offsets are then
     made here, and the sorted form (K2b) reads only each output tile's
     own edges, ``block_n`` rows per thread block, with the same bits on
-    every run.  Otherwise the unsorted form (K2a) makes one pass over the
-    edges, ``block_e`` per thread block, adding with atomics: its last
-    bits may change between runs.  Nothing is padded: the kernels take
-    any ``E`` and ``num_segments``.
+    every run.  Otherwise the unsorted form (K2a) buckets the edges by
+    output tile of ``block_n`` rows and sums each tile in shared memory,
+    ``block_e`` edges per work item, in an order that atomics choose:
+    its last bits may change between runs.  Nothing is padded: the
+    kernels take any ``E`` and ``num_segments``.
 
     Where it differs from the JAX package's ``segment_sum_mxu``, it
     follows ``segment_sum_ref`` (``jax.ops.segment_sum``), the oracle the
@@ -70,7 +71,8 @@ def segment_sum_mxu(
         dst = dst.clamp(-1, num_segments).to(torch.int32)
     dst = dst.to(msgs.device).contiguous()
     if not sorted_dst:
-        return segsum_cuda(msgs, dst, num_segments, block_e=block_e)
+        return segsum_cuda(msgs, dst, num_segments, block_n=block_n,
+                           block_e=block_e)
     if not bool((dst[1:] >= dst[:-1]).all()):
         raise ValueError("sorted_dst=True needs non-decreasing dst ids "
                          "(see HyperGraph.sorted_by_dst)")

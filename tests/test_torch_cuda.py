@@ -358,15 +358,20 @@ def _segsum_tol(e, n, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 3, 64, 100])
+@pytest.mark.parametrize("d", [1, 3, 64, 100, 256, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_segsum_kernels_equal_plain(card, dtype, d):
+    """Both forms against the plain version.  K2a with block_e = 300:
+    every tile of 128 rows splits into several work items; a long row
+    and heavy tiles (the last one partial) run its combine tree; D = 256
+    and 1000 cut the columns into slices; shuffled ids too."""
     rng = np.random.default_rng(d)
     e, n = 50000, 3000
     msgs = torch.as_tensor(rng.standard_normal((e, d)).astype(np.float32),
                            device=card).to(dtype)
     dst = rng.integers(-5, n + 5, e).astype(np.int32)
     dst[:2000] = 17                                    # a long row
+    dst[2000:8000] = rng.choice([130, 131, 1500, 2950, 2999], 6000)
     ids = torch.as_tensor(dst, device=card)
     order = torch.sort(ids, stable=True).indices
     ms, ids_s = msgs[order].contiguous(), ids[order].contiguous()
@@ -387,6 +392,31 @@ def test_cuda_segsum_kernels_equal_plain(card, dtype, d):
     keep = (ids >= 0) & (ids < n)
     torch.testing.assert_close(
         got.float(), segsum_plain(msgs[keep], ids[keep], n).float(), **tol)
+    perm = torch.as_tensor(rng.permutation(e), device=card)
+    mp, ip = msgs[perm].contiguous(), ids[perm].contiguous()
+    torch.testing.assert_close(
+        segment_sum_mxu(mp, ip, n, block_e=300).float(),
+        segsum_plain(mp, ip, n).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_segsum_more_tiles_than_one_window(card, dtype):
+    """K2a with more output tiles (15,625 of 128 rows) than its count
+    pass bins at once (8,192): the tiles come in two windows; runs of
+    ids, shuffled ids and a heavy tile in the second window.  Integer-
+    valued messages: every order of the float32 adds gives the same
+    bits, so the result must equal the plain version's bitwise."""
+    rng = np.random.default_rng(5)
+    e, n, d = 300000, 2000000, 8
+    dst = np.sort(rng.integers(-3, n + 3, e)).astype(np.int32)
+    dst[:20000] = 1900000
+    dst[20000:40000] = rng.permutation(dst[20000:40000])
+    msgs = torch.as_tensor(rng.integers(-8, 9, (e, d)).astype(np.float32),
+                           device=card).to(dtype)
+    ids = torch.as_tensor(dst, device=card)
+    assert torch.equal(segment_sum_mxu(msgs, ids, n),
+                       segsum_plain(msgs, ids, n))
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the fused delivery (K1) and bitset intersection (K3a, K3b)
-kernels of two checkouts side by side, in one call on one card.
+"""Time the fused delivery (K1), bitset intersection (K3a, K3b) and
+unsorted segment-sum (K2a) kernels of two checkouts side by side, in one
+call on one card.
 
-    python3 tools/leaf_isect_ab.py --parent DIR [--only k1|k3] [--out FILE]
+    python3 tools/leaf_isect_ab.py --parent DIR [--only k1|k3|k2a] [--out FILE]
 
 Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit; ``DIR`` is another checkout of the repository (for example the
@@ -22,8 +23,17 @@ above the tile; and ``isect.cu`` built with source substitutions (each
 must match exactly once, as in ``tools/flash_variants.py``): K3b with a
 register ring of 4, K3a with a shared-memory ring of 2 or 8, and K3a
 through the uncached loop or through K3b's register-ring kernel instead
-of its shared-memory ring.  Prints the
-card's name and power limit, one line per process and a table;
+of its shared-memory ring.  ``--only k2a`` times instead
+``segsum_cuda`` (K2a) on the DBLP incidences at full scale, as
+``chip_smoke.py`` phase 7 makes them: float32 D = 1 and 64 and bfloat16
+D = 64, in the generator's order and on shuffled ids (CUDA events, L2
+flushed, median of 20; and the device time), the one-segment case, and
+``index_add_`` beside each; this tree's processes also time
+``segsum.cu`` built with substitutions (more or fewer edges in flight,
+longer sorted chunks, register caps; and ablations, each without one
+phase: message loads, folds, combines, tile stores, tile zeroing), and
+the device time of each of its kernels (``torch.profiler``).  Prints
+the card's name and power limit, one line per process and a table;
 ``--out`` keeps the JSON.
 """
 import argparse
@@ -41,7 +51,7 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402  (puts this tree's src on sys.path)
 
-ISECT = os.path.join(ROOT, "src", "repro_torch", "csrc", "isect.cu")
+CSRC = os.path.join(ROOT, "src", "repro_torch", "csrc")
 VARIANTS = os.path.join(ROOT, "build", "variants")
 # isect.cu variants: (label, kernel it times, substitutions).
 ISECT_VARIANTS = [
@@ -60,24 +70,57 @@ ISECT_VARIANTS = [
         ("static_assert(MODE != 0", "static_assert(MODE >= 0")]),
 ]
 
+# segsum.cu variants of K2a's accumulate pass: (label, "K2a", substitutions).
+K2A_VARIANTS = [
+    ("twice the edges in flight", "K2a", [(
+        "constexpr int kUnroll = 4;", "constexpr int kUnroll = 8;")]),
+    ("chunks of 1024", "K2a", [(
+        "constexpr int kChunk = 512;", "constexpr int kChunk = 1024;")]),
+    ("5 blocks per SM", "K2a", [(
+        "__launch_bounds__(kMaxThreads)\nk2a_accumulate",
+        "__launch_bounds__(kMaxThreads, 5)\nk2a_accumulate")]),
+    ("3 blocks per SM", "K2a", [(
+        "__launch_bounds__(kMaxThreads)\nk2a_accumulate",
+        "__launch_bounds__(kMaxThreads, 3)\nk2a_accumulate")]),
+    ("half the edges in flight", "K2a", [(
+        "constexpr int kUnroll = 4;", "constexpr int kUnroll = 2;")]),
+    # Ablations: each times the kernel without one of its phases, so
+    # its sums are wrong.
+    ("no message loads", "K2a", [(
+        "if (e + u < b) x[u].load(base + (long long)sorted_edge[e + u] * d);",
+        "x[u] = Cols<T, VEC>{};")]),
+    ("no folds", "K2a", [(
+        "for (int v = lane; v < nv && a < b; v += lanes) {",
+        "for (int v = lane; v < 0; v += lanes) {")]),
+    ("no combine", "K2a", [(
+        "  if (k > 1) {\n    int node = j",
+        "  if (false) {\n    int node = j")]),
+    ("no tile store", "K2a", [(
+        "for (int x = tid; x < rows * nv; x += blockDim.x) {",
+        "for (int x = tid; x < 0; x += blockDim.x) {")]),
+    ("no tile zeroing", "K2a", [(
+        "for (int x = tid; x < rows * d_slice / W; x += blockDim.x) {",
+        "for (int x = tid; x < 0; x += blockDim.x) {")]),
+]
 
-def variant_path(label):
-    return os.path.join(VARIANTS, "isect_" + "".join(
+
+def variant_path(label, source="isect"):
+    return os.path.join(VARIANTS, f"{source}_" + "".join(
         c if c.isalnum() else "_" for c in label))
 
 
-def build_variant(item):
-    """Builds ``isect.cu`` with one variant's substitutions."""
+def build_variant(item, source="isect"):
+    """Builds ``<source>.cu`` with one variant's substitutions."""
     from repro_torch.kernels import _nvcc
 
     label, _, subs = item
-    src = open(ISECT).read()
+    src = open(os.path.join(CSRC, f"{source}.cu")).read()
     for old, new in subs:
         if src.count(old) != 1:
             raise SystemExit(f"{label}: {old!r} matches {src.count(old)} "
-                             "times in isect.cu")
+                             f"times in {source}.cu")
         src = src.replace(old, new)
-    stem = variant_path(label)
+    stem = variant_path(label, source)
     with open(stem + ".cu", "w") as f:
         f.write(src)
     proc = subprocess.run(
@@ -108,7 +151,8 @@ def prepare(path):
 
 
 def time_tree(tree, triples_path, variants, only=None):
-    """One tree's timings (ms), in this process; ``only``: "k1" or "k3"."""
+    """One tree's timings (ms), in this process; ``only``: "k1", "k3" or
+    "k2a"."""
     sys.path.insert(0, os.path.join(tree, "src"))
     import torch
 
@@ -122,11 +166,80 @@ def time_tree(tree, triples_path, variants, only=None):
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     res = {}
 
+    if only == "k2a":
+        time_k2a(res, dev, flush, variants)
+        return res
     if only != "k3":
         time_delivery(res, dev, flush, fused, variants)
     if only != "k1":
         time_isect(res, dev, flush, triples_path, variants)
     return res
+
+
+def time_k2a(res, dev, flush, variants):
+    import torch
+
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.segsum import segsum
+
+    hg = make_dataset("dblp", 1.0, seed=0, device=dev)
+    n, e = hg.n_hyperedges, hg.nnz
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dst = hg.dst.contiguous()
+    perm = torch.randperm(e, generator=gen, device=dev)
+    dst_p = dst[perm].contiguous()
+    cases = []
+    for dtype, d in ((torch.float32, 1), (torch.float32, 64),
+                     (torch.bfloat16, 64)):
+        m = torch.randn(e, d, generator=gen, device=dev).to(dtype)
+        tag = f"{str(dtype)[6:]} D={d}"
+        cases += [(tag, m, dst), (f"{tag} shuffled", m[perm].contiguous(),
+                                  dst_p)]
+    one = torch.randint(-8, 9, (e, 64), generator=gen, device=dev).float()
+    cases.append(("one segment", one, torch.zeros_like(dst)))
+
+    def k2a(suffix):
+        for tag, m, ids in cases:
+            rows = 3 if tag == "one segment" else n
+            call = lambda: segsum.segsum_cuda(m, ids, rows)
+            res[f"K2a {tag}{suffix}"] = cs.time_cuda(call, flush)
+            res[f"K2a {tag}{suffix}, device"] = cs.time_device(call, flush)
+
+    k2a("")
+    if variants:
+        # Device time of each of the call's kernels (torch.profiler,
+        # 5 flushed calls).
+        from torch.profiler import ProfilerActivity, profile
+
+        for tag, m, ids in cases:
+            rows = 3 if tag == "one segment" else n
+            for _ in range(3):
+                segsum.segsum_cuda(m, ids, rows)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    flush.zero_()
+                    segsum.segsum_cuda(m, ids, rows)
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                if "k2a_" in ev.key:
+                    name = ev.key.split("k2a_")[1].split("(")[0].split("<")[0]
+                    res[f"K2a {tag} [{name}]"] = ev.device_time / 1e3
+    for tag, m, ids in cases:
+        rows = 3 if tag == "one segment" else n
+        res[f"index_add_ {tag}"] = cs.time_cuda(
+            lambda: torch.zeros(rows, m.shape[1], device=dev).index_add_(
+                0, ids, m.float()).to(m.dtype), flush)
+    if variants:
+        from repro_torch.kernels import _nvcc
+
+        shipped = segsum._kernel_lib()
+        for label, _, _ in K2A_VARIANTS:
+            _nvcc._LOADED["segsum"] = ctypes.CDLL(
+                variant_path(label, "segsum") + ".so")
+            segsum._kernel_lib()
+            k2a(f" ({label})")
+        _nvcc._LOADED["segsum"] = shipped
 
 
 def time_delivery(res, dev, flush, fused, variants):
@@ -214,7 +327,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
     ap.add_argument("--out")
-    ap.add_argument("--only", choices=("k1", "k3"))
+    ap.add_argument("--only", choices=("k1", "k3", "k2a"))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--triples", help=argparse.SUPPRESS)
     ap.add_argument("--variants", action="store_true", help=argparse.SUPPRESS)
@@ -236,9 +349,16 @@ def main() -> int:
     print(smi, flush=True)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     triples = os.path.join(ROOT, "build", "ab_triples.npy")
-    if args.only != "k1":
+    os.makedirs(VARIANTS, exist_ok=True)
+    if args.only == "k2a":
         t0 = time.perf_counter()
-        os.makedirs(VARIANTS, exist_ok=True)
+        with ThreadPoolExecutor(len(K2A_VARIANTS)) as pool:
+            list(pool.map(lambda v: build_variant(v, "segsum"),
+                          K2A_VARIANTS))
+        print(f"segsum variants in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    elif args.only != "k1":
+        t0 = time.perf_counter()
         with ThreadPoolExecutor(len(ISECT_VARIANTS)) as pool:
             built = pool.map(build_variant, ISECT_VARIANTS)
             prepare(triples)
