@@ -70,11 +70,16 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    ``tests/test_kernels.py``'s tolerance, bfloat16 within two bf16
    steps); K2b bitwise equal over two runs; K2a on shuffled ids; one
    segment taking every edge, an E that is no multiple of ``block_e``,
-   ids outside ``[0, N)`` dropped, E = 0 giving zeros without a launch.
-   Timings: kernel, plain version and ``index_add_`` into float32
-   beside the byte bound (CUDA events, L2 flushed, median of 20); K2a
-   on shuffled ids (its sum over the three configs is the kernel line's
-   ``shuffled_ms``) and on the one segment, beside ``index_add_``;
+   ids outside ``[0, N)`` dropped, E = 0 giving zeros without a launch;
+   K2b on Apache's vertex side (``make_dataset("apache", 1.0)``'s
+   432,872 incidences sorted by vertex into 3,316 rows, the longest
+   6,465 edges; float32 D = 64), repeatable.  Timings: kernel, plain
+   version and ``index_add_`` into float32 beside the byte bound (CUDA
+   events, L2 flushed, median of 20); K2a on shuffled ids (its sum over
+   the three configs is the kernel line's ``shuffled_ms``); K2a and K2b
+   on the one segment and K2b on Apache's vertex side, beside
+   ``index_add_`` and the bound (the K2b line's ``one_segment_*`` and
+   ``skew_*`` keys);
 8. attention through ``flash_attention`` (K4: bfloat16 on the tensor
    cores, float32 on the FMA units) at llama3.2-1b's width (32 heads of
    64): bfloat16 causal S = 32,768 (``prefill_32k``'s length, one
@@ -392,7 +397,8 @@ def ptxas_summary(text):
             t = re.search(r"flash_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
                           name)
             f = re.search(r"flash_kernelI(\w)Li(\d+)E", name)
-            k = re.search(r"(k2a_[a-z]+|segsum_sorted_kernel)(I.*?Li(\d+)E)?",
+            k = re.search(r"(k2a_[a-z]+)(I.*?Li(\d+)E)?", name)
+            b = re.search(r"k2b_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
                           name)
             if t:
                 name = (f"bf16 wgmma DP={t.group(1)} BK={t.group(2)}, "
@@ -402,8 +408,12 @@ def ptxas_summary(text):
             elif k:
                 dtype = "bf16" if "bfloat16" in name else "float32"
                 name = k.group(1) + (f" {dtype} VEC={k.group(3)}"
-                                     if k.group(3) else
-                                     f" {dtype}" if "sorted" in name else "")
+                                     if k.group(3) else "")
+            elif b:
+                dtype = "float32" if b.group(1) == "f" else "bf16"
+                name = (f"k2b {dtype} "
+                        f"{'narrow D' if b.group(3) == '1' else 'wide VEC'}"
+                        f"={b.group(2)}")
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -1046,10 +1056,28 @@ def segsum_phase(hg, flush):
             fail("E = 0 does not give zeros")
     if (segsum_cuda.launches, segsum_sorted_cuda.launches) != before:
         fail("E = 0 launched a kernel")
+    # Apache's vertex side: rows of every length up to 6,465 edges.
+    from repro_torch.data import make_dataset
+
+    hg_a = make_dataset("apache", 1.0, seed=0, device=dev)
+    v_s = torch.sort(hg_a.src, stable=True).values.contiguous()
+    n_v = hg_a.n_vertices
+    m_v = torch.randn(v_s.numel(), 64, generator=gen, device=dev)
+    off_v = csr_row_offsets(v_s, n_v)
+    longest = int(off_v.diff().max())
+    got_v = segment_sum_mxu(m_v, v_s, n_v, sorted_dst=True)
+    rtol, atol = segsum_tol(v_s.numel(), n_v, torch.float32)
+    err["segsum_sorted"] = max(err["segsum_sorted"], check_close(
+        "K2b Apache vertex side", got_v, segsum_plain(m_v, v_s, n_v), rtol,
+        atol))
+    if not same_bits(got_v, segsum_sorted_cuda(m_v, off_v, n_v)):
+        fail("K2b Apache vertex side: two runs differ")
+    del hg_a
     log(f"phase 7: K2a/K2b checks passed (max abs err K2a "
         f"{err['segsum']:.3g}, K2b {err['segsum_sorted']:.3g}; K2b bitwise "
-        f"repeatable; one segment, E = {cut}, dropped ids, E = 0) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"repeatable; one segment, E = {cut}, dropped ids, E = 0, Apache "
+        f"vertex side: {v_s.numel()} edges into {n_v} rows, the longest "
+        f"{longest}) in {time.perf_counter() - t0:.1f} s")
 
     # -- timings -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1065,15 +1093,18 @@ def segsum_phase(hg, flush):
             0, ids, m.float()).to(dtype)
     for dtype, d, m, m_s in configs:
         size = m.element_size()
-        base = e * d * size + 4 * e + n * d * size
+        # Bytes each form must move: the messages read, the rows written,
+        # and K2a's ids or K2b's offsets read (K2b never reads the ids).
+        rows_bytes = e * d * size + n * d * size
         runs = {
             "segsum": (lambda: segsum_cuda(m, dst, n),
                        lambda: segsum_plain(m, dst, n),
-                       lambda: index_add_f32(m, dst, d, dtype), base),
+                       lambda: index_add_f32(m, dst, d, dtype),
+                       rows_bytes + 4 * e),
             "segsum_sorted": (lambda: segsum_sorted_cuda(m_s, off, n),
                               lambda: segsum_sorted_plain(m_s, off, n),
                               lambda: index_add_f32(m_s, dst_s, d, dtype),
-                              base + 4 * (n + 1)),
+                              rows_bytes + 4 * (n + 1)),
         }
         for name, (kernel, plain, library, n_bytes) in runs.items():
             k_ms = time_cuda(kernel, flush)
@@ -1098,15 +1129,38 @@ def segsum_phase(hg, flush):
         log(f"    K2a on shuffled ids {p_ms:.4f} ms; "
             f"segment_sum_mxu(sorted_dst=True) with its check and offsets "
             f"{e_ms:.4f} ms")
-    # One tile takes every edge: its work items meet in K2a's combine
-    # tree, which must not serialise on one block.
-    k_ms = time_cuda(lambda: segsum_cuda(m_int, zeros, 3), flush)
+    # One tile (K2a) or one row (K2b) takes every edge: K2a's work items
+    # and K2b's blocks meet in their combine trees, which must not
+    # serialise on one block.  Apache's vertex side: a row of 6,465
+    # edges beside rows of about 130.
+    off_1 = csr_row_offsets(zeros, 3)
     l_ms = time_cuda(lambda: torch.zeros(3, 64, device=dev).index_add_(
         0, zeros, m_int), flush)
-    log(f"  K2a one segment (E = {e} into row 0, float32 D=64): kernel "
-        f"{k_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
-        f"{(e * 64 * 4 + 4 * e) / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    rows_1 = e * 64 * 4 + 3 * 64 * 4
+    for name, kernel, n_bytes in (
+            ("K2a", lambda: segsum_cuda(m_int, zeros, 3), rows_1 + 4 * e),
+            ("K2b", lambda: segsum_sorted_cuda(m_int, off_1, 3),
+             rows_1 + 4 * 4)):
+        k_ms = time_cuda(kernel, flush)
+        bound_1 = n_bytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {name} one segment (E = {e} into row 0 of 3, float32 D=64): "
+            f"kernel {k_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
+            f"{bound_1:.4f} ms")
+    entries["segsum_sorted"].update(one_segment_ms=k_ms,
+                                    one_segment_library_ms=l_ms,
+                                    one_segment_bound_ms=bound_1)
     del m_int
+    e_v = v_s.numel()
+    k_ms = time_cuda(lambda: segsum_sorted_cuda(m_v, off_v, n_v), flush)
+    l_ms = time_cuda(lambda: torch.zeros(n_v, 64, device=dev).index_add_(
+        0, v_s, m_v), flush)
+    bound_v = ((e_v * 64 * 4 + n_v * 64 * 4 + 4 * (n_v + 1))
+               / HBM_BYTES_PER_S * 1e3)
+    log(f"  K2b Apache vertex side (E = {e_v} into {n_v} rows, float32 "
+        f"D=64): kernel {k_ms:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
+        f"{bound_v:.4f} ms")
+    entries["segsum_sorted"].update(skew_ms=k_ms, skew_library_ms=l_ms,
+                                    skew_bound_ms=bound_v)
     for ent in entries.values():
         b_s, o_s = ent.pop("bytes_s"), ent.pop("ops_s")
         ent["bound_ms"] = max(b_s, o_s) * 1e3
@@ -1532,6 +1586,9 @@ def main() -> int:
         })
     next(k for k in kernels if k["name"] == "segsum")["shuffled_ms"] = (
         segsum_entries["segsum"]["shuffled_ms"])
+    next(k for k in kernels if k["name"] == "segsum_sorted").update(
+        {key: val for key, val in segsum_entries["segsum_sorted"].items()
+         if key.startswith(("one_segment_", "skew_"))})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

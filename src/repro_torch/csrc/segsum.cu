@@ -63,21 +63,48 @@
 //     order of the edges within a row after the sort, and of the atomic
 //     adds at the ends of the runs, changes from run to run, so the last
 //     bits of a float sum may too: K2a is not bitwise repeatable.
-//   * K2b gives each thread block a tile of block_n rows.  Row r's edges
-//     are [offsets[r], offsets[r + 1]), so a tile reads only its own
-//     edges (the block-sparse skip of the TPU kernel, at row instead of
-//     block granularity).  A group of G lanes owns a row, and each lane
-//     folds its columns over the row's edges in edge order, in registers,
-//     and writes each output element once: no atomics, no zeroing, and
-//     the same bits on every run.
+//   * K2b splits the work by items, not rows: the merge path of the row
+//     ends and the edges (Merrill and Garland's merge-based CSR SpMV,
+//     with every value 1 and D columns) is cut into equal shares of
+//     `items` per block (segsum.py's k2b_geometry: block_e times 1,024
+//     bytes over a row's bytes, 64 over them for rows of at most 4
+//     bytes), so the longest row no longer sets the kernel's time: it is
+//     cut across blocks.  A block finds its two ends with a warp-wide
+//     search (32 probes a round, 4 rounds at DBLP's 782,660 offsets),
+//     stages its row offsets in shared memory (and, for rows of at most
+//     4 bytes, its message rows, by cp.async) and cuts its items into
+//     equal shares again, one per lane group.  A group walks its share in
+//     edge order, 4 edges loaded at a time, folding into float32
+//     registers (16-byte loads where every row is aligned; staged rows:
+//     one lane holds the whole row), stores each row that starts and ends
+//     in the share at once (staged rows through shared memory, stored by
+//     neighbouring lanes), and keeps the first
+//     row if it started earlier (a head) and the open last row (a tail).
+//     A segmented scan of the tails over the groups, keyed by row, in a
+//     fixed order (shuffles in a warp, then earlier warps' totals
+//     ascending), gives each head the rest of its row in the block.  A
+//     row cut across blocks leaves a float32 piece per block, summed in
+//     a tree of fan-in 16 over ascending blocks with tickets (the last
+//     block of a group to arrive sums it and goes up; the tickets stay
+//     zeroed between calls, each reset by its last arrival); a row that
+//     only spills items / 8 edges or fewer into the block before is read
+//     whole by the block where it ends instead.  Every sum is taken in an
+//     order the blocks' arrival does not change: the same bits on every
+//     run.
 // Not done here (later work): overlapping a K2a block's sort and tile
 // store with another item's loads (a block waits on each phase in
-// turn); vector loads and more lanes on a very long row of K2b (one
-// lane folds a whole column of it).
+// turn); in K2b, overlapping a block's search and staging with another
+// block's walk (at D = 1 the four search rounds and the staging take
+// two thirds of the time; a block-wide search of 96 probes a round, in
+// three rounds, was slower, and 16-byte copies of the staged rows no
+// faster).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -687,24 +714,442 @@ k2a_accumulate(const T* __restrict__ msgs, T* __restrict__ out,
   }
 }
 
-// K2b: one group of g lanes per row, block_n rows per block.
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-segsum_sorted_kernel(const T* __restrict__ msgs,
-                     const int32_t* __restrict__ offsets, T* __restrict__ out,
-                     int n, int d, int block_n, int g) {
-  const int groups = blockDim.x / g;
-  const int lane = threadIdx.x % g;
-  const long long r0 = (long long)blockIdx.x * block_n;
-  const long long r1 = min(r0 + block_n, (long long)n);
-  for (long long r = r0 + threadIdx.x / g; r < r1; r += groups) {
-    const long long e0 = __ldg(offsets + r);
-    const long long e1 = __ldg(offsets + r + 1);
-    for (int c = lane; c < d; c += g) {
-      float sum = 0.0f;
-      for (long long e = e0; e < e1; ++e) sum += to_f32(msgs[e * d + c]);
-      store(out + r * d + c, sum);
+// ---- K2b -------------------------------------------------------------------
+// Constants shared with segsum.py (K2B_THREADS, K2B_FAN_IN): the geometry
+// there sizes the grid, the scratch and the shared memory.
+constexpr int kK2bThreads = 256;
+constexpr int kK2bWarps = kK2bThreads / 32;
+constexpr int kLgFan = 4;              // the carries' combine tree: fan-in 16
+constexpr int kK2bIn = 4;              // edges loaded at a time per lane
+
+// The merge path of the row ends (off[1..n]) and the edges
+// (off[0]..off[n] - 1): how many rows end among its first k items, a
+// row's end coming before an edge when they tie, and off[] at that row.
+// Row x ends among them when off[x + 1] - off[0] <= k - x - 1, which
+// holds below the answer and fails from it on.  A warp probes 32 points
+// of the range a round (4 dependent rounds for 782,660 offsets), and one
+// round settles a range of at most 32.  off[answer] is a value some
+// probe loaded (or off[0]), so it costs no round of its own.
+__device__ __forceinline__ int diag_search(const int32_t* __restrict__ off,
+                                           int n, int off0, long long k,
+                                           int& off_at) {
+  const int lane = threadIdx.x & 31;
+  long long lo = 0, hi = min(k, (long long)n);
+  int off_lo = off0;  // off[lo]
+  while (lo < hi) {
+    const long long len = hi - lo;
+    const bool fine = len <= 32;
+    const long long p = fine ? lo + lane : lo + (lane + 1) * len / 33;
+    const bool probe = !fine || lane < len;
+    const int a = probe ? __ldg(off + p + 1) : 0;
+    const bool ends = probe && a <= off0 + k - p - 1;
+    const int cnt = __popc(__ballot_sync(kAll, ends));
+    const long long p_last = __shfl_sync(kAll, p, max(cnt - 1, 0));
+    const long long p_next = __shfl_sync(kAll, p, min(cnt, 31));
+    const int a_last = __shfl_sync(kAll, a, max(cnt - 1, 0));
+    if (cnt > 0) {
+      lo = p_last + 1;
+      off_lo = a_last;
     }
+    if (fine) break;
+    if (cnt < 32) hi = p_next;
+  }
+  off_at = off_lo;
+  return (int)lo;
+}
+
+// The same count in shared memory, local to a block that starts at
+// (row i0, edge js): rows m in [lo, hi] of s_off[m] = off[i0 + m], item r
+// of the block.  One thread, bisection, in 32-bit arithmetic.
+__device__ __forceinline__ int diag_search_smem(const int* s_off, int lo,
+                                                int hi, int js, int r) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (s_off[mid + 1] - js <= r - mid - 1) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// cp.async: 4 bytes from device memory into shared memory, in the
+// background (as isect.cu's copy_async); wait_async_all waits for all of
+// this thread's copies.
+__device__ __forceinline__ void copy4_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void wait_async_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// count elements from device memory into shared memory, the block's
+// threads on neighbouring elements: 4-byte ones by cp.async, all in
+// flight at once; others 8 loads a thread at a time.
+template <typename U>
+__device__ __forceinline__ void stage(U* dst, const U* __restrict__ src,
+                                      int count) {
+  if constexpr (sizeof(U) == 4) {
+    for (int x = threadIdx.x; x < count; x += kK2bThreads)
+      copy4_async(dst + x, src + x);
+  } else {
+    constexpr int kB = 8;
+    for (int x0 = threadIdx.x; x0 < count; x0 += kB * kK2bThreads) {
+      U v[kB];
+#pragma unroll
+      for (int u = 0; u < kB; ++u)
+        if (x0 + u * kK2bThreads < count) v[u] = src[x0 + u * kK2bThreads];
+#pragma unroll
+      for (int u = 0; u < kB; ++u)
+        if (x0 + u * kK2bThreads < count) dst[x0 + u * kK2bThreads] = v[u];
+    }
+  }
+}
+
+// A staged row's VEC columns (shared memory), widened to float32.
+template <typename T, int VEC>
+struct Staged {
+  float v[VEC];
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) v[q] = to_f32(p[q]);
+  }
+  __device__ __forceinline__ void add_to(float (&a)[VEC]) const {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) a[q] += v[q];
+  }
+};
+
+// VEC float32 sums, rounded once to T, into a 4-byte slot of shared
+// memory (VEC * sizeof(T) <= 4).
+template <typename T, int VEC>
+__device__ __forceinline__ void put_slot(int* slot, const float (&a)[VEC]) {
+  T* p = reinterpret_cast<T*>(slot);
+#pragma unroll
+  for (int q = 0; q < VEC; ++q) store(p + q, a[q]);
+}
+
+// VEC float32 sums into an output row, rounded once for bfloat16: one
+// 16-byte store where VEC fills it.
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* o, const float (&a)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) o[q] = a[q];
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* o,
+                                          const float (&a)[VEC]) {
+  if constexpr (VEC == 8) {
+    *reinterpret_cast<uint4*>(o) =
+        make_uint4(pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
+                   pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) store(o + q, a[q]);
+  }
+}
+
+// Adds row `row`'s pieces from the blocks b_s..b_e (each block one piece,
+// float32 [d] in `carry`: block b's head piece at slot 2b, its tail piece
+// at 2b + 1) in a tree of fixed shape over ascending blocks: level L
+// groups the nodes (blocks >> 4L) by 16.  The last block of a group to
+// arrive (a ticket per level and group) sums the group's nodes in
+// ascending order into the slot of its first node and goes up; the block
+// that sums the last group stores the row.  Block b enters with its own
+// piece, which it wrote to its slot before the call (fenced, synced).
+template <typename T>
+__device__ void k2b_combine(int row, int b_s, int b_e, T* __restrict__ out,
+                            int* tickets, float* carry, int d, int n_blocks,
+                            int* s_last) {
+  int cb = blockIdx.x;  // the block whose slot holds this block's node
+  for (int level = 0;; ++level) {
+    const int sh = level * kLgFan;
+    const int node = cb >> sh, grp = node >> kLgFan;
+    const int n_lo = max(b_s >> sh, grp << kLgFan);
+    const int n_hi = min(b_e >> sh, (grp << kLgFan) + (1 << kLgFan) - 1);
+    if (n_hi == n_lo) continue;  // alone in its group: up a level
+    const int rep_lo = max(b_s, n_lo << sh);
+    if (threadIdx.x == 0) {
+      int* ticket = tickets + (long long)level * n_blocks + rep_lo;
+      *s_last = atomicAdd(ticket, 1) == n_hi - n_lo;
+      if (*s_last) *ticket = 0;  // every other arrival is in: reset
+    }
+    __syncthreads();
+    const bool last = *s_last;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    const bool root = (b_s >> (sh + kLgFan)) == (b_e >> (sh + kLgFan));
+    for (int c = threadIdx.x; c < d; c += blockDim.x) {
+      float acc = 0.0f;
+      for (int m = n_lo; m <= n_hi; ++m) {
+        const int rep = max(b_s, m << sh);
+        const long long slot = rep == b_e ? 2LL * b_e : 2LL * rep + 1;
+        acc += __ldcg(carry + slot * d + c);
+      }
+      if (root) store(out + (long long)row * d + c, acc);
+      else carry[(2LL * rep_lo + 1) * d + c] = acc;
+    }
+    if (root) return;
+    cb = rep_lo;
+    __threadfence();
+    __syncthreads();
+  }
+}
+
+// K2b: one block per `items` items of the merge path (row ends and
+// edges), so a block's work is set by its share of the items whatever
+// its rows' lengths.  Steps:
+//   1. warps 0 and 1 find the block's first and last (row, edge) on the
+//      path (diag_search); a row that ends in the block with at most
+//      items / 8 edges in the block before is read whole, from its first
+//      item, and the block before keeps no piece of it;
+//   2. the block's row offsets off[i0..i1] go to shared memory, and for
+//      rows of at most 4 bytes (STAGED: VEC == D) its message rows too;
+//   3. the block's items are cut into equal shares, one per group of
+//      `lanes` lanes (one lane when STAGED); a group finds its share's
+//      start in shared memory and walks it in order, folding each edge
+//      into float32 registers (its lane's VEC columns), kK2bIn edges
+//      loaded at a time (from device memory, or shared memory when
+//      STAGED).  A row that starts and ends in the share is stored at
+//      once (STAGED: into shared memory, stored by the block at the
+//      end); the first row, if it
+//      started in an earlier share, is kept (the head), and so is the
+//      open row at the share's end (the tail);
+//   4. the tails go through a segmented inclusive scan over the groups,
+//      keyed by row, in a fixed order (shuffles in a warp, then the
+//      warps' totals in ascending order), so a group's head adds the
+//      tails before it of the same row;
+//   5. a row that ends in the block and started in it is stored; the
+//      block's first row, if it started in an earlier block, and its
+//      open last row are written as float32 pieces to `carry` and summed
+//      by k2b_combine.
+// Wide rows of more than 32 vectors are walked a column chunk (32 vectors
+// of each group) at a time.
+template <typename T, int VEC, bool STAGED>
+__global__ void __launch_bounds__(kK2bThreads, 4)
+k2b_kernel(const T* __restrict__ msgs, const int32_t* __restrict__ off,
+           T* __restrict__ out, int* tickets, float* carry, int n, int d,
+           int lanes, int items, int n_blocks) {
+  // Dynamic: off[i0..i1], then (STAGED) from the next 16-byte boundary
+  // the block's message rows as loaded.
+  extern __shared__ __align__(16) int s_off[];
+  constexpr int kW = STAGED ? VEC : 32 * VEC;  // a warp's last group
+  // Staged rows go out through shared memory: row m's sums replace
+  // off[i0 + m + 1] (read by the one lane that ends row m), and the block
+  // stores its rows at the end, neighbouring lanes on neighbouring rows.
+  static_assert(!STAGED || VEC * sizeof(T) <= 4, "a staged row fits a slot");
+  __shared__ int s_i[2], s_off_i0;
+  __shared__ int s_wkey[kK2bWarps];
+  __shared__ int s_ma[kK2bThreads];
+  __shared__ float s_wval[kK2bWarps][kW];
+  __shared__ int s_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x;
+  const int off0 = __ldg(off);
+  const long long k0 = (long long)b * items;
+
+  // 1. The block's ends on the path (k1 past the end gives i1 = n).
+  if (warp < 2) {
+    int off_at;
+    const int i = diag_search(off, n, off0, k0 + (warp ? items : 0), off_at);
+    if (lane == 0) {
+      s_i[warp] = i;
+      if (!warp) s_off_i0 = off_at;
+    }
+  }
+  const long long total = (long long)n + (__ldg(off + n) - off0);
+  if (k0 >= total) return;  // the grid is a bound: E + n items
+  const long long k1 = min(k0 + items, total);
+  __syncthreads();
+  const int i0 = s_i[0], i1 = s_i[1], off_i0 = s_off_i0;
+  const int j0 = off0 + (int)(k0 - i0), j1 = off0 + (int)(k1 - i1);
+  // A row that ends here, started in the previous block and has at most
+  // items / 8 edges there is read whole by this block, which starts at
+  // its first item: the previous block keeps no piece of it.
+  const int reread = items / 8;
+  const bool head_in = i0 < i1 && off_i0 < j0;
+  const bool head_whole =
+      head_in && ((long long)off_i0 - off0 + i0) / items == b - 1 &&
+      j0 - off_i0 <= reread;
+  const long long ks = head_whole ? (long long)(off_i0 - off0) + i0 : k0;
+  const int js = head_whole ? off_i0 : j0;
+
+  // 2. Offsets (and staged rows) into shared memory.
+  stage(s_off, off + i0, i1 - i0 + 1);
+  T* s_val = reinterpret_cast<T*>(s_off + ((i1 - i0 + 1 + 3) & ~3));
+  if constexpr (STAGED)
+    stage(s_val, msgs + (long long)js * VEC, (j1 - js) * VEC);
+  wait_async_all();
+  __syncthreads();
+
+  // 3. This group's share [ra, rb) of the block's items [ks, k1), as
+  // items from ks: rows i0 + ma .. i0 + mb, edges [ea, eb).
+  const int G = STAGED ? 1 : lanes;
+  const int groups = kK2bThreads / G;
+  const int g = tid / G, gl = tid % G;
+  const int nk = (int)(k1 - ks), rows = i1 - i0;
+  const int per = (nk + groups - 1) / groups;
+  const int ra = min(g * per, nk), rb = min(ra + per, nk);
+  // Each group finds its share's first row; its last is the next share's.
+  const int ma = diag_search_smem(s_off, 0, rows, js, ra);
+  if (gl == 0) s_ma[g] = ma;
+  __syncthreads();
+  const int mb = g + 1 < groups ? s_ma[g + 1] : rows;
+  const int ea = js + (ra - ma), eb = js + (rb - mb);
+  // Row ma ends in this share but started before it: a head.
+  const bool split_head = ma < mb && s_off[ma] < ea;
+  const bool block_head = head_in && !head_whole;
+  // The open last row leaves a piece unless the next block reads it whole.
+  const int off_i1 = s_off[rows];
+  bool block_tail = i1 < n && off_i1 < j1;
+  int tail_end = 0;
+  if (block_tail) {
+    tail_end = __ldg(off + i1 + 1);
+    const long long next = (long long)(b + 1) * items;
+    block_tail = !(((long long)off_i1 - off0 + i1) / items == b &&
+                   ((long long)tail_end - off0 + i1) / items == b + 1 &&
+                   off0 + (next - i1) - off_i1 <= reread);
+  }
+  if constexpr (STAGED) __syncthreads();  // the searches read every slot
+
+  const int nv = STAGED ? 1 : d / VEC;  // vectors a lane group covers
+  for (int v0 = 0; v0 < nv; v0 += G) {
+    const int v = v0 + gl;
+    const bool on = v < nv;
+    const int c0 = STAGED ? 0 : v * VEC;
+    T* const out_c = out + (long long)i0 * d + c0;  // row i0, this lane
+    float acc[VEC], head[VEC];
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) acc[q] = head[q] = 0.0f;
+    int r = ma;
+    int next_end = r < mb ? s_off[r + 1] : INT_MAX;
+    // Row i0 + r is done: kept as the head, or stored.
+    auto finish = [&]() {
+      if (r == ma && split_head) {
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) head[q] = acc[q];
+      } else if (on) {
+        if constexpr (STAGED) put_slot<T, VEC>(s_off + r + 1, acc);
+        else store_vec<VEC>(out_c + (long long)r * d, acc);
+      }
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) acc[q] = 0.0f;
+      ++r;
+      next_end = r < mb ? s_off[r + 1] : INT_MAX;
+    };
+    // kK2bIn edges at a time, loaded before any is added: from device
+    // memory, or shared memory (STAGED).
+    const T* base = msgs + c0;
+    for (int e = ea; e < eb; e += kK2bIn) {
+      std::conditional_t<STAGED, Staged<T, VEC>, Cols<T, VEC>> x[kK2bIn];
+#pragma unroll
+      for (int u = 0; u < kK2bIn; ++u) {
+        if (!on || e + u >= eb) continue;
+        if constexpr (STAGED) x[u].load(s_val + (e + u - js) * VEC);
+        else x[u].load(base + (long long)(e + u) * d);
+      }
+#pragma unroll
+      for (int u = 0; u < kK2bIn; ++u) {
+        if (e + u >= eb) break;
+        while (next_end <= e + u) finish();
+        if (on) x[u].add_to(acc);
+      }
+    }
+    while (r < mb) finish();
+
+    // 4. Segmented inclusive scan of the tails (row mb), in place in
+    // acc, over the groups.
+    const int key = mb;
+    for (int o = G; o < 32; o <<= 1) {
+      const int ku = __shfl_up_sync(kAll, key, o);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) {
+        const float u = __shfl_up_sync(kAll, acc[q], o);
+        if (lane >= o && ku == key) acc[q] = u + acc[q];
+      }
+    }
+    const bool warp_last = lane >= 32 - G;
+    if (warp_last) {
+      s_wkey[warp] = key;
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) s_wval[warp][gl * VEC + q] = acc[q];
+    }
+    __syncthreads();
+    {
+      float pre[VEC];
+      bool have = false;
+      for (int w = 0; w < warp; ++w) {
+        if (s_wkey[w] != key) continue;
+#pragma unroll
+        for (int q = 0; q < VEC; ++q)
+          pre[q] = have ? pre[q] + s_wval[w][gl * VEC + q]
+                        : s_wval[w][gl * VEC + q];
+        have = true;
+      }
+      if (have) {
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) acc[q] = pre[q] + acc[q];
+      }
+    }
+    __syncthreads();
+    if (warp_last) {
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) s_wval[warp][gl * VEC + q] = acc[q];
+    }
+    __syncthreads();
+    // A head adds the scan just before its group: the tails of its row.
+#pragma unroll
+    for (int q = 0; q < VEC; ++q) {
+      float prev = __shfl_up_sync(kAll, acc[q], G);
+      if (lane < G) prev = warp > 0 ? s_wval[warp - 1][gl * VEC + q] : 0.0f;
+      if (g > 0) head[q] = prev + head[q];
+    }
+
+    // 5. Heads: stored, or the block's head piece; the last group holds
+    // the block's tail piece.
+    if (split_head && on) {
+      if (ma == 0 && block_head) {
+        float* p = carry + 2LL * b * d + c0;
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) p[q] = head[q];
+      } else if constexpr (STAGED) {
+        put_slot<T, VEC>(s_off + ma + 1, head);
+      } else {
+        store_vec<VEC>(out_c + (long long)ma * d, head);
+      }
+    }
+    if (g == groups - 1 && block_tail && on) {
+      float* p = carry + (2LL * b + 1) * d + c0;
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) p[q] = acc[q];
+    }
+    __syncthreads();  // s_wval is reused by the next chunk
+  }
+  if constexpr (STAGED) {
+    for (int m = tid + block_head; m < rows; m += kK2bThreads) {
+      const T* slot = reinterpret_cast<const T*>(s_off + m + 1);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q)
+        out[(long long)(i0 + m) * VEC + q] = slot[q];
+    }
+  }
+
+  if (!block_head && !block_tail) return;
+  __threadfence();
+  __syncthreads();
+  if (block_head)
+    k2b_combine<T>(i0, (int)(((long long)off_i0 - off0 + i0) / items), b,
+                   out, tickets, carry, d, n_blocks, &s_last);
+  if (block_tail) {
+    const long long first = (long long)off_i1 - off0 + i1;
+    const long long end = (long long)tail_end - off0 + i1;
+    k2b_combine<T>(i1, (int)(first / items), (int)(end / items), out,
+                   tickets, carry, d, n_blocks, &s_last);
   }
 }
 
@@ -714,14 +1159,6 @@ int col_lanes(int d) {
   int g = 1;
   while (g < d && g < 32) g <<= 1;
   return g;
-}
-
-// Threads per block for `items` edges or rows of g lanes each: whole
-// warps, at most kMaxThreads.
-int block_threads(int items, int g) {
-  long long t = (long long)items * g;
-  if (t > kMaxThreads) t = kMaxThreads;
-  return (int)((t + 31) / 32 * 32);
 }
 
 }  // namespace
@@ -811,29 +1248,81 @@ extern "C" int segsum_launch(const void* msgs, const void* dst, void* out,
   return (int)cudaGetLastError();
 }
 
-// K2b.  offsets [n + 1] int32, non-decreasing: row r sums msgs rows
-// [offsets[r], offsets[r + 1]).
-extern "C" int segsum_sorted_launch(const void* msgs, const void* offsets,
-                                    void* out, int n, int d, int block_n,
-                                    int dtype, void* stream) {
-  if (n <= 0 || d <= 0 || block_n <= 0) return -1;
-  const long long blocks = ((long long)n + block_n - 1) / block_n;
-  if (blocks > 0x7fffffffLL) return -1;
-  const int g = col_lanes(d);
-  const int threads = block_threads(block_n, g);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* off = static_cast<const int32_t*>(offsets);
-  if (dtype == 0) {
-    segsum_sorted_kernel<float><<<(unsigned)blocks, threads, 0, st>>>(
-        static_cast<const float*>(msgs), off, static_cast<float*>(out), n, d,
-        block_n, g);
-  } else if (dtype == 1) {
-    segsum_sorted_kernel<__nv_bfloat16>
-        <<<(unsigned)blocks, threads, 0, st>>>(
-            static_cast<const __nv_bfloat16*>(msgs), off,
-            static_cast<__nv_bfloat16*>(out), n, d, block_n, g);
-  } else {
-    return -1;
+// K2b.  offsets [n + 1] int32, non-decreasing, in [0, E]: row r sums msgs
+// rows [offsets[r], offsets[r + 1]).  One block per `items` items of the
+// merge path; n_blocks = ceil((n + E) / items), a bound (blocks past the
+// real count return at once).  narrow: rows of d * sizeof(T) <= 4 bytes,
+// vec == d, staged in shared memory; else vec is 1 or 16 bytes' worth
+// (every row 16-byte aligned) and `lanes` (a power of two <= 32) lanes
+// cover a row's d / vec vectors.  tickets: int32, at least levels *
+// n_blocks (a level per factor of 16 in n_blocks), all 0; the kernel
+// leaves them 0.  carry: float32 [2 * n_blocks, d].  smem: the dynamic
+// shared memory, as segsum.py's k2b_geometry counts it.
+namespace {
+
+template <typename T, int VEC, bool STAGED>
+int k2b_launch(const void* msgs, const int32_t* off, void* out, int* tickets,
+               float* carry, int n, int d, int lanes, int items,
+               long long n_blocks, int smem, cudaStream_t st) {
+  auto kernel = k2b_kernel<T, VEC, STAGED>;
+  if (smem > 32 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
   }
+  kernel<<<(unsigned)n_blocks, kK2bThreads, smem, st>>>(
+      static_cast<const T*>(msgs), off, static_cast<T*>(out), tickets, carry,
+      n, d, lanes, items, (int)n_blocks);
+  return 0;
+}
+
+}  // namespace
+
+extern "C" int segsum_sorted_launch(const void* msgs, const void* offsets,
+                                    void* out, void* tickets, void* carry,
+                                    int n, int d, int dtype, int narrow,
+                                    int vec, int lanes, int items,
+                                    long long n_blocks, int smem,
+                                    void* stream) {
+  const int size = dtype == 0 ? 4 : 2;
+  if (n <= 0 || d <= 0 || items <= 0 || n_blocks <= 0 ||
+      n_blocks > 0x7fffffffLL || smem < 4 * (items + 1) ||
+      (dtype != 0 && dtype != 1))
+    return -1;
+  if (narrow ? (vec != d || d * size > 4 || lanes != 1)
+             : ((vec != 1 && vec != 16 / size) || d % vec || lanes < 1 ||
+                lanes > 32 || (lanes & (lanes - 1))))
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* tk = static_cast<int*>(tickets);
+  float* cr = static_cast<float*>(carry);
+  const int32_t* off = static_cast<const int32_t*>(offsets);
+  int rc;
+  if (narrow) {
+    rc = dtype == 0 ? k2b_launch<float, 1, true>(msgs, off, out, tk, cr, n, d,
+                                                 1, items, n_blocks, smem, st)
+         : d == 1   ? k2b_launch<__nv_bfloat16, 1, true>(
+                        msgs, off, out, tk, cr, n, d, 1, items, n_blocks,
+                        smem, st)
+                    : k2b_launch<__nv_bfloat16, 2, true>(
+                        msgs, off, out, tk, cr, n, d, 1, items, n_blocks,
+                        smem, st);
+  } else if (dtype == 0) {
+    rc = vec == 4 ? k2b_launch<float, 4, false>(msgs, off, out, tk, cr, n, d,
+                                                lanes, items, n_blocks, smem,
+                                                st)
+                  : k2b_launch<float, 1, false>(msgs, off, out, tk, cr, n, d,
+                                                lanes, items, n_blocks, smem,
+                                                st);
+  } else {
+    rc = vec == 8
+             ? k2b_launch<__nv_bfloat16, 8, false>(msgs, off, out, tk, cr, n,
+                                                   d, lanes, items, n_blocks,
+                                                   smem, st)
+             : k2b_launch<__nv_bfloat16, 1, false>(msgs, off, out, tk, cr, n,
+                                                   d, lanes, items, n_blocks,
+                                                   smem, st);
+  }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

@@ -8,8 +8,9 @@ isect/   - bitset intersection: AND + popcount over hyperedge member
            rows, per pair or triple, rows pre-gathered or gathered in
            the kernel (CUDA, ``csrc/isect.cu``).
 segsum/  - segment sum of message rows by destination id, in any order
-           (atomics) or dst-sorted (one block per tile of rows, no
-           atomics) (CUDA, ``csrc/segsum.cu``).
+           (tile buckets summed in shared memory) or dst-sorted (equal
+           shares of the merge path of row ends and edges, bitwise
+           repeatable) (CUDA, ``csrc/segsum.cu``).
 flash/   - attention forward with an online softmax, causal or
            bidirectional, head dim up to 256 (CUDA, ``csrc/flash.cu``).
 

@@ -35,15 +35,21 @@ def segment_sum_mxu(
     a CPU one.  JAX's ``interpret`` flag has no counterpart.
 
     ``sorted_dst=True`` says ``dst`` is non-decreasing (a
-    ``HyperGraph.sorted_by_dst`` product), which is checked here (one
-    host sync; a ``ValueError`` if not).  The CSR row offsets are then
-    made here, and the sorted form (K2b) reads only each output tile's
-    own edges, ``block_n`` rows per thread block, with the same bits on
-    every run.  Otherwise the unsorted form (K2a) buckets the edges by
-    output tile of ``block_n`` rows and sums each tile in shared memory,
-    ``block_e`` edges per work item, in an order that atomics choose:
-    its last bits may change between runs.  Nothing is padded: the
-    kernels take any ``E`` and ``num_segments``.
+    ``HyperGraph.sorted_by_dst`` product).  The CSR row offsets are made
+    here, and both are checked in one host sync (a ``ValueError`` if
+    not) before the kernel reads them: offsets outside ``[0, E]`` or
+    decreasing would read past ``msgs`` and could leave K2b's ticket
+    buffer dirty for later calls.  The sorted form (K2b) gives each
+    thread block ``block_e`` items of the merge path of row ends and
+    edges (more for rows under 512 bytes), so a long row is cut across
+    blocks and its pieces added in a fixed order: the same bits on every
+    run.
+    Otherwise the unsorted form (K2a) buckets the edges by output tile of
+    ``block_n`` rows and sums each tile in shared memory, ``block_e``
+    edges per work item, in an order that atomics choose: its last bits
+    may change between runs.  ``block_n`` serves K2a only, ``block_e``
+    both.  Nothing is padded: the kernels take any ``E`` and
+    ``num_segments``.
 
     Where it differs from the JAX package's ``segment_sum_mxu``, it
     follows ``segment_sum_ref`` (``jax.ops.segment_sum``), the oracle the
@@ -73,8 +79,12 @@ def segment_sum_mxu(
     if not sorted_dst:
         return segsum_cuda(msgs, dst, num_segments, block_n=block_n,
                            block_e=block_e)
-    if not bool((dst[1:] >= dst[:-1]).all()):
+    off = csr_row_offsets(dst, num_segments)
+    # Sorted ids give valid offsets; the offsets' own check costs no
+    # second sync.
+    valid = ((dst[1:] >= dst[:-1]).all() & (off[1:] >= off[:-1]).all()
+             & (off[0] >= 0) & (off[-1] <= dst.shape[0]))
+    if not bool(valid):
         raise ValueError("sorted_dst=True needs non-decreasing dst ids "
                          "(see HyperGraph.sorted_by_dst)")
-    return segsum_sorted_cuda(msgs, csr_row_offsets(dst, num_segments),
-                              num_segments, block_n=block_n)
+    return segsum_sorted_cuda(msgs, off, num_segments, block_e=block_e)

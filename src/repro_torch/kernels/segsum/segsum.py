@@ -8,8 +8,10 @@ Two forms, as the two bodies of the JAX package's
   tile and each tile summed in shared memory (``k2a_geometry`` sizes
   its launches and scratch);
 * ``segsum_sorted_cuda`` (K2b, the sorted body with its block-sparse
-  skip): ids non-decreasing, given as CSR row offsets ``[N + 1]``, so
-  each output tile reads only its own edges.
+  skip): ids non-decreasing, given as CSR row offsets ``[N + 1]``; each
+  thread block takes an equal share of the merge path of row ends and
+  edges, so long rows are cut across blocks (``k2b_geometry`` sizes its
+  grid, scratch and shared memory).
 
 Both wrap the hand-written Hopper kernels in ``repro_torch/csrc/segsum.cu``
 (see the note in the source).  ``segsum_plain`` / ``segsum_sorted_plain``
@@ -172,6 +174,90 @@ def k2a_geometry(n_edges: int, n: int, d: int, itemsize: int, block_n: int,
         slots * n_slices * block_n * d_slice)
 
 
+# K2b's constants, as in csrc/segsum.cu (kK2bThreads, 1 << kLgFan), and
+# the most dynamic shared memory a block may opt into (227 KB less the
+# kernel's static arrays, at most 8 KB).
+K2B_THREADS = 256
+K2B_FAN_IN = 16
+K2B_SMEM_LIMIT = 232448 - 9 * 1024
+# Blocks below which K2b's geometry halves the items a block takes (down
+# to block_e): two for each SM of an H100.
+K2B_MIN_BLOCKS = 256
+
+
+class K2bGeometry(NamedTuple):
+    """What ``segsum_sorted_cuda`` sizes K2b's launch and scratch by (see
+    ``k2b_geometry``)."""
+    narrow: bool       # rows of at most 4 bytes: staged, one lane a share
+    vec: int           # elements a lane holds per edge
+    lanes: int         # lanes per share of a block's items
+    items: int         # merge-path items (row ends and edges) per block
+    blocks: int        # the grid: >= the real count
+    levels: int        # ticket levels of the carries' combine tree
+    smem_bytes: int    # dynamic shared memory per block
+    carry_floats: int  # float32 pieces: a head and a tail per block
+
+
+@functools.lru_cache(maxsize=256)
+def k2b_geometry(n_edges: int, n: int, d: int, itemsize: int, block_e: int,
+                 aligned: bool = True) -> K2bGeometry:
+    """K2b's launch geometry and scratch sizes for ``msgs [n_edges, d]``
+    of ``itemsize`` bytes into ``n`` rows, ``block_e`` merge-path items
+    per block for the widest rows.  ``aligned``: the message base address
+    is a multiple of 16 bytes.
+
+    * Narrow rows (``d * itemsize <= 4``: float32 D = 1, bfloat16 D = 1
+      or 2) are staged in shared memory and walked one lane per share,
+      ``vec = d``; wider rows load 16 bytes at a time (4 float32, 8
+      bfloat16) when every row starts on a 16-byte boundary, else one
+      element, by groups of ``lanes`` lanes (the vectors of a row rounded
+      up to a power of two, at most 32).
+    * A block takes ``block_e`` items times 1,024 bytes over the row's
+      bytes for wide rows, 64 bytes over them for narrow ones (1 to 16
+      times), so that its fixed steps (the searches, the staging, the
+      carries) weigh little against its loads; halved (not below
+      ``block_e``) while the grid would have fewer than
+      ``K2B_MIN_BLOCKS`` blocks.
+    * Shared memory holds the block's row offsets and, for narrow rows,
+      its message rows after them: ``items`` entries of at most 4 bytes
+      (an offset or a row), and the ``items // 8`` edges of a row that
+      the block reads again whole (its start in the previous block).
+    * The grid is ``ceil((n + n_edges) / items)``: offsets that drop
+      edges leave blocks past the real count, which return at once.
+    * The combine tree of a row cut across blocks has a ticket level per
+      factor of ``K2B_FAN_IN`` in the block count.
+    """
+    if block_e <= 0:
+        raise ValueError(f"block_e must be positive, got {block_e}")
+    row_bytes = d * itemsize
+    narrow = row_bytes <= 4
+    if narrow:
+        vec, lanes = d, 1
+    else:
+        vec = 16 // itemsize if aligned and row_bytes % 16 == 0 else 1
+        lanes = min(32, 1 << (d // vec - 1).bit_length())
+    scale = (64 if narrow else 1024) // row_bytes
+    items = block_e * max(1, min(16, scale))
+    while items > block_e and -(-(n + n_edges) // items) < K2B_MIN_BLOCKS:
+        items = max(block_e, items // 2)
+    blocks = -(-(n + n_edges) // items)
+    if blocks >= 2**31:
+        raise ValueError(f"{n + n_edges} items need {blocks} blocks of "
+                         f"{items}; the grid takes fewer than 2**31")
+    levels = 0
+    while K2B_FAN_IN ** levels < blocks:
+        levels += 1
+    if narrow:
+        smem = (4 * items + 16 + items // 8 * row_bytes + 15) // 16 * 16
+    else:
+        smem = 4 * ((items + 1 + 3) // 4 * 4)
+    if smem > K2B_SMEM_LIMIT:
+        raise ValueError(f"block_e {block_e} needs {smem} bytes of shared "
+                         f"memory a block; at most {K2B_SMEM_LIMIT}")
+    return K2bGeometry(narrow, vec, lanes, items, blocks, levels, smem,
+                       2 * blocks * d)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     from repro_torch.kernels import _nvcc
 
@@ -182,8 +268,9 @@ def _kernel_lib() -> ctypes.CDLL:
             ctypes.c_longlong] + [ctypes.c_int] * 8 + [
             ctypes.c_longlong] * 3 + [ctypes.c_void_p]
         lib.segsum_launch.restype = ctypes.c_int
-        lib.segsum_sorted_launch.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.segsum_sorted_launch.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_void_p]
         lib.segsum_sorted_launch.restype = ctypes.c_int
     return lib
 
@@ -248,21 +335,47 @@ def segsum_cuda(msgs: torch.Tensor, dst: torch.Tensor, num_segments: int,
 segsum_cuda.launches = 0
 
 
+# K2b's ticket buffers, zeroed, one per (device, stream): the last block
+# to arrive at a ticket resets it, so a buffer is zero again when its
+# call ends and the next call on its stream (in order after it) needs no
+# memset (which cost float32 D = 1 a tenth of its time).  The invariant
+# holds only if every call finishes on offsets that keep the contract of
+# ``segsum_sorted_cuda``: a launch that fails drops its stream's buffer,
+# so the next call starts from a new zeroed one.  A buffer too small for
+# a call is replaced by a larger one.
+_K2B_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _k2b_tickets(dev: torch.device, stream: int, count: int) -> torch.Tensor:
+    buf = _K2B_TICKETS.get((dev.index, stream))
+    if buf is None or buf.numel() < count:
+        buf = torch.zeros(max(count, 4096), dtype=torch.int32, device=dev)
+        _K2B_TICKETS[dev.index, stream] = buf
+    return buf
+
+
 def segsum_sorted_cuda(msgs: torch.Tensor, row_offsets: torch.Tensor,
                        num_segments: int, *,
-                       block_n: int = 128) -> torch.Tensor:
+                       block_e: int = 512) -> torch.Tensor:
     """K2b through the CUDA kernel: same arguments and result as
-    ``segsum_sorted_plain``; ``block_n`` rows per thread block.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``segsum_sorted_cuda.launches``) or raises.
+    ``segsum_sorted_plain``; ``block_e`` merge-path items (row ends and
+    edges) per thread block, more for rows under 512 bytes
+    (``k2b_geometry``).  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel (counted in ``segsum_sorted_cuda.launches``)
+    or raises.
 
     ``row_offsets`` must be non-decreasing and lie in ``[0, E]``: the
     kernel reads the rows they name unchecked (``segment_sum_mxu`` makes
-    them so).  Each output element is folded in edge order by one lane,
-    so the result is the same bits on every run."""
+    them so and checks them).  Offsets that break this may also leave
+    the stream's ticket buffer (``_K2B_TICKETS``) nonzero, and every
+    later call on that stream would then sum wrongly with no error; a
+    launch that returns an error drops the buffer.  Each block folds its edges in order and adds the pieces of
+    a row cut across lane groups or blocks in a fixed order, whatever
+    order the blocks run in, so the result is the same bits on every
+    run."""
     if msgs.device.type == "cpu":
         return segsum_sorted_plain(msgs, row_offsets, num_segments)
-    dev = _check_common(msgs, num_segments, block_n, "block_n")
+    dev = _check_common(msgs, num_segments, block_e, "block_e")
     check_operand("row_offsets", row_offsets, torch.int32, 1, dev)
     if row_offsets.shape[0] != num_segments + 1:
         raise ValueError(f"row_offsets has {row_offsets.shape[0]} entries, "
@@ -271,12 +384,19 @@ def segsum_sorted_cuda(msgs: torch.Tensor, row_offsets: torch.Tensor,
     out = torch.empty(num_segments, d, dtype=msgs.dtype, device=dev)
     if e == 0 or num_segments == 0 or d == 0:
         return out.zero_()
+    geo = k2b_geometry(e, num_segments, d, msgs.element_size(), block_e,
+                       msgs.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tickets = _k2b_tickets(dev, stream, geo.levels * geo.blocks)
+    carry = torch.empty(geo.carry_floats, dtype=torch.float32, device=dev)
     rc = _kernel_lib().segsum_sorted_launch(
         msgs.data_ptr(), row_offsets.data_ptr(), out.data_ptr(),
-        int(num_segments), int(d), int(block_n), DTYPES[msgs.dtype],
-        torch.cuda.current_stream(dev).cuda_stream,
+        tickets.data_ptr(), carry.data_ptr(), int(num_segments), int(d),
+        DTYPES[msgs.dtype], int(geo.narrow), geo.vec, geo.lanes, geo.items,
+        geo.blocks, geo.smem_bytes, stream,
     )
     if rc != 0:
+        _K2B_TICKETS.pop((dev.index, stream), None)
         raise RuntimeError(f"segsum_sorted kernel launch failed: error {rc}")
     segsum_sorted_cuda.launches += 1
     return out

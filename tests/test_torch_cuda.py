@@ -44,11 +44,13 @@ from repro_torch.kernels.flash import (
 )
 from repro_torch.kernels.flash.flash import DTYPES as FLASH_DTYPES
 from repro_torch.kernels.flash.flash import _kernel_lib as flash_lib
+from repro_torch.kernels.segsum import segsum as segsum_module
 from repro_torch.kernels.segsum import (
     segment_sum_mxu,
     segsum_cuda,
     segsum_plain,
     segsum_sorted_cuda,
+    segsum_sorted_plain,
 )
 from repro_torch.sparse.segment import MONOIDS
 
@@ -446,6 +448,119 @@ def test_cuda_segsum_edge_cases(card, sorted_dst):
     assert got.ravel().tolist() == [1.0, float("inf"), 2.0]
 
 
+# Row lengths of K2b's skewed cases: every edge into one row; Apache's
+# vertex side in shape (one row of 6,465 edges beside rows of about 130);
+# short rows, a tenth of them empty.
+K2B_SKEW = {
+    "one segment": lambda rng: np.array([300_000, 0, 0]),
+    "a 6,465-edge row beside short ones": lambda rng: np.concatenate(
+        [rng.integers(1, 260, 1600), [6465], rng.integers(1, 260, 1700)]),
+    "short rows, some empty": lambda rng: rng.integers(0, 8, 40_000),
+}
+
+
+def _k2b_case(card, case, d, dtype, rng):
+    """(offsets, E, integer-valued msgs, random msgs) of a skewed case,
+    with edges before row 0 and after the last row (dropped)."""
+    lengths = K2B_SKEW[case](rng)
+    off = 5 + np.concatenate([[0], np.cumsum(lengths)])
+    e = int(off[-1]) + 9
+    ints = torch.as_tensor(rng.integers(-8, 9, (e, d)).astype(np.float32),
+                           device=card).to(dtype)
+    floats = torch.as_tensor(rng.standard_normal((e, d)).astype(np.float32),
+                             device=card).to(dtype)
+    return torch.as_tensor(off.astype(np.int32), device=card), e, ints, floats
+
+
+def _k2b_exact(msgs, offsets, n):
+    """The sums in float64, rounded once to the type of msgs."""
+    off = offsets.long().cpu()
+    ids = torch.repeat_interleave(torch.arange(n), off.diff())
+    out = torch.zeros(n, msgs.shape[1], dtype=torch.float64)
+    out.index_add_(0, ids, msgs[int(off[0]):int(off[-1])].cpu().double())
+    return out.to(msgs.dtype).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K2B_SKEW))
+@pytest.mark.parametrize("d", [1, 2, 3, 5, 7, 8, 64, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_segsum_sorted_skewed_rows(card, case, d, dtype):
+    """K2b on skewed rows, narrow and wide, aligned and not: bitwise the
+    plain version on integer-valued messages, within tolerance of the
+    float64 sums on random ones, the same bits over two runs, one launch
+    a call.  The unaligned base (one element past a 16-byte boundary)
+    takes the element-wise loads."""
+    rng = np.random.default_rng(d + len(case))
+    offsets, e, ints, floats = _k2b_case(card, case, d, dtype, rng)
+    n = offsets.numel() - 1
+    before = segsum_sorted_cuda.launches
+    assert torch.equal(segsum_sorted_cuda(ints, offsets, n),
+                       segsum_sorted_plain(ints, offsets, n))
+    flat = torch.empty(e * d + 1, dtype=dtype, device=card)
+    unaligned = flat[1:].view(e, d)
+    unaligned.copy_(floats)
+    tol = _segsum_tol(e, n, dtype)
+    for m in (floats, unaligned):
+        got = segsum_sorted_cuda(m, offsets, n)
+        assert torch.equal(got, segsum_sorted_cuda(m, offsets, n))
+        torch.testing.assert_close(got.float(), _k2b_exact(m, offsets, n)
+                                   .to(card), **tol)
+    torch.cuda.synchronize()
+    assert segsum_sorted_cuda.launches == before + 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_e", [1, 64, 256, 2048])
+@pytest.mark.parametrize("d", [1, 64])
+def test_cuda_segsum_sorted_block_e(card, block_e, d):
+    """K2b through ``segment_sum_mxu(sorted_dst=True)`` at other block
+    sizes (block_e = 1: a block per item or two, so the long row's pieces
+    climb four or five levels of the combine tree): bitwise the plain
+    version on integer-valued messages, repeatable, tickets zeroed
+    again."""
+    rng = np.random.default_rng(block_e)
+    lengths = np.concatenate([rng.integers(0, 9, 3000), [70_000],
+                              rng.integers(0, 9, 3000)])
+    ids = torch.as_tensor(np.repeat(np.arange(lengths.size), lengths)
+                          .astype(np.int32), device=card)
+    msgs = torch.as_tensor(rng.integers(-8, 9, (ids.numel(), d)).astype(
+        np.float32), device=card)
+    got = segment_sum_mxu(msgs, ids, lengths.size, sorted_dst=True,
+                          block_e=block_e)
+    assert torch.equal(got, segsum_plain(msgs, ids, lengths.size))
+    assert torch.equal(got, segment_sum_mxu(msgs, ids, lengths.size,
+                                            sorted_dst=True, block_e=block_e))
+    # The kernel leaves its ticket buffer as it found it: zeroed.
+    assert not any(t.any() for t in segsum_module._K2B_TICKETS.values())
+
+
+@pytest.mark.cuda
+def test_cuda_segsum_sorted_failed_launch_drops_its_tickets(card,
+                                                            monkeypatch):
+    """A K2b launch that returns an error raises and drops its stream's
+    ticket buffer, so the next call starts from a new zeroed one."""
+    msgs = torch.ones(6, 2, device=card)
+    off = torch.tensor([0, 2, 4, 6], dtype=torch.int32, device=card)
+    assert torch.equal(segsum_sorted_cuda(msgs, off, 3),
+                       torch.full((3, 2), 2.0, device=card))
+    key = (msgs.device.index, torch.cuda.current_stream(card).cuda_stream)
+    assert key in segsum_module._K2B_TICKETS
+
+    class Failing:
+        @staticmethod
+        def segsum_sorted_launch(*args):
+            return 1
+
+    monkeypatch.setattr(segsum_module, "_kernel_lib", lambda: Failing)
+    with pytest.raises(RuntimeError, match="error 1"):
+        segsum_sorted_cuda(msgs, off, 3)
+    assert key not in segsum_module._K2B_TICKETS
+    monkeypatch.undo()
+    assert torch.equal(segsum_sorted_cuda(msgs, off, 3),
+                       torch.full((3, 2), 2.0, device=card))
+
+
 @pytest.mark.cuda
 def test_cuda_segsum_wrapper_rejects_what_the_kernel_does_not_take(card):
     msgs = torch.zeros(6, 2, device=card)
@@ -460,6 +575,8 @@ def test_cuda_segsum_wrapper_rejects_what_the_kernel_does_not_take(card):
         segsum_cuda(msgs, ids.cpu(), 3)
     with pytest.raises(ValueError, match="num_segments"):
         segsum_sorted_cuda(msgs, ids[:3], 3)
+    with pytest.raises(ValueError, match="block_e"):
+        segsum_sorted_cuda(msgs, ids[:4], 3, block_e=0)
 
 
 def _flash_qkv(rng, dev, dtype, sq, sk, d, b=2, h=3):

@@ -11,8 +11,12 @@ outside ``[0, N)``, an empty input and a non-finite message (where the
 port follows the oracle and the TPU kernel does not).  K2a's launch
 geometry is checked here, and its block logic (count, plan, scatter,
 per-item partials, combine tree) through a plain-torch emulation held
-bitwise against ``segsum_plain``.  The card-only tests of the kernels
-are in ``test_torch_cuda.py``.
+bitwise against ``segsum_plain``; K2b's likewise (the merge-path
+searches, each block's shares, rows and pieces, the segmented scan and
+the carries' combine tree), held bitwise against ``segsum_sorted_plain``
+on integer-valued messages and within tolerance on random ones, and
+arrival-order free.  The card-only tests of the kernels are in
+``test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -32,8 +36,13 @@ from repro_torch.kernels.segsum import (
 from repro_torch.kernels.segsum.segsum import (
     K2A_FAN_IN,
     K2A_SMEM_BYTES,
+    K2B_FAN_IN,
+    K2B_MIN_BLOCKS,
+    K2B_SMEM_LIMIT,
+    K2B_THREADS,
     _tree_sizes,
     k2a_geometry,
+    k2b_geometry,
 )
 
 SWEEP = [(256, 64, 32), (1000, 300, 64), (512, 128, 128), (77, 13, 8),
@@ -167,6 +176,27 @@ def test_segsum_sorted_rejects_unsorted_ids():
     with pytest.raises(AssertionError):
         j_segsum(jnp.asarray(msgs), jnp.asarray(dst), 10, sorted_dst=True,
                  interpret=True)
+
+
+@pytest.mark.parametrize("bad", ["past E", "decreasing", "below 0"])
+def test_segsum_sorted_checks_its_offsets(monkeypatch, bad):
+    """The sorted form checks the offsets it makes in the same sync as the
+    ids, before the kernel reads them: offsets past ``E``, decreasing or
+    negative raise even where the ids are sorted."""
+    from repro_torch.kernels.segsum import ops as ops_module
+
+    msgs = torch.ones(6, 2)
+    dst = torch.tensor([0, 0, 1, 1, 2, 2], dtype=torch.int32)
+    good = ops_module.csr_row_offsets(dst, 3)
+    broken = {"past E": [0, 2, 4, 7], "decreasing": [0, 4, 2, 6],
+              "below 0": [-1, 2, 4, 6]}[bad]
+    monkeypatch.setattr(ops_module, "csr_row_offsets",
+                        lambda d, n: torch.tensor(broken, dtype=torch.int32))
+    with pytest.raises(ValueError, match="non-decreasing"):
+        segment_sum_mxu(msgs, dst, 3, sorted_dst=True)
+    monkeypatch.setattr(ops_module, "csr_row_offsets", lambda d, n: good)
+    assert torch.equal(segment_sum_mxu(msgs, dst, 3, sorted_dst=True),
+                       torch.full((3, 2), 2.0))
 
 
 def test_segsum_rejects_other_types_and_shapes():
@@ -396,3 +426,311 @@ def test_k2a_block_logic_emulation_equals_plain(case, dtype):
     got = _k2a_emulate(msgs, ids, n, block_n, block_e)
     want = segsum_plain(msgs, ids, n)
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 7, 8, 64, 100, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2b_geometry(d, dtype):
+    """Narrow rows (at most 4 bytes) staged with one lane a share, wider
+    ones in 16-byte vectors only where every row is aligned, lane groups
+    that cover a row's vectors, a grid that covers every item, a ticket
+    level per factor of the fan-in, and shared memory within the budget."""
+    size = DTYPES[dtype][0].itemsize
+    e, n, block_e = 2_838_951, 782_659, 512
+    geo = k2b_geometry(e, n, d, size, block_e)
+    row = d * size
+    assert geo.narrow == (row <= 4)
+    if geo.narrow:
+        assert geo.vec == d and geo.lanes == 1
+    else:
+        assert geo.vec == (16 // size if row % 16 == 0 else 1)
+        nv = d // geo.vec
+        assert geo.lanes in (1, 2, 4, 8, 16, 32)
+        assert geo.lanes >= min(nv, 32) and (geo.lanes == 1
+                                             or geo.lanes // 2 < nv)
+        assert k2b_geometry(e, n, d, size, block_e, aligned=False).vec == 1
+    assert geo.items == block_e * max(1, min(16, (64 if geo.narrow
+                                                   else 1024) // row))
+    assert (geo.blocks - 1) * geo.items < n + e <= geo.blocks * geo.items
+    assert K2B_FAN_IN ** geo.levels >= geo.blocks
+    assert K2B_FAN_IN ** (geo.levels - 1) < geo.blocks
+    if geo.narrow:   # r + 1 offsets, then the other items' rows and a
+        # short row read again
+        assert geo.smem_bytes >= max(
+            4 * ((r + 4) // 4 * 4) + (geo.items - r + geo.items // 8) * row
+            for r in range(geo.items + 1))
+    else:
+        assert geo.smem_bytes == 4 * ((geo.items + 4) // 4 * 4)
+    assert geo.smem_bytes <= K2B_SMEM_LIMIT
+    assert geo.carry_floats == 2 * geo.blocks * d
+    one = k2b_geometry(10, 3, d, size, block_e)
+    assert one.blocks == 1 and one.levels == 0 and one.items == block_e
+    small = k2b_geometry(200_000, 3_000, d, size, block_e)
+    assert small.items == block_e or small.blocks >= K2B_MIN_BLOCKS
+    with pytest.raises(ValueError, match="shared memory"):
+        k2b_geometry(e, n, d, size, 1 << 16)
+    with pytest.raises(ValueError, match="positive"):
+        k2b_geometry(e, n, d, size, 0)
+
+
+K2B_PROBES = 32  # a warp's ballot a round, as in the source
+
+
+def _k2b_search(off, n, k, rounds=None):
+    """``diag_search``: rows that end among the merge path's first ``k``
+    items, ``K2B_PROBES`` probes a round, exactly as the kernel."""
+    off0, lo, hi = off[0], 0, min(k, n)
+    while lo < hi:
+        length = hi - lo
+        fine = length <= K2B_PROBES
+        probes = [lo + q if fine else lo + (q + 1) * length // (K2B_PROBES + 1)
+                  for q in range(K2B_PROBES)]
+        ends = [(not fine or q < length) and off[p + 1] <= off0 + k - p - 1
+                for q, p in enumerate(probes)]
+        cnt = sum(ends)
+        assert ends == [True] * cnt + [False] * (K2B_PROBES - cnt)
+        if rounds is not None:
+            rounds.append(length)
+        next_lo = probes[cnt - 1] + 1 if cnt else lo
+        hi = next_lo if fine else probes[cnt] if cnt < K2B_PROBES else hi
+        lo = next_lo
+    return lo
+
+
+def _k2b_bisect(off, lo, hi, k):
+    """``diag_search_smem``: the same count by bisection over [lo, hi]."""
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if off[mid + 1] <= off[0] + k - mid - 1:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def test_k2b_search_rounds():
+    """The warp search settles DBLP's 782,659 rows in 4 dependent rounds
+    and agrees with bisection and with the merge path walked item by
+    item."""
+    rng = np.random.default_rng(0)
+    n = 782_659
+    off = np.concatenate([[0], np.cumsum(rng.zipf(1.8, n) % 300)]).tolist()
+    total = n + off[-1]
+    for k in [0, 1, total // 3, total // 2, total - 1, total]:
+        rounds = []
+        assert _k2b_search(off, n, k, rounds) == _k2b_bisect(
+            off, 0, min(k, n), k)
+        assert len(rounds) <= 4
+    small = [2, 2, 5, 5, 5, 9]           # offsets[0] > 0, empty rows
+    n = len(small) - 1
+    ends, i, j = [0], 0, small[0]
+    for _ in range(n + small[-1] - small[0]):   # walk the path
+        if i < n and small[i + 1] <= j:
+            i += 1
+        else:
+            j += 1
+        ends.append(i)
+    for k, want in enumerate(ends):
+        assert _k2b_search(small, n, k) == want
+
+
+def _k2b_emulate(msgs, off, n, block_e, order=None):
+    """K2b's block logic in plain torch, as ``csrc/segsum.cu`` runs it:
+    per block the two warp searches, where it starts (earlier, at the
+    first item of a short row it reads whole), its shares (one per lane
+    group),
+    each share's walk (rows stored, head kept, tail left open), the
+    segmented scan of the tails in the kernel's order (shuffle steps in a
+    warp, then earlier warps' totals ascending), heads and the block's
+    pieces, then each piece through the combine tree with tickets.
+    Blocks run in ``order`` (ascending by default); every row must be
+    stored exactly once, and every ticket reset by its last arrival."""
+    e, d = msgs.shape
+    geo = k2b_geometry(e, n, d, msgs.element_size(), block_e)
+    items, lanes = geo.items, geo.lanes
+    groups = K2B_THREADS // lanes
+    per_warp = 32 // lanes
+    x = msgs.float().numpy()
+    zero = np.zeros(d, np.float32)
+    off = [int(v) for v in off]
+    off0, total = off[0], n + off[n] - off[0]
+    out = np.zeros((n, d), np.float32)
+    stored = [0] * n
+    carry, tickets = {}, {}
+
+    def store(r, v):
+        stored[r] += 1
+        out[r] = v
+
+    def combine(row, b_s, b_e, b):
+        cb, level = b, 0
+        while True:
+            sh = 4 * level
+            grp = (cb >> sh) >> 4
+            n_lo, n_hi = max(b_s >> sh, grp << 4), min(b_e >> sh,
+                                                      (grp << 4) + 15)
+            if n_hi == n_lo:
+                level += 1
+                continue
+            rep_lo = max(b_s, n_lo << sh)
+            assert level < geo.levels and rep_lo < geo.blocks
+            key = (level, rep_lo)
+            owner, count = tickets.get(key, (row, 0))
+            assert owner == row                      # one ticket, one row
+            tickets[key] = (row, count + 1)
+            if count != n_hi - n_lo:
+                return
+            del tickets[key]                  # the last arrival resets it
+            acc = zero
+            for m in range(n_lo, n_hi + 1):
+                rep = max(b_s, m << sh)
+                acc = acc + carry[2 * b_e if rep == b_e else 2 * rep + 1]
+            if (b_s >> (sh + 4)) == (b_e >> (sh + 4)):
+                store(row, acc)
+                return
+            carry[2 * rep_lo + 1] = acc
+            cb, level = rep_lo, level + 1
+
+    reread = items // 8
+    for b in order if order is not None else range(geo.blocks):
+        k0 = b * items
+        if k0 >= total:
+            continue
+        k1 = min(k0 + items, total)
+        i0, i1 = _k2b_search(off, n, k0), _k2b_search(off, n, k0 + items)
+        j0, j1 = off0 + k0 - i0, off0 + k1 - i1
+        # A row from the previous block with at most `reread` edges there
+        # is read whole here; the previous block keeps no piece of it.
+        head_in = i0 < i1 and off[i0] < j0
+        whole = (head_in and (off[i0] - off0 + i0) // items == b - 1
+                 and j0 - off[i0] <= reread)
+        ks = off[i0] - off0 + i0 if whole else k0
+        block_head = head_in and not whole
+        block_tail = i1 < n and off[i1] < j1 and not (
+            (off[i1] - off0 + i1) // items == b
+            and (off[i1 + 1] - off0 + i1) // items == b + 1
+            and off0 + (b + 1) * items - i1 - off[i1] <= reread)
+        per = -(-(k1 - ks) // groups)
+        shares = []
+        for g in range(groups):
+            ka = ks + min(g * per, k1 - ks)
+            kb = ks + min((g + 1) * per, k1 - ks)
+            if ka == k1:                       # an empty share at the end
+                shares.append((i1, i1, False, zero, zero))
+                continue
+            ia = _k2b_bisect(off, i0, i1, ka)
+            ib = _k2b_bisect(off, ia, i1, kb)
+            ea, eb = off0 + ka - ia, off0 + kb - ib
+            split = ia < ib and off[ia] < ea
+            acc, head, r = zero, zero, ia
+            for edge in range(ea, eb + 1):
+                while r < ib and (edge == eb or off[r + 1] <= edge):
+                    if r == ia and split:
+                        head = acc
+                    else:
+                        store(r, acc)
+                    acc, r = zero, r + 1
+                if edge < eb:
+                    acc = acc + x[edge]
+            shares.append((ia, ib, split, head, acc))
+        # The scan, all groups at once (elementwise float32, as lanes).
+        keys = np.array([sh[1] for sh in shares])
+        scan = np.stack([sh[4] for sh in shares])
+        lane = np.arange(groups) % per_warp
+        o = 1
+        while o < per_warp:                      # shuffles, in a warp
+            up = np.roll(scan, o, axis=0)
+            hit = (lane >= o) & (np.roll(keys, o) == keys)
+            scan = np.where(hit[:, None], up + scan, scan)
+            o *= 2
+        last = np.arange(8) * per_warp + per_warp - 1
+        within = scan[last]
+        pre, have = np.zeros_like(scan), np.zeros(groups, bool)
+        warp_of = np.arange(groups) // per_warp
+        for w in range(8):                       # earlier warps' totals
+            hit = (warp_of > w) & (keys == keys[last[w]])
+            pre = np.where((hit & have)[:, None], pre + within[w],
+                           np.where(hit[:, None], within[w], pre))
+            have |= hit
+        scan = np.where(have[:, None], pre + scan, scan)
+        for g, (ia, ib, split, head, _) in enumerate(shares):
+            if not split:
+                continue
+            h = scan[g - 1] + head if g > 0 else head
+            if ia == i0 and block_head:
+                carry[2 * b] = h
+            else:
+                store(ia, h)
+        if block_tail:
+            carry[2 * b + 1] = scan[-1]
+        if block_head:
+            combine(i0, (off[i0] - off0 + i0) // items, b, b)
+        if block_tail:
+            combine(i1, (off[i1] - off0 + i1) // items,
+                    (off[i1 + 1] - off0 + i1) // items, b)
+    assert stored == [1] * n
+    assert not tickets                        # all back to 0
+    return torch.from_numpy(out).to(msgs.dtype)
+
+
+def _row_lengths(case, rng):
+    """Row lengths of a K2b case: (lengths, edges before row 0, after the
+    last row)."""
+    if case == "short rows, some empty":
+        return rng.integers(0, 6, 300), 0, 0
+    if case == "one row takes every edge":
+        return np.array([1500, 0, 0]), 0, 0
+    if case == "a long row across many blocks, empty rows around it":
+        return np.concatenate([rng.integers(0, 3, 40), [2600], np.zeros(
+            30, int), rng.integers(0, 4, 50)]), 0, 0
+    if case == "edges dropped before and after":
+        return rng.integers(0, 9, 200), 37, 11
+    if case == "skewed rows":
+        return np.minimum(rng.zipf(1.5, 80), 300), 0, 0
+    raise KeyError(case)
+
+
+K2B_CASES = [(case, d) for case in (
+    "short rows, some empty", "one row takes every edge",
+    "edges dropped before and after", "skewed rows")
+    for d in (1, 3, 7, 8, 64)] + [
+    ("a long row across many blocks, empty rows around it", d)
+    for d in (1, 3, 7, 8, 64, 1000)]
+
+
+@pytest.mark.parametrize("case,d", K2B_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2b_block_logic_emulation_equals_plain(case, d, dtype):
+    """The emulation of K2b's kernel equals ``segsum_sorted_plain``
+    bitwise on integer-valued messages (every order of adds gives the
+    same bits) and within tolerance on random ones, and gives the same
+    bits when its blocks arrive in another order.  ``block_e`` is small,
+    so rows are cut across shares and blocks (the long row across more
+    than 16 blocks climbs two levels of the tree) and E is no multiple
+    of it."""
+    rng = np.random.default_rng(d + len(case))
+    lengths, before, after = _row_lengths(case, rng)
+    n = lengths.size
+    off = before + np.concatenate([[0], np.cumsum(lengths)])
+    e = int(off[-1]) + after
+    size = DTYPES[dtype][0].itemsize
+    block_e = max(2, 48 // k2b_geometry(e, n, d, size, 1).items)
+    assert k2b_geometry(e, n, d, size, block_e).blocks > 2 * K2B_FAN_IN \
+        or case != "a long row across many blocks, empty rows around it"
+    offsets = torch.as_tensor(off.astype(np.int32))
+    ints = torch.as_tensor(rng.integers(-8, 9, (e, d)).astype(np.float32))
+    ints = ints.to(DTYPES[dtype][0])
+    want = segsum_sorted_plain(ints, offsets, n)
+    got = _k2b_emulate(ints, offsets, n, block_e)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    floats = torch.as_tensor(rng.standard_normal((e, d)).astype(np.float32))
+    floats = floats.to(DTYPES[dtype][0])
+    got = _k2b_emulate(floats, offsets, n, block_e)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        segsum_sorted_plain(floats, offsets, n).float().numpy(),
+        **_tol(e, n, dtype))
+    blocks = k2b_geometry(e, n, d, size, block_e).blocks
+    shuffled = _k2b_emulate(floats, offsets, n, block_e,
+                            order=rng.permutation(blocks).tolist())
+    assert torch.equal(got, shuffled)

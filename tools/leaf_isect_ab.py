@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the fused delivery (K1), bitset intersection (K3a, K3b) and
-unsorted segment-sum (K2a) kernels of two checkouts side by side, in one
+segment-sum (K2a, K2b) kernels of two checkouts side by side, in one
 call on one card.
 
-    python3 tools/leaf_isect_ab.py --parent DIR [--only k1|k3|k2a] [--out FILE]
+    python3 tools/leaf_isect_ab.py --parent DIR [--only k1|k3|k2a|k2b]
+        [--out FILE]
 
 Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit; ``DIR`` is another checkout of the repository (for example the
@@ -32,7 +33,16 @@ flushed, median of 20; and the device time), the one-segment case, and
 ``segsum.cu`` built with substitutions (more or fewer edges in flight,
 longer sorted chunks, register caps; and ablations, each without one
 phase: message loads, folds, combines, tile stores, tile zeroing), and
-the device time of each of its kernels (``torch.profiler``).  Prints
+the device time of each of its kernels (``torch.profiler``).  ``--only
+k2b`` times ``segsum_sorted_cuda`` (K2b) on five cases: DBLP's
+incidences sorted by hyperedge (float32 D = 1 and 64, bfloat16 D = 64),
+every edge into one row (float32 D = 64) and Apache's incidences sorted
+by vertex (3,316 rows, the longest 6,465 edges; float32 D = 64), each
+beside ``index_add_`` and its byte bound; this tree's processes also
+time ``segsum.cu`` built with substitutions (ablations, each without
+one step: all but the setup, message loads, row stores, the carries'
+combine; and variants: more edges in flight, register caps) and other
+``block_e``, and each kernel's device time (``torch.profiler``).  Prints
 the card's name and power limit, one line per process and a table;
 ``--out`` keeps the JSON.
 """
@@ -104,6 +114,65 @@ K2A_VARIANTS = [
 ]
 
 
+# segsum.cu variants of K2b: (label, "K2b", substitutions).
+K2B_VARIANTS = [
+    # Ablations: each times the kernel without one of its steps, so its
+    # sums are wrong.
+    ("setup only", "K2b", [(
+        "  const int nv = STAGED ? 1 : d / VEC;  // vectors a lane group "
+        "covers\n",
+        "  if (ma + mb + split_head + block_head + block_tail != INT_MIN) "
+        "return;\n  const int nv = STAGED ? 1 : d / VEC;\n")]),
+    ("search only", "K2b", [(
+        "  // 2. Offsets (and staged rows) into shared memory.\n",
+        "  if (i0 + i1 + j0 + j1 + js != INT_MIN) return;\n")]),
+    ("no message loads", "K2b", [
+        ("        else x[u].load(base + (long long)(e + u) * d);",
+         "        else x[u] = {};"),
+        ("    stage(s_val, msgs + (long long)js * VEC, (j1 - js) * VEC);",
+         "    (void)0;")]),
+    ("no walk", "K2b", [(
+        "    for (int e = ea; e < eb; e += kK2bIn) {",
+        "    for (int e = eb; e < eb; e += kK2bIn) {")]),
+    ("no scan", "K2b", [(
+        "    for (int o = G; o < 32; o <<= 1) {\n      const int ku",
+        "    for (int o = 32; o < 32; o <<= 1) {\n      const int ku")]),
+    ("no row stores", "K2b", [
+        ("        else store_vec<VEC>(out_c + (long long)r * d, acc);",
+         "        else if (acc[0] == 1234.5f)\n"
+         "          store_vec<VEC>(out_c + (long long)r * d, acc);"),
+        ("        out[(long long)(i0 + m) * VEC + q] = slot[q];",
+         "        if (to_f32(slot[q]) == 1234.5f)\n"
+         "          out[(long long)(i0 + m) * VEC + q] = slot[q];")]),
+    ("no carry combine", "K2b", [(
+        "  if (!block_head && !block_tail) return;", "  if (n > 0) return;")]),
+    ("rows stored by their lanes", "K2b", [
+        ("        if constexpr (STAGED) put_slot<T, VEC>(s_off + r + 1, acc);",
+         "        if constexpr (false) put_slot<T, VEC>(s_off + r + 1, acc);"),
+        ("      } else if constexpr (STAGED) {",
+         "      } else if constexpr (false) {"),
+        ("  if constexpr (STAGED) {\n    for (int m = tid + block_head;",
+         "  if constexpr (false) {\n    for (int m = tid + block_head;")]),
+    ("tickets zeroed by a memset", "K2b", [(
+        "  int rc;\n  if (narrow) {",
+        "  {\n    int levels = 0;\n"
+        "    for (long long c = 1; c < n_blocks; c *= 1 << kLgFan) ++levels;\n"
+        "    const cudaError_t err = cudaMemsetAsync(\n"
+        "        tk, 0, (size_t)levels * n_blocks * sizeof(int), st);\n"
+        "    if (err != cudaSuccess) return (int)err;\n  }\n"
+        "  int rc;\n  if (narrow) {")]),
+    ("twice the edges in flight", "K2b", [(
+        "constexpr int kK2bIn = 4;", "constexpr int kK2bIn = 8;")]),
+    ("3 blocks per SM", "K2b", [(
+        "__launch_bounds__(kK2bThreads, 4)\nk2b_kernel",
+        "__launch_bounds__(kK2bThreads, 3)\nk2b_kernel")]),
+    ("5 blocks per SM", "K2b", [(
+        "__launch_bounds__(kK2bThreads, 4)\nk2b_kernel",
+        "__launch_bounds__(kK2bThreads, 5)\nk2b_kernel")]),
+]
+K2B_BLOCK_E = (256, 1024, 2048)
+
+
 def variant_path(label, source="isect"):
     return os.path.join(VARIANTS, f"{source}_" + "".join(
         c if c.isalnum() else "_" for c in label))
@@ -168,6 +237,9 @@ def time_tree(tree, triples_path, variants, only=None):
 
     if only == "k2a":
         time_k2a(res, dev, flush, variants)
+        return res
+    if only == "k2b":
+        time_k2b(res, dev, flush, variants)
         return res
     if only != "k3":
         time_delivery(res, dev, flush, fused, variants)
@@ -239,6 +311,82 @@ def time_k2a(res, dev, flush, variants):
                 variant_path(label, "segsum") + ".so")
             segsum._kernel_lib()
             k2a(f" ({label})")
+        _nvcc._LOADED["segsum"] = shipped
+
+
+def time_k2b(res, dev, flush, variants):
+    import torch
+
+    from repro_torch.data import make_dataset
+    from repro_torch.kernels.segsum import csr_row_offsets, segsum
+
+    hg = make_dataset("dblp", 1.0, seed=0, device=dev)
+    n, e = hg.n_hyperedges, hg.nnz
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dst = torch.sort(hg.dst, stable=True).values.contiguous()
+    cases = []   # (tag, msgs, sorted ids, offsets, rows)
+    for dtype, d in ((torch.float32, 1), (torch.float32, 64),
+                     (torch.bfloat16, 64)):
+        m = torch.randn(e, d, generator=gen, device=dev).to(dtype)
+        cases.append((f"{str(dtype)[6:]} D={d}", m, dst,
+                      csr_row_offsets(dst, n), n))
+    zeros = torch.zeros_like(dst)
+    cases.append(("one segment", torch.randint(
+        -8, 9, (e, 64), generator=gen, device=dev).float(), zeros,
+        csr_row_offsets(zeros, 3), 3))
+    hg_a = make_dataset("apache", 1.0, seed=0, device=dev)
+    v = torch.sort(hg_a.src, stable=True).values.contiguous()
+    cases.append(("Apache vertex side", torch.randn(
+        v.numel(), 64, generator=gen, device=dev), v,
+        csr_row_offsets(v, hg_a.n_vertices), hg_a.n_vertices))
+
+    def k2b(suffix, **kw):
+        for tag, m, _, off, rows in cases:
+            call = lambda: segsum.segsum_sorted_cuda(m, off, rows, **kw)
+            res[f"K2b {tag}{suffix}"] = cs.time_cuda(call, flush)
+            res[f"K2b {tag}{suffix}, device"] = cs.time_device(call, flush)
+
+    k2b("")
+    for tag, m, ids, off, rows in cases:
+        size = m.element_size()
+        e_c, d = m.shape
+        # K2b reads the messages and the offsets and writes the rows; it
+        # never reads the ids.
+        res[f"bound {tag}"] = (e_c * d * size + rows * d * size
+                               + 4 * (rows + 1)) / cs.HBM_BYTES_PER_S * 1e3
+        res[f"index_add_ {tag}"] = cs.time_cuda(
+            lambda: torch.zeros(rows, d, device=dev).index_add_(
+                0, ids, m.float()).to(m.dtype), flush)
+    if variants:
+        # Device time of each of the call's kernels (torch.profiler,
+        # 5 flushed calls).
+        from torch.profiler import ProfilerActivity, profile
+
+        for tag, m, _, off, rows in cases:
+            for _ in range(3):
+                segsum.segsum_sorted_cuda(m, off, rows)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    flush.zero_()
+                    segsum.segsum_sorted_cuda(m, off, rows)
+                torch.cuda.synchronize()
+            for ev in prof.key_averages():
+                name = ("kernel" if "k2b_kernel" in ev.key else
+                        "memset" if "emset" in ev.key and ev.count == 5
+                        else None)
+                if name:
+                    res[f"K2b {tag} [{name}]"] = ev.device_time / 1e3
+        for block_e in K2B_BLOCK_E:
+            k2b(f" (block_e {block_e})", block_e=block_e)
+        from repro_torch.kernels import _nvcc
+
+        shipped = segsum._kernel_lib()
+        for label, _, _ in K2B_VARIANTS:
+            _nvcc._LOADED["segsum"] = ctypes.CDLL(
+                variant_path(label, "segsum") + ".so")
+            segsum._kernel_lib()
+            k2b(f" ({label})")
         _nvcc._LOADED["segsum"] = shipped
 
 
@@ -327,7 +475,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
     ap.add_argument("--out")
-    ap.add_argument("--only", choices=("k1", "k3", "k2a"))
+    ap.add_argument("--only", choices=("k1", "k3", "k2a", "k2b"))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--triples", help=argparse.SUPPRESS)
     ap.add_argument("--variants", action="store_true", help=argparse.SUPPRESS)
@@ -350,11 +498,11 @@ def main() -> int:
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     triples = os.path.join(ROOT, "build", "ab_triples.npy")
     os.makedirs(VARIANTS, exist_ok=True)
-    if args.only == "k2a":
+    if args.only in ("k2a", "k2b"):
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(K2A_VARIANTS)) as pool:
-            list(pool.map(lambda v: build_variant(v, "segsum"),
-                          K2A_VARIANTS))
+        built = K2A_VARIANTS if args.only == "k2a" else K2B_VARIANTS
+        with ThreadPoolExecutor(len(built)) as pool:
+            list(pool.map(lambda v: build_variant(v, "segsum"), built))
         print(f"segsum variants in {time.perf_counter() - t0:.1f} s",
               flush=True)
     elif args.only != "k1":
