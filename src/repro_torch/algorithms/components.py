@@ -18,11 +18,9 @@ def connected_components_spec(
     hg: HyperGraph, max_iters: int = 128
 ) -> AlgorithmSpec:
     def vertex(step, ids, attr, msg, deg):
-        if step == 0:
-            return ProcedureOut(attr=ids, msg=ids,
-                                active=torch.ones_like(ids, dtype=torch.bool))
-        candidate = torch.minimum(attr, msg)
-        updated = candidate < attr
+        boot = step == 0
+        candidate = torch.where(boot, ids, torch.minimum(attr, msg))
+        updated = boot | (candidate < attr)
         return ProcedureOut(attr=candidate, msg=candidate, active=updated)
 
     def hyperedge(step, ids, attr, msg, card):

@@ -11,7 +11,7 @@ from repro_torch.core.hypergraph import HyperGraph
 
 def label_propagation_spec(hg: HyperGraph, iters: int = 30) -> AlgorithmSpec:
     def vertex(step, ids, attr, msg, deg):
-        new_label = ids if step == 0 else torch.maximum(msg, attr)
+        new_label = torch.where(step == 0, ids, torch.maximum(msg, attr))
         return ProcedureOut(attr=new_label, msg=new_label)
 
     def hyperedge(step, ids, attr, msg, card):

@@ -10,6 +10,7 @@ a one-hot restart at a seed vertex (personalized PageRank).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.algorithms.spec import AlgorithmSpec, resolve_engine
@@ -29,10 +30,11 @@ def random_walk_spec(
         dangling = (deg == 0).to(torch.float32)
         # dangling vertices (no incident hyperedge) keep their mass in
         # place instead of leaking it — the walk stays a distribution.
-        if step == 0:
-            p_next = restart
-        else:
-            p_next = (1.0 - alpha) * (msg + p * dangling) + alpha * restart
+        p_next = torch.where(
+            step == 0,
+            restart,
+            (1.0 - alpha) * (msg + p * dangling) + alpha * restart,
+        )
         return ProcedureOut(
             attr=(p_next, restart), msg=p_next / d * (1.0 - dangling)
         )
@@ -77,8 +79,23 @@ def random_walk_spec(
     )
 
 
-def random_walk(hg, seeds=None, iters=30, alpha=0.15, *, engine=None):
-    """Returns the stationary visit distribution over vertices."""
-    return resolve_engine(engine).run(
-        random_walk_spec(hg, seeds, iters, alpha)
-    ).value
+def random_walk(hg, seeds=None, iters=30, alpha=0.15, *, seed_batch=None,
+                engine=None):
+    """Returns the stationary visit distribution over vertices.
+
+    ``seed_batch``: optional batch of seed vertices — compiles once and
+    serves a personalized walk per seed via ``run_batch`` (the result
+    gains a leading batch axis; row b restarts at ``seed_batch[b]``).
+    """
+    eng = resolve_engine(engine)
+    if seed_batch is not None:
+        if seeds is not None:
+            raise ValueError(
+                "pass either seeds (one walk, arbitrary restart set) or "
+                "seed_batch (one personalized walk per seed), not both"
+            )
+        spec = random_walk_spec(hg, None, iters, alpha)
+        return eng.compile(spec).run_batch(
+            np.asarray(seed_batch, np.int32)
+        ).value
+    return eng.run(random_walk_spec(hg, seeds, iters, alpha)).value

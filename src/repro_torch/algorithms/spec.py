@@ -3,11 +3,11 @@
 Each algorithm module builds a spec (initial state + programs + design
 metadata); the ``Engine`` facade (``repro_torch.core.executor``) runs it.
 
-Serving metadata is kept for parity with the JAX package (``init``
-rebuilds initial attributes on a new structure; ``bind_query`` binds one
-request's varying state such as an SSSP source); the compile-once
-serving path that consumes it is not ported yet (ROADMAP.md queue 1,
-item 6).
+Serving metadata feeds ``Engine.compile`` (``repro_torch.core.serving``):
+``init`` rebuilds initial attributes on a new structure; ``bind_query``
+binds one request's varying state, such as an SSSP source, on the host
+(it may read the query with ``int``), once per query of a batch; it
+may touch only ``v_attr`` / ``he_attr``.
 """
 from __future__ import annotations
 

@@ -10,6 +10,7 @@ bootstrap activates every finite-distance vertex.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.algorithms.spec import AlgorithmSpec, resolve_engine
@@ -28,8 +29,8 @@ def shortest_paths_spec(
         attr2 = torch.where(updated, new_hop, attr)
         # Superstep 0: every vertex with a finite seeded distance (the
         # bound source) activates and broadcasts.
-        active = updated | torch.isfinite(attr2) if step == 0 else updated
-        return ProcedureOut(attr=attr2, msg=attr2 + 1.0, active=active)
+        boot = (step == 0) & torch.isfinite(attr2)
+        return ProcedureOut(attr=attr2, msg=attr2 + 1.0, active=updated | boot)
 
     def hyperedge(step, ids, attr, msg, card):
         new_hop = msg
@@ -63,8 +64,23 @@ def shortest_paths_spec(
     )
 
 
-def shortest_paths(hg, source=0, max_iters=64, *, engine=None):
-    """Returns (vertex_hops, hyperedge_hops); unreachable = +inf."""
-    return resolve_engine(engine).run(
-        shortest_paths_spec(hg, source, max_iters)
-    ).value
+def shortest_paths(hg, source=0, max_iters=64, *, sources=None,
+                   engine=None):
+    """Returns (vertex_hops, hyperedge_hops); unreachable = +inf.
+
+    ``sources``: optional batch of source vertices — compiles the
+    algorithm once and serves every source through
+    ``CompiledAlgorithm.run_batch`` (results gain a leading batch axis).
+    """
+    eng = resolve_engine(engine)
+    if sources is not None:
+        if source != 0:
+            raise ValueError(
+                "pass either source (single query) or sources (batched "
+                "serve), not both"
+            )
+        spec = shortest_paths_spec(hg, 0, max_iters)
+        return eng.compile(spec).run_batch(
+            np.asarray(sources, np.int32)
+        ).value
+    return eng.run(shortest_paths_spec(hg, source, max_iters)).value

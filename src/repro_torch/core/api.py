@@ -65,9 +65,10 @@ class ProcedureOut(NamedTuple):
 
 
 # (step, ids[n], attr, in_msg, degree[n]) -> ProcedureOut;  ``step`` is a
-# Python int.
+# 0-d int32 tensor on the entities' device (select on it with
+# ``torch.where``, as the JAX package does on its traced step).
 Procedure = Callable[
-    [int, torch.Tensor, Pytree, Pytree, torch.Tensor], ProcedureOut
+    [torch.Tensor, torch.Tensor, Pytree, Pytree, torch.Tensor], ProcedureOut
 ]
 
 # optional per-incidence message transform:

@@ -8,6 +8,12 @@ kernel) and executes the superstep loop of ``repro_torch.core.engine``.
 The chosen design point and the measured wall, dispatch and device-wait
 times come back on the ``Result``.
 
+``Engine(...).compile(spec)`` resolves the design point once and returns
+a ``CompiledAlgorithm`` (``repro_torch.core.serving``): ``run`` /
+``run_batch`` / ``warmup`` over shape-bucketed executables kept in this
+Engine's LRU cache (``cache_stats``); on the card each executable
+replays a CUDA graph of one superstep pair.
+
 ``Engine(...).analyze(spec)`` takes an ``AnalyticsSpec`` (batch
 analytics: the h-motif census, exact or sampled, and pair
 intersections).  It resolves the representation (bipartite, or
@@ -24,7 +30,8 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Mapping
+from collections import OrderedDict
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
@@ -61,7 +68,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 _CLIQUE = "item 5: core/clique.py and the clique representation"
 _DISTRIBUTED = "item 10: core/distributed.py"
 _CHECKPOINT = "item 8: faults/checkpoint.py"
-_SERVING = "item 6: core/serving.py"
 _OBS_FAULTS = "item 8: obs/ and faults/"
 _DISK_CACHE = "item 9: serve/cache.py"
 
@@ -136,10 +142,14 @@ class Result:
     """What an execution produced, plus the design point that produced it.
 
     ``superstep_stats``: ``(v_active, he_active)`` int32 tensors of
-    length ``max_iters`` when ``collect_stats`` was set.
+    length ``max_iters`` when ``collect_stats`` was set (``[B,
+    max_iters]`` from ``run_batch``).
+    ``supersteps_executed``: batched serving only — the superstep pairs
+    the batch ran (its slowest query's count, halting pair included).
     ``decision``: the reasons behind each resolved axis, plus
     ``measured`` (``wall_s``, ``dispatch_s``, ``device_wait_s``,
-    ``max_iters``, ``supersteps``, ``pairs_run``, ``host_syncs``).
+    ``max_iters``, ``supersteps``, ``pairs_run``, ``host_syncs``; a
+    compiled run adds ``graph``: whether a CUDA graph replayed).
     """
 
     value: Any
@@ -375,6 +385,11 @@ class Engine:
 
     ``device``: where specs must live and run (default ``cuda``; raises
     when no card is present — pass ``device="cpu"`` for the host).
+    ``exec_cache_size``: capacity of the compiled-executable LRU, in
+    entries.  ``exec_cache_bytes``: its capacity in bytes (an entry
+    holds its structure, layouts, loop state and graph); ``None`` is a
+    quarter of the card's memory on the card and no byte bound on the
+    CPU.
     ``plan``, ``mesh``, ``disk_cache``, ``tracer``, ``metrics`` and
     ``fault_injector`` belong to slices not ported yet and raise when
     given.
@@ -390,6 +405,8 @@ class Engine:
         metrics=None,
         fault_injector=None,
         device=None,
+        exec_cache_size: int = 32,
+        exec_cache_bytes: int | None = None,
         **overrides: Any,
     ):
         if plan is not None or mesh is not None:
@@ -405,9 +422,22 @@ class Engine:
             cfg = dataclasses.replace(cfg, **overrides)
         self.device = resolve_device(device)
         self.config = cfg
-        # Fused-delivery layouts, keyed by hypergraph identity: the
-        # dst-sort + ELL/CSR precompute is paid once per structure.
+        # Fused-delivery layouts, keyed by the identity of a structure's
+        # incidence tensors: the dst-sort + ELL/CSR precompute is paid
+        # once per structure (and per padded bucket).
         self._delivery_cache: list = []
+        # The compile-once executable cache (see ``compile``).
+        self.exec_cache_size = int(exec_cache_size)
+        if exec_cache_bytes is None and self.device.type == "cuda":
+            exec_cache_bytes = torch.cuda.get_device_properties(
+                self.device).total_memory // 4
+        self.exec_cache_bytes = exec_cache_bytes
+        self._exec_cache: OrderedDict = OrderedDict()
+        self._exec_meta: dict = {}
+        self._cache_hits = 0
+        self._cache_misses = 0
+        self._cache_evictions = 0
+        self._trace_count = 0
 
     # -- resolution ---------------------------------------------------------
 
@@ -451,16 +481,25 @@ class Engine:
             return "pallas_fused", {"reason": "explicitly configured"}
         return select_delivery(spec, spec.hg0)
 
-    def _delivery_layouts(self, hg):
+    def _delivery_layouts(self, hg, padded=None):
         """Both directions' fused layouts for one structure, cached by
-        hypergraph identity."""
-        for c_hg, lay in self._delivery_cache:
-            if c_hg is hg:
+        the identity of its incidence tensors (``src``, ``dst``,
+        ``e_mask``): a spec's hypergraph and its re-initialized or
+        query-bound copies share them.  ``padded``: a bucket-padded copy
+        of ``hg`` (the compiled path), whose layouts are built and
+        cached under ``hg``'s tensors and the padded sizes."""
+        target = hg if padded is None else padded
+        tensors = (hg.src, hg.dst, hg.e_mask)
+        sizes = (target.n_vertices, target.n_hyperedges, target.nnz)
+        for c_tensors, c_sizes, lay in self._delivery_cache:
+            if c_sizes == sizes and all(
+                    a is b for a, b in zip(c_tensors, tensors)):
                 return lay
         lay = layout_pair(
-            hg.src, hg.dst, hg.e_mask, hg.n_vertices, hg.n_hyperedges
+            target.src, target.dst, target.e_mask, target.n_vertices,
+            target.n_hyperedges,
         )
-        self._delivery_cache.append((hg, lay))
+        self._delivery_cache.append((tensors, sizes, lay))
         del self._delivery_cache[:-4]  # bound the strong refs we hold
         return lay
 
@@ -578,8 +617,142 @@ class Engine:
             f"{type(spec).__name__}"
         )
 
+    # -- compile-once serve-many --------------------------------------------
+
     def compile(self, spec, **overrides: Any):
-        raise _not_ported("Engine.compile", _SERVING)
+        """Resolve the design point ONCE and return a ``CompiledAlgorithm``.
+
+        The serve-many half of the facade: the returned handle's
+        ``run(hg)`` serves any hypergraph in the same shape bucket
+        (sizes padded to bounded power-of-two buckets; executables
+        cached in this Engine's LRU), and ``run_batch(queries)`` serves
+        B requests along the spec's query axis
+        (``AlgorithmSpec.bind_query``) through one batched executable.
+
+        >>> compiled = engine.compile(shortest_paths_spec(hg, 0))
+        >>> compiled.run_batch(np.arange(8))      # 8 sources, 1 build
+        >>> engine.cache_stats()                   # hits/misses/traces
+
+        On the card an executable replays a CUDA graph of one superstep
+        pair (the counterpart of the JAX package's always-jitted
+        compiled execution), and a failure there raises: the handle's
+        ``xla`` twin serves only CPU requests.  Compiled execution is
+        always bipartite
+        (the clique representation has no executable to cache).
+        ``overrides`` are per-compile ``ExecutionConfig`` replacements,
+        as for ``run``.
+        """
+        from repro_torch.core.serving import CompiledAlgorithm
+
+        if isinstance(spec, AnalyticsSpec):
+            raise TypeError(
+                "Engine.compile serves iterative AlgorithmSpecs; batch "
+                "analytics runs one-shot through Engine.analyze/submit"
+            )
+        probe = (
+            dataclasses.replace(self.config, **overrides)
+            if overrides
+            else self.config
+        )
+        if probe.representation == "clique":
+            raise ValueError(
+                "Engine.compile serves the bipartite representation only: "
+                "the clique path runs a host-side clique_program with no "
+                "executable to cache; use Engine.run for one-shot clique "
+                "execution"
+            )
+        if spec.hg0.device.type != self.device.type:
+            raise ValueError(
+                f"spec lives on {spec.hg0.device}, this Engine runs on "
+                f"{self.device}; build the hypergraph with "
+                f"device={self.device.type!r}"
+            )
+        overrides = {**overrides, "representation": "bipartite"}
+        resolved, _, decision = self.resolve(spec, **overrides)
+        return CompiledAlgorithm(
+            engine=self,
+            spec=spec,
+            config=resolved,
+            decision=decision,
+        )
+
+    def cache_stats(self) -> dict:
+        """Executable-cache observability.
+
+        ``traces`` counts executables made ready: CUDA-graph captures on
+        the card, executable builds on the CPU (a new trace on a warm
+        cache is a bug the serving tests assert against);
+        ``hits``/``misses`` count ``CompiledAlgorithm`` lookups in this
+        Engine's LRU; ``evictions`` counts LRU drops, by either limit:
+        ``capacity`` entries or ``capacity_bytes`` bytes (``None``: no
+        byte bound); ``bytes`` is what the live entries hold;
+        ``entry_shapes`` describes each live entry's bucket (algorithm,
+        padded dims, batch bucket, design point) and its ``bytes``;
+        ``disk`` is ``None`` (the persistent store, ROADMAP.md item 9,
+        is not ported).
+        """
+        cache = self._exec_cache
+        return {
+            "entries": len(cache),
+            "capacity": self.exec_cache_size,
+            "capacity_bytes": self.exec_cache_bytes,
+            "bytes": sum(exe.nbytes for exe in cache.values()),
+            "hits": self._cache_hits,
+            "misses": self._cache_misses,
+            "evictions": self._cache_evictions,
+            "traces": self._trace_count,
+            "entry_shapes": [
+                {**self._exec_meta.get(key, {}), "bytes": exe.nbytes}
+                for key, exe in cache.items()
+            ],
+            "disk": None,
+        }
+
+    def _note_trace(self) -> None:
+        """One executable made ready (a capture, or a CPU build)."""
+        self._trace_count += 1
+
+    def _executable_for(self, key, build: Callable[[], Any], meta=None):
+        """LRU lookup of a compiled executable by shape signature.
+
+        ``meta``: a small human-readable bucket summary recorded per
+        entry for ``cache_stats()["entry_shapes"]``."""
+        cache = self._exec_cache
+        if key in cache:
+            cache.move_to_end(key)
+            self._cache_hits += 1
+            return cache[key]
+        self._cache_misses += 1
+        exe = build()
+        cache[key] = exe
+        if meta is not None:
+            self._exec_meta[key] = meta
+        while len(cache) > self.exec_cache_size:
+            self._evict_oldest()
+        return exe
+
+    def _fit_exec_cache(self) -> None:
+        """Evict least-recently-used entries until the live ones hold
+        at most ``exec_cache_bytes`` (the newest entry always stays);
+        called once a new entry's size is known."""
+        cache, limit = self._exec_cache, self.exec_cache_bytes
+        if limit is None:
+            return
+        while (len(cache) > 1
+               and sum(exe.nbytes for exe in cache.values()) > limit):
+            self._evict_oldest()
+
+    def _evict_oldest(self) -> None:
+        self._discard_executable(next(iter(self._exec_cache)))
+        self._cache_evictions += 1
+
+    def _discard_executable(self, key) -> None:
+        """Drop one entry and release what it holds (an eviction, or a
+        build that failed before it was ready)."""
+        exe = self._exec_cache.pop(key, None)
+        self._exec_meta.pop(key, None)
+        if exe is not None:
+            exe.release()
 
     # -- batch analytics -----------------------------------------------------
 

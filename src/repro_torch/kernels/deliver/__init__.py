@@ -104,6 +104,18 @@ def _pallas_leaf(leaf, layout, monoid, active, *, lowering):
     return out.reshape((layout.n_dst,) + shape[1:])
 
 
+def _mask_per_query(leaf, active, monoid):
+    """Each inactive (sender, query) of ``active`` (``[n_src, B]``)
+    sends the monoid's identity instead of its message.  The fold is
+    then that of the live senders: exactly for min, max, prod, or and
+    integer sums; a float sum can differ only in the sign of a zero."""
+    live = active if active.dtype == torch.bool else active != 0
+    live = live.reshape(tuple(live.shape) + (1,) * (leaf.dim() - live.dim()))
+    ident = torch.full((), monoid.identity(leaf.dtype), dtype=leaf.dtype,
+                       device=leaf.device)
+    return torch.where(live, leaf, ident)
+
+
 def fused_deliver(
     out_msg: Pytree,
     active,
@@ -117,6 +129,12 @@ def fused_deliver(
     ``repro_torch.core.engine.deliver`` on the monoid path (the caller
     guarantees ``program.reducer is None`` and no ``edge_transform``);
     per-leaf monoids resolve exactly as in the reference.
+
+    A batch of queries (``run_batch``) carries its query axis inner:
+    leaves ``[n_src, B, ...]`` go through the kernel as rows of ``B·d``
+    values, one launch for the whole batch, and ``active`` is ``[n_src,
+    B]``.  The kernel masks by sender only, so per-query activity is
+    folded into the messages first (``_mask_per_query``).
     """
     def one(leaf):
         monoid = program.monoid_for(leaf)
@@ -124,9 +142,12 @@ def fused_deliver(
         if low not in LOWERINGS:
             raise ValueError(f"lowering must be one of {LOWERINGS}, "
                              f"got {low!r}")
+        act = active
+        if act is not None and act.dim() > 1:
+            leaf, act = _mask_per_query(leaf, act, monoid), None
         if low == "ell":
-            return deliver_ell_leaf(leaf, layout, monoid, active)
-        return _pallas_leaf(leaf, layout, monoid, active, lowering=low)
+            return deliver_ell_leaf(leaf, layout, monoid, act)
+        return _pallas_leaf(leaf, layout, monoid, act, lowering=low)
 
     # Imported here: repro_torch.core imports this package, so a
     # module-level import would be circular when this package is

@@ -14,6 +14,9 @@ zero-degree destinations) is built once per layout (``leaf_plan``).
   destinations.
 * ``deliver_fused_cuda`` runs the same kernel over one class (a
   one-class plan): ``[n_rows, D]`` class-local partials.
+* Both count their launches in ``deliver_fused_cuda.launches``; a CUDA
+  graph that holds launches counts them at each replay
+  (``captured_launches``, ``count_replay``).
 * ``deliver_fused_plain`` is the per-class plain PyTorch version,
   gather -> mask -> ``scatter_reduce``: the CPU path and the oracle the
   kernel is held against on the card; it ignores ``bounds`` (they only
@@ -316,6 +319,26 @@ def deliver_fused_cuda(
 
 
 deliver_fused_cuda.launches = 0
+
+
+def captured_launches(capture) -> int:
+    """Run ``capture`` (the capture of a CUDA graph) and return the
+    kernel launches it recorded.  A capture runs nothing, so the counter
+    is put back; each replay of the graph adds them (``count_replay``),
+    which keeps ``deliver_fused_cuda.launches`` a count of launches that
+    ran."""
+    before = deliver_fused_cuda.launches
+    try:
+        capture()
+    finally:
+        recorded = deliver_fused_cuda.launches - before
+        deliver_fused_cuda.launches = before
+    return recorded
+
+
+def count_replay(recorded: int) -> None:
+    """One replay of a graph that recorded ``recorded`` launches."""
+    deliver_fused_cuda.launches += recorded
 
 
 def deliver_leaf_plain(

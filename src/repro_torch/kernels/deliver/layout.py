@@ -284,6 +284,45 @@ class DeliveryLayout:
     def device(self) -> torch.device:
         return self.inv_perm.device
 
+    def shape_signature(self) -> tuple:
+        """Hashable shape tuple for the serving executable cache key.
+
+        The JAX package's fields (every class-plan-dependent dim, so a
+        degree-regime shift within a shape bucket recompiles), plus what
+        the CUDA kernel takes by value and a captured CUDA graph keeps:
+        per class in launch order ``(nnz_pad, n_rows, block_e, span,
+        entries)`` from the leaf plan, and the number of zero-degree
+        destinations.  Two layouts with equal signatures can take turns
+        in one graph's buffers.
+        """
+        from repro_torch.kernels.deliver.fused import leaf_plan
+
+        plan = leaf_plan(self)
+        k1 = tuple(
+            (int(self.class_src[c].shape[0]), int(self.class_rows[c]),
+             int(self.class_block_e[c]), int(plan.spans[c]),
+             int(plan.blocks[c]))
+            for c in plan.order
+        )
+        return (
+            tuple(tuple(a.shape) for a in self.class_ell),
+            tuple(tuple(a.shape) for a in self.class_src),
+            tuple(tuple(a.shape) for a in self.class_bounds),
+            tuple(self.inv_perm.shape),
+            tuple(self.rem_src.shape),
+            self.class_widths, self.class_rows, self.class_block_e,
+            self.class_max_blocks, self.rem_nnz,
+            self.n_src, self.n_dst, self.nnz,
+            k1, int(plan.zero_dst.shape[0]),
+        )
+
+    def tensors(self) -> list:
+        """Every tensor of the layout, in a fixed order (what a compiled
+        executable copies from one same-signature layout to another)."""
+        return [*self.class_ell, *self.class_src, *self.class_dst,
+                *self.class_bounds, self.inv_perm, self.rem_src,
+                self.rem_dst]
+
 
 def tile_block_bounds(
     row_offsets: np.ndarray, n_dst_pad: int, block_n: int, block_e: int

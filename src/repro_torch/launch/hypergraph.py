@@ -11,11 +11,17 @@ unless ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.hypergraph \
       --algorithm motifs --regime apache --scale 1.0 \
       --mode auto --kernel auto --representation auto
+
+  # compile-once serve-many (Engine.compile -> run_batch): 64 SSSP
+  # sources through one compiled executable
+  PYTHONPATH=src python -m repro_torch.launch.hypergraph \
+      --algorithm sssp --regime dblp --scale 1.0 --batch 64 --cache-stats
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 ALGORITHMS = ("pagerank", "sssp", "random_walk", "label_propagation",
               "connected_components")
@@ -50,6 +56,17 @@ def _parse(argv=None):
     ap.add_argument("--kernel", default="auto",
                     choices=["auto", "bitset", "merge"],
                     help="motifs only: intersection kernel path")
+    ap.add_argument("--sources", default=None,
+                    help="comma-separated query vertices (sssp sources / "
+                         "random_walk seeds): compile once, serve the "
+                         "batch via CompiledAlgorithm.run_batch")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="serve N random query vertices through one "
+                         "compiled executable (see --sources)")
+    ap.add_argument("--cache-stats", action="store_true",
+                    help="print the executable-cache statistics "
+                         "(entries, hits/misses, evictions, per-entry "
+                         "bucket shapes) after the run")
     return ap.parse_args(argv)
 
 
@@ -69,6 +86,60 @@ def build_spec(name: str, hg, iters: int):
     raise ValueError(name)
 
 
+def _print_cache_stats(engine) -> None:
+    s = engine.cache_stats()
+    print(f"cache: entries={s['entries']}/{s['capacity']} "
+          f"hits={s['hits']} misses={s['misses']} "
+          f"evictions={s['evictions']} traces={s['traces']} "
+          f"bytes={s['bytes']}/{s['capacity_bytes']}")
+    for meta in s["entry_shapes"]:
+        print(f"  entry: {meta}")
+    if s.get("disk") is not None:
+        print(f"  disk: {s['disk']}")
+
+
+def _serve(args, engine, spec, hg) -> int:
+    """``--sources`` / ``--batch``: one compiled executable, B queries,
+    served twice (cold: with the build and, on the card, the capture;
+    warm: from the cache)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import tree_leaves
+
+    if spec.bind_query is None:
+        print(f"--sources/--batch need a query-capable algorithm "
+              f"(sssp, random_walk); {args.algorithm} has no query axis",
+              file=sys.stderr)
+        return 2
+    if args.sources is not None:
+        queries = np.asarray([int(s) for s in args.sources.split(",")],
+                             np.int32)
+    else:
+        rng = np.random.default_rng(args.seed)
+        queries = rng.integers(0, hg.n_vertices,
+                               size=args.batch).astype(np.int32)
+    compiled = engine.compile(spec)
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        res = compiled.run_batch(queries)
+        if hg.device.type == "cuda":
+            torch.cuda.synchronize(hg.device)
+        secs.append(time.perf_counter() - t0)
+    n = len(queries)
+    print(f"design point: representation={res.representation} "
+          f"backend={res.backend} delivery={res.config.delivery}")
+    print(f"served {n} queries: cold {secs[0]:.3f}s ({n / secs[0]:.1f} q/s "
+          f"incl. build), warm {secs[1]:.3f}s ({n / secs[1]:.1f} q/s), "
+          f"{res.supersteps_executed} superstep pairs, "
+          f"graph={res.decision['measured']['graph']}")
+    first = tree_leaves(res.value)[0]
+    for i, q in enumerate(queries[:4]):
+        print(f"  query {int(q):4d}: {first[i].reshape(-1)[:5].tolist()}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = _parse(argv)
 
@@ -85,7 +156,13 @@ def main(argv=None) -> int:
         return _motifs(args, hg, device)
     engine = Engine(device=device, delivery=args.delivery,
                     collect_stats=args.stats)
-    res = engine.run(build_spec(args.algorithm, hg, args.iters))
+    spec = build_spec(args.algorithm, hg, args.iters)
+    if args.sources is not None or args.batch is not None:
+        rc = _serve(args, engine, spec, hg)
+        if rc == 0 and args.cache_stats:
+            _print_cache_stats(engine)
+        return rc
+    res = engine.run(spec)
 
     print(f"design point: representation={res.representation} "
           f"backend={res.backend} delivery={res.config.delivery}")
@@ -104,6 +181,8 @@ def main(argv=None) -> int:
     leaves = tree_leaves(res.value)
     print(f"result: {len(leaves)} output array(s); "
           f"first = {leaves[0].reshape(-1)[:6].tolist()}")
+    if args.cache_stats:
+        _print_cache_stats(engine)
     return 0
 
 

@@ -1,7 +1,9 @@
 """The port on the card: the fused delivery kernel (per class and one
-launch per leaf), the bitset intersection kernels (their run cache
-too), the Engine's paths through them (``run`` and ``analyze``), and
-the segment-sum and attention kernels through their entry points.
+launch per leaf, wide messages too), the bitset intersection kernels
+(their run cache too), the Engine's paths through them (``run``,
+``analyze``, and ``compile``'s CUDA-graph replay of one superstep pair,
+``run`` and ``run_batch``), and the segment-sum and attention kernels
+through their entry points.
 
 Every test here is marked ``cuda`` and skips without a CUDA card and
 ``nvcc``.  The file imports nothing of JAX, so it runs where the card is:
@@ -15,6 +17,7 @@ import torch
 from repro_torch.algorithms import (
     connected_components_spec,
     pagerank_spec,
+    random_walk_spec,
     shortest_paths_spec,
 )
 from repro_torch.core import AnalyticsSpec, Engine, Program
@@ -32,6 +35,7 @@ from repro_torch.kernels.deliver import (
     deliver_fused_cuda,
     deliver_fused_plain,
     deliver_leaf_cuda,
+    deliver_leaf_plain,
     fused_deliver,
     leaf_plan,
 )
@@ -690,3 +694,141 @@ def test_cuda_flash_wrapper_rejects_what_the_kernel_does_not_take(card):
         flash_cuda(big, big, big)
     with pytest.raises(ValueError, match="multiple of block_k"):
         flash_attention(q, q[:, :, :10], q[:, :, :10], causal=False)
+
+
+def _card_hg(card, seed=5):
+    return powerlaw_hypergraph(3000, 2000, mean_cardinality=6, seed=seed,
+                               device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 64])
+def test_cuda_leaf_kernel_wide_messages_on_a_padded_layout(card, d):
+    """K1 at the batched path's widths (B·d values a row) on a
+    bucket-padded layout, bitwise against its plain version."""
+    hg = _card_hg(card)
+    hgp = hg.padded(4096, 2048, 32768)
+    lay = build_delivery_layout(hgp.src, hgp.dst, hgp.e_mask,
+                                hgp.n_vertices, hgp.n_hyperedges)
+    rng = np.random.default_rng(d)
+    for monoid in ("min", "max", "sum"):
+        msgs = torch.as_tensor(rng.integers(-50, 50, (lay.n_src, d)),
+                               dtype=torch.float32, device=card)
+        active = torch.as_tensor(rng.random(lay.n_src) < 0.6, device=card)
+        for act in (None, active):
+            got = deliver_leaf_cuda(msgs, act, lay, monoid)
+            want = deliver_leaf_plain(msgs, act, lay, monoid)
+            torch.cuda.synchronize()
+            assert _same_bits(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_run_replays_a_graph_and_matches_engine_run(card):
+    hg = _card_hg(card)
+    eng = Engine(device=card, delivery="pallas_fused", collect_stats=True)
+    for make, exact, leaves in (
+            (lambda h: shortest_paths_spec(h, 0), True, 2),
+            (connected_components_spec, True, 2),
+            (lambda h: pagerank_spec(h, iters=10), False, 3)):
+        spec = make(hg)
+        compiled = eng.compile(spec)
+        compiled.run()
+        traces = eng.cache_stats()["traces"]
+        before = deliver_fused_cuda.launches
+        got = compiled.run()
+        torch.cuda.synchronize()
+        m = got.decision["measured"]
+        assert m["graph"] and eng.cache_stats()["traces"] == traces
+        assert deliver_fused_cuda.launches - before == m["pairs_run"] * leaves
+        want = eng.run(spec)
+        for a, b in zip(got.value, want.value):
+            if exact:
+                assert _same_bits(a.cpu().numpy(), b.cpu().numpy())
+            else:
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+        for a, b in zip(got.superstep_stats, want.superstep_stats):
+            assert torch.equal(a, b)
+        assert "degraded_from" not in got.decision
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_queries", [5, 8])
+def test_cuda_run_batch_matches_sequential_runs(card, n_queries):
+    hg = _card_hg(card)
+    eng = Engine(device=card, delivery="pallas_fused", collect_stats=True)
+    compiled = eng.compile(shortest_paths_spec(hg, 0))
+    sources = np.arange(0, 300 * n_queries, 300, dtype=np.int32)
+    res = compiled.run_batch(sources)
+    assert res.decision["measured"]["graph"]
+    slowest = 0
+    for i, s in enumerate(sources):
+        one = compiled.run(query=int(s))
+        for a, b in zip(one.value, res.value):
+            assert _same_bits(a.cpu().numpy(), b[i].cpu().numpy())
+        for a, b in zip(one.superstep_stats, res.superstep_stats):
+            assert torch.equal(a, b[i])
+        slowest = max(slowest, one.decision["measured"]["pairs_run"])
+    assert res.supersteps_executed == slowest
+    walk = eng.compile(random_walk_spec(hg, iters=12))
+    seeds = sources[:3]
+    batch = walk.run_batch(seeds).value
+    for i, s in enumerate(seeds):
+        torch.testing.assert_close(batch[i], walk.run(query=int(s)).value,
+                                   rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_k1_launch_failure_raises(card, monkeypatch):
+    """A K1 launch failure on the card surfaces from ``run`` and
+    ``run_batch``: no twin serves the request with plain delivery, and
+    the failed build leaves no cache entry behind."""
+    from repro_torch.kernels.deliver import fused as fused_module
+
+    hg = _card_hg(card)
+    eng = Engine(device=card, delivery="pallas_fused")
+    compiled = eng.compile(shortest_paths_spec(hg, 0, 8))
+
+    class Failing:
+        @staticmethod
+        def deliver_fused_launch(*args):
+            return 1
+
+    monkeypatch.setattr(fused_module, "_kernel_lib", lambda: Failing)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        compiled.run()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        compiled.run_batch(np.arange(4, dtype=np.int32))
+    stats = eng.cache_stats()
+    assert stats["entries"] == 0 and stats["traces"] == 0
+    monkeypatch.undo()
+    res = compiled.run()
+    assert res.decision["measured"]["graph"]
+    assert "degraded_from" not in res.decision
+    (exe,) = eng._exec_cache.values()
+    assert 0 <= exe.pool_bytes < exe.nbytes == eng.cache_stats()["bytes"]
+
+
+@pytest.mark.cuda
+def test_cuda_capture_fails_loudly_on_a_host_read_of_the_step(card):
+    """A procedure that reads the step on the host runs eagerly
+    (``Engine.run``) but cannot be captured: ``compile`` raises rather
+    than falling back to eager pairs."""
+    hg = _card_hg(card)
+    spec = shortest_paths_spec(hg, 0, 8)
+    inner = spec.v_program.procedure
+
+    def host_step(step, ids, attr, msg, deg):
+        if int(step) < 0:  # a host read, never true
+            raise AssertionError
+        return inner(step, ids, attr, msg, deg)
+
+    spec = spec._replace(v_program=Program(procedure=host_step,
+                                           combiner="min"))
+    eng = Engine(device=card, delivery="pallas_fused")
+    assert torch.isfinite(eng.run(spec).value[0]).any()
+    with pytest.raises(RuntimeError):
+        eng.compile(spec).run()
+    assert eng.cache_stats()["traces"] == 0
+    # the card is still usable after the failed capture
+    assert eng.compile(shortest_paths_spec(hg, 0, 8)).run().decision[
+        "measured"]["graph"]

@@ -204,9 +204,10 @@ def test_unported_methods_and_wrong_inputs_raise():
     thg = _carry(j_powerlaw(60, 40, mean_cardinality=4, seed=1))
     eng = Engine(device="cpu")
     spec = talg.pagerank_spec(thg, iters=2)
-    for method in (eng.compile, eng.explain):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            method(spec)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.explain(spec)
+    # compile is ported (item 6): it resolves and returns a handle
+    assert eng.compile(spec).config.representation == "bipartite"
     with pytest.raises(TypeError, match="AnalyticsSpec"):
         eng.analyze(spec)
     with pytest.raises(NotImplementedError, match="clique"):
