@@ -78,8 +78,8 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    events, L2 flushed, median of 20); K2a on shuffled ids (its sum over
    the three configs is the kernel line's ``shuffled_ms``); K2a and K2b
    on the one segment and K2b on Apache's vertex side, beside
-   ``index_add_`` and the bound (the K2b line's ``one_segment_*`` and
-   ``skew_*`` keys);
+   ``index_add_`` and the bound (the K2b line's ``phase7_one_segment_*``
+   and ``phase7_skew_*`` keys);
 8. attention through ``flash_attention`` (K4: bfloat16 on the tensor
    cores, float32 on the FMA units) at llama3.2-1b's width (32 heads of
    64): bfloat16 causal S = 32,768 (``prefill_32k``'s length, one
@@ -116,12 +116,39 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    batch's queries/s against 64 sequential ``run(query=)`` calls and
    ``Engine.run``, and K1 at D = 1, 8 and 64 on the bucket-padded
    layout (call and device time) against ``deliver_leaf_plain``
-   (bitwise) and its byte bound,
-   beside the per-query activity pass the batched path runs before it.
+   (bitwise), the port's ``xla`` lowering of the same leaf (bitwise;
+   the K1 line's ``d8_library_ms`` / ``d64_library_ms``) and its byte
+   bound, beside the per-query activity pass the batched path runs
+   before it;
+10. the card's delivery term: one delivery pair (v->he, then he->v),
+   float32 sum, through ``deliver``'s ``xla`` lowering and the fused K1
+   leaf, on DBLP at scales 0.002, 0.01, 0.05, 0.25 and 1.0 (5,660 to
+   2,838,951 incidences) and D = 1, 2, 8, 16 and 64, each pair checked
+   (1e-5) and timed (L2 flushed, median of 20); the grid is printed
+   with ``select_delivery``'s pick, which must be the faster path at
+   every point unless the two are within 10% (logged), and the traffic
+   model's calibration record (``obs.delivery_calibration``);
+11. the clique representation on DBLP at full scale: ``to_graph``
+   (33,490,568 symmetric edges, timed), ``Engine(representation=
+   "clique").run(vertex_pagerank_spec(hg))`` with K2's launches counted
+   from 0 and read after it (K2b once an iteration: 30; K2a none: the
+   out-weights take ``index_add_``, which measured faster there),
+   ``graph_pagerank`` against its plain version (1e-5 relative), K2b
+   bitwise equal over 31 calls with one set of offsets, ``auto``
+   resolving bipartite on DBLP and clique on Fig. 1 (agreeing with the
+   plain version there), and a traced ``explain`` + ``run`` whose
+   winners are the run's and whose ``engine.run`` spans carry
+   ``device_wait_s``.  Timings: the clique run (``to_graph`` included)
+   beside the bipartite fused run of the same spec and
+   ``graph_pagerank`` alone (host wall through a synchronize, median of
+   3); K2b per iteration and K2a on the out-weights against their plain
+   versions, ``index_add_`` and the byte bound.
 
 Prints the kernel line (JSON; K1's entry carries phase 9's compiled
-launches and times) and, last, the device line (JSON).  Exits
-non-zero, printing no result, when there is no card.
+launches and times; K2b's, phase 11's launches and numbers at the
+clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 7's, with
+the clique out-weights' as ``out_w_*``) and, last, the device line
+(JSON).  Exits non-zero, printing no result, when there is no card.
 """
 import json
 import os
@@ -194,6 +221,34 @@ def time_cuda(fn, flush, n_timed=N_TIMED, n_warm=N_WARM):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_two(fn_a, fn_b, flush, n_timed=N_TIMED, n_warm=N_WARM):
+    """Median ms of ``fn_a()`` and of ``fn_b()``, timed in turns (a, b,
+    a, b, ...) so that both meet the same state of the host, each after
+    an L2 flush and from an idle card: the timer starts once the flush
+    is done, so the host's dispatch counts in full.  (``time_cuda``
+    starts it behind the flush, which hides up to the flush's ~80 us of
+    a call's dispatch: a call of many small launches looks faster than
+    it runs in a loop.)"""
+    import torch
+
+    for _ in range(n_warm):
+        fn_a()
+        fn_b()
+    times = ([], [])
+    for _ in range(n_timed):
+        for fn, out in ((fn_a, times[0]), (fn_b, times[1])):
+            flush.zero_()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
 
 
 def time_device(fn, flush, n=N_TIMED):
@@ -1442,7 +1497,7 @@ def serving_phase(hg, flush):
         random_walk_spec,
         shortest_paths_spec,
     )
-    from repro_torch.core import Engine
+    from repro_torch.core import Engine, Program, deliver
     from repro_torch.kernels.deliver import fused
     from repro_torch.kernels.deliver import _mask_per_query
     from repro_torch.sparse.segment import MONOIDS
@@ -1653,7 +1708,9 @@ def serving_phase(hg, flush):
         f"timed)")
 
     # -- K1 at wide messages on the bucket-padded layout ----------------------
-    fwd = c_sp._prepared(None, rebind=True).delivery[0]
+    prep = c_sp._prepared(None, rebind=True)
+    fwd, hgp = prep.delivery[0], prep.hgp
+    min_prog = Program(procedure=None, combiner="min")
     log(f"  K1 on the bucket-padded v->he layout (n_src {fwd.n_src}, n_dst "
         f"{fwd.n_dst}, {fused.leaf_plan(fwd).zero_dst.numel()} zero-degree "
         f"destinations), float32 min, no activity; L2 flushed, median of "
@@ -1673,11 +1730,19 @@ def serving_phase(hg, flush):
             lambda: fused.deliver_leaf_cuda(msgs, None, fwd, "min"), flush)
         p_ms = time_cuda(
             lambda: fused.deliver_leaf_plain(msgs, None, fwd, "min"), flush)
+        # The port's xla lowering of the same leaf: gather, mask the
+        # padding lanes, segment min.
+        x_leaf = lambda: deliver(msgs, None, hgp.src, hgp.dst, fwd.n_dst,
+                                 min_prog, e_mask=hgp.e_mask)
+        if not same_bits(x_leaf(), want):
+            fail(f"xla leaf at D = {d} != deliver_leaf_plain")
+        x_ms = time_cuda(x_leaf, flush)
         bound, n_bytes = leaf_bound_ms(fwd, d)
-        wide[d] = (k_ms, p_ms, bound, k_dev)
+        wide[d] = (k_ms, p_ms, bound, k_dev, x_ms)
         line = (f"    D = {d}: {k_ms * 1e3:.1f} us (device "
                 f"{k_dev * 1e3:.1f} us), plain "
-                f"{p_ms * 1e3:.1f} us, bound {bound * 1e3:.1f} us "
+                f"{p_ms * 1e3:.1f} us, xla {x_ms * 1e3:.1f} us, bound "
+                f"{bound * 1e3:.1f} us "
                 f"({n_bytes / 1e6:.1f} MB; {bound / k_ms:.1%} of it, of "
                 f"the device time {bound / k_dev:.1%})")
         if d > 1:
@@ -1706,12 +1771,330 @@ def serving_phase(hg, flush):
         "batch64_qps": SERVE_BATCH / b_ms * 1e3,
         "sequential64_qps": SERVE_BATCH / seq_ms * 1e3,
         "d8_ms": wide[8][0], "d8_device_ms": wide[8][3],
-        "d8_bound_ms": wide[8][2],
+        "d8_bound_ms": wide[8][2], "d8_library_ms": wide[8][4],
         "d64_ms": wide[SERVE_BATCH][0],
         "d64_device_ms": wide[SERVE_BATCH][3],
         "d64_plain_ms": wide[SERVE_BATCH][1],
         "d64_bound_ms": wide[SERVE_BATCH][2],
+        "d64_library_ms": wide[SERVE_BATCH][4],
     }
+
+
+DELIVERY_SCALES = (0.002, 0.01, 0.05, 0.25, 1.0)  # phase 10: DBLP sizes
+DELIVERY_WIDTHS = (1, 2, 8, 16, 64)               # float32 columns
+DELIVERY_BAND = 0.10  # a point this close to the crossover only logs
+
+
+def delivery_probe(hg, d):
+    """A monoid spec whose messages are ``d`` float32 columns: what
+    ``select_delivery`` reads to price one delivery pair at width d."""
+    import torch
+
+    from repro_torch.algorithms import AlgorithmSpec
+    from repro_torch.core import Program
+
+    prog = Program(procedure=None, combiner="sum")
+    return AlgorithmSpec(
+        hg0=hg, initial_msg=torch.zeros(d) if d > 1 else torch.zeros(()),
+        v_program=prog, he_program=prog, max_iters=1,
+        extract=lambda out: out, name=f"probe[D={d}]")
+
+
+def delivery_grid(hg_full, flush):
+    """Phase 10: one delivery pair (v->he, then he->v), float32 sum, no
+    activity, through the port's ``xla`` lowering (``deliver`` with no
+    layout: gather, mask, segment reduce) and the fused K1 leaf
+    (``deliver`` with the Engine's layouts), on DBLP at
+    ``DELIVERY_SCALES`` and ``DELIVERY_WIDTHS``: each checked against the
+    other (1e-5), timed in turns (``time_two``: L2 flushed, from an
+    idle card, median of 20), and priced by ``select_delivery``.
+    Beside them, ``loop_ms``: a pair's share of 20 pairs queued back to
+    back, as a superstep loop runs them (informational).  Returns the
+    grid's records."""
+    import torch
+
+    from repro_torch.core import Engine, Program, deliver, select_delivery
+    from repro_torch.data import make_dataset
+    from repro_torch.obs import delivery_traffic_pair
+
+    dev = hg_full.dst.device
+    prog = Program(procedure=None, combiner="sum")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    records = []
+    log("phase 10: one delivery pair (fwd + bwd), float32 sum, no "
+        "activity; xla (gather + mask + segment reduce) vs the fused K1 "
+        f"leaf; in turns, L2 flushed, from an idle card, median of "
+        f"{N_TIMED}; loop: a pair's share of {N_TIMED} back to back; ms")
+    log("  scale      nnz   D   xla_ms  fused_ms  xla/fused  auto          "
+        "xla_loop fused_loop")
+    for scale in DELIVERY_SCALES:
+        hg = (hg_full if scale == 1.0
+              else make_dataset("dblp", scale, seed=0, device=dev))
+        fwd, bwd = Engine(device=dev)._delivery_layouts(hg)
+        nv, ne = hg.n_vertices, hg.n_hyperedges
+        for d in DELIVERY_WIDTHS:
+            shape = (lambda n: (n,)) if d == 1 else (lambda n: (n, d))
+            m_v = torch.rand(shape(nv), generator=gen, device=dev)
+            m_he = torch.rand(shape(ne), generator=gen, device=dev)
+
+            def pair(fused):
+                out_he = deliver(m_v, None, hg.src, hg.dst, ne, prog,
+                                 layout=fwd if fused else None)
+                out_v = deliver(m_he, None, hg.dst, hg.src, nv, prog,
+                                layout=bwd if fused else None)
+                return out_he, out_v
+
+            for a, b in zip(pair(True), pair(False)):
+                check_close(f"delivery pair scale {scale} D={d}", a, b,
+                            1e-5, 1e-5)
+            x_ms, f_ms = time_two(lambda: pair(False), lambda: pair(True),
+                                  flush)
+            loop = {}
+            for fused in (False, True):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(N_TIMED):
+                    pair(fused)
+                end.record()
+                end.synchronize()
+                loop[fused] = start.elapsed_time(end) / N_TIMED
+            pick, why = select_delivery(delivery_probe(hg, d), hg)
+            traffic = delivery_traffic_pair((fwd, bwd), 4.0 * d)
+            records.append({
+                "scale": scale, "nnz": hg.nnz, "d": d, "xla_ms": x_ms,
+                "fused_ms": f_ms, "xla_loop_ms": loop[False],
+                "fused_loop_ms": loop[True], "auto_picks": pick,
+                "reason": why["reason"],
+                "model_traffic_ratio": (traffic["reference_total_bytes"]
+                                        / traffic["total_bytes"]),
+                "fused_speedup": x_ms / f_ms,
+            })
+            log(f"  {scale:<6} {hg.nnz:>9} {d:>3} {x_ms:8.4f} {f_ms:9.4f} "
+                f"{x_ms / f_ms:10.3f}  {pick:<12}  {loop[False]:7.4f} "
+                f"{loop[True]:8.4f}")
+            del m_v, m_he
+        del fwd, bwd
+    return records
+
+
+def check_delivery_term(records):
+    """Phase 10's check: at every grid point ``select_delivery`` picks the
+    faster path, unless the two are within ``DELIVERY_BAND`` of each
+    other (logged).  Also the calibration record of the traffic model
+    (``obs.delivery_calibration``)."""
+    from repro_torch.obs import delivery_calibration
+
+    wrong = []
+    for r in records:
+        faster = "pallas_fused" if r["fused_ms"] < r["xla_ms"] else "xla"
+        gap = (abs(r["fused_ms"] - r["xla_ms"])
+               / min(r["fused_ms"], r["xla_ms"]))
+        if r["auto_picks"] == faster:
+            continue
+        point = (f"scale {r['scale']} D={r['d']}: auto picks "
+                 f"{r['auto_picks']}, {faster} is faster by {gap:.1%}")
+        if gap <= DELIVERY_BAND:
+            log(f"  within {DELIVERY_BAND:.0%} of the crossover: {point}")
+        else:
+            wrong.append(point)
+    cal = delivery_calibration({f"{r['scale']}/D={r['d']}": r
+                                for r in records})["summary"]
+    log(f"  traffic model vs measured speedup over {cal['regimes']} "
+        f"points: mean |log2 residual| {cal['mean_abs_residual_log2']:.3f}, "
+        f"max {cal['max_abs_residual_log2']:.3f}, suggested scale "
+        f"{cal['suggested_model_scale']:.3f}; auto agrees with the "
+        f"faster path at {cal['decision_accuracy']:.0%} of the points")
+    if wrong:
+        fail("select_delivery picks the slower path: " + "; ".join(wrong))
+
+
+def graph_pagerank_plain(g, iters=30, alpha=0.15):
+    """``graph_pagerank``'s plain version: both sums by ``index_add_``
+    over the edges in their own order (the JAX package's
+    ``segment_sum``)."""
+    import torch
+
+    from repro_torch.kernels.segsum import segsum_plain
+
+    nv = g.n_vertices
+    w = g.e_attr.float()
+    out_w = segsum_plain(w[:, None], g.src, nv)[:, 0].clamp(min=1e-12)
+    rank = torch.ones(nv, dtype=torch.float32, device=w.device)
+    for _ in range(iters):
+        contrib = (rank / out_w)[g.src] * w
+        rank = alpha + (1.0 - alpha) * segsum_plain(contrib[:, None],
+                                                    g.dst, nv)[:, 0]
+    return rank
+
+
+CLIQUE_EDGES = 33_490_568  # DBLP's symmetrized expansion (numpy, seed 0)
+FIG1_EDGES = [[0, 1], [0, 1, 2, 3], [0, 3, 4], [2, 3]]
+
+
+def clique_phase(hg, flush):
+    """Phase 11: the clique representation on DBLP at full scale:
+    ``to_graph``, ``graph_pagerank`` (K2b once an iteration; its
+    out-weights by ``index_add_``, which measured faster than K2a there)
+    against its plain version, K2 launches counted over
+    ``Engine(representation="clique").run``, K2b repeated bitwise, the
+    two design points timed, K2b and K2a against ``index_add_`` at the
+    clique's shapes, ``resolve`` on DBLP and on Fig. 1, and a traced
+    ``explain`` + ``run``.  Returns K2b's entry of the kernel line at
+    the clique's shapes and K2a's numbers there."""
+    import torch
+
+    from repro_torch.algorithms import graph_pagerank, vertex_pagerank_spec
+    from repro_torch.core import Engine, HyperGraph, to_graph
+    from repro_torch.kernels.segsum import (
+        csr_row_offsets,
+        segsum_cuda,
+        segsum_plain,
+        segsum_sorted_cuda,
+        segsum_sorted_plain,
+    )
+    from repro_torch.obs import Tracer
+
+    dev = hg.dst.device
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    g = to_graph(hg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_edges = int(g.src.numel())
+    log(f"  to_graph: {n_edges} symmetric edges in {build_s:.2f} s")
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    if n_edges != CLIQUE_EDGES:
+        fail(f"to_graph gave {n_edges} edges, expected {CLIQUE_EDGES}")
+
+    spec = vertex_pagerank_spec(hg, iters=30)
+    clique = Engine(device=dev, representation="clique")
+    segsum_cuda.launches = segsum_sorted_cuda.launches = 0
+    res = clique.run(spec)
+    torch.cuda.synchronize()
+    launches = (segsum_cuda.launches, segsum_sorted_cuda.launches)
+    log(f"  {at()} Engine(representation='clique').run("
+        f"vertex_pagerank_spec): K2a {launches[0]} launches, K2b "
+        f"{launches[1]}")
+    if launches != (0, 30):
+        fail(f"the clique run launched K2a/K2b {launches} times, expected "
+             "(0, 30)")
+    want = graph_pagerank_plain(g)
+    rank = graph_pagerank(g)
+    rel = rel_err(rank, want)
+    rel_run = rel_err(res.value, want)
+    log(f"  {at()} graph_pagerank vs plain: max relative error "
+        f"{rel:.3g}; the Engine run's {rel_run:.3g}")
+    if not (rel <= 1e-5 and rel_run <= 1e-5):
+        fail(f"graph_pagerank vs plain relative error {rel}, {rel_run}")
+    if (res.value.shape != (hg.n_vertices,)
+            or not torch.isfinite(res.value).all()
+            or (res.value <= 0).any()):
+        fail("clique ranks are not finite, positive, of shape [n]")
+
+    # The per-iteration sum's inputs, as graph_pagerank builds them.
+    nv = g.n_vertices
+    w = g.e_attr
+    order = torch.sort(g.dst, stable=True).indices
+    dst_s = g.dst[order]
+    off = csr_row_offsets(dst_s, nv)
+    contrib = (torch.rand(nv, device=dev)[g.src[order]] * w[order])[:, None]
+    first = segsum_sorted_cuda(contrib, off, nv)
+    for i in range(30):
+        if not same_bits(segsum_sorted_cuda(contrib, off, nv), first):
+            fail(f"K2b call {i + 2} of 31 with one set of offsets differs")
+    rtol, atol = segsum_tol(n_edges, nv, torch.float32)
+    k2b_err = check_close("K2b at the clique shape", first,
+                          segsum_sorted_plain(contrib, off, nv), rtol, atol)
+    w2 = w[:, None].contiguous()
+    k2a_err = check_close("K2a out_w", segsum_cuda(w2, g.src, nv),
+                          segsum_plain(w2, g.src, nv), rtol, atol)
+    log(f"  {at()} K2b: 31 calls with one set of offsets, bitwise equal")
+
+    # -- resolve: bipartite on DBLP, clique on Fig. 1 -------------------------
+    rep = Engine(device=dev).resolve(spec)[0].representation
+    if rep != "bipartite":
+        fail(f"auto resolves {rep} on DBLP, expected bipartite")
+    fig1 = HyperGraph.from_hyperedge_lists(FIG1_EDGES, n_vertices=5,
+                                           device=dev)
+    s1 = vertex_pagerank_spec(fig1, iters=8)
+    r1 = Engine(device=dev).run(s1)
+    rel1 = rel_err(r1.value, graph_pagerank_plain(to_graph(fig1), 8))
+    log(f"  {at()} auto: {rep} on DBLP, {r1.representation} on Fig. 1 "
+        f"(vs plain "
+        f"{rel1:.3g})")
+    if r1.representation != "clique" or not rel1 <= 1e-5:
+        fail(f"Fig. 1: {r1.representation}, relative error {rel1}")
+
+    # -- a traced explain + run on the card ----------------------------------
+    tr = Tracer()
+    traced = Engine(device=dev, tracer=tr)
+    ex = traced.explain(spec)
+    res_t = traced.run(spec)
+    for axis, field in (("representation", "representation"),
+                        ("backend", "backend"), ("delivery", "delivery")):
+        if ex["axes"][axis]["winner"] != getattr(res_t.config, field):
+            fail(f"explain's {axis} winner {ex['axes'][axis]['winner']} != "
+                 f"run's {getattr(res_t.config, field)}")
+    if ex["config"] != res_t.config:
+        fail("explain's config != run's")
+    runs = [sp for sp in tr.spans() if sp.name == "engine.run"]
+    if not runs or any("device_wait_s" not in sp.args for sp in runs):
+        fail("engine.run spans without device_wait_s")
+    d_in = ex["axes"]["delivery"]["inputs"]
+    log(f"  {at()} traced explain + run: winners {res_t.representation} / "
+        f"{res_t.backend} / {res_t.config.delivery} ({d_in['lowering']}, "
+        f"{ex['axes']['delivery']['reason']}); spans "
+        f"{sorted({sp.name for sp in tr.spans()})}, engine.run device wait "
+        f"{runs[-1].args['device_wait_s'] * 1e3:.3f} ms")
+
+    # -- timings --------------------------------------------------------------
+    bip = Engine(device=dev, representation="bipartite",
+                 delivery="pallas_fused")
+    bip.run(spec)  # layouts built, warm
+    c_ms, _ = wall_ms(lambda: clique.run(spec), 3)
+    b_ms, _ = wall_ms(lambda: bip.run(spec), 3)
+    p_ms, _ = wall_ms(lambda: graph_pagerank(g), 3)
+    log(f"  {at()} vertex PageRank-30 (host wall through a synchronize, "
+        f"median of "
+        f"3): clique {c_ms:.1f} ms (to_graph included; graph_pagerank "
+        f"alone {p_ms:.2f} ms) vs bipartite fused {b_ms:.2f} ms")
+    e = n_edges
+    entries = {}
+    for name, kernel, plain, library, n_bytes in (
+            ("segsum", lambda: segsum_cuda(w2, g.src, nv),
+             lambda: segsum_plain(w2, g.src, nv),
+             lambda: torch.zeros(nv, 1, device=dev).index_add_(0, g.src, w2),
+             4 * (2 * e + nv)),
+            ("segsum_sorted", lambda: segsum_sorted_cuda(contrib, off, nv),
+             lambda: segsum_sorted_plain(contrib, off, nv),
+             lambda: torch.zeros(nv, 1, device=dev).index_add_(
+                 0, dst_s, contrib),
+             4 * (e + nv + nv + 1))):
+        k_ms = time_cuda(kernel, flush)
+        p_k = time_cuda(plain, flush)
+        l_ms = time_cuda(library, flush)
+        b_s, o_s = n_bytes / HBM_BYTES_PER_S, e / FP32_OPS_PER_S
+        entries[name] = {
+            "ms": k_ms, "plain_ms": p_k, "library_ms": l_ms,
+            "bound_ms": max(b_s, o_s) * 1e3,
+            "bound_by": "bytes" if b_s >= o_s else "operations",
+            "launches": launches[0 if name == "segsum" else 1],
+            "max_abs_err": k2a_err if name == "segsum" else k2b_err,
+        }
+        log(f"  {'K2a out_w' if name == 'segsum' else 'K2b per iteration'} "
+            f"(E = {e} into {nv} rows, float32 D=1): kernel {k_ms:.4f} ms, "
+            f"plain {p_k:.4f} ms, index_add_ {l_ms:.4f} ms, bound "
+            f"{max(b_s, o_s) * 1e3:.4f} ms; the kernel is "
+            f"{'faster' if k_ms < l_ms else 'SLOWER'} than index_add_")
+    entries["segsum_sorted"].update(
+        clique_ms=c_ms, bipartite_ms=b_ms, graph_pagerank_ms=p_ms,
+        to_graph_s=build_s,
+        caller="algorithms/graph_pagerank.py: the sum by destination, "
+               "once an iteration (Engine clique run)")
+    log(f"  {at()} phase 11 timings done")
+    return entries
 
 
 def main() -> int:
@@ -1899,6 +2282,19 @@ def main() -> int:
     log(f"phase 9: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 10: the card's delivery term ---------------------------------
+    t0 = time.perf_counter()
+    check_delivery_term(delivery_grid(hg, flush))
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 11: the clique representation (K2a, K2b) -----------------------
+    t0 = time.perf_counter()
+    log("phase 11: the clique representation on dblp at full scale")
+    clique_entries = clique_phase(hg, flush)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -1927,6 +2323,20 @@ def main() -> int:
             **isect_entries[name],
             "library_ms": None,  # torch has no popcount op
         })
+    # K2b's numbers are at its caller's shapes (phase 11: the clique
+    # PageRank); phase 7's, at the DBLP incidences, follow as phase7_*.
+    # K2a has no system caller (index_add_ measured faster for the clique
+    # out-weights): its line stays phase 7's, with the out-weights'
+    # numbers beside it as out_w_*.
+    seven = segsum_entries["segsum_sorted"]
+    segsum_entries["segsum_sorted"] = {
+        **clique_entries["segsum_sorted"],
+        **{f"phase7_{key}": val for key, val in seven.items()}}
+    segsum_entries["segsum"].update(
+        {f"out_w_{key}": clique_entries["segsum"][key]
+         for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        caller="none: phase 7's segment_sum_mxu calls (index_add_ measured "
+               "faster for graph_pagerank's out-weights)")
     for name, source, replaces, entry in (
             ("segsum", "segsum.cu", "segsum/segsum.py:125",
              segsum_entries["segsum"]),
@@ -1946,11 +2356,13 @@ def main() -> int:
             "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"],
         })
-    next(k for k in kernels if k["name"] == "segsum")["shuffled_ms"] = (
-        segsum_entries["segsum"]["shuffled_ms"])
-    next(k for k in kernels if k["name"] == "segsum_sorted").update(
-        {key: val for key, val in segsum_entries["segsum_sorted"].items()
-         if key.startswith(("one_segment_", "skew_"))})
+    for name in ("segsum", "segsum_sorted"):
+        next(k for k in kernels if k["name"] == name).update(
+            {key: val for key, val in segsum_entries[name].items()
+             if key.startswith(("phase7_", "out_w_", "shuffled_",
+                                "one_segment_", "skew_")) or key in (
+                 "caller", "clique_ms", "bipartite_ms",
+                 "graph_pagerank_ms", "to_graph_s")})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

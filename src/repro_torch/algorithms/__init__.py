@@ -4,6 +4,7 @@ from repro_torch.algorithms.components import (
     connected_components,
     connected_components_spec,
 )
+from repro_torch.algorithms.graph_pagerank import graph_pagerank
 from repro_torch.algorithms.label_propagation import (
     label_propagation,
     label_propagation_spec,
@@ -14,6 +15,7 @@ from repro_torch.algorithms.pagerank import (
     pagerank_entropy_seq,
     pagerank_entropy_spec,
     pagerank_spec,
+    vertex_pagerank_spec,
 )
 from repro_torch.algorithms.random_walk import random_walk, random_walk_spec
 from repro_torch.algorithms.spec import AlgorithmSpec
@@ -23,6 +25,7 @@ __all__ = [
     "AlgorithmSpec",
     "connected_components",
     "connected_components_spec",
+    "graph_pagerank",
     "label_propagation",
     "label_propagation_spec",
     "pagerank",
@@ -34,4 +37,5 @@ __all__ = [
     "random_walk_spec",
     "shortest_paths",
     "shortest_paths_spec",
+    "vertex_pagerank_spec",
 ]

@@ -8,9 +8,6 @@ Messages:
 as the first component of the he->v message, exactly as in Listing 2.
 Aux lookups inside procedures go through ``ids`` so the same procedure
 runs on any id range.
-
-``vertex_pagerank_spec`` (the clique-eligible variant) waits for the
-clique representation (ROADMAP.md queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -73,6 +70,30 @@ def pagerank_spec(
         name="pagerank",
         touches_hyperedge_state=True,  # extracts hyperedge ranks
         init=init,
+    )
+
+
+def vertex_pagerank_spec(
+    hg: HyperGraph, iters: int = 30, alpha: float = 0.15
+) -> AlgorithmSpec:
+    """PageRank restricted to vertex ranks — the clique-eligible variant.
+
+    Drops the hyperedge-rank output, which makes the spec satisfy the
+    paper's constant-folding precondition (§IV-A1); the clique program is
+    the Fig. 7 baseline (``graph_pagerank`` weighted by shared-hyperedge
+    count).  Note the two representations are the paper's two *design
+    points*, not numerically identical algorithms.
+    """
+    from repro_torch.algorithms.graph_pagerank import graph_pagerank
+
+    base = pagerank_spec(hg, iters, alpha)
+    return base._replace(
+        extract=lambda out: out.v_attr,
+        name="pagerank[vertex]",
+        touches_hyperedge_state=False,
+        clique_program=lambda g: graph_pagerank(
+            g, iters=iters, alpha=alpha
+        ),
     )
 
 

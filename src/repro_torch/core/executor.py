@@ -1,12 +1,19 @@
 """One API, many design points: the ``Engine`` facade, in PyTorch.
 
 The port runs the local backend.  ``Engine(...).run(spec)`` takes an
-``AlgorithmSpec`` on the bipartite representation: it resolves the
-``delivery`` axis (reference gather/mask/segment path vs the fused
-degree-class layout, which on the card runs the hand-written CUDA
-kernel) and executes the superstep loop of ``repro_torch.core.engine``.
-The chosen design point and the measured wall, dispatch and device-wait
-times come back on the ``Result``.
+``AlgorithmSpec``: it resolves the representation (the bipartite
+incidence, or the clique expansion's constant folding for specs that
+never touch hyperedge state, ``select_representation``) and, on the
+bipartite representation, the ``delivery`` axis (reference
+gather/mask/segment path vs the fused degree-class layout, which on the
+card runs the hand-written CUDA kernel, ``select_delivery``), then
+executes the superstep loop of ``repro_torch.core.engine`` or the
+spec's ``clique_program`` over ``to_graph``.  The chosen design point
+and the measured wall, dispatch and device-wait times come back on the
+``Result``; ``explain`` reports every axis's candidates and their
+predicted costs without executing.  ``Engine(tracer=, metrics=)``
+records spans (``repro_torch.obs``) and surfaces the executable cache in
+the metrics registry.
 
 ``Engine(...).compile(spec)`` resolves the design point once and returns
 a ``CompiledAlgorithm`` (``repro_torch.core.serving``): ``run`` /
@@ -37,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import tree_leaves
+from repro_torch.core.clique import clique_expansion_size, to_graph
 from repro_torch.core.device import resolve_device
 from repro_torch.core.engine import compute
 from repro_torch.core.hypergraph import HyperGraph
@@ -48,6 +56,9 @@ from repro_torch.kernels.deliver import (
     select_lowering,
 )
 from repro_torch.kernels.deliver.layout import RESIDUAL_WEIGHT
+from repro_torch.obs.calibrate import delivery_traffic_pair, reference_traffic
+from repro_torch.obs.metrics import default_registry, weak_provider
+from repro_torch.obs.trace import maybe_span
 
 REPRESENTATIONS = ("auto", "bipartite", "clique")
 BACKENDS = ("auto", "local", "replicated", "sharded")
@@ -65,10 +76,9 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-_CLIQUE = "item 5: core/clique.py and the clique representation"
 _DISTRIBUTED = "item 10: core/distributed.py"
-_CHECKPOINT = "item 8: faults/checkpoint.py"
-_OBS_FAULTS = "item 8: obs/ and faults/"
+_CHECKPOINT = "item 8's fault half: faults/checkpoint.py"
+_FAULTS = "item 8's fault half: faults/inject.py and faults/plan.py"
 _DISK_CACHE = "item 9: serve/cache.py"
 
 
@@ -79,10 +89,12 @@ class ExecutionConfig:
 
     Values of axes that the port does not run yet raise
     ``NotImplementedError``: a ``replicated`` or ``sharded`` backend
-    and ``checkpoint_every`` here, ``representation='clique'`` when an
-    ``AlgorithmSpec`` is resolved (``Engine.analyze`` takes it: there it
-    means the dual hypergraph's materialized pair-size table).
-    ``jit`` is accepted and has no effect: PyTorch runs eagerly.
+    and ``checkpoint_every``.  ``representation='clique'`` constant-folds
+    an ``AlgorithmSpec`` onto ``to_graph`` (legal only for specs that
+    never touch hyperedge state and ship a ``clique_program``); for
+    ``Engine.analyze`` it means the dual hypergraph's materialized
+    pair-size table.  ``jit`` is accepted and has no effect: PyTorch
+    runs eagerly.
     ``delivery``: ``xla`` (reference gather -> mask -> segment reduce),
     ``pallas_fused`` (the fused layout path: the CUDA kernel on the card,
     its sliced-ELL lowering on the CPU) or ``auto``.
@@ -148,8 +160,12 @@ class Result:
     the batch ran (its slowest query's count, halting pair included).
     ``decision``: the reasons behind each resolved axis, plus
     ``measured`` (``wall_s``, ``dispatch_s``, ``device_wait_s``,
-    ``max_iters``, ``supersteps``, ``pairs_run``, ``host_syncs``; a
-    compiled run adds ``graph``: whether a CUDA graph replayed).
+    ``max_iters``, ``supersteps``, ``pairs_run``, ``host_syncs``; on
+    the fused path ``delivery``, the modeled bytes of one superstep pair
+    over the built layouts (``obs.calibrate.delivery_traffic_pair``); a
+    compiled run adds ``graph``: whether a CUDA graph replayed).  A
+    clique run measures ``wall_s``, ``dispatch_s`` and
+    ``device_wait_s``.
     """
 
     value: Any
@@ -239,12 +255,61 @@ class AnalyticsResult:
     decision: Mapping[str, Any] = dataclasses.field(default_factory=dict)
 
 
-# Hard gates of the fused delivery path (the JAX package's constants).
-# The width and padding-work terms are the CPU (ELL) cost model; on the
-# card only the gates apply until H100 measurements fill in a cost term.
+def select_representation(
+    spec, hg: HyperGraph, *, edge_budget: float = 4.0
+) -> tuple[str, dict]:
+    """Clique vs bipartite for one spec — the paper's constant-folding
+    rule plus a size cost model (the JAX package's, unchanged).
+
+    Clique expansion is chosen only when (a) the algorithm never touches
+    hyperedge state and ships a ``clique_program`` (correctness
+    precondition, §IV-A1) and (b) the symmetrized expansion stays within
+    ``edge_budget`` x the bipartite incidence count (Table I: heavy-tailed
+    cardinalities blow the expansion up quadratically).
+    """
+    touches = getattr(spec, "touches_hyperedge_state", True)
+    has_program = getattr(spec, "clique_program", None) is not None
+    why: dict[str, Any] = {
+        "touches_hyperedge_state": touches,
+        "has_clique_program": has_program,
+    }
+    if touches or not has_program:
+        why["reason"] = (
+            "algorithm touches hyperedge state"
+            if touches
+            else "no clique program supplied"
+        )
+        return "bipartite", why
+
+    n_clique_edges = 2 * clique_expansion_size(hg)  # symmetrized
+    budget = edge_budget * max(hg.nnz, 1)
+    why.update(
+        clique_edges=int(n_clique_edges),
+        bipartite_edges=int(hg.nnz),
+        edge_budget=float(budget),
+    )
+    if n_clique_edges <= budget:
+        why["reason"] = "expansion within edge budget"
+        return "clique", why
+    why["reason"] = "expansion exceeds edge budget"
+    return "bipartite", why
+
+
+# The CPU (ELL) cost model's budgets: the JAX package's constants,
+# measured there on CPU XLA.
 FUSED_MAX_WIDTH_BYTES = 64.0    # per-entity message bytes
 FUSED_ELL_WORK_BUDGET = 4.0     # padded ELL slots per real incidence
 FUSED_MIN_NNZ = 4096
+# The card's term, measured: one delivery pair (v->he + he->v, float32
+# sum) through the xla lowering and the fused K1 leaf on one H100 (700
+# W), over DBLP at 5,660 to 2,838,951 incidences and 4 to 256 bytes a
+# row (``chip_smoke.py`` phase 10; PERF.md §6).  K1 won at every width
+# and size: 1.9-10.1x up to 64-byte rows, 1.14-1.43x at 256 bytes, where
+# the two smallest sizes are launch-bound (K1 0.22-0.27 ms a pair,
+# xla's host dispatch of ~20 launches 0.25-0.33).  So the card has no
+# width bound, and its nnz floor is the smallest size measured: below
+# it, unmeasured, auto keeps the reference lowering.
+H100_FUSED_MIN_NNZ = 5_660
 
 
 def _non_monoid_reason(spec) -> str | None:
@@ -282,7 +347,9 @@ def select_delivery(spec, hg: HyperGraph) -> tuple[str, dict]:
       while the degree-class padding stays within
       ``FUSED_ELL_WORK_BUDGET`` slots per incidence and the message row
       within ``FUSED_MAX_WIDTH_BYTES``.
-    * ``cuda``: only the gates (plus ``FUSED_MIN_NNZ``), then the kernel.
+    * ``cuda``: the card's measured term — fused from
+      ``H100_FUSED_MIN_NNZ`` live incidences up, at any message width
+      (the fused kernel won at every width and size measured).
     """
     reason = _non_monoid_reason(spec)
     why: dict[str, Any] = {}
@@ -306,19 +373,27 @@ def select_delivery(spec, hg: HyperGraph) -> tuple[str, dict]:
         return "xla", why
     width = message_width_bytes(spec.initial_msg)
     why["message_width_bytes"] = width
+    if lowering == "cuda":
+        why.update(nnz=nnz, min_nnz=H100_FUSED_MIN_NNZ)
+        if nnz < H100_FUSED_MIN_NNZ:
+            why["reason"] = (
+                f"incidence below the smallest measured on the card ({nnz} "
+                f"< {H100_FUSED_MIN_NNZ}): the reference lowering"
+            )
+            return "xla", why
+        why["reason"] = (
+            "monoid path on the card: the fused CUDA kernel measured "
+            f"faster at every width and size from {H100_FUSED_MIN_NNZ} "
+            "incidences (1.14-10.1x; no crossover up to 256-byte rows and "
+            "2.84 M incidences)"
+        )
+        return "pallas_fused", why
     if nnz < FUSED_MIN_NNZ:
         why["reason"] = (
             f"tiny incidence ({nnz} < {FUSED_MIN_NNZ}): layout and "
             "dispatch overheads dominate"
         )
         return "xla", why
-    if lowering == "cuda":
-        why["nnz"] = nnz
-        why["reason"] = (
-            "monoid path on the card: fused CUDA kernel (the cost term "
-            "waits for H100 measurements; only the hard gates apply)"
-        )
-        return "pallas_fused", why
 
     src = hg.src.cpu().numpy()[live]
     dst = hg.dst.cpu().numpy()[live]
@@ -390,9 +465,14 @@ class Engine:
     holds its structure, layouts, loop state and graph); ``None`` is a
     quarter of the card's memory on the card and no byte bound on the
     CPU.
-    ``plan``, ``mesh``, ``disk_cache``, ``tracer``, ``metrics`` and
-    ``fault_injector`` belong to slices not ported yet and raise when
-    given.
+    ``tracer``: an optional span recorder (``repro_torch.obs.Tracer``, or
+    anything with ``span``/``block``); ``metrics``: the registry this
+    Engine's executable-cache counters surface through (default: the
+    port's process-wide ``obs.default_registry()``).  Both cost nothing
+    when unused: span sites branch on ``tracer is None`` and the
+    registry provider is a weakref pulled only at snapshot time.
+    ``plan``, ``mesh``, ``disk_cache`` and ``fault_injector`` belong to
+    slices not ported yet and raise when given.
     """
 
     def __init__(
@@ -413,15 +493,14 @@ class Engine:
             raise _not_ported("a partition plan or mesh", _DISTRIBUTED)
         if disk_cache is not None:
             raise _not_ported("disk_cache", _DISK_CACHE)
-        if tracer is not None or metrics is not None:
-            raise _not_ported("tracer / metrics", _OBS_FAULTS)
         if fault_injector is not None:
-            raise _not_ported("fault_injector", _OBS_FAULTS)
+            raise _not_ported("fault_injector", _FAULTS)
         cfg = config if config is not None else ExecutionConfig()
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         self.device = resolve_device(device)
         self.config = cfg
+        self.plan = self.mesh = None  # the distributed backends' slots
         # Fused-delivery layouts, keyed by the identity of a structure's
         # incidence tensors: the dst-sort + ELL/CSR precompute is paid
         # once per structure (and per padded bucket).
@@ -438,30 +517,76 @@ class Engine:
         self._cache_misses = 0
         self._cache_evictions = 0
         self._trace_count = 0
+        self.tracer = tracer
+        self.metrics = metrics if metrics is not None else default_registry()
+        self.metrics.register_provider(
+            "engine.exec_cache", weak_provider(self.cache_stats)
+        )
 
     # -- resolution ---------------------------------------------------------
 
     def _resolve_representation(self, spec, cfg) -> tuple[str, dict]:
+        """The JAX package's checks and messages.  Its distributed
+        branches (a ``replicated``/``sharded`` backend, a mesh) cannot
+        be reached here: ``ExecutionConfig`` refuses those backends and
+        ``Engine(mesh=)`` raises, both with ``NotImplementedError``
+        (ROADMAP.md queue 1, item 10).  They are kept so that the
+        clique rules stay whole when that item lands."""
         if cfg.representation == "bipartite":
             return "bipartite", {"reason": "explicitly configured"}
-        if cfg.representation == "clique":
-            raise _not_ported(
-                "representation='clique' for an AlgorithmSpec", _CLIQUE
-            )
         touches = getattr(spec, "touches_hyperedge_state", True)
         has_program = getattr(spec, "clique_program", None) is not None
-        if not touches and has_program:
-            raise _not_ported(
-                "auto representation for a clique-eligible spec", _CLIQUE
-            )
-        return "bipartite", {
-            "touches_hyperedge_state": touches,
-            "has_clique_program": has_program,
-            "reason": (
-                "algorithm touches hyperedge state"
-                if touches else "no clique program supplied"
-            ),
-        }
+        if cfg.representation == "clique":
+            if touches:
+                raise ValueError(
+                    "representation='clique' is invalid for "
+                    f"{getattr(spec, 'name', 'this spec')!r}: clique "
+                    "expansion is only legal for algorithms that never "
+                    "touch hyperedge state (MESH §IV-A1)"
+                )
+            if not has_program:
+                raise ValueError(
+                    "representation='clique' needs a clique_program on "
+                    "the AlgorithmSpec"
+                )
+            if cfg.backend in ("replicated", "sharded"):  # unreachable
+                raise ValueError(
+                    "representation='clique' executes locally and cannot "
+                    f"honor backend={cfg.backend!r}"
+                )
+            if cfg.max_iters is not None:
+                raise ValueError(
+                    "max_iters cannot override a clique_program (its "
+                    "iteration count is baked into the spec); rebuild "
+                    "the spec with the desired iters instead"
+                )
+            if self.mesh is not None:  # unreachable
+                raise ValueError(
+                    "representation='clique' executes locally and "
+                    "cannot use the supplied mesh; drop the mesh or "
+                    "use representation='bipartite'"
+                )
+            return "clique", {"reason": "explicitly configured"}
+        # auto: explicit requests the clique path cannot honor pin
+        # bipartite rather than being silently dropped.
+        if cfg.backend in ("replicated", "sharded"):  # unreachable
+            return "bipartite", {
+                "reason": "distributed backend requested; clique "
+                "executes locally"
+            }
+        if self.mesh is not None:  # unreachable
+            return "bipartite", {
+                "reason": "mesh supplied (distributed intent); clique "
+                "executes locally"
+            }
+        if cfg.max_iters is not None and has_program and not touches:
+            return "bipartite", {
+                "reason": "max_iters override cannot apply to a "
+                "clique_program"
+            }
+        return select_representation(
+            spec, spec.hg0, edge_budget=cfg.clique_edge_budget
+        )
 
     def _resolve_delivery(self, spec, cfg) -> tuple[str, dict]:
         if cfg.delivery == "xla":
@@ -495,10 +620,18 @@ class Engine:
             if c_sizes == sizes and all(
                     a is b for a, b in zip(c_tensors, tensors)):
                 return lay
-        lay = layout_pair(
-            target.src, target.dst, target.e_mask, target.n_vertices,
-            target.n_hyperedges,
-        )
+        # A build for the compiled path is the serving tier's span.
+        with maybe_span(
+            self.tracer,
+            "engine.layout_build" if padded is None else "serve.layout_build",
+            cat="compile", nnz=int(target.nnz),
+            n_vertices=int(target.n_vertices),
+            n_hyperedges=int(target.n_hyperedges),
+        ):
+            lay = layout_pair(
+                target.src, target.dst, target.e_mask, target.n_vertices,
+                target.n_hyperedges,
+            )
         self._delivery_cache.append((tensors, sizes, lay))
         del self._delivery_cache[:-4]  # bound the strong refs we hold
         return lay
@@ -520,6 +653,27 @@ class Engine:
         decision: dict[str, Any] = {}
         representation, rep_why = self._resolve_representation(spec, cfg)
         decision["representation"] = rep_why
+        max_iters = (
+            cfg.max_iters if cfg.max_iters is not None else spec.max_iters
+        )
+        if representation == "clique":
+            decision["backend"] = {
+                "reason": "clique representation executes locally"
+            }
+            decision["delivery"] = {
+                "reason": "clique constant-folding runs a host-side "
+                "program; no superstep delivery exists"
+            }
+            resolved = dataclasses.replace(
+                cfg,
+                representation="clique",
+                backend="local",
+                max_iters=max_iters,
+                partition_strategy="none",
+                delivery="xla",
+            )
+            return resolved, None, decision
+        # ExecutionConfig already refused "replicated" and "sharded".
         decision["backend"] = (
             {"reason": "explicitly configured"}
             if cfg.backend == "local"
@@ -529,19 +683,28 @@ class Engine:
         decision["delivery"] = delivery_why
         resolved = dataclasses.replace(
             cfg,
-            representation=representation,
+            representation="bipartite",
             backend="local",
-            max_iters=(
-                cfg.max_iters if cfg.max_iters is not None
-                else spec.max_iters
-            ),
+            max_iters=max_iters,
             partition_strategy="none",
             delivery=delivery,
         )
         return resolved, None, decision
 
+    def _device_wait(self, sp, device, t1: float) -> float:
+        """Wait for the card (a ``torch.cuda.synchronize`` on a CUDA
+        ``device``; nothing on the CPU) and return the wait, also
+        recorded on the span ``sp`` when tracing."""
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
+        if sp is not None:
+            sp.args["device_wait_s"] = t2 - t1
+        return t2
+
     def run(self, spec, **overrides: Any) -> Result:
-        """Execute an ``AlgorithmSpec`` on the local backend.
+        """Execute an ``AlgorithmSpec`` on the local backend, bipartite
+        or clique.
 
         ``overrides`` are per-call ``ExecutionConfig`` replacements
         (e.g. ``engine.run(spec, max_iters=8)``).
@@ -554,6 +717,31 @@ class Engine:
                 f"device={self.device.type!r}"
             )
         resolved, _, decision = self.resolve(spec, **overrides)
+        name = getattr(spec, "name", "anonymous")
+
+        if resolved.representation == "clique":
+            t0 = time.perf_counter()
+            with maybe_span(
+                self.tracer, "engine.run", cat="execute",
+                algorithm=name, representation="clique",
+            ) as sp:
+                graph = to_graph(hg)
+                value = spec.clique_program(graph)
+                t1 = time.perf_counter()
+                t2 = self._device_wait(sp, hg.device, t1)
+            decision = {**decision, "measured": {
+                "wall_s": t2 - t0,
+                "dispatch_s": t1 - t0,
+                "device_wait_s": t2 - t1,
+            }}
+            return Result(
+                value=value,
+                config=resolved,
+                representation="clique",
+                backend="local",
+                decision=decision,
+            )
+
         delivery = (
             self._delivery_layouts(hg)
             if resolved.delivery == "pallas_fused"
@@ -561,25 +749,27 @@ class Engine:
         )
         counters: dict[str, Any] = {}
         t0 = time.perf_counter()
-        out = compute(
-            hg,
-            max_iters=resolved.max_iters,
-            initial_msg=spec.initial_msg,
-            v_program=spec.v_program,
-            he_program=spec.he_program,
-            return_stats=resolved.collect_stats,
-            delivery=delivery,
-            counters=counters,
-        )
-        t1 = time.perf_counter()
-        if hg.device.type == "cuda":
-            torch.cuda.synchronize(hg.device)
-        t2 = time.perf_counter()
+        with maybe_span(
+            self.tracer, "engine.run", cat="execute",
+            algorithm=name, backend="local", delivery=resolved.delivery,
+        ) as sp:
+            out = compute(
+                hg,
+                max_iters=resolved.max_iters,
+                initial_msg=spec.initial_msg,
+                v_program=spec.v_program,
+                he_program=spec.he_program,
+                return_stats=resolved.collect_stats,
+                delivery=delivery,
+                counters=counters,
+            )
+            t1 = time.perf_counter()
+            t2 = self._device_wait(sp, hg.device, t1)
         stats = None
         if resolved.collect_stats:
             out, stats = out
         pairs = counters["pairs_run"]
-        decision = {**decision, "measured": {
+        measured = {
             "wall_s": t2 - t0,
             "dispatch_s": t1 - t0,
             "device_wait_s": t2 - t1,
@@ -590,7 +780,12 @@ class Engine:
             "supersteps": pairs - 1 if counters["halted"] else pairs,
             "pairs_run": pairs,
             "host_syncs": counters["host_syncs"],
-        }}
+        }
+        if delivery is not None:
+            measured["delivery"] = delivery_traffic_pair(
+                delivery, message_width_bytes(spec.initial_msg)
+            )
+        decision = {**decision, "measured": measured}
         return Result(
             value=spec.extract(out),
             config=resolved,
@@ -723,7 +918,18 @@ class Engine:
             self._cache_hits += 1
             return cache[key]
         self._cache_misses += 1
-        exe = build()
+        if self.tracer is None:
+            exe = build()
+        else:
+            span_args = {
+                k: v
+                for k, v in (meta or {}).items()
+                if isinstance(v, (str, int, float, bool))
+            }
+            with self.tracer.span(
+                "engine.build_executable", cat="compile", **span_args
+            ):
+                exe = build()
         cache[key] = exe
         if meta is not None:
             self._exec_meta[key] = meta
@@ -974,5 +1180,244 @@ class Engine:
             decision=decision,
         )
 
-    def explain(self, spec, hg=None, **overrides: Any):
-        raise _not_ported("Engine.explain", _OBS_FAULTS)
+    def explain(self, spec, hg=None, **overrides: Any) -> dict:
+        """The full decision tree for every ``auto`` axis — inputs,
+        per-candidate predicted costs, winner, reason — WITHOUT
+        executing (no layout build, no capture, no kernel).
+
+        Built directly on ``resolve`` (the same call ``run`` and
+        ``compile`` make), so the winners here are by construction the
+        axes an execution of the same inputs resolves.  On top of the
+        winner, every axis reports the costs of the candidates it did
+        NOT pick.  With no plan and no mesh (the port's local backend)
+        the backend and partition axes take the JAX package's
+        ``plan is None`` form; on the card the delivery axis reports
+        ``lowering: "cuda"`` and the card's term's inputs.
+
+        ``hg``: explain against this hypergraph instead of the spec's
+        own (applies ``spec.init`` like ``CompiledAlgorithm.run(hg)``).
+        ``AnalyticsSpec`` routes to the batch axes (kernel /
+        representation / backend / mode).  Returns::
+
+            {"config": resolved ExecutionConfig,
+             "decision": the resolve() decision dict,
+             "axes": {axis: {"winner", "reason", "inputs",
+                             "candidates": {name: {...costs}}}}}
+        """
+        if isinstance(spec, AnalyticsSpec):
+            return self._explain_analytics(spec, **overrides)
+        if hg is not None:
+            hg = spec.init(hg) if spec.init is not None else hg
+            spec = spec._replace(hg0=hg)
+        resolved, _, decision = self.resolve(spec, **overrides)
+        cfg = (
+            dataclasses.replace(self.config, **overrides)
+            if overrides
+            else self.config
+        )
+        hg0 = spec.hg0
+        axes: dict[str, Any] = {}
+
+        # -- representation: bipartite vs clique constant-folding ------
+        touches = getattr(spec, "touches_hyperedge_state", True)
+        has_program = getattr(spec, "clique_program", None) is not None
+        eligible = (not touches) and has_program
+        clique_edges = (
+            int(2 * clique_expansion_size(hg0)) if eligible else None
+        )
+        axes["representation"] = {
+            "winner": resolved.representation,
+            "reason": decision["representation"].get("reason"),
+            "inputs": {
+                "touches_hyperedge_state": touches,
+                "has_clique_program": has_program,
+                "nnz": int(hg0.nnz),
+            },
+            "candidates": {
+                "bipartite": {
+                    "eligible": True,
+                    "predicted_cost_edges": int(hg0.nnz),
+                },
+                "clique": {
+                    "eligible": eligible,
+                    "predicted_cost_edges": clique_edges,
+                    "edge_budget": float(
+                        cfg.clique_edge_budget * max(hg0.nnz, 1)
+                    ),
+                },
+            },
+        }
+
+        # -- backend and partition: local, no plan ---------------------
+        axes["backend"] = {
+            "winner": resolved.backend,
+            "reason": decision["backend"].get("reason"),
+            "inputs": {"mesh": self.mesh is not None},
+            "candidates": {
+                "local": {"eligible": True, "predicted_sync_bytes": 0.0},
+                "replicated": {"eligible": self.mesh is not None},
+                "sharded": {"eligible": self.mesh is not None},
+            },
+        }
+        axes["partition"] = {
+            "winner": resolved.partition_strategy,
+            "reason": "local execution partitions nothing",
+            "inputs": {},
+            "candidates": {},
+        }
+
+        # -- delivery: reference vs fused HBM-traffic model ------------
+        # Run the cost model even when the axis was pinned or gated, so
+        # the non-winning candidate's predicted cost is always visible.
+        gate = _non_monoid_reason(spec)
+        _, dwhy = select_delivery(spec, hg0)
+        width = dwhy.get(
+            "message_width_bytes", message_width_bytes(spec.initial_msg)
+        )
+        nnz = dwhy.get("nnz", int(hg0.nnz))
+        ref_bytes = reference_traffic(
+            nnz, hg0.n_hyperedges, width
+        ) + reference_traffic(nnz, hg0.n_vertices, width)
+        fused_cand: dict[str, Any] = {
+            "eligible": gate is None and nnz > 0,
+            "gate": gate,
+        }
+        for k in (
+            "class_work_slots", "class_weighted_work",
+            "single_ell_weighted_work", "skew_gain", "work_budget",
+            "residual", "class_plans",
+        ):
+            if k in dwhy:
+                fused_cand[k] = dwhy[k]
+        if "class_work_slots" in dwhy:
+            # Predicted fused HBM bytes from the class plan's work
+            # slots — the same (width + id) per slot + output model
+            # obs.calibrate prices a BUILT layout with.
+            fused_cand["predicted_hbm_bytes"] = (
+                dwhy["class_work_slots"] * (width + 4.0)
+                + (hg0.n_vertices + hg0.n_hyperedges) * width
+            )
+        inputs = {
+            "nnz": nnz,
+            "message_width_bytes": width,
+            "width_budget": FUSED_MAX_WIDTH_BYTES,
+            "min_nnz": FUSED_MIN_NNZ,
+            "lowering": dwhy.get("lowering"),
+        }
+        if dwhy.get("lowering") == "cuda":
+            # The card's term replaces the CPU's budgets.
+            inputs.update(width_budget=None, min_nnz=H100_FUSED_MIN_NNZ)
+        axes["delivery"] = {
+            "winner": resolved.delivery,
+            "reason": decision["delivery"].get("reason"),
+            "inputs": inputs,
+            "candidates": {
+                "xla": {
+                    "eligible": True,
+                    "predicted_hbm_bytes": ref_bytes,
+                },
+                "pallas_fused": fused_cand,
+            },
+        }
+
+        return {"config": resolved, "decision": decision, "axes": axes}
+
+    def _explain_analytics(self, spec: AnalyticsSpec, **overrides) -> dict:
+        """``explain`` for the batch axes: intersect kernel,
+        (dual) representation, backend, census mode."""
+        from repro_torch.motifs import (
+            overlap_pairs_with_counts,
+            select_intersect_kernel,
+        )
+
+        cfg = (
+            dataclasses.replace(self.config, **overrides)
+            if overrides
+            else self.config
+        )
+        pairs, _ = overlap_pairs_with_counts(spec.hg)
+        n_pairs = len(pairs)
+        resolved, mode, decision = self._resolve_analytics(
+            spec, cfg, n_pairs
+        )
+        _, kwhy = select_intersect_kernel(spec.hg)
+        axes: dict[str, Any] = {
+            "kernel": {
+                "winner": resolved.intersect_kernel,
+                "reason": decision["kernel"].get("reason"),
+                "inputs": {
+                    "n_hyperedges": int(spec.hg.n_hyperedges),
+                    "n_vertices": int(spec.hg.n_vertices),
+                },
+                "candidates": {
+                    "bitset": {
+                        "eligible": (
+                            kwhy["bitset_index_bytes"]
+                            <= kwhy["bitset_budget_bytes"]
+                        ),
+                        "predicted_ops_per_pair": kwhy[
+                            "bitset_words_per_pair"
+                        ],
+                        "index_bytes": kwhy["bitset_index_bytes"],
+                    },
+                    "merge": {
+                        "eligible": True,
+                        "predicted_ops_per_pair": kwhy[
+                            "merge_ops_per_pair"
+                        ],
+                    },
+                },
+            },
+            "representation": {
+                "winner": resolved.representation,
+                "reason": decision["representation"].get("reason"),
+                "inputs": {"n_overlap_pairs": n_pairs},
+                "candidates": {
+                    "bipartite": {
+                        "eligible": True,
+                        "predicted_cost_edges": int(spec.hg.nnz),
+                    },
+                    "clique": {
+                        "eligible": True,
+                        "predicted_cost_edges": 2 * n_pairs,
+                        "edge_budget": float(
+                            cfg.clique_edge_budget * max(spec.hg.nnz, 1)
+                        ),
+                    },
+                },
+            },
+            "backend": {
+                "winner": resolved.backend,
+                "reason": decision["backend"].get("reason"),
+                "inputs": {"mesh": self.mesh is not None},
+                "candidates": {
+                    "local": {"eligible": True},
+                    "sharded": {"eligible": self.mesh is not None},
+                },
+            },
+        }
+        if mode is not None:
+            axes["mode"] = {
+                "winner": mode,
+                "reason": decision.get("mode", {}).get("reason"),
+                "inputs": {
+                    "n_overlap_pairs": n_pairs,
+                    "exact_pair_budget": spec.exact_pair_budget,
+                },
+                "candidates": {
+                    "exact": {
+                        "eligible": spec.hg.n_hyperedges < (1 << 21),
+                        "predicted_pairs": n_pairs,
+                    },
+                    "sample": {
+                        "eligible": True,
+                        "predicted_pairs": int(spec.n_samples),
+                    },
+                },
+            }
+        return {
+            "config": resolved,
+            "decision": decision,
+            "mode": mode,
+            "axes": axes,
+        }

@@ -39,6 +39,11 @@ while shapes stay bucket-stable.  A batch keeps its query axis inner
 (``[n, B, ...]``): one fused delivery serves every query (the kernel's
 rows are ``B·d`` wide), and results are transposed once, at the end, to
 the JAX package's ``[B, n]``.
+
+With ``Engine(tracer=)``, a layout build records ``serve.layout_build``,
+an executable build ``engine.build_executable`` and a request
+``engine.execute`` (its device wait included), and the request's
+``measured`` adds the modeled delivery bytes, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -60,6 +65,8 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.hypergraph import HyperGraph, _host
 from repro_torch.faults.errors import is_transient
+from repro_torch.obs.calibrate import delivery_traffic_pair
+from repro_torch.obs.trace import maybe_span
 from repro_torch.kernels.deliver.fused import (
     captured_launches,
     count_replay,
@@ -651,7 +658,7 @@ class CompiledAlgorithm:
 
     def _execute(self, prep: _Prepared, query, batch,
                  warm_only: bool = False):
-        from repro_torch.core.executor import Result
+        from repro_torch.core.executor import Result, message_width_bytes
 
         cfg = self.config
         spec = self.spec
@@ -706,7 +713,16 @@ class CompiledAlgorithm:
         if warm_only:
             return {"source": "eager" if exe.graph is None else "graph"}
         counters: dict = {}
-        pairs = halting_loop(exe.replay, exe.state, cfg.max_iters, counters)
+        tracer = engine.tracer
+        with maybe_span(
+            tracer, "engine.execute", cat="execute", algorithm=spec.name,
+            backend=cfg.backend, delivery=cfg.delivery,
+            batch=int(b) if b is not None else 0,
+        ) as sp:
+            pairs = halting_loop(exe.replay, exe.state, cfg.max_iters,
+                                 counters)
+            if sp is not None:
+                tracer.block(sp, exe.state)
 
         # Slice padding (and batch padding) back off, into tensors the
         # next request cannot overwrite; extract on a real-size
@@ -732,7 +748,7 @@ class CompiledAlgorithm:
             torch.cuda.synchronize(exe.device)
         t2 = time.perf_counter()
         halted = counters["halted"]
-        decision = {**self.decision, "measured": {
+        measured = {
             "wall_s": t2 - t0,
             "dispatch_s": t1 - t0,
             "device_wait_s": t2 - t1,
@@ -741,7 +757,13 @@ class CompiledAlgorithm:
             "pairs_run": pairs,
             "host_syncs": counters["host_syncs"],
             "graph": exe.graph is not None,
-        }}
+        }
+        if tracer is not None and prep.delivery is not None:
+            # Tracer-gated, as in the JAX package: warm serving builds
+            # no traffic record by default.
+            measured["delivery"] = delivery_traffic_pair(
+                prep.delivery, message_width_bytes(spec.initial_msg))
+        decision = {**self.decision, "measured": measured}
         return Result(
             value=spec.extract(out),
             config=cfg,

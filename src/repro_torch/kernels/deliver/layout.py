@@ -30,9 +30,12 @@ layout's device.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
+
+from repro_torch.obs.metrics import default_registry
 
 # Single-ELL planning (the skew baseline of the cost model): grow k
 # (powers of two) until the COO remainder holds at most this fraction of
@@ -277,6 +280,13 @@ class DeliveryLayout:
         return len(self.class_widths)
 
     @property
+    def ell_slots(self) -> int:
+        """Total dense ELL slots across classes (padding-work metric)."""
+        return int(
+            sum(r * k for r, k in zip(self.class_rows, self.class_widths))
+        )
+
+    @property
     def rem_len(self) -> int:
         return int(self.rem_src.shape[-1])
 
@@ -372,7 +382,12 @@ def build_delivery_layout(
     ``class_nnz_pad`` / ``rem_pad_to`` force larger per-class row counts,
     edge-array lengths and residual pad.  ``device``: where the products
     live (default: ``src``'s device when it is a tensor, else the CPU).
+    Each build adds to the default metrics registry's
+    ``delivery.layouts_built``, ``delivery.ell_slots`` and
+    ``delivery.residual_lanes`` counters and its ``delivery.build_s``
+    histogram.
     """
+    t_build0 = time.perf_counter()
     if device is None:
         device = src.device if isinstance(src, torch.Tensor) else "cpu"
     src = _host(src).astype(np.int64)
@@ -503,7 +518,7 @@ def build_delivery_layout(
     dev = torch.device(device)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                   device=dev)
-    return DeliveryLayout(
+    layout = DeliveryLayout(
         class_ell=tuple(t(a) for a in class_ell),
         class_src=tuple(t(a) for a in class_src_a),
         class_dst=tuple(t(a) for a in class_dst_a),
@@ -521,6 +536,14 @@ def build_delivery_layout(
         class_block_e=tuple(c_block_e),
         class_max_blocks=tuple(c_max_blocks),
     )
+    reg = default_registry()
+    reg.counter("delivery.layouts_built").inc()
+    reg.counter("delivery.ell_slots").inc(layout.ell_slots)
+    reg.counter("delivery.residual_lanes").inc(layout.rem_len)
+    reg.histogram("delivery.build_s").record(
+        time.perf_counter() - t_build0
+    )
+    return layout
 
 
 def layout_pair(

@@ -1,5 +1,6 @@
 """Bitset intersection: ``pair_intersect_bitset`` over the hand-written
-CUDA kernel (``csrc/isect.cu``) and its plain torch versions."""
+CUDA kernel (``csrc/isect.cu``), its plain torch versions and the
+oracle ``ref.pair_intersect_ref``."""
 from repro_torch.kernels.isect.isect import (
     isect_cuda,
     isect_fused_cuda,
@@ -8,6 +9,7 @@ from repro_torch.kernels.isect.isect import (
     popcount_words,
 )
 from repro_torch.kernels.isect.ops import pair_intersect_bitset
+from repro_torch.kernels.isect.ref import pair_intersect_ref
 
 __all__ = [
     "isect_cuda",
@@ -15,5 +17,6 @@ __all__ = [
     "isect_fused_plain",
     "isect_plain",
     "pair_intersect_bitset",
+    "pair_intersect_ref",
     "popcount_words",
 ]

@@ -16,6 +16,12 @@ unless ``--device cpu`` is given:
   # sources through one compiled executable
   PYTHONPATH=src python -m repro_torch.launch.hypergraph \
       --algorithm sssp --regime dblp --scale 1.0 --batch 64 --cache-stats
+
+  # the clique representation, its decision tree, a trace and the
+  # metrics registry
+  PYTHONPATH=src python -m repro_torch.launch.hypergraph \
+      --algorithm vertex_pagerank --representation auto --explain \
+      --trace trace.json --metrics-json -
 """
 from __future__ import annotations
 
@@ -23,8 +29,8 @@ import argparse
 import sys
 import time
 
-ALGORITHMS = ("pagerank", "sssp", "random_walk", "label_propagation",
-              "connected_components")
+ALGORITHMS = ("pagerank", "vertex_pagerank", "pagerank_entropy", "sssp",
+              "random_walk", "label_propagation", "connected_components")
 
 
 def _parse(argv=None):
@@ -46,8 +52,9 @@ def _parse(argv=None):
                     help="print per-superstep activity")
     ap.add_argument("--representation", default="auto",
                     choices=["auto", "bipartite", "clique"],
-                    help="motifs only (clique: the dual's pair-size "
-                    "table)")
+                    help="clique: constant folding onto the clique "
+                    "expansion (vertex_pagerank); for motifs, the dual's "
+                    "pair-size table")
     ap.add_argument("--mode", default="auto",
                     choices=["auto", "exact", "sample"],
                     help="motifs only: census mode")
@@ -67,6 +74,15 @@ def _parse(argv=None):
                     help="print the executable-cache statistics "
                          "(entries, hits/misses, evictions, per-entry "
                          "bucket shapes) after the run")
+    ap.add_argument("--explain", action="store_true",
+                    help="print the full auto-axis decision tree "
+                         "(per-candidate predicted costs) before running")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record engine trace spans; export Chrome-trace "
+                         "JSON here (loadable in Perfetto)")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write the unified metrics-registry snapshot "
+                         "as JSON ('-' for stdout)")
     return ap.parse_args(argv)
 
 
@@ -75,6 +91,12 @@ def build_spec(name: str, hg, iters: int):
 
     if name == "pagerank":
         return alg.pagerank_spec(hg, iters=iters)
+    if name == "vertex_pagerank":
+        # vertex ranks only — the clique-eligible variant, so
+        # --representation clique/auto can actually constant-fold.
+        return alg.vertex_pagerank_spec(hg, iters=iters)
+    if name == "pagerank_entropy":
+        return alg.pagerank_entropy_spec(hg, iters=iters)
     if name == "label_propagation":
         return alg.label_propagation_spec(hg, iters=iters)
     if name == "sssp":
@@ -96,6 +118,38 @@ def _print_cache_stats(engine) -> None:
         print(f"  entry: {meta}")
     if s.get("disk") is not None:
         print(f"  disk: {s['disk']}")
+
+
+def _print_explain(ex: dict) -> None:
+    print("explain:")
+    for axis, info in ex["axes"].items():
+        print(f"  {axis}: winner={info.get('winner')} "
+              f"({info.get('reason')})")
+        for cand, costs in info.get("candidates", {}).items():
+            mark = "*" if cand == info.get("winner") else " "
+            kv = " ".join(
+                f"{k}={v}" for k, v in costs.items()
+                if k not in ("class_plans",) and not isinstance(v, dict)
+            )
+            print(f"   {mark} {cand}: {kv}")
+
+
+def _emit_obs(engine, args) -> None:
+    if args.trace and engine.tracer is not None:
+        engine.tracer.export(args.trace)
+        print(f"trace: {len(engine.tracer.spans())} spans "
+              f"({engine.tracer.dropped} dropped) -> {args.trace}")
+    if args.metrics_json:
+        import json
+
+        payload = json.dumps(engine.metrics.snapshot(), indent=2,
+                             sort_keys=True, default=str)
+        if args.metrics_json == "-":
+            print(payload)
+        else:
+            with open(args.metrics_json, "w") as f:
+                f.write(payload + "\n")
+            print(f"metrics -> {args.metrics_json}")
 
 
 def _serve(args, engine, spec, hg) -> int:
@@ -152,15 +206,25 @@ def main(argv=None) -> int:
                       device=device)
     print(f"{args.regime}: |V|={hg.n_vertices} |E|={hg.n_hyperedges} "
           f"nnz={hg.nnz} device={device}")
+    tracer = None
+    if args.trace:
+        from repro_torch.obs import Tracer
+
+        tracer = Tracer()
     if args.algorithm == "motifs":
-        return _motifs(args, hg, device)
-    engine = Engine(device=device, delivery=args.delivery,
+        return _motifs(args, hg, device, tracer)
+    engine = Engine(device=device, tracer=tracer, delivery=args.delivery,
+                    representation=args.representation,
                     collect_stats=args.stats)
     spec = build_spec(args.algorithm, hg, args.iters)
+    if args.explain:
+        _print_explain(engine.explain(spec))
     if args.sources is not None or args.batch is not None:
         rc = _serve(args, engine, spec, hg)
         if rc == 0 and args.cache_stats:
             _print_cache_stats(engine)
+        if rc == 0:
+            _emit_obs(engine, args)
         return rc
     res = engine.run(spec)
 
@@ -170,10 +234,12 @@ def main(argv=None) -> int:
         if axis != "measured":
             print(f"  {axis}: {why.get('reason')}")
     m = res.decision["measured"]
-    print(f"  measured: wall={m['wall_s'] * 1e3:.1f}ms "
-          f"device_wait={m['device_wait_s'] * 1e3:.2f}ms "
-          f"supersteps={m['supersteps']}/{m['max_iters']} "
-          f"host_syncs={m['host_syncs']}")
+    line = (f"  measured: wall={m['wall_s'] * 1e3:.1f}ms "
+            f"device_wait={m['device_wait_s'] * 1e3:.2f}ms")
+    if "supersteps" in m:  # the clique path runs no supersteps
+        line += (f" supersteps={m['supersteps']}/{m['max_iters']} "
+                 f"host_syncs={m['host_syncs']}")
+    print(line)
     if res.superstep_stats is not None:
         v_act, he_act = res.superstep_stats
         print(f"  activity: v={v_act.tolist()}")
@@ -183,19 +249,24 @@ def main(argv=None) -> int:
           f"first = {leaves[0].reshape(-1)[:6].tolist()}")
     if args.cache_stats:
         _print_cache_stats(engine)
+    _emit_obs(engine, args)
     return 0
 
 
-def _motifs(args, hg, device) -> int:
+def _motifs(args, hg, device, tracer) -> int:
     import numpy as np
 
     from repro_torch.core import AnalyticsSpec, Engine
 
-    engine = Engine(device=device, representation=args.representation,
+    engine = Engine(device=device, tracer=tracer,
+                    representation=args.representation,
                     intersect_kernel=args.kernel)
-    res = engine.analyze(AnalyticsSpec(
+    aspec = AnalyticsSpec(
         hg, mode=args.mode, n_samples=args.samples, seed=args.seed,
-    ))
+    )
+    if args.explain:
+        _print_explain(engine.explain(aspec))
+    res = engine.analyze(aspec)
     print(f"design point: representation={res.representation} "
           f"kernel={res.kernel} backend={res.backend} "
           f"mode={res.mode}")
@@ -225,6 +296,7 @@ def _motifs(args, hg, device) -> int:
                 line += (f"  [{c.ci_low[k]:.0f}, {c.ci_high[k]:.0f}] "
                          f"@{c.confidence:.0%}")
             print(line)
+    _emit_obs(engine, args)
     return 0
 
 

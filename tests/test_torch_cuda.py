@@ -832,3 +832,126 @@ def test_cuda_capture_fails_loudly_on_a_host_read_of_the_step(card):
     # the card is still usable after the failed capture
     assert eng.compile(shortest_paths_spec(hg, 0, 8)).run().decision[
         "measured"]["graph"]
+
+
+# -- the clique representation, the card's delivery term, tracing ----------
+
+def _clique_graph(card, scale=0.01):
+    from repro_torch.core import to_graph
+    from repro_torch.data import make_dataset
+
+    return to_graph(make_dataset("dblp", scale, seed=0, device=card))
+
+
+def _graph_pagerank_plain(g, iters, alpha=0.15):
+    """Both sums by ``index_add_`` over the edges in their own order."""
+    nv = g.n_vertices
+    w = g.e_attr.float()
+    out_w = segsum_plain(w[:, None], g.src, nv)[:, 0].clamp(min=1e-12)
+    rank = torch.ones(nv, dtype=torch.float32, device=w.device)
+    for _ in range(iters):
+        contrib = (rank / out_w)[g.src] * w
+        rank = alpha + (1.0 - alpha) * segsum_plain(
+            contrib[:, None], g.dst, nv)[:, 0]
+    return rank
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [1, 30])
+def test_cuda_graph_pagerank_equals_plain(card, iters):
+    from repro_torch.algorithms import graph_pagerank
+
+    g = _clique_graph(card)
+    assert g.src.device.type == "cuda"
+    segsum_sorted_cuda.launches = 0
+    got = graph_pagerank(g, iters=iters)
+    torch.cuda.synchronize()
+    assert segsum_sorted_cuda.launches == iters  # K2b once an iteration
+    want = _graph_pagerank_plain(g, iters)
+    rel = ((got - want).abs() / want.abs()).max().item()
+    assert rel <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_k2b_repeats_bitwise_over_30_calls_with_one_set_of_offsets(
+        card):
+    from repro_torch.kernels.segsum import csr_row_offsets
+
+    g = _clique_graph(card)
+    nv = g.n_vertices
+    order = torch.sort(g.dst, stable=True).indices
+    off = csr_row_offsets(g.dst[order], nv)
+    gen = torch.Generator(device=card).manual_seed(0)
+    msgs = torch.rand(g.dst.numel(), 1, generator=gen, device=card)
+    first = segsum_sorted_cuda(msgs, off, nv)
+    for _ in range(29):
+        again = segsum_sorted_cuda(msgs, off, nv)
+        assert torch.equal(again.view(torch.int32), first.view(torch.int32))
+    want = segsum_sorted_plain(msgs, off, nv)
+    assert torch.allclose(first, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_clique_run_and_vertex_pagerank_auto(card):
+    from repro_torch.algorithms import vertex_pagerank_spec
+    from repro_torch.core import HyperGraph, to_graph
+
+    fig1 = HyperGraph.from_hyperedge_lists(
+        [[0, 1], [0, 1, 2, 3], [0, 3, 4], [2, 3]], n_vertices=5,
+        device=card)
+    res = Engine(device=card).run(vertex_pagerank_spec(fig1, iters=8))
+    assert res.representation == "clique"
+    want = _graph_pagerank_plain(to_graph(fig1), 8)
+    assert torch.allclose(res.value, want, rtol=1e-5, atol=0)
+    m = res.decision["measured"]
+    assert m["wall_s"] >= m["device_wait_s"] >= 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,nnz_scale,pick", [
+    (1, 0.002, "pallas_fused"), (16, 0.002, "pallas_fused"),
+    (64, 0.002, "pallas_fused"), (64, 0.05, "pallas_fused"),
+    (1, 0.001, "xla"), (64, 0.001, "xla")])
+def test_cuda_select_delivery_names_the_measured_term(card, d, nnz_scale,
+                                                      pick):
+    from repro_torch.algorithms import AlgorithmSpec
+    from repro_torch.core.executor import H100_FUSED_MIN_NNZ, select_delivery
+    from repro_torch.data import make_dataset
+
+    hg = make_dataset("dblp", nnz_scale, seed=0, device=card)
+    prog = Program(procedure=None, combiner="sum")
+    spec = AlgorithmSpec(hg0=hg, initial_msg=torch.zeros(d), v_program=prog,
+                         he_program=prog, max_iters=1, extract=lambda o: o)
+    got, why = select_delivery(spec, hg)
+    assert got == pick
+    assert why["lowering"] == "cuda"
+    assert why["min_nnz"] == H100_FUSED_MIN_NNZ
+    assert (hg.nnz >= H100_FUSED_MIN_NNZ) == (pick == "pallas_fused")
+    assert ("measured faster" if pick == "pallas_fused"
+            else "smallest measured") in why["reason"]
+    assert "waits for H100" not in why["reason"]
+
+
+@pytest.mark.cuda
+def test_cuda_traced_run_records_device_wait(card):
+    from repro_torch.algorithms import vertex_pagerank_spec
+    from repro_torch.obs import Tracer
+
+    tr = Tracer()
+    eng = Engine(device=card, tracer=tr, delivery="pallas_fused")
+    hg = powerlaw_hypergraph(3000, 1500, mean_cardinality=6, seed=1,
+                             device=card)
+    spec = pagerank_spec(hg, iters=5)
+    ex = eng.explain(spec)
+    res = eng.run(spec)
+    assert ex["axes"]["delivery"]["inputs"]["lowering"] == "cuda"
+    assert ex["config"] == res.config
+    eng.run(vertex_pagerank_spec(hg, iters=5), representation="clique")
+    runs = [s for s in tr.spans() if s.name == "engine.run"]
+    assert len(runs) == 2
+    for sp in runs:
+        assert sp.args["device_wait_s"] >= 0.0
+        assert sp.dur_s >= sp.args["device_wait_s"]
+    assert "engine.layout_build" in {s.name for s in tr.spans()}
+    md = res.decision["measured"]["delivery"]
+    assert md["fwd"]["nnz"] == hg.nnz and md["total_bytes"] > 0

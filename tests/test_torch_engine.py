@@ -176,7 +176,7 @@ def test_halting_semantics_and_host_syncs():
 
 
 @pytest.mark.parametrize("overrides,exc", [
-    ({"representation": "clique"}, NotImplementedError),
+    ({"representation": "clique"}, ValueError),
     ({"backend": "replicated"}, NotImplementedError),
     ({"backend": "sharded"}, NotImplementedError),
     ({"checkpoint_every": 2, "checkpoint_dir": "ckpt"}, NotImplementedError),
@@ -184,35 +184,42 @@ def test_halting_semantics_and_host_syncs():
     ({"backend": "mesh"}, ValueError),
 ])
 def test_unported_axes_raise(overrides, exc):
-    # "clique" constructs (Engine.analyze takes it) and raises once an
-    # AlgorithmSpec is resolved; the others raise in ExecutionConfig.
+    # "clique" constructs and is refused for a spec that touches
+    # hyperedge state, with the reference's message, once resolved; the
+    # others raise in ExecutionConfig.
     spec = talg.pagerank_spec(
         _carry(j_powerlaw(30, 20, mean_cardinality=3, seed=2)), iters=1)
-    with pytest.raises(exc, match="ROADMAP|must be one of"):
+    with pytest.raises(exc, match="ROADMAP|must be one of|hyperedge state"):
         Engine(device="cpu", config=ExecutionConfig(**overrides)).resolve(
             spec)
 
 
-@pytest.mark.parametrize("kw", ["mesh", "plan", "tracer", "disk_cache",
-                                "fault_injector", "metrics"])
+@pytest.mark.parametrize("kw", ["mesh", "plan", "disk_cache",
+                                "fault_injector"])
 def test_unported_engine_arguments_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(device="cpu", **{kw: object()})
+    if kw == "fault_injector":
+        with pytest.raises(NotImplementedError, match="item 8's fault half"):
+            Engine(device="cpu", fault_injector=object())
 
 
 def test_unported_methods_and_wrong_inputs_raise():
     thg = _carry(j_powerlaw(60, 40, mean_cardinality=4, seed=1))
     eng = Engine(device="cpu")
     spec = talg.pagerank_spec(thg, iters=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.explain(spec)
+    # explain is ported (item 8's observability half)
+    assert eng.explain(spec)["config"] == eng.resolve(spec)[0]
     # compile is ported (item 6): it resolves and returns a handle
     assert eng.compile(spec).config.representation == "bipartite"
     with pytest.raises(TypeError, match="AnalyticsSpec"):
         eng.analyze(spec)
-    with pytest.raises(NotImplementedError, match="clique"):
-        eng.resolve(spec._replace(touches_hyperedge_state=False,
-                                  clique_program=lambda g: g))
+    # the clique representation is ported (item 5): auto resolves it
+    # for a clique-eligible spec whose expansion fits the budget
+    eligible = spec._replace(touches_hyperedge_state=False,
+                             clique_program=lambda g: g)
+    assert eng.resolve(eligible, clique_edge_budget=1e9)[0].representation \
+        == "clique"
     with pytest.raises(TypeError, match="AlgorithmSpec"):
         eng.submit(object())
     assert eng.submit(spec).backend == "local"

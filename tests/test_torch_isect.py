@@ -5,7 +5,8 @@ The port's ``pair_intersect_bitset`` (both forms: rows gathered in the
 kernel, ``fused=True``, and pre-gathered, ``fused=False``) runs its
 plain torch version here.  It is held, with exact equality, against the
 JAX package's ``pair_intersect_bitset(..., interpret=True)`` (the Pallas
-kernel in interpret mode) and its ``pair_intersect_ref`` oracle, on the
+kernel in interpret mode) and the port's ``pair_intersect_ref`` oracle,
+itself held against the JAX package's ``pair_intersect_ref``, on the
 same numpy inputs from a seed: a sweep of (pairs, edges, vertices) with
 word counts that are and are not multiples of 4 or 8, words with bit 31
 set, skewed hot rows, self pairs, an empty batch, triples against JAX's
@@ -19,7 +20,7 @@ import torch
 
 from repro.data import powerlaw_hypergraph as j_powerlaw
 from repro.kernels.isect.ops import pair_intersect_bitset as j_isect
-from repro.kernels.isect.ref import pair_intersect_ref
+from repro.kernels.isect.ref import pair_intersect_ref as j_isect_ref
 from repro.motifs import batch_intersections as j_batch
 from repro.motifs import build_index as j_build_index
 from repro_torch.kernels.isect import (
@@ -28,6 +29,7 @@ from repro_torch.kernels.isect import (
     isect_fused_plain,
     isect_plain,
     pair_intersect_bitset,
+    pair_intersect_ref,
     popcount_words,
 )
 from repro_torch.motifs import batch_intersections, pair_index_from_numpy
@@ -46,6 +48,19 @@ def _port(bits_np, ea, eb, ec=None, **kw):
         torch.as_tensor(bits_np.view(np.int32).copy()), t(ea), t(eb),
         None if ec is None else t(ec), **kw)
     assert got.dtype == torch.int32 and got.device.type == "cpu"
+    return got.numpy()
+
+
+def _oracle(bits_np, ea, eb):
+    """The port's oracle on the numpy inputs, held against the JAX
+    package's oracle on the same inputs (exact)."""
+    t = lambda x: torch.as_tensor(np.asarray(x, np.int32))
+    got = pair_intersect_ref(torch.as_tensor(bits_np.view(np.int32).copy()),
+                             t(ea), t(eb))
+    assert got.dtype == torch.int32
+    want = np.asarray(j_isect_ref(jnp.asarray(bits_np), jnp.asarray(ea),
+                                  jnp.asarray(eb)))
+    assert np.array_equal(got.numpy(), want)
     return got.numpy()
 
 
@@ -71,8 +86,7 @@ def test_isect_sweep_matches_jax(n_pairs, n_edges, n_vertices, fused):
     want = np.asarray(j_isect(bits, jnp.asarray(ea), jnp.asarray(eb),
                               block_p=128, block_w=4, fused=fused,
                               interpret=True))
-    ref = np.asarray(pair_intersect_ref(bits, jnp.asarray(ea),
-                                        jnp.asarray(eb)))
+    ref = _oracle(bits_np, ea, eb)
     assert np.array_equal(got, want)
     assert np.array_equal(got, ref)
 
@@ -90,9 +104,7 @@ def test_isect_words_with_bit_31(word):
     ea = rng.integers(0, 20, 200).astype(np.int32)
     eb = rng.integers(0, 20, 200).astype(np.int32)
     ea[:20] = 3
-    bits = jnp.asarray(bits_np)
-    want = np.asarray(pair_intersect_ref(bits, jnp.asarray(ea),
-                                         jnp.asarray(eb)))
+    want = _oracle(bits_np, ea, eb)
     assert np.array_equal(want, _set_sizes(bits_np, ea, eb))
     for fused in (True, False):
         assert np.array_equal(_port(bits_np, ea, eb, fused=fused), want)
@@ -116,8 +128,7 @@ def test_isect_skewed_hot_rows_and_self_pairs():
     ea = ((rng.zipf(1.3, 900) - 1) % 64).astype(np.int32)
     eb = ((rng.zipf(1.3, 900) - 1) % 64).astype(np.int32)
     assert np.array_equal(_port(bits_np, ea, eb),
-                          np.asarray(pair_intersect_ref(
-                              bits, jnp.asarray(ea), jnp.asarray(eb))))
+                          _oracle(bits_np, ea, eb))
     # e ∩ e == |e|
     ids = np.arange(64, dtype=np.int32)
     card = np.asarray(j_build_index(

@@ -230,15 +230,16 @@ def test_invalid_configs_rejected():
 
 
 def test_run_with_clique_still_raises():
-    """``clique`` means the dual's pair-size table to ``analyze`` only:
-    an iterative spec resolved on it is refused, given or configured."""
+    """``clique`` is the dual's pair-size table to ``analyze``; for an
+    iterative spec that touches hyperedge state it is refused, given or
+    configured, with the reference's error."""
     hg = _carry(j_powerlaw(60, 40, mean_cardinality=4, seed=1))
     spec = talg.pagerank_spec(hg, iters=2)
     assert ExecutionConfig(representation="clique").representation == (
         "clique")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="hyperedge state"):
         Engine(device="cpu", representation="clique").run(spec)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="hyperedge state"):
         Engine(device="cpu").resolve(spec, representation="clique")
     res = Engine(device="cpu", representation="clique").analyze(
         AnalyticsSpec(hg, mode="exact"))
