@@ -142,10 +142,34 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    beside the bipartite fused run of the same spec and
    ``graph_pagerank`` alone (host wall through a synchronize, median of
    3); K2b per iteration and K2a on the out-weights against their plain
-   versions, ``index_add_`` and the byte bound.
+   versions, ``index_add_`` and the byte bound;
+12. fault-tolerant serving on DBLP at full scale through
+   ``Engine(delivery="pallas_fused")``: (a) PageRank-30 with
+   ``checkpoint_every=7`` bitwise equal to the run without; killed by
+   ``checkpoint.chunk`` (``nth=2``, fatal) after pair 14; a fresh Engine
+   resuming from pair 14, bitwise equal (values and activity trace),
+   with K1's launches counted from 0 (the 16 resumed pairs: 48) and the
+   snapshots' save and restore seconds; the same for SSSP from 0, which
+   halts early (the trace padded), and once through ``Engine.compile``
+   (``_run_checkpointed``); (b) ``Frontend`` over compiled SSSP and PPR
+   (12 iterations, buckets 8 and 16 captured by ``warm`` before
+   ``start``), 256 requests of a seeded trace (60% SSSP, sources
+   uniform): every request resolves, no capture after ``warm``, 16
+   sampled results against sequential ``run(query=)`` (SSSP bitwise,
+   PPR 1e-5 relative); requests/s, queue-wait and execute p50/p99, flush
+   reasons, bucket occupancy, the cache, K1's launches a flush, and the
+   resilient front-end against ``resilience=False`` on the same trace;
+   (c) the same trace under ``execute`` every 7 (transient),
+   ``serve.flush`` nth 3 (transient) and ``serve.worker`` nth 2: every
+   request resolves (futures waited with a timeout) with its fault-free
+   value or a typed ``FaultError``, every rule fires; (d) ``execute``
+   always, fatal: 4 requests resolve typed, none degrades to ``xla``;
+   (e) ``python -m repro_torch.launch.serve_hypergraph --regime dblp
+   --scale 1.0 --requests 200 --verify 8`` in a subprocess exits 0 and
+   verifies 8.
 
 Prints the kernel line (JSON; K1's entry carries phase 9's compiled
-launches and times; K2b's, phase 11's launches and numbers at the
+launches and times and phase 12's ``phase12_*`` serving keys; K2b's, phase 11's launches and numbers at the
 clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 7's, with
 the clique out-weights' as ``out_w_*``) and, last, the device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
@@ -2097,6 +2121,297 @@ def clique_phase(hg, flush):
     return entries
 
 
+SERVE_REQUESTS = 256      # phase 12: the front-end's trace
+SERVE_MIX = 0.6           # its SSSP share (the launcher's default)
+SERVE_MAX_BATCH = 16      # the launcher's default bucket
+SERVE_ITERS = 12          # the launcher's superstep budget
+SERVE_SAMPLE = 16         # served results held against sequential runs
+FUTURE_TIMEOUT_S = 300    # no future may take longer to resolve
+FAULT_PLAN = {"rules": [
+    {"point": "execute", "trigger": "every", "n": 7, "error": "transient"},
+    {"point": "serve.flush", "trigger": "nth", "n": 3, "error": "transient"},
+    {"point": "serve.worker", "trigger": "nth", "n": 2},
+]}
+
+
+def checkpoint_case(tag, spec, leaves, root, compiled=False):
+    """Phase 12 (a), one spec on DBLP through ``pallas_fused``: the run
+    with ``checkpoint_every=7`` bitwise equal to the run without; a run
+    killed by ``checkpoint.chunk`` (``nth=2``, fatal) after pair 14; a
+    fresh Engine resuming from pair 14, bitwise equal (values and
+    trace), its K1 launches counted from 0 (the resumed pairs only).
+    ``compiled``: all through ``Engine.compile(spec)`` (the
+    ``_run_checkpointed`` route).  Returns the resumed run's launches and
+    the save and restore seconds."""
+    import torch
+
+    from repro_torch.core import Engine, tree_leaves
+    from repro_torch.faults import FaultInjector, InjectedFault
+    from repro_torch.kernels.deliver import fused
+    from repro_torch.obs import Tracer
+
+    dev = spec.hg0.device
+    tracer = Tracer()
+
+    def engine(**kw):
+        return Engine(device=dev, delivery="pallas_fused",
+                      collect_stats=True, tracer=tracer, **kw)
+
+    def run(eng, **kw):
+        if compiled:
+            return eng.compile(spec, **kw).run()
+        return eng.run(spec, **kw)
+
+    def same(got, want, what):
+        for a, b in zip(tree_leaves(got.value), tree_leaves(want.value)):
+            if a.device.type != "cuda" or not same_bits(a, b):
+                fail(f"{tag}: {what} values differ from the uninterrupted run")
+        for a, b in zip(got.superstep_stats, want.superstep_stats):
+            if not torch.equal(a, b):
+                fail(f"{tag}: {what} activity trace differs")
+
+    base = run(engine())
+    same(run(engine(), checkpoint_every=7,
+             checkpoint_dir=f"{root}/whole"), base, "checkpointed")
+    plan = {"rules": [{"point": "checkpoint.chunk", "trigger": "nth",
+                       "n": 2, "error": "fatal"}]}
+    try:
+        run(engine(fault_injector=FaultInjector.from_json(plan)),
+            checkpoint_every=7, checkpoint_dir=f"{root}/killed")
+    except InjectedFault:
+        pass
+    else:
+        fail(f"{tag}: checkpoint.chunk nth=2 did not kill the run")
+    if not os.path.isdir(f"{root}/killed/step_00000014"):
+        fail(f"{tag}: no snapshot of pair 14 survived the kill")
+    fused.deliver_fused_cuda.launches = 0
+    res = run(engine(), checkpoint_every=7, checkpoint_dir=f"{root}/killed")
+    torch.cuda.synchronize()
+    launches = fused.deliver_fused_cuda.launches
+    same(res, base, "resumed")
+    spans = tracer.spans()
+    saves = [s.dur_s for s in spans if s.name == "faults.checkpoint_save"]
+    restores = [s.dur_s for s in spans
+                if s.name == "faults.checkpoint_restore"]
+    if len(restores) != 1:
+        fail(f"{tag}: {len(restores)} restores, expected 1")
+    if compiled:
+        if res.decision.get("checkpointed", {}).get("every") != 7:
+            fail(f"{tag}: the compiled run did not take _run_checkpointed")
+        pairs = (launches // leaves if launches else 0)
+    else:
+        m = res.decision["measured"]
+        if m["resumed_from"] != 14:
+            fail(f"{tag}: resumed from pair {m['resumed_from']}, not 14")
+        pairs = m["pairs_run"]
+        if launches != pairs * leaves:
+            fail(f"{tag}: {launches} K1 launches resuming, expected "
+                 f"{pairs} pairs x {leaves} leaves")
+    log(f"  {tag}: checkpointed every 7 bitwise; killed after pair 14; "
+        f"resumed bitwise (values and trace), {launches} K1 launches "
+        f"({pairs} pairs resumed); {len(saves)} saves, "
+        f"{statistics.median(saves) * 1e3:.1f} ms median, "
+        f"{max(saves) * 1e3:.1f} max; restore "
+        f"{restores[0] * 1e3:.1f} ms")
+    return launches, statistics.median(saves), restores[0]
+
+
+def replay(fe, trace, timeout=FUTURE_TIMEOUT_S):
+    """Submit the whole trace, then wait for each future (with a
+    timeout: a hang fails the phase).  Returns the outcomes (a
+    ``ServedResult`` or the typed error) and the wall seconds."""
+    import concurrent.futures
+
+    from repro_torch.faults import FaultError
+
+    t0 = time.perf_counter()
+    out = []
+    try:
+        fe.start()
+        futs = [fe.submit(key, query=q) for key, q in trace]
+        for (key, q), f in zip(trace, futs):
+            try:
+                out.append(f.result(timeout=timeout))
+            except concurrent.futures.TimeoutError:
+                fail(f"request {key} {q} did not resolve in {timeout} s")
+            except FaultError as err:
+                out.append(err)
+    finally:
+        fe.close()
+    return out, time.perf_counter() - t0
+
+
+def fault_serving_phase(hg):
+    """Phase 12: fault-tolerant serving on DBLP at full scale (see the
+    module docstring).  Returns K1's phase-12 keys for the kernel line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import (
+        pagerank_spec,
+        random_walk_spec,
+        shortest_paths_spec,
+    )
+    from repro_torch.core import Engine
+    from repro_torch.faults import FaultError, FaultInjector, InjectedFault
+    from repro_torch.kernels.deliver import fused
+    from repro_torch.launch.serve_hypergraph import (
+        agrees,
+        batch_buckets,
+        make_trace,
+    )
+    from repro_torch.serve import Frontend, warm
+
+    dev = hg.dst.device
+    # -- (a) checkpoint/resume --------------------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as root:
+        pr_launches, pr_save, pr_restore = checkpoint_case(
+            "pagerank-30", pagerank_spec(hg, iters=30), 3, f"{root}/pr")
+        checkpoint_case("sssp from 0 (halts early)",
+                        shortest_paths_spec(hg, 0), 2, f"{root}/sp")
+        checkpoint_case("compiled pagerank-30", pagerank_spec(hg, iters=30),
+                        3, f"{root}/cpr", compiled=True)
+    if pr_launches != 16 * 3:
+        fail(f"pagerank-30 resumed with {pr_launches} K1 launches, not 48")
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+
+    # -- (b) the front-end, fault-free -----------------------------------------
+    t0 = time.perf_counter()
+    eng = Engine(device=dev, delivery="pallas_fused")
+    specs = {"sssp": shortest_paths_spec(hg, source=0,
+                                         max_iters=SERVE_ITERS),
+             "ppr": random_walk_spec(hg, iters=SERVE_ITERS)}
+    compiled = {key: eng.compile(spec) for key, spec in specs.items()}
+
+    def frontend(**kw):
+        fe = Frontend(eng, max_batch=SERVE_MAX_BATCH, max_delay_ms=5.0, **kw)
+        for key, c in compiled.items():
+            fe.register(key, c)
+        return fe
+
+    buckets = batch_buckets(SERVE_MAX_BATCH)
+    report = warm(eng, list(compiled.values()), batch_sizes=buckets,
+                  queries=[0, 0])
+    captures = eng.cache_stats()["traces"]
+    log(f"  warm: {report['traces']} captures in {report['boot_s']:.2f} s "
+        f"(buckets {buckets}, both paths, and each unbatched)")
+    rng, trace = make_trace(hg.n_vertices, SERVE_REQUESTS, SERVE_MIX, 0)
+    fe = frontend()
+    fused.deliver_fused_cuda.launches = 0
+    clean, wall = replay(fe, trace)
+    launches = fused.deliver_fused_cuda.launches
+    errors = [r for r in clean if isinstance(r, Exception)]
+    if errors:
+        fail(f"{len(errors)} fault-free requests failed: {errors[0]!r}")
+    if eng.cache_stats()["traces"] != captures:
+        fail("the worker captured after warm")
+    st = fe.stats()
+    flushes = sum(st["flush_reasons"].values())
+    pick = rng.choice(len(trace), size=SERVE_SAMPLE, replace=False)
+    for i in pick:
+        key, q = trace[i]
+        if not agrees(key, clean[i].value, compiled[key].run(query=q).value):
+            fail(f"served {key} {q} != sequential compiled run")
+    qps = len(trace) / wall
+    log(f"  (b) {len(trace)} requests ({sum(k == 'sssp' for k, _ in trace)} "
+        f"sssp) in {wall:.3f} s: {qps:.1f} requests/s; queue wait p50 "
+        f"{st['queue_wait']['p50_s'] * 1e3:.2f} ms p99 "
+        f"{st['queue_wait']['p99_s'] * 1e3:.2f} ms, execute p50 "
+        f"{st['execute']['p50_s'] * 1e3:.2f} ms p99 "
+        f"{st['execute']['p99_s'] * 1e3:.2f} ms; flushes "
+        f"{st['flush_reasons']}; {launches} K1 launches "
+        f"({launches / flushes:.1f} a flush); {SERVE_SAMPLE} sampled "
+        f"results agree with sequential runs (sssp bitwise, ppr 1e-5)")
+    for bucket, occ in st["buckets"].items():
+        log(f"    bucket {bucket}: {occ['flushes']} flushes, occupancy "
+            f"{occ['mean_occupancy']:.2f}")
+    cs = eng.cache_stats()
+    log(f"    cache: {cs['entries']} entries, {cs['traces']} captures (none "
+        f"after warm), {cs['hits']} hits, {cs['misses']} misses, "
+        f"{cs['bytes'] / 2**20:.1f} MB")
+    # The resilient default against resilience=False on the same trace,
+    # in turns (the reference's "<2% fault-free overhead", measured).
+    walls = {True: [], False: []}
+    for resilient in (False, True, True, False):
+        _, w = replay(frontend(resilience=resilient), trace)
+        walls[resilient].append(w)
+    on, off = min(walls[True]), min(walls[False])
+    log(f"    fault-free overhead: resilient {on * 1e3:.1f} ms vs "
+        f"resilience=False {off * 1e3:.1f} ms (best of 2 each): "
+        f"{(on / off - 1) * 100:+.1f}%")
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+
+    # -- (c) the same trace under faults ---------------------------------------
+    inj = FaultInjector.from_json(FAULT_PLAN)
+    eng.fault_injector = inj
+    faulted, f_wall = replay(frontend(), trace)
+    eng.fault_injector = None
+    typed = 0
+    for i, (r, ok) in enumerate(zip(faulted, clean)):
+        if isinstance(r, Exception):
+            if not isinstance(r, FaultError):
+                fail(f"request {i} resolved untyped: {r!r}")
+            typed += 1
+        elif not agrees(trace[i][0], r.value, ok.value):
+            fail(f"request {i} under faults != its fault-free value")
+    snap = inj.snapshot()
+    log(f"  (c) {len(trace)} requests under {len(FAULT_PLAN['rules'])} "
+        f"rules in {f_wall:.3f} s: {len(trace) - typed} served (equal to "
+        f"the fault-free values), {typed} typed errors; "
+        + ", ".join(f"{p} calls {snap['calls'][p]} fired "
+                    f"{snap['fired'].get(p, 0)}" for p in sorted(
+                        snap["calls"])))
+    if snap["never_fired"]:
+        fail(f"plan points that never fired: {snap['never_fired']}")
+
+    # -- (d) a fatal fault on the card ------------------------------------------
+    degraded0 = eng.metrics.counter("faults.delivery_degraded").value
+    eng.fault_injector = FaultInjector.from_json({"rules": [
+        {"point": "execute", "trigger": "always", "error": "fatal"}]})
+    fatal, _ = replay(frontend(), [("sssp", q) for q in (0, 1, 2, 3)])
+    eng.fault_injector = None
+    for r in fatal:
+        if not isinstance(r, FaultError):
+            fail(f"a fatal execute fault was served: {r!r}")
+        if not isinstance(r, InjectedFault) and not isinstance(
+                r.__cause__, InjectedFault):
+            fail(f"a fatal execute fault resolved as {r!r}")
+    if eng.metrics.counter("faults.delivery_degraded").value != degraded0:
+        fail("a request degraded to the xla twin on the card")
+    log(f"  (d) fatal execute fault: 4 of 4 requests resolved typed "
+        f"({type(fatal[0]).__name__} from "
+        f"{type(fatal[0].__cause__ or fatal[0]).__name__}), 0 degrades")
+    del fe, compiled, eng
+    torch.cuda.empty_cache()
+
+    # -- (e) the launcher ----------------------------------------------------------
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p])}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_hypergraph",
+         "--regime", "dblp", "--scale", "1.0", "--requests", "200",
+         "--verify", "8"],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    for line in proc.stdout.splitlines():
+        log(f"    | {line}")
+    if proc.returncode != 0 or "verified 8" not in proc.stdout:
+        fail(f"the launcher exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"  (e) launcher verified 8 of 8 in {time.perf_counter() - t0:.1f} s")
+    return {"phase12_serve_launches": launches,
+            "phase12_serve_flushes": flushes,
+            "phase12_launches_per_flush": launches / flushes,
+            "phase12_requests_per_s": qps,
+            "phase12_resume_launches": pr_launches,
+            "phase12_checkpoint_save_s": pr_save,
+            "phase12_checkpoint_restore_s": pr_restore}
+
+
 def main() -> int:
     import torch
 
@@ -2295,6 +2610,13 @@ def main() -> int:
     log(f"phase 11: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 12: fault-tolerant serving (checkpoints, the front-end) ---------
+    t0 = time.perf_counter()
+    log("phase 12: fault-tolerant serving on dblp at full scale")
+    serve_tier = fault_serving_phase(hg)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -2308,6 +2630,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": totals["library_ms"],
         **serving,
+        **serve_tier,
     }]
     for name, replaces, launches in (
             ("isect", "src/repro/kernels/isect/isect.py:63", k3a_launches),

@@ -36,6 +36,8 @@ naming their ROADMAP.md item; none is silently ignored.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 import time
 from collections import OrderedDict
 from typing import Any, Callable, Mapping
@@ -77,9 +79,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 _DISTRIBUTED = "item 10: core/distributed.py"
-_CHECKPOINT = "item 8's fault half: faults/checkpoint.py"
-_FAULTS = "item 8's fault half: faults/inject.py and faults/plan.py"
-_DISK_CACHE = "item 9: serve/cache.py"
+_DISK_CACHE = "item 9b: serve/cache.py DiskExecutableCache"
+
+
+def _serialized(method):
+    """Run an ``Engine`` method under the Engine's lock: whatever it
+    queues on the card (layout builds, host reads, pairs) never overlaps
+    a CUDA graph capture of this Engine on another thread."""
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        with self._lock:
+            return method(self, *args, **kwargs)
+
+    return call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +100,12 @@ class ExecutionConfig:
     package's fields; see ``repro.core.executor.ExecutionConfig``).
 
     Values of axes that the port does not run yet raise
-    ``NotImplementedError``: a ``replicated`` or ``sharded`` backend
-    and ``checkpoint_every``.  ``representation='clique'`` constant-folds
+    ``NotImplementedError``: a ``replicated`` or ``sharded`` backend.
+    ``checkpoint_every`` snapshots the loop state every N superstep
+    pairs into ``checkpoint_dir`` (``repro_torch.faults.checkpoint``)
+    and resumes from its latest snapshot, bitwise equal to an
+    uninterrupted run; the clique representation ignores it, as in the
+    JAX package.  ``representation='clique'`` constant-folds
     an ``AlgorithmSpec`` onto ``to_graph`` (legal only for specs that
     never touch hyperedge state and ship a ``clique_program``); for
     ``Engine.analyze`` it means the dual hypergraph's materialized
@@ -145,8 +161,6 @@ class ExecutionConfig:
             )
         if self.backend in ("replicated", "sharded"):
             raise _not_ported(f"backend={self.backend!r}", _DISTRIBUTED)
-        if self.checkpoint_every is not None:
-            raise _not_ported("checkpoint_every", _CHECKPOINT)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +174,9 @@ class Result:
     the batch ran (its slowest query's count, halting pair included).
     ``decision``: the reasons behind each resolved axis, plus
     ``measured`` (``wall_s``, ``dispatch_s``, ``device_wait_s``,
-    ``max_iters``, ``supersteps``, ``pairs_run``, ``host_syncs``; on
+    ``max_iters``, ``supersteps``, ``pairs_run``, ``host_syncs``; a
+    checkpointed run adds ``resumed_from``, the pairs its snapshot had
+    done, and counts only the pairs it ran; on
     the fused path ``delivery``, the modeled bytes of one superstep pair
     over the built layouts (``obs.calibrate.delivery_traffic_pair``); a
     compiled run adds ``graph``: whether a CUDA graph replayed).  A
@@ -471,8 +487,15 @@ class Engine:
     port's process-wide ``obs.default_registry()``).  Both cost nothing
     when unused: span sites branch on ``tracer is None`` and the
     registry provider is a weakref pulled only at snapshot time.
-    ``plan``, ``mesh``, ``disk_cache`` and ``fault_injector`` belong to
-    slices not ported yet and raise when given.
+    ``fault_injector``: an optional ``repro_torch.faults.FaultInjector``
+    whose plan fires at the instrumented points (``layout.build``,
+    ``execute``, ``checkpoint.chunk``); duck-typed like ``tracer``, and
+    every point branches on ``is None`` first.
+    ``plan``, ``mesh`` and ``disk_cache`` belong to slices not ported
+    yet and raise when given.  One lock (``_lock``) serializes this
+    Engine's public methods and its ``CompiledAlgorithm`` calls across
+    threads (the serving front-end's worker and its callers): a CUDA
+    graph capture never overlaps other work of this Engine.
     """
 
     def __init__(
@@ -493,8 +516,6 @@ class Engine:
             raise _not_ported("a partition plan or mesh", _DISTRIBUTED)
         if disk_cache is not None:
             raise _not_ported("disk_cache", _DISK_CACHE)
-        if fault_injector is not None:
-            raise _not_ported("fault_injector", _FAULTS)
         cfg = config if config is not None else ExecutionConfig()
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
@@ -522,6 +543,9 @@ class Engine:
         self.metrics.register_provider(
             "engine.exec_cache", weak_provider(self.cache_stats)
         )
+        self.fault_injector = fault_injector
+        self.disk_cache = None  # the persistent store's slot (item 9b)
+        self._lock = threading.RLock()
 
     # -- resolution ---------------------------------------------------------
 
@@ -636,6 +660,7 @@ class Engine:
         del self._delivery_cache[:-4]  # bound the strong refs we hold
         return lay
 
+    @_serialized
     def resolve(
         self, spec, **overrides: Any
     ) -> tuple[ExecutionConfig, Any, dict]:
@@ -702,6 +727,7 @@ class Engine:
             sp.args["device_wait_s"] = t2 - t1
         return t2
 
+    @_serialized
     def run(self, spec, **overrides: Any) -> Result:
         """Execute an ``AlgorithmSpec`` on the local backend, bipartite
         or clique.
@@ -753,16 +779,35 @@ class Engine:
             self.tracer, "engine.run", cat="execute",
             algorithm=name, backend="local", delivery=resolved.delivery,
         ) as sp:
-            out = compute(
-                hg,
-                max_iters=resolved.max_iters,
-                initial_msg=spec.initial_msg,
-                v_program=spec.v_program,
-                he_program=spec.he_program,
-                return_stats=resolved.collect_stats,
-                delivery=delivery,
-                counters=counters,
-            )
+            if resolved.checkpoint_every is not None:
+                from repro_torch.faults.checkpoint import checkpointed_compute
+
+                out = checkpointed_compute(
+                    hg,
+                    resolved.max_iters,
+                    spec.initial_msg,
+                    spec.v_program,
+                    spec.he_program,
+                    every=resolved.checkpoint_every,
+                    ckpt_dir=resolved.checkpoint_dir,
+                    return_stats=resolved.collect_stats,
+                    delivery=delivery,
+                    tracer=self.tracer,
+                    metrics=self.metrics,
+                    fault_injector=self.fault_injector,
+                    counters=counters,
+                )
+            else:
+                out = compute(
+                    hg,
+                    max_iters=resolved.max_iters,
+                    initial_msg=spec.initial_msg,
+                    v_program=spec.v_program,
+                    he_program=spec.he_program,
+                    return_stats=resolved.collect_stats,
+                    delivery=delivery,
+                    counters=counters,
+                )
             t1 = time.perf_counter()
             t2 = self._device_wait(sp, hg.device, t1)
         stats = None
@@ -777,10 +822,14 @@ class Engine:
             # Pairs that did real work: the halting pair reports zero
             # activity and is not counted (the JAX package's
             # ``executed_supersteps`` rule).
-            "supersteps": pairs - 1 if counters["halted"] else pairs,
+            "supersteps": pairs - 1 if counters["halted"] and pairs else pairs,
             "pairs_run": pairs,
             "host_syncs": counters["host_syncs"],
         }
+        if "resumed_from" in counters:
+            # A checkpointed run counts the pairs it ran itself, after
+            # the snapshot it resumed from.
+            measured["resumed_from"] = counters["resumed_from"]
         if delivery is not None:
             measured["delivery"] = delivery_traffic_pair(
                 delivery, message_width_bytes(spec.initial_msg)
@@ -814,6 +863,7 @@ class Engine:
 
     # -- compile-once serve-many --------------------------------------------
 
+    @_serialized
     def compile(self, spec, **overrides: Any):
         """Resolve the design point ONCE and return a ``CompiledAlgorithm``.
 
@@ -883,7 +933,7 @@ class Engine:
         byte bound); ``bytes`` is what the live entries hold;
         ``entry_shapes`` describes each live entry's bucket (algorithm,
         padded dims, batch bucket, design point) and its ``bytes``;
-        ``disk`` is ``None`` (the persistent store, ROADMAP.md item 9,
+        ``disk`` is ``None`` (the persistent store, ROADMAP.md item 9b,
         is not ported).
         """
         cache = self._exec_cache
@@ -1052,6 +1102,7 @@ class Engine:
         )
         return resolved, mode, decision
 
+    @_serialized
     def resolve_analytics(
         self, spec: AnalyticsSpec, **overrides: Any
     ) -> tuple[ExecutionConfig, str | None, dict]:
@@ -1070,6 +1121,7 @@ class Engine:
         pairs, _ = overlap_pairs_with_counts(spec.hg)
         return self._resolve_analytics(spec, cfg, len(pairs))
 
+    @_serialized
     def analyze(
         self, spec: AnalyticsSpec, **overrides: Any
     ) -> AnalyticsResult:
@@ -1180,6 +1232,7 @@ class Engine:
             decision=decision,
         )
 
+    @_serialized
     def explain(self, spec, hg=None, **overrides: Any) -> dict:
         """The full decision tree for every ``auto`` axis — inputs,
         per-candidate predicted costs, winner, reason — WITHOUT

@@ -341,7 +341,11 @@ class _Executable:
         pool = []
 
         def record():
-            with torch.cuda.graph(graph):
+            # "thread_local": work that another thread queues meanwhile
+            # on a stream of its own (a serving front-end's callers)
+            # does not void the capture, as it does in "global" mode;
+            # this Engine's own work waits on its lock.
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 # Entering the capture empties the allocator's cache;
                 # what the card reserves from here on is the graph's own
                 # pool, held until the graph goes.
@@ -409,9 +413,15 @@ class CompiledAlgorithm:
     dtype, bucket, or design-point changes miss and build afresh.
     ``Engine.cache_stats()`` exposes hits/misses/entries/traces.
 
-    The JAX package's checkpointed (ROADMAP.md item 8) and distributed
-    (item 10) branches are not ported: ``ExecutionConfig`` refuses
-    ``checkpoint_every`` and those backends before a compile.
+    With ``checkpoint_every`` set, ``run`` takes the chunked
+    checkpoint/resume loop (``_run_checkpointed``) in place of the
+    cached executable.  The JAX package's distributed branches (ROADMAP.md
+    item 10) are not ported: ``ExecutionConfig`` refuses those backends
+    before a compile.  An ``Engine(fault_injector=)`` fires
+    ``layout.build`` where a fused layout is built and ``execute`` before
+    each request's pairs run (never during a capture; ``warmup`` never
+    fires it).  Calls hold the Engine's lock, so a capture on one thread
+    never overlaps another thread's work on this Engine.
     """
 
     engine: Any
@@ -442,17 +452,20 @@ class CompiledAlgorithm:
         if (query is None and spec.bind_query is not None
                 and spec.init is not None and spec.query0 is not None):
             query = spec.query0
-        try:
-            prep = self._prepared(hg, rebind=query is not None)
-            q = _canon_query(query) if query is not None else None
-            return self._execute(prep, q, batch=None)
-        except ValueError:
-            raise
-        except Exception as err:
-            twin = self._degraded_sibling(err)
-            if twin is None:
+        with self.engine._lock:
+            if self.config.checkpoint_every is not None:
+                return self._run_checkpointed(hg, query)
+            try:
+                prep = self._prepared(hg, rebind=query is not None)
+                q = _canon_query(query) if query is not None else None
+                return self._execute(prep, q, batch=None)
+            except ValueError:
                 raise
-            return twin.run(hg, query=query)
+            except Exception as err:
+                twin = self._degraded_sibling(err)
+                if twin is None:
+                    raise
+                return twin.run(hg, query=query)
 
     def run_batch(self, queries: Any, hg: HyperGraph | None = None):
         """Serve a batch of queries through one batched executable.
@@ -471,37 +484,36 @@ class CompiledAlgorithm:
                 f"spec {self.spec.name!r} has no bind_query: declare the "
                 "per-request axis to serve batched queries"
             )
-        try:
-            prep = self._prepared(hg, rebind=True)
-            queries_c = _canon_query(queries)
-            leaves = tree_leaves(queries_c)
-            if not leaves or any(leaf.ndim == 0 for leaf in leaves):
-                raise ValueError(
-                    "batched queries need a leading batch axis on every leaf"
+        with self.engine._lock:
+            try:
+                prep = self._prepared(hg, rebind=True)
+                queries_c = _canon_query(queries)
+                leaves = tree_leaves(queries_c)
+                if not leaves or any(leaf.ndim == 0 for leaf in leaves):
+                    raise ValueError("batched queries need a leading batch "
+                                     "axis on every leaf")
+                sizes = {int(leaf.shape[0]) for leaf in leaves}
+                if len(sizes) != 1:
+                    raise ValueError("query leaves disagree on batch size: "
+                                     f"{sorted(sizes)}")
+                b = sizes.pop()
+                b_pad = bucket_dim(b, floor=BATCH_FLOOR)
+                # Repeat-pad with the last query: always a *valid*
+                # request, and the padded rows are sliced off the results.
+                queries_p = tree_map(
+                    lambda leaf: np.concatenate(
+                        [leaf] + [leaf[-1:]] * (b_pad - b)
+                    ) if b_pad > b else leaf,
+                    queries_c,
                 )
-            sizes = {int(leaf.shape[0]) for leaf in leaves}
-            if len(sizes) != 1:
-                raise ValueError(
-                    f"query leaves disagree on batch size: {sorted(sizes)}"
-                )
-            b = sizes.pop()
-            b_pad = bucket_dim(b, floor=BATCH_FLOOR)
-            # Repeat-pad with the last query: always a *valid* request,
-            # and the padded rows are sliced off the results.
-            queries_p = tree_map(
-                lambda leaf: np.concatenate(
-                    [leaf] + [leaf[-1:]] * (b_pad - b)
-                ) if b_pad > b else leaf,
-                queries_c,
-            )
-            return self._execute(prep, queries_p, batch=(b, b_pad))
-        except ValueError:
-            raise
-        except Exception as err:
-            twin = self._degraded_sibling(err)
-            if twin is None:
+                return self._execute(prep, queries_p, batch=(b, b_pad))
+            except ValueError:
                 raise
-            return twin.run_batch(queries, hg=hg)
+            except Exception as err:
+                twin = self._degraded_sibling(err)
+                if twin is None:
+                    raise
+                return twin.run_batch(queries, hg=hg)
 
     def warmup(
         self,
@@ -518,39 +530,40 @@ class CompiledAlgorithm:
         Returns ``{path: {"source": "graph" | "eager"}}`` ("graph": a
         captured CUDA graph; "eager": pairs run eagerly, on the CPU).
         """
-        spec = self.spec
-        if query is None:
-            query = spec.query0
-        has_query = (
-            spec.bind_query is not None
-            and spec.init is not None
-            and query is not None
-        )
-        prep = self._prepared(hg, rebind=has_query)
-        q = _canon_query(query) if has_query else None
-        report = {"single": self._execute(prep, q, batch=None,
-                                          warm_only=True)}
-        for b in batch_sizes:
-            if spec.bind_query is None:
-                raise ValueError(
-                    f"spec {spec.name!r} has no bind_query: no batched "
-                    "path to warm"
-                )
-            if q is None:
-                raise ValueError(
-                    "warming a batched path needs an example query "
-                    "(spec.query0 is unset — pass query=...)"
-                )
-            b_pad = bucket_dim(int(b), floor=BATCH_FLOOR)
-            queries = tree_map(
-                lambda leaf: np.broadcast_to(
-                    leaf, (b_pad,) + leaf.shape).copy(),
-                q,
+        with self.engine._lock:
+            spec = self.spec
+            if query is None:
+                query = spec.query0
+            has_query = (
+                spec.bind_query is not None
+                and spec.init is not None
+                and query is not None
             )
-            report[f"batch{b_pad}"] = self._execute(
-                prep, queries, batch=(b_pad, b_pad), warm_only=True
-            )
-        return report
+            prep = self._prepared(hg, rebind=has_query)
+            q = _canon_query(query) if has_query else None
+            report = {"single": self._execute(prep, q, batch=None,
+                                              warm_only=True)}
+            for b in batch_sizes:
+                if spec.bind_query is None:
+                    raise ValueError(
+                        f"spec {spec.name!r} has no bind_query: no batched "
+                        "path to warm"
+                    )
+                if q is None:
+                    raise ValueError(
+                        "warming a batched path needs an example query "
+                        "(spec.query0 is unset — pass query=...)"
+                    )
+                b_pad = bucket_dim(int(b), floor=BATCH_FLOOR)
+                queries = tree_map(
+                    lambda leaf: np.broadcast_to(
+                        leaf, (b_pad,) + leaf.shape).copy(),
+                    q,
+                )
+                report[f"batch{b_pad}"] = self._execute(
+                    prep, queries, batch=(b_pad, b_pad), warm_only=True
+                )
+            return report
 
     # -- fault tolerance ---------------------------------------------------
 
@@ -566,17 +579,77 @@ class CompiledAlgorithm:
         launch, build or out-of-memory failure surfaces.  ``None`` too
         for a transient ``err`` (``is_transient``: a retry should run
         the same design point) and when already on ``xla``."""
-        if (self.engine.device.type == "cuda" or is_transient(err)
+        engine = self.engine
+        if (engine.device.type == "cuda" or is_transient(err)
                 or self.config.delivery != "pallas_fused"):
             return None
         if self._xla_twin is None:
             self._xla_twin = CompiledAlgorithm(
-                engine=self.engine,
+                engine=engine,
                 spec=self.spec,
                 config=dataclasses.replace(self.config, delivery="xla"),
                 decision={**self.decision, "degraded_from": "pallas_fused"},
             )
+        engine.metrics.counter("faults.delivery_degraded").inc()
+        with maybe_span(
+            engine.tracer, "faults.degrade_delivery", cat="faults",
+            algorithm=self.spec.name, error=type(err).__name__,
+        ):
+            pass
         return self._xla_twin
+
+    def _run_checkpointed(self, hg, query):
+        """Route through the chunked checkpoint/resume loop
+        (``repro_torch.faults.checkpoint``) instead of the cached
+        executable.
+
+        The chunks run the SAME pair and loop as the compiled path
+        (``engine.pair_in_place`` under ``halting_loop``, eagerly) on
+        the same padded structure and layouts, snapshotting the state
+        every ``checkpoint_every`` superstep pairs — results are
+        bitwise equal to the uninterrupted executable and a killed run
+        resumes from ``checkpoint_dir``'s latest snapshot."""
+        from repro_torch.core.executor import Result
+        from repro_torch.faults.checkpoint import checkpointed_compute
+
+        cfg = self.config
+        spec = self.spec
+        engine = self.engine
+        prep = self._prepared(hg, rebind=query is not None)
+        q = _canon_query(query) if query is not None else None
+        nv, ne = prep.nv, prep.ne
+        hgq = prep.hgp if q is None else spec.bind_query(prep.hgp, q)
+        out = checkpointed_compute(
+            hgq, cfg.max_iters, spec.initial_msg,
+            spec.v_program, spec.he_program,
+            every=cfg.checkpoint_every, ckpt_dir=cfg.checkpoint_dir,
+            return_stats=cfg.collect_stats, n_real=(nv, ne),
+            delivery=prep.delivery, tracer=engine.tracer,
+            metrics=engine.metrics, fault_injector=engine.fault_injector,
+        )
+        stats = None
+        if cfg.collect_stats:
+            out, stats = out
+        # The chunks ran on the padded buffers; slice back.
+        out = prep.base.with_attrs(
+            v_attr=tree_map(lambda x: x[:nv], out.v_attr),
+            he_attr=tree_map(lambda x: x[:ne], out.he_attr),
+        )
+        return Result(
+            value=spec.extract(out),
+            config=cfg,
+            representation=cfg.representation,
+            backend=cfg.backend,
+            superstep_stats=stats,
+            supersteps_executed=None,
+            decision={
+                **self.decision,
+                "checkpointed": {
+                    "every": cfg.checkpoint_every,
+                    "dir": cfg.checkpoint_dir,
+                },
+            },
+        )
 
     # -- internals ---------------------------------------------------------
 
@@ -624,6 +697,9 @@ class CompiledAlgorithm:
         # and drop out; their shapes enter the cache signature.
         delivery = delivery_sig = None
         if self.config.delivery == "pallas_fused":
+            inj = engine.fault_injector
+            if inj is not None:
+                inj.maybe_raise("layout.build", algorithm=self.spec.name)
             delivery = engine._delivery_layouts(base, padded=hgp)
             delivery_sig = tuple(lay.shape_signature() for lay in delivery)
         prep = _Prepared(
@@ -712,6 +788,15 @@ class CompiledAlgorithm:
             engine._fit_exec_cache()
         if warm_only:
             return {"source": "eager" if exe.graph is None else "graph"}
+        # Fault injection on the execute seam: one attribute load and a
+        # None-check when no injector is attached.  It fires before the
+        # pairs run, after any capture, and never on a warmup.
+        inj = engine.fault_injector
+        if inj is not None:
+            inj.maybe_raise(
+                "execute", algorithm=spec.name, backend=cfg.backend,
+                delivery=cfg.delivery, batch=int(b) if b is not None else 0,
+            )
         counters: dict = {}
         tracer = engine.tracer
         with maybe_span(

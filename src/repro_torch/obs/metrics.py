@@ -16,7 +16,7 @@ instead of growing its own ad-hoc dict.  Two registration styles:
   provider returns ``None`` and is pruned at the next snapshot.
 
 ``LatencyHistogram`` lives here: one log-spaced histogram
-implementation, shared by the registry and (once ported) the serving
+implementation, shared by the registry and the serving
 tier.  The process-wide default registry is this package's own; the
 JAX package's is a different object.
 """

@@ -20,7 +20,7 @@ from repro_torch.algorithms import (
     random_walk_spec,
     shortest_paths_spec,
 )
-from repro_torch.core import AnalyticsSpec, Engine, Program
+from repro_torch.core import AnalyticsSpec, Engine, Program, tree_leaves
 from repro_torch.data import powerlaw_hypergraph
 from repro_torch.kernels import _nvcc
 from repro_torch.kernels.isect import (
@@ -955,3 +955,177 @@ def test_cuda_traced_run_records_device_wait(card):
     assert "engine.layout_build" in {s.name for s in tr.spans()}
     md = res.decision["measured"]["delivery"]
     assert md["fwd"]["nnz"] == hg.nnz and md["total_bytes"] > 0
+
+
+# -- fault tolerance and the serving front-end on the card ------------------
+
+def _values_equal(key, got, want):
+    from repro_torch.launch.serve_hypergraph import agrees
+
+    return agrees(key, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make,leaves", [
+    (lambda h: pagerank_spec(h, iters=10), 3),
+    (lambda h: shortest_paths_spec(h, 0, 12), 2),
+])
+def test_cuda_checkpoint_kill_and_resume_is_bitwise(card, tmp_path, make,
+                                                    leaves):
+    """A fused run killed after its first snapshot and resumed by a
+    fresh Engine equals the uninterrupted run bit for bit, its trace
+    too; the resumed run launches K1 only for the pairs it runs."""
+    from repro_torch.faults import FaultInjector, InjectedFault
+
+    spec = make(_card_hg(card))
+    base = Engine(device=card, delivery="pallas_fused",
+                  collect_stats=True).run(spec)
+    ck = str(tmp_path / "ck")
+    inj = FaultInjector.from_json({"rules": [{
+        "point": "checkpoint.chunk", "trigger": "nth", "n": 1,
+        "error": "fatal"}]})
+    with pytest.raises(InjectedFault):
+        Engine(device=card, delivery="pallas_fused", collect_stats=True,
+               fault_injector=inj).run(spec, checkpoint_every=3,
+                                       checkpoint_dir=ck)
+    eng = Engine(device=card, delivery="pallas_fused", collect_stats=True)
+    before = deliver_fused_cuda.launches
+    res = eng.run(spec, checkpoint_every=3, checkpoint_dir=ck)
+    torch.cuda.synchronize()
+    m = res.decision["measured"]
+    assert m["resumed_from"] == 3
+    assert deliver_fused_cuda.launches - before == m["pairs_run"] * leaves
+    for a, b in zip(tree_leaves(res.value), tree_leaves(base.value)):
+        assert a.device.type == "cuda"
+        assert _same_bits(a.cpu().numpy(), b.cpu().numpy())
+    for a, b in zip(res.superstep_stats, base.superstep_stats):
+        assert torch.equal(a, b)
+
+
+def _front(eng, hg, **kw):
+    from repro_torch.serve import Frontend
+
+    fe = Frontend(eng, max_batch=8, max_delay_ms=2.0, **kw)
+    fe.register("sssp", shortest_paths_spec(hg, 0, 12))
+    fe.register("ppr", random_walk_spec(hg, iters=12))
+    return fe
+
+
+def _mixed_trace(n, n_vertices, seed=0):
+    rng = np.random.default_rng(seed)
+    return [("sssp" if rng.random() < 0.6 else "ppr",
+             int(rng.integers(0, n_vertices))) for _ in range(n)]
+
+
+@pytest.mark.cuda
+def test_cuda_frontend_equals_sequential_compiled_runs(card):
+    from repro_torch.serve import warm
+
+    hg = _card_hg(card)
+    eng = Engine(device=card, delivery="pallas_fused")
+    fe = _front(eng, hg)
+    warm(eng, [fe.compiled("sssp"), fe.compiled("ppr")], batch_sizes=(8,),
+         queries=[0, 0])
+    captures = eng.cache_stats()["traces"]
+    trace = _mixed_trace(40, hg.n_vertices)
+    try:
+        fe.start()
+        futs = [fe.submit(k, query=q) for k, q in trace]
+        served = [f.result(timeout=300) for f in futs]
+    finally:
+        fe.close()
+    assert eng.cache_stats()["traces"] == captures  # the worker replayed
+    for (key, q), res in zip(trace, served):
+        assert tree_leaves(res.value)[0].device.type == "cuda"
+        assert _values_equal(key, res.value,
+                             fe.compiled(key).run(query=q).value), (key, q)
+    assert fe.stats()["completed"] == len(trace)
+
+
+@pytest.mark.cuda
+def test_cuda_submit_from_the_main_thread_during_the_first_capture(
+        card, monkeypatch):
+    """The worker's first flush captures its CUDA graph (no warm); the
+    main thread submits, and queues work of its own on the card on a
+    stream of its own, while the capture is open.  The capture holds,
+    and every request is served.  (Work on the legacy default stream can
+    void the capture: "operation not permitted when stream is
+    capturing".)"""
+    import threading
+
+    from repro_torch.core import serving
+
+    hg = _card_hg(card)
+    eng = Engine(device=card, delivery="pallas_fused")
+    fe = _front(eng, hg)
+    opened, resume = threading.Event(), threading.Event()
+    pair = serving._Executable.pair
+
+    def pausing_pair(self):
+        if torch.cuda.is_current_stream_capturing() and not opened.is_set():
+            opened.set()
+            resume.wait(timeout=60)
+        return pair(self)
+
+    monkeypatch.setattr(serving._Executable, "pair", pausing_pair)
+    try:
+        fe.start()
+        first = fe.submit("sssp", query=3)
+        assert opened.wait(timeout=120), "the worker never captured"
+        more = [fe.submit("sssp", query=q) for q in (7, 11)]
+        with torch.cuda.stream(torch.cuda.Stream(card)):
+            side = torch.ones(1 << 16, device=card).sum().item()
+        resume.set()
+        served = [f.result(timeout=300) for f in [first] + more]
+    finally:
+        resume.set()
+        fe.close()
+    assert side == float(1 << 16)
+    for q, res in zip((3, 7, 11), served):
+        assert _values_equal("sssp", res.value,
+                             fe.compiled("sssp").run(query=q).value)
+
+
+@pytest.mark.cuda
+def test_cuda_results_of_two_flushes_do_not_alias(card):
+    hg = _card_hg(card)
+    eng = Engine(device=card, delivery="pallas_fused")
+    fe = _front(eng, hg)
+    a = [fe.submit("sssp", query=q) for q in (0, 1)]
+    fe.pump(drain=True)
+    kept = [f.result(timeout=0).value[0].clone() for f in a]
+    b = [fe.submit("sssp", query=q) for q in (500, 900)]
+    fe.pump(drain=True)
+    (exe,) = [e for e in eng._exec_cache.values() if e.batch_pad == 8]
+    bufs = {t.untyped_storage().data_ptr()
+            for t in tree_leaves(exe.state)}
+    for f, k in zip(a, kept):
+        got = f.result(timeout=0).value[0]
+        assert torch.equal(got, k)
+        assert got.untyped_storage().data_ptr() not in bufs
+    assert not torch.equal(a[0].result(timeout=0).value[0],
+                           b[0].result(timeout=0).value[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point", ["execute", "layout.build"])
+def test_cuda_fatal_fault_raises_typed_with_no_degrade(card, point):
+    """A permanent injected fault on the card reaches the request as its
+    typed error (after the front-end's bisect); no xla twin serves it."""
+    from repro_torch.faults import FaultInjector, InjectedFault, PoisonQuery
+
+    inj = FaultInjector.from_json(
+        {"rules": [{"point": point, "error": "fatal"}]})
+    eng = Engine(device=card, delivery="pallas_fused", fault_injector=inj)
+    hg = _card_hg(card)
+    degraded0 = eng.metrics.counter("faults.delivery_degraded").value
+    with pytest.raises(InjectedFault, match=point):
+        eng.compile(shortest_paths_spec(hg, 0, 8)).run(query=2)
+    fe = _front(eng, hg)
+    futs = [fe.submit("sssp", query=q) for q in range(4)]
+    fe.pump(drain=True)
+    for f in futs:
+        err = f.exception(timeout=0)
+        assert isinstance(err, PoisonQuery)
+        assert isinstance(err.__cause__, InjectedFault)
+    assert eng.metrics.counter("faults.delivery_degraded").value == degraded0
