@@ -166,10 +166,33 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    always, fatal: 4 requests resolve typed, none degrades to ``xla``;
    (e) ``python -m repro_torch.launch.serve_hypergraph --regime dblp
    --scale 1.0 --requests 200 --verify 8`` in a subprocess exits 0 and
-   verifies 8.
+   verifies 8;
+13. the replica pool on one card, DBLP at full scale, phase 12's trace:
+   (a) the parent warms SSSP and PPR (unbatched, buckets 8 and 16) into
+   a fresh ``DiskExecutableCache`` (6 records written) and
+   ``retrace_smoke`` on the card finds nothing; the parent's sequential
+   compiled runs of every request are the oracle; (b) a ``Router`` over
+   2 ``ProcessReplica``s booting ``require_no_retrace=True`` from the
+   records (each: seconds to ready, records read, captures at boot,
+   ``torch.cuda.memory_reserved`` and ``nvidia-smi``'s memory per
+   process), the trace replayed: requests/s beside phase 12(b)'s
+   single-process ``Frontend``, every value agreeing with the oracle
+   (SSSP bitwise, PPR 1e-5 relative) and reaching the router as numpy,
+   no capture in a replica after its warm, K1's launches a flush in
+   each replica; (c) the trace again with ``kill -9`` of replica 0
+   mid-replay: every request resolves (a value equal to the oracle's,
+   or ``ReplicaLost`` / ``FrontendClosed``, at most ``MAX_FAILOVERS``),
+   in_flight = pending = 0, a death and a respawn, which boots from the
+   records with the sentinel armed (seconds from the kill to ready);
+   (d) a pool under a seeded ``replica.hang``: the missed-heartbeat
+   detector declares the hung replica dead and every request resolves;
+   (e) ``python -m repro_torch.launch.serve_hypergraph --replicas 2
+   --cache-dir <tmp> --warm --verify 8`` under a seeded
+   ``replica.crash`` exits 0, verifies 8 and fires the plan.
 
 Prints the kernel line (JSON; K1's entry carries phase 9's compiled
-launches and times and phase 12's ``phase12_*`` serving keys; K2b's, phase 11's launches and numbers at the
+launches and times, phase 12's ``phase12_*`` serving keys and phase
+13's ``phase13_*`` pool keys; K2b's, phase 11's launches and numbers at the
 clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 7's, with
 the clique out-weights' as ``out_w_*``) and, last, the device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
@@ -2412,6 +2435,349 @@ def fault_serving_phase(hg):
             "phase12_checkpoint_restore_s": pr_restore}
 
 
+POOL_REPLICAS = 2          # phase 13: replica processes on the one card
+POOL_HEARTBEAT_MS = 2000.0  # the launcher's default heartbeat timeout
+POOL_BOOT_TIMEOUT_S = 300  # no boot may take longer
+HANG_REQUESTS = 48         # phase 13 (d): the head of the trace
+# Seeded so that the first instance hangs at its 6th request and the
+# second at none of its first 120 (prob draws per instance: seed +
+# 1009 x spawn order); (e)'s crashes the first at its 21st request and
+# the second at none of its first 250.
+HANG_PLAN = {"rules": [{"point": "replica.hang", "trigger": "prob",
+                        "p": 0.05, "seed": 1559}]}
+CRASH_PLAN = {"rules": [{"point": "replica.crash", "trigger": "prob",
+                         "p": 0.02, "seed": 83}]}
+LAUNCH_POOL_SCALE = 1.0    # phase 13 (e): the launcher's --scale
+
+
+def smi_memory():
+    """``{pid: MiB}`` of the card's compute processes (``nvidia-smi``)."""
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True)
+    out = {}
+    for line in proc.stdout.splitlines():
+        pid, used = (x.strip() for x in line.split(","))
+        if pid.isdigit() and used.isdigit():
+            out[int(pid)] = int(used)
+    return out
+
+
+def start_pool(store, plan=None):
+    """A ``Router`` over ``POOL_REPLICAS`` replica processes on the card,
+    each armed with ``plan``; returns it, every handle it spawns (a
+    list that grows with respawns) and the reasons of its deaths."""
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import ProcessReplica, ReplicaConfig, Router
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cfg = ReplicaConfig(
+        builder="repro_torch.launch.serve_hypergraph:build_paths",
+        kwargs={"regime": "dblp", "scale": 1.0, "seed": 0,
+                "iters": SERVE_ITERS},
+        cache_dir=store, max_batch=SERVE_MAX_BATCH, max_delay_ms=5.0,
+        fault_plan=json.dumps(plan) if plan else None,
+        require_no_retrace=True, device="cuda",
+        exec_cache_bytes=total // 4 // POOL_REPLICAS)
+    spawned, order = [], itertools.count()
+
+    def factory(index):
+        spawned.append(ProcessReplica(index, dataclasses.replace(
+            cfg, seed_offset=1009 * next(order))))
+        return spawned[-1]
+
+    router = Router(factory, POOL_REPLICAS,
+                    heartbeat_timeout_ms=POOL_HEARTBEAT_MS,
+                    max_in_flight=2 * SERVE_MAX_BATCH,
+                    registry=MetricsRegistry())
+    deaths = []
+    mark_dead = router._mark_dead
+
+    def noted(slot, now, why, resolutions):
+        deaths.append((slot.index, why))
+        return mark_dead(slot, now, why, resolutions)
+
+    router._mark_dead = noted
+    return router.start(), spawned, deaths
+
+
+def close_pool(router, spawned):
+    router.close()
+    for handle in spawned:
+        handle.stop(force=True)
+
+
+def wait_ready(router, slots, t0, timeout=POOL_BOOT_TIMEOUT_S):
+    """Seconds from ``t0`` until each of ``slots`` answered ``ready``;
+    fails on a boot error, a death while waiting, or the timeout."""
+    seen = {}
+    deadline = time.monotonic() + timeout
+    deaths = router.stats()["deaths"]
+    while len(seen) < len(slots):
+        st = router.stats()
+        for p in st["per_replica"]:
+            if p["index"] in slots and p["state"] == "ready":
+                seen.setdefault(p["index"], time.perf_counter() - t0)
+        fatal = [s.fatal for s in router.slots if s.fatal]
+        if fatal or st["deaths"] > deaths:
+            fail(f"a replica failed to boot: {fatal or st['per_replica']}")
+        if time.monotonic() > deadline:
+            fail(f"replicas {sorted(set(slots) - set(seen))} not ready "
+                 f"in {timeout} s")
+        time.sleep(0.02)
+    return [seen[i] for i in slots]
+
+
+def pool_replay(router, trace, on_submitted=None,
+                timeout=FUTURE_TIMEOUT_S):
+    """Submit the whole trace to the router, call ``on_submitted``, then
+    wait for each future (with a timeout: a hang fails the phase).
+    Returns the outcomes (a ``ServedResult`` or the typed error) and the
+    wall seconds."""
+    import concurrent.futures
+
+    from repro_torch.faults import FaultError
+
+    t0 = time.perf_counter()
+    futs = [router.submit(key, query=q) for key, q in trace]
+    if on_submitted is not None:
+        on_submitted()
+    out = []
+    for (key, q), f in zip(trace, futs):
+        try:
+            out.append(f.result(timeout=timeout))
+        except concurrent.futures.TimeoutError:
+            fail(f"request {key} {q} did not resolve in {timeout} s")
+        except FaultError as err:
+            out.append(err)
+    return out, time.perf_counter() - t0
+
+
+def check_served(tag, trace, out, oracle, allowed=()):
+    """Every outcome is a value that agrees with the sequential run
+    (SSSP bitwise, PPR 1e-5 relative) and reached the router as numpy,
+    or one of the ``allowed`` typed errors.  Returns the errors."""
+    import numpy as np
+
+    from repro_torch.core import tree_leaves
+    from repro_torch.launch.serve_hypergraph import agrees
+
+    errors = []
+    for (key, q), r in zip(trace, out):
+        if isinstance(r, Exception):
+            if not isinstance(r, allowed):
+                fail(f"{tag}: request {key} {q} resolved as {r!r}")
+            errors.append(r)
+            continue
+        leaves = tree_leaves(r.value)
+        if not all(isinstance(x, np.ndarray) for x in leaves):
+            fail(f"{tag}: {key} {q} reached the router as "
+                 f"{[type(x).__name__ for x in leaves]}, not numpy")
+        if not agrees(key, r.value, oracle[(key, q)]):
+            fail(f"{tag}: served {key} {q} != the sequential compiled run")
+    return errors
+
+
+def check_drained(tag, router):
+    st = router.stats()
+    if st["in_flight"] or st["pending"]:
+        fail(f"{tag}: ROUTER LEAK: in_flight={st['in_flight']} "
+             f"pending={st['pending']} after drain")
+    return st
+
+
+def pool_phase(hg, single_qps):
+    """Phase 13: the replica pool on one card, DBLP at full scale (see
+    the module docstring).  Returns K1's phase-13 keys."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.algorithms import random_walk_spec, shortest_paths_spec
+    from repro_torch.analysis import retrace_smoke
+    from repro_torch.core import Engine
+    from repro_torch.faults import FrontendClosed, ReplicaLost
+    from repro_torch.launch.serve_hypergraph import batch_buckets, make_trace
+    from repro_torch.serve import MAX_FAILOVERS, DiskExecutableCache, warm
+
+    dev = hg.dst.device
+    specs = {"sssp": shortest_paths_spec(hg, source=0,
+                                         max_iters=SERVE_ITERS),
+             "ppr": random_walk_spec(hg, iters=SERVE_ITERS)}
+    store_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_store_")
+    store = store_dir.name
+    # -- (a) the store --------------------------------------------------------
+    t0 = time.perf_counter()
+    parent = Engine(device=dev,
+                    disk_cache=DiskExecutableCache(store, device=dev))
+    report = warm(parent, list(specs.values()),
+                  batch_sizes=batch_buckets(SERVE_MAX_BATCH), queries=[0, 0])
+    disk = parent.disk_cache.stats()
+    if report["compiled"] != 6 or disk["disk_stores"] != 6:
+        fail(f"the parent's warm recorded {disk['disk_stores']} of 6")
+    findings = retrace_smoke(device=dev)
+    if findings:
+        fail("retrace_smoke: " + "; ".join(f.format() for f in findings))
+    compiled = {key: parent.compile(spec) for key, spec in specs.items()}
+    _, trace = make_trace(hg.n_vertices, SERVE_REQUESTS, SERVE_MIX, 0)
+    t1 = time.perf_counter()
+    oracle = {}
+    for key, q in trace:
+        if (key, q) not in oracle:
+            oracle[(key, q)] = compiled[key].run(query=q).value
+    torch.cuda.synchronize()
+    log(f"  (a) the parent warmed {report['traces']} captures in "
+        f"{report['boot_s']:.2f} s and wrote {disk['disk_stores']} records "
+        f"({disk['dir']}); retrace_smoke on the card: no findings; "
+        f"{len(oracle)} sequential compiled runs (the oracle) in "
+        f"{time.perf_counter() - t1:.2f} s; (a) "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- (b) the pool ---------------------------------------------------------
+    t0 = time.perf_counter()
+    router, spawned, deaths = start_pool(store)
+    try:
+        boots = wait_ready(router, list(range(POOL_REPLICAS)), t0)
+        smi = smi_memory()
+        per = router.stats()["per_replica"]
+        for p, ready_s in zip(per, boots):
+            b = p["boot"]
+            if b["from_disk"] != 6 or b["compiled"] != 0:
+                fail(f"replica {p['index']} booted {b['from_disk']} of 6 "
+                     "paths from records")
+            log(f"  (b) replica {p['index']} (pid {b['pid']}): ready "
+                f"{ready_s:.2f} s after spawn (warm {b['boot_s']:.2f} s), "
+                f"{b['warm_records']} records read, {b['traces']} captures "
+                f"at boot, {b['memory_reserved'] / 2**20:.0f} MiB reserved "
+                f"by torch")
+        log(f"    nvidia-smi compute apps, MiB by pid (the host's pids: one "
+            f"line may hold every process of this container): {smi}")
+        out, wall = pool_replay(router, trace)
+        check_served("(b)", trace, out, oracle)
+        qps = len(trace) / wall
+        time.sleep(0.3)                               # a fresh heartbeat
+        per = router.stats()["per_replica"]
+        per_flush = []
+        for p in per:
+            hb, b = p["replica_counts"], p["boot"]
+            if hb["traces"] != b["engine_traces"]:
+                fail(f"replica {p['index']} captured after warm "
+                     f"({b['engine_traces']} -> {hb['traces']})")
+            launched = (hb["kernel_launches"]["deliver_fused"]
+                        - b["kernel_launches"]["deliver_fused"])
+            per_flush.append(launched / max(hb["flushes"], 1))
+            log(f"    replica {p['index']}: served {p['served']}, "
+                f"{hb['flushes']} flushes, {launched} K1 launches "
+                f"({per_flush[-1]:.1f} a flush), no capture after warm")
+        log(f"  (b) {len(trace)} requests through {POOL_REPLICAS} replicas "
+            f"in {wall:.3f} s: {qps:.1f} requests/s aggregate, against "
+            f"{single_qps:.1f} for phase 12's single-process Frontend; "
+            f"every value agrees with the sequential runs; (b) "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # -- (c) kill -9 mid-replay ---------------------------------------------
+        t0 = time.perf_counter()
+        victim = router.slots[0].handle
+        served0 = router.stats()["per_replica"][0]["served"]
+        killed = []
+
+        def kill():
+            deadline = time.monotonic() + 30
+            while (router.stats()["per_replica"][0]["served"] < served0 + 16
+                   and time.monotonic() < deadline):
+                time.sleep(0.001)
+            os.kill(victim.pid, 9)
+            killed.append(time.perf_counter())
+
+        out, wall = pool_replay(router, trace, on_submitted=kill)
+        lost = check_served("(c)", trace, out, oracle,
+                            (ReplicaLost, FrontendClosed))
+        if len(lost) > MAX_FAILOVERS:
+            fail(f"(c) {len(lost)} requests lost, more than "
+                 f"MAX_FAILOVERS = {MAX_FAILOVERS}")
+        st = check_drained("(c)", router)
+        if st["deaths"] < 1 or st["respawns"] < 1:
+            fail(f"(c) deaths {st['deaths']}, respawns {st['respawns']}")
+        respawn_s = wait_ready(router, [0], killed[0])[0]
+        reborn = router.stats()["per_replica"][0]["boot"]
+        if reborn["pid"] == victim.pid or reborn["warm_records"] <= 0 \
+                or reborn["from_disk"] != 6:
+            fail(f"(c) the respawn did not boot from the records: {reborn}")
+        if victim.process.exitcode != -9:
+            fail(f"(c) the victim exited {victim.process.exitcode}")
+        log(f"  (c) kill -9 of replica 0 (pid {victim.pid}) mid-replay: "
+            f"{len(trace) - len(lost)} served (equal to the sequential "
+            f"runs), {len(lost)} typed; deaths {st['deaths']} "
+            f"({deaths}), respawns {st['respawns']}, failovers "
+            f"{st['failovers']}, in_flight = pending = 0; the respawn "
+            f"(pid {reborn['pid']}) was ready {respawn_s:.2f} s after the "
+            f"kill (warm {reborn['boot_s']:.2f} s), "
+            f"{reborn['warm_records']} records read, sentinel armed; (c) "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        close_pool(router, spawned)
+
+    # -- (d) a hang ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    router, spawned, deaths = start_pool(store, HANG_PLAN)
+    try:
+        wait_ready(router, list(range(POOL_REPLICAS)), t0)
+        hang_trace = trace[:HANG_REQUESTS]
+        out, wall = pool_replay(router, hang_trace)
+        lost = check_served("(d)", hang_trace, out, oracle,
+                            (ReplicaLost, FrontendClosed))
+        st = check_drained("(d)", router)
+        hung = spawned[0]
+        if (hung.faults or {}).get("fired", {}).get("replica.hang") != 1:
+            fail(f"(d) replica.hang did not fire in replica 0: {hung.faults}")
+        if (0, "missed heartbeats") not in deaths:
+            fail(f"(d) the hung replica's death: {deaths}")
+        log(f"  (d) replica.hang in replica 0: declared dead by the "
+            f"heartbeat detector ({deaths}); {len(hang_trace) - len(lost)} "
+            f"of {len(hang_trace)} served (equal to the sequential runs), "
+            f"{len(lost)} typed, failovers {st['failovers']}, in {wall:.2f} "
+            f"s; (d) {time.perf_counter() - t0:.1f} s")
+    finally:
+        close_pool(router, spawned)
+    del parent, compiled, oracle
+    torch.cuda.empty_cache()
+    store_dir.cleanup()
+
+    # -- (e) the launcher -----------------------------------------------------------
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [os.path.join(ROOT, "src")]
+        + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+           if p])}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pool_") as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve_hypergraph",
+             "--regime", "dblp", "--scale", str(LAUNCH_POOL_SCALE),
+             "--replicas", str(POOL_REPLICAS), "--cache-dir", tmp,
+             "--warm", "--verify", "8", "--log-every-s", "1000",
+             "--fault-plan", json.dumps(CRASH_PLAN)],
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    for line in proc.stdout.splitlines():
+        log(f"    | {line}")
+    if proc.returncode != 0 or "verified 8" not in proc.stdout \
+            or "never fired: none" not in proc.stdout:
+        fail(f"the pool launcher exited {proc.returncode}: "
+             f"{proc.stderr[-2000:]}")
+    log(f"  (e) the launcher's pool under replica.crash verified 8 of 8 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"phase13_pool_requests_per_s": qps,
+            "phase13_single_requests_per_s": single_qps,
+            "phase13_launches_per_flush": per_flush,
+            "phase13_boot_s": boots,
+            "phase13_respawn_boot_s": respawn_s}
+
+
 def main() -> int:
     import torch
 
@@ -2617,6 +2983,14 @@ def main() -> int:
     log(f"phase 12: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 13: the replica pool (store, router, kill -9, hang) ------------
+    t0 = time.perf_counter()
+    log(f"phase 13: {POOL_REPLICAS} replica processes on one card, dblp at "
+        "full scale")
+    pool = pool_phase(hg, serve_tier["phase12_requests_per_s"])
+    log(f"phase 13: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -2631,6 +3005,7 @@ def main() -> int:
         "library_ms": totals["library_ms"],
         **serving,
         **serve_tier,
+        **pool,
     }]
     for name, replaces, launches in (
             ("isect", "src/repro/kernels/isect/isect.py:63", k3a_launches),

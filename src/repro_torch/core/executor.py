@@ -79,7 +79,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 _DISTRIBUTED = "item 10: core/distributed.py"
-_DISK_CACHE = "item 9b: serve/cache.py DiskExecutableCache"
 
 
 def _serialized(method):
@@ -489,10 +488,14 @@ class Engine:
     registry provider is a weakref pulled only at snapshot time.
     ``fault_injector``: an optional ``repro_torch.faults.FaultInjector``
     whose plan fires at the instrumented points (``layout.build``,
-    ``execute``, ``checkpoint.chunk``); duck-typed like ``tracer``, and
-    every point branches on ``is None`` first.
-    ``plan``, ``mesh`` and ``disk_cache`` belong to slices not ported
-    yet and raise when given.  One lock (``_lock``) serializes this
+    ``execute``, ``checkpoint.chunk``, and the attached store's
+    ``disk.*`` / ``compile.aot``); duck-typed like ``tracer``, and every
+    point branches on ``is None`` first.
+    ``disk_cache``: an optional ``repro_torch.serve.DiskExecutableCache``
+    on this Engine's device type: each new executable is made under its
+    signature's lock and recorded there (``serve.cache.warm``).
+    ``plan`` and ``mesh`` belong to a slice not ported yet and raise
+    when given.  One lock (``_lock``) serializes this
     Engine's public methods and its ``CompiledAlgorithm`` calls across
     threads (the serving front-end's worker and its callers): a CUDA
     graph capture never overlaps other work of this Engine.
@@ -514,8 +517,6 @@ class Engine:
     ):
         if plan is not None or mesh is not None:
             raise _not_ported("a partition plan or mesh", _DISTRIBUTED)
-        if disk_cache is not None:
-            raise _not_ported("disk_cache", _DISK_CACHE)
         cfg = config if config is not None else ExecutionConfig()
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
@@ -544,7 +545,17 @@ class Engine:
             "engine.exec_cache", weak_provider(self.cache_stats)
         )
         self.fault_injector = fault_injector
-        self.disk_cache = None  # the persistent store's slot (item 9b)
+        if disk_cache is not None:
+            store_device = getattr(disk_cache, "device", self.device)
+            if store_device.type != self.device.type:
+                raise ValueError(
+                    f"disk_cache records {store_device.type} "
+                    f"executables; this Engine runs on {self.device.type}"
+                )
+            # The store's disk.* points fire on this Engine's plan.
+            if fault_injector is not None:
+                disk_cache.fault_injector = fault_injector
+        self.disk_cache = disk_cache
         self._lock = threading.RLock()
 
     # -- resolution ---------------------------------------------------------
@@ -933,8 +944,8 @@ class Engine:
         byte bound); ``bytes`` is what the live entries hold;
         ``entry_shapes`` describes each live entry's bucket (algorithm,
         padded dims, batch bucket, design point) and its ``bytes``;
-        ``disk`` is ``None`` (the persistent store, ROADMAP.md item 9b,
-        is not ported).
+        ``disk`` mirrors the attached store's counters (``None``
+        without one).
         """
         cache = self._exec_cache
         return {
@@ -950,7 +961,11 @@ class Engine:
                 {**self._exec_meta.get(key, {}), "bytes": exe.nbytes}
                 for key, exe in cache.items()
             ],
-            "disk": None,
+            "disk": (
+                self.disk_cache.stats()
+                if self.disk_cache is not None
+                else None
+            ),
         }
 
     def _note_trace(self) -> None:
@@ -980,6 +995,8 @@ class Engine:
                 "engine.build_executable", cat="compile", **span_args
             ):
                 exe = build()
+        if self.disk_cache is not None:
+            exe = self.disk_cache.wrap(self, key, exe)
         cache[key] = exe
         if meta is not None:
             self._exec_meta[key] = meta

@@ -527,8 +527,13 @@ class CompiledAlgorithm:
         ``batch_sizes``.  ``query``: example request for specs whose
         ``query0`` is unset; required to warm query-bearing paths.
 
-        Returns ``{path: {"source": "graph" | "eager"}}`` ("graph": a
-        captured CUDA graph; "eager": pairs run eagerly, on the CPU).
+        Returns ``{path: {"source": "disk" | "aot" | "jit",
+        "executable": "graph" | "eager"}}``: ``source`` says what the
+        Engine's ``disk_cache`` held (``disk``: the signature's record;
+        ``aot``: none, one was written; ``jit``: no store attached, see
+        ``repro_torch.serve.cache``), ``executable`` what was made
+        (``graph``: a captured CUDA graph; ``eager``: pairs run eagerly,
+        on the CPU).
         """
         with self.engine._lock:
             spec = self.spec
@@ -787,7 +792,8 @@ class CompiledAlgorithm:
             exe.measure()
             engine._fit_exec_cache()
         if warm_only:
-            return {"source": "eager" if exe.graph is None else "graph"}
+            return {"source": getattr(exe, "source", None) or "jit",
+                    "executable": "eager" if exe.graph is None else "graph"}
         # Fault injection on the execute seam: one attribute load and a
         # None-check when no injector is attached.  It fires before the
         # pairs run, after any capture, and never on a warmup.

@@ -13,8 +13,7 @@ Transience is a property of the *class* (plus the ``transient`` flag on
 tier's retry loop consults, and the compiled path's delivery
 degradation on the CPU (``CompiledAlgorithm._degraded_sibling``)
 applies only to failures it calls permanent.  ``ReplicaLost`` and
-``Overloaded`` belong to the multi-process tier (ROADMAP.md queue 1,
-item 9b); they are here so that the taxonomy is whole.
+``Overloaded`` are the multi-process tier's (``serve/router.py``).
 """
 from __future__ import annotations
 

@@ -4,7 +4,16 @@ port's copy of the JAX package's ``repro.faults.inject``).
 Attaches to ``Engine(fault_injector=...)`` / ``Frontend(...)`` exactly
 like ``tracer`` — duck-typed, and every instrumented hot path branches
 on ``fault_injector is None`` first, so the absent case costs one
-attribute load and a predictable branch.
+attribute load and a predictable branch.  Where each point fires
+(``faults.plan``'s table): the Engine (``layout.build``, ``execute``,
+``checkpoint.chunk``) and its ``disk_cache``, which the Engine hands
+its injector (``disk.read``, ``disk.deserialize``, ``disk.write``,
+``compile.aot``); the ``Frontend`` (``serve.flush``, ``serve.worker``);
+the ``Router`` (``router.route``); and inside each replica process,
+whose ``ReplicaConfig.fault_plan`` arms an injector of its own
+(``replica.crash``, ``replica.hang``, and the Engine's and front-end's
+points there).  A pool's report sums the router's snapshot and each
+replica's (``launch.serve_hypergraph.pool_faults``).
 
 Determinism contract: firing is a pure function of the plan and the
 per-point call sequence.  Counters are per-injector and lock-protected

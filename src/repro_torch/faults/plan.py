@@ -26,17 +26,24 @@ The failure points, and where the port instruments them:
 ``serve.flush``     ``Frontend._attempt`` (before the batch executes)
 ``serve.worker``    the front-end worker loop (models a thread crash)
 ``checkpoint.chunk``after each superstep checkpoint chunk is saved
-``disk.read``       the disk executable store (ROADMAP.md item 9b)
-``disk.write``      the same
-``disk.deserialize``the same
-``compile.aot``     the same
-``replica.crash``   the replica process loop (item 9b)
-``replica.hang``    the same
-``router.route``    the replica router (item 9b)
+``disk.read``       ``DiskExecutableCache.load``, before a record file
+                    is read (a fault quarantines the entry: a miss)
+``disk.deserialize``the same, before the record is parsed and checked
+``disk.write``      ``DiskExecutableCache.store``, before a record is
+                    published (a fault leaves the signature unrecorded)
+``compile.aot``     ``_DiskBackedExecutable``, under the signature's
+                    lock, before the capture (raises on the card; the
+                    CPU's eager build stands, unrecorded)
+``replica.crash``   the replica's pipe loop, per received request
+                    (``os._exit``: the kill -9 model)
+``replica.hang``    the same, after ``replica.crash`` (stops the
+                    heartbeats; the router's detector must catch it)
+``router.route``    ``Router.submit``'s admission (the request resolves
+                    with the typed error)
 ==================  ======================================================
 
-Every point the JAX package instruments is named here, so a plan written
-for it loads unchanged; the last seven never fire in the port yet.
+Every point the JAX package instruments is named here, and each fires
+in the port, so a plan written for it loads and fires unchanged.
 Unknown points are legal in a plan (they simply never fire) so plans
 stay forward-compatible; ``FaultPlan.validate`` warns on typos.
 """

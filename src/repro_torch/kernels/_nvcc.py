@@ -6,12 +6,17 @@ A kernel is built at its first use, from the sources in the package's
 library's file name carries a hash of its sources and flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.
 ``nvcc``'s output, with ``ptxas``'s registers, spills and shared memory
-per kernel, is kept beside the library (``build_log``).
-Nothing is built when a module is imported.
+per kernel, is kept beside the library (``build_log``).  Processes
+that start at once on a cold build directory (the replicas of a serving
+pool) build each library once: the builder holds an ``flock`` on
+``<name>-<hash>.lock`` beside the target, and the others wait on it and
+then load what it built.  Nothing is built when a module is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -51,16 +56,35 @@ def build(name: str, sources: tuple[str, ...]) -> Path:
     out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
+    with _claim(out.with_suffix(".lock")):
+        if not out.exists():  # a peer may have built it meanwhile
+            _compile(name, paths, out)
+    return out
+
+
+@contextlib.contextmanager
+def _claim(lock: Path):
+    """Hold an exclusive ``flock`` on ``lock`` (released by the kernel
+    if this process dies)."""
+    lock.parent.mkdir(parents=True, exist_ok=True)
+    with open(lock, "ab") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _compile(name: str, paths: list[Path], out: Path) -> None:
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
             f"nvcc not found: cannot build the {name!r} kernel (needs the "
             "CUDA toolkit on PATH or under CUDA_HOME)"
         )
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # Build beside the target and rename into place, so a concurrent
     # build never loads a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
     try:
         proc = subprocess.run(
@@ -77,7 +101,6 @@ def build(name: str, sources: tuple[str, ...]) -> Path:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out
 
 
 def build_log(name: str, sources: tuple[str, ...]) -> str:

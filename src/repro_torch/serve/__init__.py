@@ -19,16 +19,23 @@ into a request-serving subsystem:
 * ``metrics``  — latency observability (``ServeMetrics``): p50/p99/p999
   histograms split queue-wait vs execute, per-bucket occupancy, flush
   reasons — exposed as ``Frontend.stats()`` and a periodic log line.
-* ``cache``    — ``stable_digest`` (cross-process signature digests)
-  and ``warm(engine, specs)``, the boot pass that captures every batch
-  bucket before the first request.
+* ``cache``    — ``stable_digest`` (cross-process signature digests),
+  the shared on-disk store (``DiskExecutableCache``: checksummed warmup
+  records, a flock per signature, quarantine) and ``warm(engine,
+  specs)``, the boot pass that captures every batch bucket before the
+  first request.
+* ``replica`` / ``router`` — multi-replica serving: N worker
+  *processes* (``ProcessReplica``) each booting ``warm(...,
+  require_no_retrace=True)`` from the ONE shared store, behind a
+  ``Router`` doing affinity/least-loaded routing, heartbeat death
+  detection, bounded failover (``ReplicaLost`` after ``MAX_FAILOVERS``),
+  respawn from the store and ``Overloaded`` load shedding.  Results
+  cross the pipe as numpy.
 
-The disk executable store, replica processes and the router
-(``DiskExecutableCache``, ``replica.py``, ``router.py``) are ROADMAP.md
-queue 1, item 9b.  Entry point: ``repro_torch.launch.serve_hypergraph``
-(a mixed SSSP/PPR replay).
+Entry point: ``repro_torch.launch.serve_hypergraph`` (a mixed SSSP/PPR
+replay, in-process or through ``--replicas N``).
 """
-from repro_torch.serve.cache import stable_digest, warm
+from repro_torch.serve.cache import DiskExecutableCache, stable_digest, warm
 from repro_torch.serve.frontend import Frontend, ServedResult
 from repro_torch.serve.metrics import LatencyHistogram, ServeMetrics
 from repro_torch.serve.queue import (
@@ -37,14 +44,21 @@ from repro_torch.serve.queue import (
     Flush,
     Request,
 )
+from repro_torch.serve.replica import ProcessReplica, ReplicaConfig
+from repro_torch.serve.router import MAX_FAILOVERS, Router
 
 __all__ = [
     "AdaptiveDelay",
     "CoalescingBatcher",
+    "DiskExecutableCache",
     "Flush",
     "Frontend",
     "LatencyHistogram",
+    "MAX_FAILOVERS",
+    "ProcessReplica",
+    "ReplicaConfig",
     "Request",
+    "Router",
     "ServedResult",
     "ServeMetrics",
     "stable_digest",

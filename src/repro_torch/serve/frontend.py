@@ -634,8 +634,8 @@ class Frontend:
 
     def stats(self) -> dict:
         """One snapshot across the layers: front-end latency /
-        occupancy, the Engine's executable cache, the disk store (always
-        ``None``: not ported, ROADMAP.md item 9b) — plus the unified
+        occupancy, the Engine's executable cache, the disk store
+        (``None`` without one) — plus the unified
         metrics registry (every provider in one view)."""
         snap = self.metrics.snapshot()
         engine_stats = None

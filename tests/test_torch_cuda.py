@@ -1129,3 +1129,173 @@ def test_cuda_fatal_fault_raises_typed_with_no_degrade(card, point):
         assert isinstance(err, PoisonQuery)
         assert isinstance(err.__cause__, InjectedFault)
     assert eng.metrics.counter("faults.delivery_degraded").value == degraded0
+
+
+@pytest.mark.cuda
+def test_cuda_store_records_graphs_and_a_recorded_boot_captures_once(
+        card, tmp_path):
+    """Records on the card: the parent's warm captures and writes one
+    record a path; a second Engine boots under the sentinel (its
+    captures expected), and serving after it captures nothing."""
+    from repro_torch.analysis import assert_no_retrace
+    from repro_torch.serve import DiskExecutableCache, warm
+
+    hg = _card_hg(card)
+    specs = [shortest_paths_spec(hg, 0, 12), random_walk_spec(hg, iters=12)]
+
+    def engine():
+        return Engine(device=card, delivery="pallas_fused",
+                      disk_cache=DiskExecutableCache(tmp_path, device=card))
+
+    parent = engine()
+    rep = warm(parent, specs, batch_sizes=(8,), queries=[0, 0])
+    assert rep["compiled"] == 4 and rep["traces"] == 4
+    assert {p["executable"] for per in rep["paths"].values()
+            for p in per.values()} == {"graph"}
+    eng = engine()
+    rep = warm(eng, specs, batch_sizes=(8,), queries=[0, 0],
+               require_no_retrace=True)
+    assert rep["from_disk"] == 4 and rep["traces"] == 4
+    with assert_no_retrace(eng):
+        for spec in specs:
+            got = eng.compile(spec).run_batch(np.arange(5)).value
+            want = parent.compile(spec).run_batch(np.arange(5)).value
+            for a, b in zip(tree_leaves(got), tree_leaves(want)):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_compile_aot_fault_raises_with_no_plain_fallback(card, tmp_path):
+    from repro_torch.faults import FaultInjector, InjectedFault
+    from repro_torch.serve import DiskExecutableCache
+
+    inj = FaultInjector.from_json(
+        {"rules": [{"point": "compile.aot", "error": "fatal"}]})
+    eng = Engine(device=card, delivery="pallas_fused", fault_injector=inj,
+                 disk_cache=DiskExecutableCache(tmp_path, device=card))
+    with pytest.raises(InjectedFault, match="compile.aot"):
+        eng.compile(shortest_paths_spec(_card_hg(card), 0, 8)).run(query=1)
+    assert eng.cache_stats()["entries"] == 0
+    assert eng.disk_cache.stats()["entries"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_pipe_thread_host_copy_while_the_worker_captures(
+        card, monkeypatch):
+    """The replica's pipe thread copies a result to the host on a stream
+    of its own while the front-end's worker holds a capture open: the
+    copy is right and the capture holds."""
+    import threading
+
+    from repro_torch.core import serving
+    from repro_torch.serve.replica import _to_host
+
+    hg = _card_hg(card)
+    eng = Engine(device=card, delivery="pallas_fused")
+    fe = _front(eng, hg)
+    opened, resume = threading.Event(), threading.Event()
+    pair = serving._Executable.pair
+
+    def pausing_pair(self):
+        if torch.cuda.is_current_stream_capturing() and not opened.is_set():
+            opened.set()
+            resume.wait(timeout=60)
+        return pair(self)
+
+    monkeypatch.setattr(serving._Executable, "pair", pausing_pair)
+    row = torch.arange(1 << 16, dtype=torch.float32, device=card)
+    torch.cuda.synchronize(card)
+    copied = []
+    try:
+        fe.start()
+        first = fe.submit("sssp", query=3)
+        assert opened.wait(timeout=120), "the worker never captured"
+        pipe = threading.Thread(target=lambda: copied.append(_to_host(row)))
+        pipe.start()
+        pipe.join(timeout=60)
+        resume.set()
+        served = first.result(timeout=300)
+    finally:
+        resume.set()
+        fe.close()
+    assert isinstance(copied[0], np.ndarray)
+    assert np.array_equal(copied[0], np.arange(1 << 16, dtype=np.float32))
+    assert _values_equal("sssp", served.value,
+                         fe.compiled("sssp").run(query=3).value)
+
+
+@pytest.mark.cuda
+def test_cuda_pool_of_two_survives_kill9(card, tmp_path):
+    """Two replica processes on the card behind the router, booted from
+    the parent's records: kill -9 of one mid-replay, every request
+    resolves, results arrive as numpy and agree with the parent's
+    sequential runs, no replica captures after its warm, and the
+    respawn boots from the records."""
+    import os
+
+    from repro_torch.faults import FrontendClosed, ReplicaLost
+    from repro_torch.launch import serve_hypergraph as launcher
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import (
+        MAX_FAILOVERS,
+        DiskExecutableCache,
+        ProcessReplica,
+        ReplicaConfig,
+        Router,
+        warm,
+    )
+
+    store = str(tmp_path / "store")
+    kwargs = {"regime": "dblp", "scale": 0.05, "seed": 0, "iters": 12}
+    paths = launcher.build_paths(**kwargs, device=card)
+    parent = Engine(device=card,
+                    disk_cache=DiskExecutableCache(store, device=card))
+    warm(parent, list(paths["specs"].values()),
+         batch_sizes=launcher.batch_buckets(8), queries=[0, 0])
+    cfg = ReplicaConfig(
+        builder="repro_torch.launch.serve_hypergraph:build_paths",
+        kwargs=kwargs, cache_dir=store, max_batch=8, device="cuda",
+        exec_cache_bytes=2**30)
+    spawned = []
+
+    def factory(i):
+        spawned.append(ProcessReplica(i, cfg))
+        return spawned[-1]
+
+    router = Router(factory, 2, heartbeat_timeout_ms=2000.0,
+                    max_in_flight=8, registry=MetricsRegistry()).start()
+    try:
+        router.wait_ready(timeout_s=240)
+        trace = _mixed_trace(64, paths["hg"].n_vertices)
+        futs = [router.submit(k, query=q) for k, q in trace]
+        victim = router.slots[0].handle
+        os.kill(victim.pid, 9)
+        out = []
+        for f in futs:
+            try:
+                out.append(f.result(timeout=240))
+            except (ReplicaLost, FrontendClosed) as err:
+                out.append(err)
+        lost = [r for r in out if isinstance(r, Exception)]
+        assert len(lost) <= MAX_FAILOVERS
+        st = router.stats()
+        assert st["in_flight"] == 0 and st["pending"] == 0
+        assert st["deaths"] >= 1 and st["respawns"] >= 1
+        router.wait_ready(timeout_s=240)
+        assert router.stats()["per_replica"][0]["boot"]["from_disk"] == 4
+        for (key, q), r in zip(trace, out):
+            if isinstance(r, Exception):
+                continue
+            assert all(isinstance(x, np.ndarray)
+                       for x in tree_leaves(r.value))
+            want = parent.compile(paths["specs"][key]).run(query=q).value
+            assert _values_equal(key, r.value, want), (key, q)
+        import time
+
+        time.sleep(0.3)
+        for p in router.stats()["per_replica"]:
+            assert p["replica_counts"]["traces"] == p["boot"]["engine_traces"]
+    finally:
+        router.close()
+        for handle in spawned:
+            handle.stop(force=True)

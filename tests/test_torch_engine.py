@@ -200,16 +200,13 @@ def test_unported_axes_raise(overrides, exc):
 @pytest.mark.parametrize("kw", ["mesh", "plan", "disk_cache",
                                 "fault_injector"])
 def test_unported_engine_arguments_raise(kw):
-    if kw == "fault_injector":
-        # ported with item 8's fault half: accepted and kept
-        inj = object()
-        assert Engine(device="cpu", fault_injector=inj).fault_injector is inj
+    if kw in ("fault_injector", "disk_cache"):
+        # ported with item 8's fault half and item 9b: accepted and kept
+        obj = object()
+        assert getattr(Engine(device="cpu", **{kw: obj}), kw) is obj
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(device="cpu", **{kw: object()})
-    if kw == "disk_cache":
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            Engine(device="cpu", disk_cache=object())
 
 
 def test_unported_methods_and_wrong_inputs_raise():

@@ -430,8 +430,14 @@ def test_config_checks_and_the_disk_cache_slot():
         ExecutionConfig(checkpoint_every=2)
     assert ExecutionConfig(checkpoint_every=2,
                            checkpoint_dir="x").checkpoint_every == 2
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        Engine(device="cpu", disk_cache=object())
+    # the store's slot: kept, and handed the Engine's injector
+    from repro_torch.faults import FaultInjector
+    from repro_torch.serve import DiskExecutableCache
+
+    store, inj = DiskExecutableCache("unused", device="cpu"), FaultInjector()
+    eng = Engine(device="cpu", disk_cache=store, fault_injector=inj)
+    assert eng.disk_cache is store and store.fault_injector is inj
+    assert eng.cache_stats()["disk"]["entries"] == 0
 
 
 # --------------------------------------------------------------------------

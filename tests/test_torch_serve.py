@@ -54,7 +54,8 @@ def test_exports():
     assert set(tserve.__all__) == {
         "CoalescingBatcher", "AdaptiveDelay", "Flush", "Request",
         "Frontend", "ServedResult", "LatencyHistogram", "ServeMetrics",
-        "stable_digest", "warm"}
+        "stable_digest", "warm", "DiskExecutableCache", "ReplicaConfig",
+        "ProcessReplica", "Router", "MAX_FAILOVERS"}
     assert set(tserve.__all__) <= set(jserve.__all__)
 
 
@@ -269,8 +270,14 @@ def test_warm_reports_every_path_and_bucket():
     with pytest.raises(ValueError, match="query"):
         tserve.warm(eng, [talg.random_walk_spec(hg, iters=4)],
                     batch_sizes=(8,))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tserve.warm(eng, [], require_no_retrace=True)
+    # the capture sentinel: nothing made, nothing to refuse; with no
+    # store attached, every capture is unrecorded
+    assert tserve.warm(eng, [], require_no_retrace=True)["traces"] == 0
+    from repro_torch.analysis import RetraceError
+
+    with pytest.raises(RetraceError, match="serve.warm"):
+        tserve.warm(eng, [talg.shortest_paths_spec(hg, 0, 12)],
+                    require_no_retrace=True)
 
 
 # --------------------------------------------------------------------------
@@ -565,11 +572,70 @@ def test_launcher_summary_lines_match_the_reference(capsys, tmp_path):
     assert got == want and len(got) >= 6
 
 
+class _ThreadReplica:
+    """``ProcessReplica``'s interface over ``replica_main`` on a thread
+    of this process (the pipe is real; no process is spawned)."""
+
+    def __init__(self, index, config):
+        import dataclasses
+        import multiprocessing
+        import threading
+
+        from repro_torch.serve.replica import replica_main
+
+        self.index, self.pid, self.faults = index, None, None
+        self.connection, child = multiprocessing.Pipe()
+        self._thread = threading.Thread(
+            target=replica_main,
+            args=(child, dataclasses.replace(config, index=index)),
+            daemon=True)
+        self._thread.start()
+        self._broken = False
+
+    poll_messages = tserve.ProcessReplica.poll_messages
+    send = tserve.ProcessReplica.send
+
+    def alive(self):
+        return not self._broken and self._thread.is_alive()
+
+    def kill(self):
+        self.stop(force=True)
+
+    def stop(self, force=False, join_s=5.0):
+        if self._thread.is_alive():
+            try:
+                self.send(("stop",))
+            except OSError:
+                pass
+            self._thread.join(join_s)
+        self._broken = True
+
+
 @pytest.mark.parametrize("flag", [["--replicas", "2"],
                                   ["--cache-dir", "somewhere"]])
-def test_launcher_refuses_the_multi_process_tier(flag):
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        launcher.main(["--device", "cpu"] + flag)
+def test_launcher_refuses_the_multi_process_tier(flag, capsys, monkeypatch,
+                                                 tmp_path):
+    """The multi-process flags no longer raise: ``--cache-dir`` serves
+    in-process over a store of warmup records, ``--replicas 2`` through
+    the ``Router`` (its replicas on threads here: the real processes
+    are ``tests/test_torch_disk_cache.py``'s)."""
+    monkeypatch.setattr(tserve, "ProcessReplica", _ThreadReplica)
+    monkeypatch.setenv("REPRO_CACHE_DIR", str(tmp_path / "default"))
+    if flag[0] == "--cache-dir":
+        flag = ["--cache-dir", str(tmp_path / flag[1])]
+    argv = ["--device", "cpu", "--scale", "0.003", "--requests", "24",
+            "--verify", "4", "--log-every-s", "1000"] + flag
+    assert launcher.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "warm boot: " in out and " 6 compiled" in out
+    if flag[0] == "--replicas":
+        assert "served 24/24 requests" in out
+        assert "verified 4 pool-served results" in out
+        assert "disk=6 aot=0 traces=6 records=12" in out
+        assert (tmp_path / "default").is_dir()
+    else:
+        assert "  disk cache:   entries=6 records=0 stores=6" in out
+        assert "verified 4 served results" in out
 
 
 def test_batch_buckets_cover_every_flush_size():

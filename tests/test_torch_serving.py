@@ -420,8 +420,8 @@ def test_warmup_builds_without_serving():
     eng = Engine(device="cpu")
     compiled = eng.compile(talg.shortest_paths_spec(_carry(_small()), 0, 8))
     report = compiled.warmup(batch_sizes=(3, 8))
-    assert report == {"single": {"source": "eager"},
-                      "batch8": {"source": "eager"}}
+    assert report == {"single": {"source": "jit", "executable": "eager"},
+                      "batch8": {"source": "jit", "executable": "eager"}}
     stats = eng.cache_stats()
     assert stats["misses"] == 2 and stats["traces"] == 2
     compiled.run()
