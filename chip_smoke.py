@@ -190,9 +190,31 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    --cache-dir <tmp> --warm --verify 8`` under a seeded
    ``replica.crash`` exits 0, verifies 8 and fires the plan.
 
+14. the distributed backends on one card: an NCCL group of world size
+   1 (``launch.mesh.init_local_group``; one card gives one rank, since
+   NCCL refuses two ranks on one device) and ``make_host_mesh(1)``;
+   (a) ``Engine(plan=random_vertex_cut, mesh=).run`` of phase 3's
+   PageRank-30, SSSP and components under ``replicated`` and
+   ``sharded`` with ``pallas_fused``, against phase 3's local runs
+   (PageRank 1e-5 relative, the others bitwise with equal activity),
+   K1's launches counted (one per leaf and pair), walls beside the
+   local run's (median of 3, in turns); (b) K1 on the four shard layouts
+   of a P = 4 ``random_vertex_cut`` plan (``build_shard_delivery``, one
+   process): each against its plain version (min bitwise, float32 sum
+   within 1e-5 of float64), the four partials combined equal to the
+   whole-graph delivery, each shard's leaf time beside the whole
+   graph's; (c) ``Engine(mesh=).analyze`` on phase 6's Apache census,
+   resolved ``sharded``, field for field phase 6's, K3a / K3b launches
+   counted; (d) ``Engine(mesh=, plan=).compile`` on both backends:
+   PageRank-30 ``run`` against ``Engine.run`` (1e-5 relative) and
+   ``run_batch`` of 8 SSSP sources against ``Engine.run`` (bitwise),
+   each replayed from a CUDA graph captured with its collectives,
+   queries/s; the group is destroyed at the end.
+
 Prints the kernel line (JSON; K1's entry carries phase 9's compiled
-launches and times, phase 12's ``phase12_*`` serving keys and phase
-13's ``phase13_*`` pool keys; K2b's, phase 11's launches and numbers at the
+launches and times, phase 12's ``phase12_*`` serving keys, phase
+13's ``phase13_*`` pool keys and phase 14's ``dist_*`` keys; the isect
+entries carry phase 14's ``dist_census_launches``; K2b's, phase 11's launches and numbers at the
 clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 7's, with
 the clique out-weights' as ``out_w_*``) and, last, the device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
@@ -1023,7 +1045,7 @@ def analytics_path(dev, hg_a, triples, batches, host_uni):
     log(f"phase 6: analytics path agrees in {time.perf_counter() - t0:.1f} "
         "s")
 
-    return k3a_launches, k3b_launches
+    return k3a_launches, k3b_launches, est
 
 
 def card_rates():
@@ -2778,6 +2800,226 @@ def pool_phase(hg, single_qps):
             "phase13_respawn_boot_s": respawn_s}
 
 
+DIST_SOURCES = (0, 17, 4242, 99999, 424242, 500000, 777777, 899392)
+DIST_TURNS = 3          # phase 14's walls: median of 3, in turns
+
+
+def _k1_counted(run):
+    """``run()`` with K1's launch counter zeroed just before and read
+    just after: ``(result, launches)``."""
+    from repro_torch.kernels.deliver.fused import deliver_fused_cuda
+
+    deliver_fused_cuda.launches = 0
+    res = run()
+    return res, deliver_fused_cuda.launches
+
+
+def distributed_phase(hg, fwd, local3, hg_a, census, flush):
+    """Phase 14: the distributed backends on one card (world size 1, an
+    NCCL group: NCCL takes one rank per device).  ``local3``: phase 3's
+    ``(label, spec, local fused Result)``; ``fwd``: DBLP's whole-graph
+    v->he layout; ``census``: phase 6's local Apache census.  Returns
+    K1's and the isect kernels' ``dist_*`` keys."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.algorithms import shortest_paths_spec
+    from repro_torch.core import AnalyticsSpec, Engine
+    from repro_torch.core.distributed import build_shard_delivery
+    from repro_torch.kernels.deliver import (
+        deliver_leaf_cuda,
+        deliver_leaf_plain,
+    )
+    from repro_torch.kernels.isect import isect_cuda, isect_fused_cuda
+    from repro_torch.launch.mesh import init_local_group, make_host_mesh
+    from repro_torch.partition import partition
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    dev = hg.device
+    store = tempfile.mkdtemp(prefix="chip-smoke-group-")
+    init_local_group(0, 1, store, "cuda")
+    k1, k3 = {}, {}
+    try:
+        mesh = make_host_mesh(1)
+        log(f"  {dist.get_backend()} group of world size 1 on "
+            f"{torch.cuda.get_device_name(0)}, {mesh}")
+        # (a) Engine.run under both backends against phase 3's local runs.
+        plan = partition("random_vertex_cut", hg, 1)
+        eng = Engine(plan=plan, mesh=mesh, device=dev,
+                     delivery="pallas_fused", collect_stats=True)
+        local = Engine(device=dev, delivery="pallas_fused",
+                       collect_stats=True)
+        launches, walls = {}, {}
+        for label, spec, ref in local3:
+            n_fwd, n_bwd = leaf_counts(spec)
+            for backend in ("replicated", "sharded"):
+                eng.run(spec, backend=backend)  # the shard layouts, built
+                res, n = _k1_counted(lambda: eng.run(spec, backend=backend))
+                pairs = res.decision["measured"]["pairs_run"]
+                if res.backend != backend or res.partition != plan.name:
+                    fail(f"phase 14 {label}: ran {res.backend} / "
+                         f"{res.partition}")
+                if n == 0 or n != pairs * (n_fwd + n_bwd):
+                    fail(f"phase 14 {label} {backend}: {n} K1 launches "
+                         f"over {pairs} pairs, expected one per leaf")
+                if label == "pagerank-30":
+                    err = max(rel_err(a, b)
+                              for a, b in zip(res.value, ref.value))
+                    if not err <= 1e-5:
+                        fail(f"phase 14 {label} {backend}: relative error "
+                             f"{err} against the local run")
+                elif not all(same_bits(a, b)
+                             for a, b in zip(res.value, ref.value)):
+                    fail(f"phase 14 {label} {backend} != the local run")
+                if not all(torch.equal(a, b) for a, b in zip(
+                        res.superstep_stats, ref.superstep_stats)):
+                    fail(f"phase 14 {label} {backend}: activity differs")
+                launches[f"{backend}_{label}"] = n
+            times = {"local": [], "replicated": [], "sharded": []}
+            for _ in range(DIST_TURNS):
+                for key in times:
+                    kw = {} if key == "local" else {"backend": key}
+                    run_eng = local if key == "local" else eng
+                    times[key].append(run_eng.run(spec, **kw).decision[
+                        "measured"]["wall_s"] * 1e3)
+            walls[label] = {k: statistics.median(v)
+                            for k, v in times.items()}
+            log(f"  (a) {label}: replicated / sharded == local "
+                + ("(1e-5 relative)" if label == "pagerank-30"
+                   else "(bitwise)")
+                + f", equal activity; K1 launches {launches[f'replicated_{label}']}"
+                f" / {launches[f'sharded_{label}']} ({n_fwd + n_bwd} a "
+                f"pair); wall {walls[label]['replicated']:.2f} / "
+                f"{walls[label]['sharded']:.2f} ms vs local "
+                f"{walls[label]['local']:.2f} ms (median of {DIST_TURNS}, "
+                "in turns)")
+        k1.update(dist_launches=launches, dist_wall_ms=walls)
+        log(f"  {at()} (a) done")
+
+        # (b) K1 on the four shard layouts of a P = 4 plan, one process.
+        plan4 = partition("random_vertex_cut", hg, 4)
+        nv, ne = hg.n_vertices, hg.n_hyperedges
+        nv_pad, ne_pad = -(-nv // 4) * 4, -(-ne // 4) * 4
+        t0 = time.perf_counter()
+        shards = build_shard_delivery(plan4.shard_src, plan4.shard_dst,
+                                      plan4.shard_mask, nv_pad, ne_pad,
+                                      device=dev)
+        t_build = time.perf_counter() - t0
+        rng = np.random.default_rng(14)
+        msgs = torch.as_tensor(rng.standard_normal((nv_pad, 1)).astype(
+            np.float32), device=dev)
+        ints = torch.as_tensor(rng.integers(-2**20, 2**20, (nv_pad, 1))
+                               .astype(np.int32), device=dev)
+        whole_sum = deliver_leaf_cuda(msgs[:nv], None, fwd, "sum")
+        whole_min = deliver_leaf_cuda(ints[:nv], None, fwd, "min")
+        tot_sum = tot_min = None
+        shard_ms, shard_bound, max_err = [], [], 0.0
+        for p, (lay, _) in enumerate(shards):
+            k_sum = deliver_leaf_cuda(msgs, None, lay, "sum")
+            want = deliver_leaf_plain(msgs.double(), None, lay, "sum")
+            max_err = max(max_err, (k_sum.double() - want).abs().max().item())
+            if not torch.allclose(k_sum.double(), want, rtol=1e-5, atol=1e-5):
+                fail(f"phase 14: K1 sum on shard {p} != plain")
+            k_min = deliver_leaf_cuda(ints, None, lay, "min")
+            if not torch.equal(k_min, deliver_leaf_plain(ints, None, lay,
+                                                         "min")):
+                fail(f"phase 14: K1 min on shard {p} != plain")
+            tot_sum = k_sum if tot_sum is None else tot_sum + k_sum
+            tot_min = k_min if tot_min is None else torch.minimum(tot_min,
+                                                                  k_min)
+            shard_ms.append(time_cuda(
+                lambda: deliver_leaf_cuda(msgs, None, lay, "sum"), flush))
+            shard_bound.append(leaf_bound_ms(lay, 1)[0])
+        if not torch.equal(tot_min[:ne], whole_min):
+            fail("phase 14: the shards' K1 min, combined, != the local "
+                 "delivery")
+        if not torch.allclose(tot_sum[:ne], whole_sum, rtol=1e-5, atol=1e-5):
+            fail("phase 14: the shards' K1 sum, combined, != the local "
+                 "delivery")
+        whole_ms = time_cuda(
+            lambda: deliver_leaf_cuda(msgs[:nv], None, fwd, "sum"), flush)
+        log(f"  (b) K1 on random_vertex_cut's 4 shard layouts (built in "
+            f"{t_build:.1f} s; v->he, D = 1): min bitwise and sum within "
+            f"{max_err:.3g} of float64 on each; combined == the local "
+            f"delivery (min bitwise, sum 1e-5); leaf ms per shard "
+            + ", ".join(f"{t:.4f} (bound {b:.4f})"
+                        for t, b in zip(shard_ms, shard_bound))
+            + f" vs whole graph {whole_ms:.4f} (bound "
+            f"{leaf_bound_ms(fwd, 1)[0]:.4f}); L2 flushed, median of "
+            f"{N_TIMED}")
+        k1.update(dist_shard_leaf_ms=shard_ms,
+                  dist_shard_leaf_bound_ms=shard_bound,
+                  dist_whole_leaf_ms=whole_ms, dist_shard_max_abs_err=max_err)
+        del shards
+        log(f"  {at()} (b) done")
+
+        # (c) the sharded census on phase 6's Apache hypergraph.
+        isect_cuda.launches = 0
+        isect_fused_cuda.launches = 0
+        res = Engine(mesh=mesh, device=dev).analyze(AnalyticsSpec(hg_a))
+        k3 = {"isect": isect_cuda.launches,
+              "isect_fused": isect_fused_cuda.launches}
+        why = res.decision["backend"]["reason"]
+        if res.backend != "sharded" or why != (
+                "mesh available: tile hyperedge-pair blocks across it"):
+            fail(f"phase 14 analyze resolved {res.backend} ({why})")
+        fields = ("counts", "ci_low", "ci_high", "n_triples_seen", "n_pairs")
+        if not same_census(res.value, census, fields):
+            fail("phase 14: the sharded census != phase 6's local census")
+        if 0 in k3.values():
+            fail(f"phase 14: the sharded census launched {k3}")
+        m = res.decision["measured"]
+        log(f"  (c) sharded census on apache == phase 6's, field for field; "
+            f"K3a {k3['isect']}, K3b {k3['isect_fused']} launches; "
+            f"analyze {m['wall_s']:.1f} s (intersect {m['intersect_s']:.3f} "
+            "s)")
+        log(f"  {at()} (c) done")
+
+        # (d) compile-once serving on both backends.
+        label, pr, pr_ref = local3[0]
+        sp = local3[1][1]
+        graphs, qps = {}, {}
+        for backend in ("replicated", "sharded"):
+            comp = eng.compile(pr, backend=backend)
+            comp.run()
+            got, n = _k1_counted(comp.run)
+            one = eng.run(pr, backend=backend)
+            err = max(rel_err(a, b) for a, b in zip(got.value, one.value))
+            if not err <= 1e-5 or n == 0:
+                fail(f"phase 14 compiled {label} {backend}: relative error "
+                     f"{err}, {n} K1 launches")
+            comp_s = eng.compile(sp, backend=backend)
+            comp_s.run_batch(np.asarray(DIST_SOURCES))
+            t0 = time.perf_counter()
+            batch = comp_s.run_batch(np.asarray(DIST_SOURCES))
+            torch.cuda.synchronize()
+            qps[backend] = len(DIST_SOURCES) / (time.perf_counter() - t0)
+            for i, q in enumerate(DIST_SOURCES):
+                want = eng.run(shortest_paths_spec(hg, q), backend=backend)
+                if not all(same_bits(a[i], b)
+                           for a, b in zip(batch.value, want.value)):
+                    fail(f"phase 14 run_batch {backend} source {q} != "
+                         "Engine.run")
+            graphs[backend] = (got.decision["measured"]["graph"],
+                               batch.decision["measured"]["graph"])
+            if not all(graphs[backend]):
+                fail(f"phase 14: no CUDA graph captured on {backend}")
+            log(f"  (d) compiled {label} {backend} == Engine.run (1e-5 "
+                f"relative; {n} K1 launches replayed); run_batch of "
+                f"{len(DIST_SOURCES)} SSSP sources == Engine.run (bitwise), "
+                f"{qps[backend]:.1f} queries/s warm; CUDA graph captured "
+                "with its collectives")
+        k1.update(dist_compiled_graph=graphs, dist_batch_qps=qps)
+    finally:
+        dist.destroy_process_group()
+    log(f"  {at()} phase 14 done")
+    return k1, k3
+
+
 def main() -> int:
     import torch
 
@@ -2922,16 +3164,18 @@ def main() -> int:
                 f"pairs, {m['host_syncs']} host syncs")
     log(f"phase 4: timed in {time.perf_counter() - t0:.1f} s; total "
         f"{time.perf_counter() - t_start:.1f} s")
-    # hg stays for phase 7.
-    del fwd, bwd, eng, pr, sp, cc, pr_f, pr_x, sp_f, sp_x, cc_f, cc_x
+    # hg stays for phase 7; fwd and phase 3's fused runs, for phase 14.
+    local3 = (("pagerank-30", pr, pr_f), ("sssp", sp, sp_f),
+              ("components", cc, cc_f))
+    del bwd, eng, pr, sp, cc, pr_x, sp_x, cc_x
 
     # -- phase 5: intersection kernels vs plain at Apache scale ---------------
     hg_a, bits, triples, batches, isect_err, host_uni = (
         intersections_vs_plain(dev, rng))
 
     # -- phase 6: the analytics path -------------------------------------------
-    k3a_launches, k3b_launches = analytics_path(dev, hg_a, triples, batches,
-                                                host_uni)
+    k3a_launches, k3b_launches, census = analytics_path(
+        dev, hg_a, triples, batches, host_uni)
 
     # -- timings of the intersection kernels -----------------------------------
     t0 = time.perf_counter()
@@ -2991,6 +3235,14 @@ def main() -> int:
     log(f"phase 13: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 14: the distributed backends (world size 1, NCCL) --------------
+    t0 = time.perf_counter()
+    log("phase 14: the distributed backends on one card, dblp and apache at "
+        "full scale")
+    dist_k1, dist_k3 = distributed_phase(hg, fwd, local3, hg_a, census, flush)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -3006,6 +3258,7 @@ def main() -> int:
         **serving,
         **serve_tier,
         **pool,
+        **dist_k1,
     }]
     for name, replaces, launches in (
             ("isect", "src/repro/kernels/isect/isect.py:63", k3a_launches),
@@ -3020,6 +3273,7 @@ def main() -> int:
             "max_abs_err": float(isect_err),
             **isect_entries[name],
             "library_ms": None,  # torch has no popcount op
+            "dist_census_launches": dist_k3[name],
         })
     # K2b's numbers are at its caller's shapes (phase 11: the clique
     # PageRank); phase 7's, at the DBLP incidences, follow as phase7_*.

@@ -8,10 +8,13 @@
   message combiners, ``tree_map`` over attribute and message trees.
 * ``engine``     — the single-device superstep executor (``compute``,
   and the in-place pair and halting loop every path runs).
-* ``executor``   — the ``Engine`` facade, local backend: ``run`` for
-  iterative specs (bipartite or clique), ``analyze`` for batch analytics
-  (``AnalyticsSpec``), ``compile`` for compile-once serving, ``explain``
-  for every axis's candidates and predicted costs.
+* ``distributed`` — the same pairs over ``torch.distributed``, one
+  process per rank (the ``replicated`` and ``sharded`` backends).
+* ``executor``   — the ``Engine`` facade: ``run`` for iterative specs
+  (bipartite or clique; local, or over a mesh and a partition plan:
+  ``select_backend``, ``select_partition``), ``analyze`` for batch
+  analytics (``AnalyticsSpec``), ``compile`` for compile-once serving,
+  ``explain`` for every axis's candidates and predicted costs.
 * ``serving``    — ``CompiledAlgorithm`` (``run`` / ``run_batch`` /
   ``warmup``), shape buckets (``bucket_dim``) and cache signatures.
 * ``device``     — where entry points run (the card unless asked).
@@ -31,7 +34,9 @@ from repro_torch.core.executor import (
     Engine,
     ExecutionConfig,
     Result,
+    select_backend,
     select_delivery,
+    select_partition,
     select_representation,
 )
 from repro_torch.core.hypergraph import HyperGraph
@@ -53,7 +58,9 @@ __all__ = [
     "compute",
     "constant_initial_msg",
     "deliver",
+    "select_backend",
     "select_delivery",
+    "select_partition",
     "select_representation",
     "tree_leaves",
     "to_graph",

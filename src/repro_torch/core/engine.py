@@ -153,22 +153,26 @@ def entity_ids(hg: HyperGraph) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _pair(hg, step, v_attr, he_attr, msg_to_v, v_program, he_program,
-          v_deg, he_card, delivery, ids, batched):
-    """Both half-supersteps: ``(v_out, he_out, msg_to_v_next)``."""
+          v_deg, he_card, delivery, ids, batched, send=deliver):
+    """Both half-supersteps: ``(v_out, he_out, msg_to_v_next)``.
+
+    ``send`` delivers one side's messages (``deliver``'s arguments); the
+    distributed backends pass one that wraps it in their collectives
+    (``repro_torch.core.distributed``)."""
     fwd_layout, bwd_layout = delivery if delivery is not None else (None, None)
     v_proc, he_proc = v_program.procedure, he_program.procedure
     if batched:
         v_proc, he_proc = _over_queries(v_proc), _over_queries(he_proc)
     v_ids, he_ids = ids
     v_out = _as_out(v_proc(step, v_ids, v_attr, msg_to_v, v_deg))
-    msg_to_he = deliver(
+    msg_to_he = send(
         v_out.msg, v_out.active, hg.src, hg.dst, hg.n_hyperedges,
         v_program, hg.e_attr, hg.e_mask, layout=fwd_layout,
     )
     he_out = _as_out(
         he_proc(step + 1, he_ids, he_attr, msg_to_he, he_card)
     )
-    msg_to_v_next = deliver(
+    msg_to_v_next = send(
         he_out.msg, he_out.active, hg.dst, hg.src, hg.n_vertices,
         he_program, hg.e_attr, hg.e_mask, layout=bwd_layout,
     )
@@ -366,6 +370,7 @@ def pair_in_place(
     ids: tuple,
     n_real: tuple | None = None,
     delivery: tuple | None = None,
+    dist=None,
 ) -> bool:
     """One superstep pair on ``state`` (``pair_state``), in place.
 
@@ -381,10 +386,18 @@ def pair_in_place(
     Returns whether the host must read ``done``: a procedure returned
     an activity vector, or the counts are host ints that sum to 0 (an
     empty structure).  Otherwise ``done`` is False and goes unread.
+
+    ``dist``: a ``repro_torch.core.distributed.DistContext`` — the pair
+    is then this rank's part of a distributed superstep pair
+    (``dist.superstep``: ``hg`` is the rank's edge shard over the padded
+    entity range, the state its entities), and each activity count is
+    the whole world's (``dist.count``), so every rank decides to halt
+    from the same numbers.
     """
     step = state["step"]
     halted = state.get("halted")
-    v_out, he_out, msg = _pair(
+    superstep = _pair if dist is None else dist.superstep
+    v_out, he_out, msg = superstep(
         hg, step, state["v_attr"], state["he_attr"], state["msg"],
         v_program, he_program, v_deg, he_card, delivery, ids,
         halted is not None,
@@ -392,6 +405,9 @@ def pair_in_place(
     nv_real, ne_real = n_real if n_real is not None else (None, None)
     v_cnt = _count(v_out.active, hg.n_vertices, nv_real, ids[0])
     he_cnt = _count(he_out.active, hg.n_hyperedges, ne_real, ids[1])
+    if dist is not None:
+        v_cnt = dist.count(v_cnt, v_out.active)
+        he_cnt = dist.count(he_cnt, he_out.active)
     v_act, he_act = _as_count(v_cnt, state), _as_count(he_cnt, state)
     total = v_cnt + he_cnt
     # The host reads ``done`` only after a data-dependent pair, or at

@@ -1,14 +1,17 @@
 """One API, many design points: the ``Engine`` facade, in PyTorch.
 
-The port runs the local backend.  ``Engine(...).run(spec)`` takes an
-``AlgorithmSpec``: it resolves the representation (the bipartite
-incidence, or the clique expansion's constant folding for specs that
-never touch hyperedge state, ``select_representation``) and, on the
-bipartite representation, the ``delivery`` axis (reference
-gather/mask/segment path vs the fused degree-class layout, which on the
-card runs the hand-written CUDA kernel, ``select_delivery``), then
-executes the superstep loop of ``repro_torch.core.engine`` or the
-spec's ``clique_program`` over ``to_graph``.  The chosen design point
+``Engine(...).run(spec)`` takes an ``AlgorithmSpec``: it resolves the
+representation (the bipartite incidence, or the clique expansion's
+constant folding for specs that never touch hyperedge state,
+``select_representation``), on the bipartite representation the backend
+(``local``, or with ``Engine(mesh=)`` the ``replicated`` / ``sharded``
+backends over a partition plan: ``select_partition``,
+``select_backend``; ``repro_torch.core.distributed``) and the
+``delivery`` axis (reference gather/mask/segment path vs the fused
+degree-class layout, which on the card runs the hand-written CUDA
+kernel, ``select_delivery``), then executes the superstep loop of
+``repro_torch.core.engine`` (every rank of the mesh calls ``run`` with
+the same spec) or the spec's ``clique_program`` over ``to_graph``.  The chosen design point
 and the measured wall, dispatch and device-wait times come back on the
 ``Result``; ``explain`` reports every axis's candidates and their
 predicted costs without executing.  ``Engine(tracer=, metrics=)``
@@ -27,11 +30,9 @@ intersections).  It resolves the representation (bipartite, or
 ``clique``: the materialized pair-size table of the dual hypergraph),
 the intersection kernel (``bitset``, which on the card runs the
 hand-written CUDA kernel, or ``merge``) and the census mode with the
-JAX package's cost models, and returns an ``AnalyticsResult``.
+JAX package's cost models, and returns an ``AnalyticsResult``; with a
+mesh, the ``sharded`` backend tiles the pair batches over the ranks.
 ``submit`` dispatches on the spec's type.
-
-Design axes this slice does not port raise ``NotImplementedError``
-naming their ROADMAP.md item; none is silently ignored.
 """
 from __future__ import annotations
 
@@ -71,16 +72,6 @@ ANALYTICS_MODES = ("auto", "exact", "sample")
 Pytree = Any
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1, "
-        f"{item})"
-    )
-
-
-_DISTRIBUTED = "item 10: core/distributed.py"
-
-
 def _serialized(method):
     """Run an ``Engine`` method under the Engine's lock: whatever it
     queues on the card (layout builds, host reads, pairs) never overlaps
@@ -98,9 +89,8 @@ class ExecutionConfig:
     """Every design choice from the paper, in one place (the JAX
     package's fields; see ``repro.core.executor.ExecutionConfig``).
 
-    Values of axes that the port does not run yet raise
-    ``NotImplementedError``: a ``replicated`` or ``sharded`` backend.
-    ``checkpoint_every`` snapshots the loop state every N superstep
+    ``backend``: ``local``, ``replicated`` or ``sharded`` (the last two
+    need ``Engine(mesh=)``) or ``auto``.  ``checkpoint_every`` snapshots the loop state every N superstep
     pairs into ``checkpoint_dir`` (``repro_torch.faults.checkpoint``)
     and resumes from its latest snapshot, bitwise equal to an
     uninterrupted run; the clique representation ignores it, as in the
@@ -158,8 +148,6 @@ class ExecutionConfig:
                 f"delivery must be one of {DELIVERY_MODES}, "
                 f"got {self.delivery!r}"
             )
-        if self.backend in ("replicated", "sharded"):
-            raise _not_ported(f"backend={self.backend!r}", _DISTRIBUTED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,7 +239,8 @@ class AnalyticsResult:
         from the dual clique expansion; ``bipartite`` = derived on the
         fly from the incidence by the kernel.
       kernel: ``bitset`` | ``merge`` — the intersection kernel path.
-      backend: ``local``.
+      backend: ``local``, or ``sharded``: pair blocks tiled over the
+        mesh's ranks.
       mode: ``exact`` | ``sample`` (census task; ``None`` otherwise).
       decision: cost-model numbers behind each ``auto`` choice, plus
         ``measured``: ``wall_s`` split into ``preprocess_s`` (overlap
@@ -308,6 +297,105 @@ def select_representation(
         return "clique", why
     why["reason"] = "expansion exceeds edge budget"
     return "bipartite", why
+
+
+def state_width_bytes(attr: Pytree, n: int, default: float = 4.0) -> float:
+    """Bytes of state per entity in an attribute tree with leading dim
+    ``n`` (one float32 dim when there is no state to measure)."""
+    leaves = [leaf for leaf in tree_leaves(attr)
+              if isinstance(leaf, torch.Tensor)]
+    if not leaves or n <= 0:
+        return default
+    total = sum(leaf.numel() * leaf.element_size() for leaf in leaves)
+    return max(float(total) / n, 1.0)
+
+
+def select_backend(
+    plan,
+    n_vertices: int,
+    n_hyperedges: int,
+    *,
+    replicated_bias: float = 0.5,
+    v_state_bytes: float = 4.0,
+    he_state_bytes: float = 4.0,
+) -> tuple[str, dict]:
+    """Replicated vs sharded for one partition plan (the JAX package's
+    model, numbers and reasons).
+
+    The replicated backend syncs a *full-size* state buffer across every
+    partition each half-superstep — equivalent to refreshing ``P - 1``
+    replicas of every entity:
+    ``full_sync = 2 * (P - 1) * (w_v |V| + w_he |E|)`` bytes, the widths
+    being the spec's bytes of state per vertex / hyperedge.  The sharded
+    backend's traffic tracks the replicas the edge cut created, weighted
+    the same way (``PartitionStats.sync_bytes``).  Sharded wins when its
+    projected sync is below ``replicated_bias`` x the full bound.
+    """
+    stats = plan.stats
+    p = plan.n_parts
+    full_sync = 2.0 * max(p - 1, 0) * (
+        v_state_bytes * n_vertices + he_state_bytes * n_hyperedges
+    )
+    sharded_sync = stats.sync_bytes(v_state_bytes, he_state_bytes)
+    why = {
+        "n_parts": p,
+        "sync_bytes_per_dim": float(stats.sync_bytes_per_dim),
+        "sharded_sync_bytes": sharded_sync,
+        "full_replication_sync_bytes": full_sync,
+        "v_state_bytes": v_state_bytes,
+        "he_state_bytes": he_state_bytes,
+        "replicated_bias": replicated_bias,
+    }
+    if p <= 1:
+        why["reason"] = "single partition: replication is free"
+        return "replicated", why
+    if sharded_sync < replicated_bias * full_sync:
+        why["reason"] = "plan sync volume beats full replication"
+        return "sharded", why
+    why["reason"] = "cut replicates most entities anyway"
+    return "replicated", why
+
+
+def select_partition(
+    hg: HyperGraph, n_parts: int, strategy: str = "auto"
+) -> tuple[Any, dict]:
+    """Build a plan; ``auto`` = min projected sync volume over the
+    strategy registry (greedy strategies run in chunked mode so the
+    selection stays cheap) — the JAX package's rule."""
+    from repro_torch.partition import STRATEGIES, partition
+
+    if strategy != "auto":
+        if strategy not in STRATEGIES:
+            raise ValueError(
+                f"unknown partition strategy {strategy!r}; pick one of "
+                f"{sorted(STRATEGIES)} or 'auto'"
+            )
+        kw = {"chunk": 256} if "greedy" in strategy else {}
+        return partition(strategy, hg, n_parts, **kw), {
+            "strategy": strategy, "reason": "explicitly configured",
+        }
+
+    best_name, best_plan = None, None
+    costs = {}
+    for name in sorted(STRATEGIES):
+        kw = {"chunk": 256} if "greedy" in name else {}
+        try:
+            plan = partition(name, hg, n_parts, **kw)
+        except ValueError:
+            continue  # e.g. greedy bitmask width on wide meshes
+        costs[name] = plan.stats.sync_bytes_per_dim
+        if best_plan is None or (
+            plan.stats.sync_bytes_per_dim
+            < best_plan.stats.sync_bytes_per_dim
+        ):
+            best_name, best_plan = name, plan
+    if best_plan is None:
+        raise RuntimeError("no partition strategy produced a plan")
+    return best_plan, {
+        "strategy": best_name,
+        "reason": "min projected sync volume",
+        "sync_bytes_by_strategy": costs,
+    }
 
 
 # The CPU (ELL) cost model's budgets: the JAX package's constants,
@@ -494,8 +582,12 @@ class Engine:
     ``disk_cache``: an optional ``repro_torch.serve.DiskExecutableCache``
     on this Engine's device type: each new executable is made under its
     signature's lock and recorded there (``serve.cache.warm``).
-    ``plan`` and ``mesh`` belong to a slice not ported yet and raise
-    when given.  One lock (``_lock``) serializes this
+    ``mesh``: a 1-D ``DeviceMesh`` over the initialised world
+    (``repro_torch.launch.mesh.make_host_mesh``), its dimension named by
+    ``ExecutionConfig.axis``; the distributed backends run over it, every
+    rank calling the same methods with the same specs.  ``plan``: the
+    ``PartitionPlan`` to run (default: ``select_partition`` per
+    hypergraph, cached).  One lock (``_lock``) serializes this
     Engine's public methods and its ``CompiledAlgorithm`` calls across
     threads (the serving front-end's worker and its callers): a CUDA
     graph capture never overlaps other work of this Engine.
@@ -515,14 +607,28 @@ class Engine:
         exec_cache_bytes: int | None = None,
         **overrides: Any,
     ):
-        if plan is not None or mesh is not None:
-            raise _not_ported("a partition plan or mesh", _DISTRIBUTED)
         cfg = config if config is not None else ExecutionConfig()
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
         self.device = resolve_device(device)
         self.config = cfg
-        self.plan = self.mesh = None  # the distributed backends' slots
+        self.plan = plan
+        self.mesh = mesh
+        mesh_type = getattr(mesh, "device_type", self.device.type)
+        if mesh_type != self.device.type:
+            raise ValueError(
+                f"the mesh spans {mesh_type} ranks; this Engine runs on "
+                f"{self.device.type}"
+            )
+        # Auto-built plans, keyed by hypergraph identity: repeated
+        # run()/resolve() on one hypergraph runs the strategy sweep once.
+        # [(hg, n_parts, strategy, plan, why)]
+        self._plan_cache: list = []
+        # This rank's fused shard layouts per plan (and padded sizes).
+        self._shard_cache: list = []
+        # This rank's RankShard per structure, plan, backend and delivery:
+        # its shard row on the card and the padded degrees, built once.
+        self._rank_shard_cache: list = []
         # Fused-delivery layouts, keyed by the identity of a structure's
         # incidence tensors: the dst-sort + ELL/CSR precompute is paid
         # once per structure (and per padded bucket).
@@ -561,12 +667,10 @@ class Engine:
     # -- resolution ---------------------------------------------------------
 
     def _resolve_representation(self, spec, cfg) -> tuple[str, dict]:
-        """The JAX package's checks and messages.  Its distributed
-        branches (a ``replicated``/``sharded`` backend, a mesh) cannot
-        be reached here: ``ExecutionConfig`` refuses those backends and
-        ``Engine(mesh=)`` raises, both with ``NotImplementedError``
-        (ROADMAP.md queue 1, item 10).  They are kept so that the
-        clique rules stay whole when that item lands."""
+        """The JAX package's checks and messages: the clique
+        representation executes locally, so a distributed backend or a
+        mesh pins bipartite under ``auto`` and is refused under
+        ``clique``."""
         if cfg.representation == "bipartite":
             return "bipartite", {"reason": "explicitly configured"}
         touches = getattr(spec, "touches_hyperedge_state", True)
@@ -584,7 +688,7 @@ class Engine:
                     "representation='clique' needs a clique_program on "
                     "the AlgorithmSpec"
                 )
-            if cfg.backend in ("replicated", "sharded"):  # unreachable
+            if cfg.backend in ("replicated", "sharded"):
                 raise ValueError(
                     "representation='clique' executes locally and cannot "
                     f"honor backend={cfg.backend!r}"
@@ -595,7 +699,7 @@ class Engine:
                     "iteration count is baked into the spec); rebuild "
                     "the spec with the desired iters instead"
                 )
-            if self.mesh is not None:  # unreachable
+            if self.mesh is not None:
                 raise ValueError(
                     "representation='clique' executes locally and "
                     "cannot use the supplied mesh; drop the mesh or "
@@ -604,12 +708,12 @@ class Engine:
             return "clique", {"reason": "explicitly configured"}
         # auto: explicit requests the clique path cannot honor pin
         # bipartite rather than being silently dropped.
-        if cfg.backend in ("replicated", "sharded"):  # unreachable
+        if cfg.backend in ("replicated", "sharded"):
             return "bipartite", {
                 "reason": "distributed backend requested; clique "
                 "executes locally"
             }
-        if self.mesh is not None:  # unreachable
+        if self.mesh is not None:
             return "bipartite", {
                 "reason": "mesh supplied (distributed intent); clique "
                 "executes locally"
@@ -622,6 +726,108 @@ class Engine:
         return select_representation(
             spec, spec.hg0, edge_budget=cfg.clique_edge_budget
         )
+
+    def _resolve_backend(self, spec, cfg) -> tuple[str, Any, dict, dict]:
+        """Returns ``(backend, plan_or_None, backend_why,
+        partition_why)`` (the JAX package's rules and messages)."""
+        if cfg.backend == "local":
+            return "local", None, {"reason": "explicitly configured"}, {}
+
+        if self.mesh is None:
+            if cfg.backend in ("replicated", "sharded"):
+                raise ValueError(
+                    f"backend={cfg.backend!r} needs a mesh; construct "
+                    "Engine(mesh=...) or use backend='local'"
+                )
+            return "local", None, {"reason": "no mesh available"}, {}
+
+        from repro_torch.launch.mesh import mesh_size
+
+        n_parts = cfg.n_parts or mesh_size(self.mesh, cfg.axis)
+        plan = self.plan
+        if plan is None:
+            plan, part_why = self._cached_plan(
+                spec.hg0, n_parts, cfg.partition_strategy
+            )
+        else:
+            part_why = {"strategy": plan.name,
+                        "reason": "plan supplied by caller"}
+        if plan.n_parts != n_parts:
+            raise ValueError(
+                f"plan has {plan.n_parts} partitions but mesh"
+                f"[{cfg.axis!r}] = {n_parts}"
+            )
+        if cfg.backend in ("replicated", "sharded"):
+            return (
+                cfg.backend, plan,
+                {"reason": "explicitly configured"}, part_why,
+            )
+        backend, why = select_backend(
+            plan,
+            spec.hg0.n_vertices,
+            spec.hg0.n_hyperedges,
+            replicated_bias=cfg.replicated_bias,
+            v_state_bytes=state_width_bytes(
+                spec.hg0.v_attr, spec.hg0.n_vertices
+            ),
+            he_state_bytes=state_width_bytes(
+                spec.hg0.he_attr, spec.hg0.n_hyperedges
+            ),
+        )
+        return backend, plan, why, part_why
+
+    def _cached_plan(self, hg, n_parts: int, strategy: str):
+        for c_hg, c_parts, c_strat, c_plan, c_why in self._plan_cache:
+            if c_hg is hg and c_parts == n_parts and c_strat == strategy:
+                return c_plan, c_why
+        plan, why = select_partition(hg, n_parts, strategy)
+        self._plan_cache.append((hg, n_parts, strategy, plan, why))
+        del self._plan_cache[:-4]  # bound the strong refs we hold
+        return plan, why
+
+    def _shard_layouts(self, plan, ctx, shards=None):
+        """This rank's fused layout pair over ``plan``'s edge shards
+        (``shards``: the shards bucket-padded by the compiled path),
+        cached by plan identity and padded sizes."""
+        from repro_torch.core.distributed import build_shard_delivery
+
+        key = (ctx.nv_pad, ctx.ne_pad, ctx.rank,
+               None if shards is None else int(shards[0].shape[1]))
+        for c_plan, c_key, lay in self._shard_cache:
+            if c_plan is plan and c_key == key:
+                return lay
+        src, dst, mask = (shards if shards is not None else
+                          (plan.shard_src, plan.shard_dst, plan.shard_mask))
+        with maybe_span(
+            self.tracer,
+            "engine.layout_build" if shards is None else "serve.layout_build",
+            cat="compile", n_parts=plan.n_parts, rank=ctx.rank,
+            shard_len=int(src.shape[1]),
+        ):
+            lay = build_shard_delivery(src, dst, mask, ctx.nv_pad,
+                                       ctx.ne_pad, parts=(ctx.rank,),
+                                       device=self.device)[0]
+        self._shard_cache.append((plan, key, lay))
+        del self._shard_cache[:-4]  # bound the strong refs we hold
+        return lay
+
+    def _rank_shard(self, hg, plan, ctx, delivery: str):
+        """This rank's ``plan_rank_shard`` of ``plan`` over ``hg``'s
+        structure, cached by the identity of its incidence tensors, the
+        plan, the context and the delivery."""
+        from repro_torch.core.distributed import plan_rank_shard
+
+        key = (ctx.backend, ctx.rank, ctx.nv_pad, ctx.ne_pad, delivery)
+        for c_src, c_mask, c_plan, c_key, shard in self._rank_shard_cache:
+            if (c_src is hg.src and c_mask is hg.e_mask and c_plan is plan
+                    and c_key == key):
+                return shard
+        layouts = (self._shard_layouts(plan, ctx)
+                   if delivery == "pallas_fused" else None)
+        shard = plan_rank_shard(hg, plan, ctx, delivery, layouts)
+        self._rank_shard_cache.append((hg.src, hg.e_mask, plan, key, shard))
+        del self._rank_shard_cache[:-4]  # bound the strong refs we hold
+        return shard
 
     def _resolve_delivery(self, spec, cfg) -> tuple[str, dict]:
         if cfg.delivery == "xla":
@@ -677,9 +883,9 @@ class Engine:
     ) -> tuple[ExecutionConfig, Any, dict]:
         """Resolve every ``"auto"`` field for ``spec`` WITHOUT executing.
 
-        Returns ``(resolved_config, None, decision)`` — the design point
-        ``run`` would execute (the ``None`` is the partition plan slot
-        of the JAX package, always empty on the local backend).
+        Returns ``(resolved_config, plan_or_None, decision)`` — the
+        design point ``run`` would execute (partition construction does
+        run when a plan must be built).
         """
         cfg = (
             dataclasses.replace(self.config, **overrides)
@@ -709,23 +915,28 @@ class Engine:
                 delivery="xla",
             )
             return resolved, None, decision
-        # ExecutionConfig already refused "replicated" and "sharded".
-        decision["backend"] = (
-            {"reason": "explicitly configured"}
-            if cfg.backend == "local"
-            else {"reason": "no mesh available"}
+        backend, plan, backend_why, part_why = self._resolve_backend(
+            spec, cfg
         )
+        decision["backend"] = backend_why
+        if part_why:
+            decision["partition"] = part_why
         delivery, delivery_why = self._resolve_delivery(spec, cfg)
         decision["delivery"] = delivery_why
         resolved = dataclasses.replace(
             cfg,
             representation="bipartite",
-            backend="local",
+            backend=backend,
             max_iters=max_iters,
-            partition_strategy="none",
+            # "none" = this execution partitions nothing (local path);
+            # a plan pins its strategy name.
+            partition_strategy=(
+                plan.name if plan is not None else "none"
+            ),
+            n_parts=plan.n_parts if plan is not None else cfg.n_parts,
             delivery=delivery,
         )
-        return resolved, None, decision
+        return resolved, plan, decision
 
     def _device_wait(self, sp, device, t1: float) -> float:
         """Wait for the card (a ``torch.cuda.synchronize`` on a CUDA
@@ -740,8 +951,8 @@ class Engine:
 
     @_serialized
     def run(self, spec, **overrides: Any) -> Result:
-        """Execute an ``AlgorithmSpec`` on the local backend, bipartite
-        or clique.
+        """Execute an ``AlgorithmSpec`` at the resolved design point:
+        bipartite or clique, local or (every rank calling) distributed.
 
         ``overrides`` are per-call ``ExecutionConfig`` replacements
         (e.g. ``engine.run(spec, max_iters=8)``).
@@ -753,7 +964,7 @@ class Engine:
                 f"{self.device}; build the hypergraph with "
                 f"device={self.device.type!r}"
             )
-        resolved, _, decision = self.resolve(spec, **overrides)
+        resolved, plan, decision = self.resolve(spec, **overrides)
         name = getattr(spec, "name", "anonymous")
 
         if resolved.representation == "clique":
@@ -779,6 +990,8 @@ class Engine:
                 decision=decision,
             )
 
+        if resolved.backend != "local":
+            return self._run_distributed(spec, resolved, plan, decision)
         delivery = (
             self._delivery_layouts(hg)
             if resolved.delivery == "pallas_fused"
@@ -824,6 +1037,24 @@ class Engine:
         stats = None
         if resolved.collect_stats:
             out, stats = out
+        measured = self._loop_measured(resolved, counters, t0, t1, t2)
+        if delivery is not None:
+            measured["delivery"] = delivery_traffic_pair(
+                delivery, message_width_bytes(spec.initial_msg)
+            )
+        decision = {**decision, "measured": measured}
+        return Result(
+            value=spec.extract(out),
+            config=resolved,
+            representation="bipartite",
+            backend="local",
+            superstep_stats=stats,
+            decision=decision,
+        )
+
+    @staticmethod
+    def _loop_measured(resolved, counters, t0, t1, t2) -> dict:
+        """``measured`` of a superstep run: times and ``counters``."""
         pairs = counters["pairs_run"]
         measured = {
             "wall_s": t2 - t0,
@@ -841,18 +1072,68 @@ class Engine:
             # A checkpointed run counts the pairs it ran itself, after
             # the snapshot it resumed from.
             measured["resumed_from"] = counters["resumed_from"]
-        if delivery is not None:
-            measured["delivery"] = delivery_traffic_pair(
-                delivery, message_width_bytes(spec.initial_msg)
-            )
-        decision = {**decision, "measured": measured}
+        return measured
+
+    def _run_distributed(self, spec, resolved, plan, decision) -> Result:
+        """``run`` on the ``replicated`` / ``sharded`` backends: this
+        rank's part of ``distributed_compute`` (or its checkpointed
+        form), the whole result on every rank."""
+        from repro_torch.core.distributed import (
+            DistContext,
+            distributed_compute,
+        )
+
+        hg = spec.hg0
+        ctx = DistContext.for_mesh(self.mesh, resolved.axis, hg.n_vertices,
+                                   hg.n_hyperedges, resolved.backend)
+        shard = self._rank_shard(hg, plan, ctx, resolved.delivery)
+        counters: dict[str, Any] = {}
+        kw = dict(axis=resolved.axis, backend=resolved.backend,
+                  return_stats=resolved.collect_stats,
+                  delivery=resolved.delivery, shard=shard,
+                  counters=counters)
+        t0 = time.perf_counter()
+        with maybe_span(
+            self.tracer, "engine.run", cat="execute",
+            algorithm=getattr(spec, "name", "anonymous"),
+            backend=resolved.backend, delivery=resolved.delivery,
+            n_parts=plan.n_parts,
+        ) as sp:
+            if resolved.checkpoint_every is not None:
+                from repro_torch.faults.checkpoint import (
+                    checkpointed_distributed_compute,
+                )
+
+                out = checkpointed_distributed_compute(
+                    hg, plan, self.mesh, resolved.max_iters,
+                    spec.initial_msg, spec.v_program, spec.he_program,
+                    every=resolved.checkpoint_every,
+                    ckpt_dir=resolved.checkpoint_dir, tracer=self.tracer,
+                    metrics=self.metrics,
+                    fault_injector=self.fault_injector, **kw,
+                )
+            else:
+                out = distributed_compute(
+                    hg, plan, self.mesh, resolved.max_iters,
+                    spec.initial_msg, spec.v_program, spec.he_program, **kw,
+                )
+            t1 = time.perf_counter()
+            t2 = self._device_wait(sp, hg.device, t1)
+        stats = None
+        if resolved.collect_stats:
+            out, stats = out
+        # No measured delivery bytes, as in the JAX package: a rank's
+        # layouts price its own shard only.
+        measured = self._loop_measured(resolved, counters, t0, t1, t2)
         return Result(
             value=spec.extract(out),
             config=resolved,
             representation="bipartite",
-            backend="local",
+            backend=resolved.backend,
+            partition=plan.name,
+            partition_stats=plan.stats,
             superstep_stats=stats,
-            decision=decision,
+            decision={**decision, "measured": measured},
         )
 
     def submit(self, spec, **overrides: Any):
@@ -924,12 +1205,13 @@ class Engine:
                 f"device={self.device.type!r}"
             )
         overrides = {**overrides, "representation": "bipartite"}
-        resolved, _, decision = self.resolve(spec, **overrides)
+        resolved, plan, decision = self.resolve(spec, **overrides)
         return CompiledAlgorithm(
             engine=self,
             spec=spec,
             config=resolved,
             decision=decision,
+            _plan0=plan,
         )
 
     def cache_stats(self) -> dict:
@@ -1038,8 +1320,8 @@ class Engine:
         Returns ``(resolved_config, mode, decision)``: representation
         weighs the dual clique expansion against the incidence via
         ``clique_edge_budget``; the kernel axis is
-        ``select_intersect_kernel``; the backend is local (the sharded
-        one is not ported).
+        ``select_intersect_kernel``; the backend tiles pair blocks
+        across the mesh when one is available.
         """
         from repro_torch.motifs import select_intersect_kernel
 
@@ -1076,12 +1358,29 @@ class Engine:
             representation = cfg.representation
             decision["representation"] = {"reason": "explicitly configured"}
 
-        # ExecutionConfig already refused "replicated" and "sharded".
-        decision["backend"] = (
-            {"reason": "explicitly configured"}
-            if cfg.backend == "local"
-            else {"reason": "no mesh available"}
-        )
+        if cfg.backend == "replicated":
+            raise ValueError(
+                "backend='replicated' does not apply to batch analytics "
+                "(no replicated superstep state); use 'sharded' to tile "
+                "pair blocks across the mesh, or 'local'"
+            )
+        if cfg.backend == "sharded" and self.mesh is None:
+            raise ValueError(
+                "backend='sharded' needs a mesh; construct "
+                "Engine(mesh=...) or use backend='local'"
+            )
+        if cfg.backend in ("local", "sharded"):
+            backend = cfg.backend
+            decision["backend"] = {"reason": "explicitly configured"}
+        elif self.mesh is not None:
+            backend = "sharded"
+            decision["backend"] = {
+                "reason": "mesh available: tile hyperedge-pair blocks "
+                "across it"
+            }
+        else:
+            backend = "local"
+            decision["backend"] = {"reason": "no mesh available"}
 
         mode: str | None = None
         if spec.task == "hmotif_census":
@@ -1113,7 +1412,7 @@ class Engine:
         resolved = dataclasses.replace(
             cfg,
             representation=representation,
-            backend="local",
+            backend=backend,
             intersect_kernel=kernel,
             partition_strategy="none",
         )
@@ -1184,6 +1483,7 @@ class Engine:
             spec, cfg, len(pairs) if pairs is not None else 0
         )
         index = motifs.build_index(hg, resolved.intersect_kernel)
+        mesh = self.mesh if resolved.backend == "sharded" else None
         pair_sizes = (
             motifs.materialize_pair_sizes(hg, pairs, n_shared)
             if resolved.representation == "clique"
@@ -1220,20 +1520,21 @@ class Engine:
                 timings["classify_s"] += time.perf_counter() - t0
             else:
                 sizes = motifs.batch_intersections(
-                    index, ea, eb, tile=spec.tile, axis=resolved.axis,
-                    timings=timings,
+                    index, ea, eb, tile=spec.tile, mesh=mesh,
+                    axis=resolved.axis, timings=timings,
                 ).astype(np.int64)
             value: Any = (np.stack([ea, eb], axis=1), sizes)
         elif mode == "exact":
             value = motifs.exact_census(
-                hg, index=index, tile=spec.tile, axis=resolved.axis,
+                hg, index=index, tile=spec.tile, mesh=mesh,
+                axis=resolved.axis,
                 pair_sizes=pair_sizes, og=og, timings=timings,
             )
         else:
             value = motifs.sampled_census(
                 hg, spec.n_samples, seed=spec.seed,
                 confidence=spec.confidence, index=index, tile=spec.tile,
-                axis=resolved.axis, og=og, pair_sizes=pair_sizes,
+                mesh=mesh, axis=resolved.axis, og=og, pair_sizes=pair_sizes,
                 timings=timings,
             )
         decision = {**decision, "measured": {
@@ -1259,10 +1560,11 @@ class Engine:
         ``compile`` make), so the winners here are by construction the
         axes an execution of the same inputs resolves.  On top of the
         winner, every axis reports the costs of the candidates it did
-        NOT pick.  With no plan and no mesh (the port's local backend)
-        the backend and partition axes take the JAX package's
-        ``plan is None`` form; on the card the delivery axis reports
-        ``lowering: "cuda"`` and the card's term's inputs.
+        NOT pick.  The backend and partition axes take the JAX
+        package's two forms: without a plan (local execution) and with
+        one (each backend's and each strategy's predicted sync bytes).
+        On the card the delivery axis reports ``lowering: "cuda"`` and
+        the card's term's inputs.
 
         ``hg``: explain against this hypergraph instead of the spec's
         own (applies ``spec.init`` like ``CompiledAlgorithm.run(hg)``).
@@ -1279,7 +1581,7 @@ class Engine:
         if hg is not None:
             hg = spec.init(hg) if spec.init is not None else hg
             spec = spec._replace(hg0=hg)
-        resolved, _, decision = self.resolve(spec, **overrides)
+        resolved, plan, decision = self.resolve(spec, **overrides)
         cfg = (
             dataclasses.replace(self.config, **overrides)
             if overrides
@@ -1318,23 +1620,8 @@ class Engine:
             },
         }
 
-        # -- backend and partition: local, no plan ---------------------
-        axes["backend"] = {
-            "winner": resolved.backend,
-            "reason": decision["backend"].get("reason"),
-            "inputs": {"mesh": self.mesh is not None},
-            "candidates": {
-                "local": {"eligible": True, "predicted_sync_bytes": 0.0},
-                "replicated": {"eligible": self.mesh is not None},
-                "sharded": {"eligible": self.mesh is not None},
-            },
-        }
-        axes["partition"] = {
-            "winner": resolved.partition_strategy,
-            "reason": "local execution partitions nothing",
-            "inputs": {},
-            "candidates": {},
-        }
+        axes["backend"], axes["partition"] = self._explain_partitioning(
+            resolved, plan, decision, cfg, hg0)
 
         # -- delivery: reference vs fused HBM-traffic model ------------
         # Run the cost model even when the axis was pinned or gated, so
@@ -1391,6 +1678,82 @@ class Engine:
         }
 
         return {"config": resolved, "decision": decision, "axes": axes}
+
+    def _explain_partitioning(self, resolved, plan, decision, cfg,
+                              hg0) -> tuple[dict, dict]:
+        """``explain``'s backend and partition axes (the JAX package's
+        keys: its ``plan is None`` form, or each backend's and each
+        strategy's predicted sync bytes)."""
+        if plan is None:
+            backend = {
+                "winner": resolved.backend,
+                "reason": decision["backend"].get("reason"),
+                "inputs": {"mesh": self.mesh is not None},
+                "candidates": {
+                    "local": {"eligible": True, "predicted_sync_bytes": 0.0},
+                    "replicated": {"eligible": self.mesh is not None},
+                    "sharded": {"eligible": self.mesh is not None},
+                },
+            }
+            partition = {
+                "winner": resolved.partition_strategy,
+                "reason": "local execution partitions nothing",
+                "inputs": {},
+                "candidates": {},
+            }
+            return backend, partition
+        v_w = state_width_bytes(hg0.v_attr, hg0.n_vertices)
+        he_w = state_width_bytes(hg0.he_attr, hg0.n_hyperedges)
+        _, bwhy = select_backend(
+            plan, hg0.n_vertices, hg0.n_hyperedges,
+            replicated_bias=cfg.replicated_bias,
+            v_state_bytes=v_w, he_state_bytes=he_w,
+        )
+        backend = {
+            "winner": resolved.backend,
+            "reason": decision["backend"].get("reason"),
+            "inputs": {
+                "n_parts": bwhy["n_parts"],
+                "v_state_bytes": v_w,
+                "he_state_bytes": he_w,
+                "replicated_bias": cfg.replicated_bias,
+            },
+            "candidates": {
+                "replicated": {
+                    "eligible": True,
+                    "predicted_sync_bytes": bwhy[
+                        "full_replication_sync_bytes"
+                    ],
+                    "bias_adjusted_bytes": (
+                        cfg.replicated_bias
+                        * bwhy["full_replication_sync_bytes"]
+                    ),
+                },
+                "sharded": {
+                    "eligible": True,
+                    "predicted_sync_bytes": bwhy["sharded_sync_bytes"],
+                },
+            },
+        }
+        part_why = decision.get("partition", {})
+        costs = part_why.get("sync_bytes_by_strategy")
+        if costs is None:
+            # pinned strategy / caller-supplied plan: the sweep was
+            # skipped — report the one plan actually in play.
+            costs = {plan.name: float(plan.stats.sync_bytes_per_dim)}
+        partition = {
+            "winner": resolved.partition_strategy,
+            "reason": part_why.get("reason"),
+            "inputs": {"n_parts": plan.n_parts},
+            "candidates": {
+                nm: {
+                    "eligible": True,
+                    "predicted_sync_bytes_per_dim": float(c),
+                }
+                for nm, c in costs.items()
+            },
+        }
+        return backend, partition
 
     def _explain_analytics(self, spec: AnalyticsSpec, **overrides) -> dict:
         """``explain`` for the batch axes: intersect kernel,

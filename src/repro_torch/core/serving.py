@@ -40,6 +40,21 @@ while shapes stay bucket-stable.  A batch keeps its query axis inner
 rows are ``B·d`` wide), and results are transposed once, at the end, to
 the JAX package's ``[B, n]``.
 
+On the distributed backends (``Engine(mesh=)``, every rank calling
+with the same requests) an executable holds this rank's edge shard over
+the padded entity range (the plan's shards padded to a bucketed length,
+``_pad_shards``), its fused layouts (``build_shard_delivery``) and its
+part of the loop state, and its pair is the distributed one
+(``engine.pair_in_place(dist=)``, ``repro_torch.core.distributed``).
+On the card it is captured as on the local backend, collectives
+included (NCCL's communicator is made by an eager collective first); on
+``gloo`` the pair runs eagerly.  A batch halts on the ``all(halted)`` of
+counts that are the same on every rank.  The cache key carries every
+rank's layout signature, and an entry's bytes are the largest over the
+ranks, so every rank's cache hits, misses and evicts alike: a miss on
+one rank only would run a capture's warm-up pair, and its collectives,
+on that rank alone.
+
 With ``Engine(tracer=)``, a layout build records ``serve.layout_build``,
 an executable build ``engine.build_executable`` and a request
 ``engine.execute`` (its device wait included), and the request's
@@ -54,6 +69,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.api import constant_initial_msg, tree_leaves, tree_map
 from repro_torch.core.engine import (
@@ -158,6 +174,8 @@ def signature(
     batch_pad: int | None,
     delivery_sig=None,
     initial_msg_sig=None,
+    shard_len_pad: int = 0,
+    n_parts: int = 0,
 ):
     """The executable cache key (the JAX package's fields).
 
@@ -170,9 +188,8 @@ def signature(
     class shapes and the kernel's per-class launch scalars, which a
     captured graph keeps; ``None`` on the reference path.  Same-bucket
     hypergraphs usually share it; a degree-regime shift recompiles.
-    The JAX package's ``n_parts`` and ``shard_len_pad`` belong to its
-    distributed backends, which are not ported (ROADMAP.md queue 1,
-    item 10).
+    ``n_parts`` / ``shard_len_pad``: the distributed backends' partition
+    count and bucketed shard length (0 on the local backend).
 
     ``initial_msg_sig``: the precomputed ``_initial_msg_sig`` value
     (memoized per ``CompiledAlgorithm``); ``None`` recomputes.
@@ -188,9 +205,11 @@ def signature(
         cfg.max_iters,
         cfg.collect_stats,
         cfg.delivery,
+        n_parts,
         nv_pad,
         ne_pad,
         nnz_pad,
+        shard_len_pad,
         v_attr_sig,
         he_attr_sig,
         e_attr_sig,
@@ -207,7 +226,9 @@ def signature(
 @dataclasses.dataclass(eq=False)
 class _Prepared:
     """One source hypergraph, initialized and bucket-padded: what a
-    request copies into an executable's buffers."""
+    request copies into an executable's buffers.  On a distributed
+    backend the pair runs over ``exec_hg``, this rank's edge shard, with
+    this rank's degrees and layouts; locally ``exec_hg`` is ``hgp``."""
 
     base: HyperGraph          # initialized, real size
     nv: int
@@ -216,11 +237,24 @@ class _Prepared:
     ne_pad: int
     nnz_pad: int
     hgp: HyperGraph           # padded; attrs unbound when rebinding
+    exec_hg: HyperGraph       # what the pair delivers over
     v_deg: torch.Tensor
     he_card: torch.Tensor
-    delivery: tuple | None    # fused layouts of hgp (leaf plans built)
+    delivery: tuple | None    # fused layouts of exec_hg (leaf plans built)
     delivery_sig: tuple | None
     attr_sigs: tuple
+    ctx: Any = None           # DistContext on a distributed backend
+    plan: Any = None
+    n_parts: int = 0
+    shard_len_pad: int = 0
+
+
+def _pad_shards(plan, shard_len_pad: int):
+    """Zero-pad a plan's ``[n_parts, shard_len]`` edge shards out to the
+    bucketed shard length (padding lanes carry mask 0), as host arrays."""
+    pad = shard_len_pad - plan.shard_len
+    return tuple(np.pad(x, ((0, 0), (0, pad))) if pad else x
+                 for x in (plan.shard_src, plan.shard_dst, plan.shard_mask))
 
 
 def _structure(hg: HyperGraph, v_deg, he_card, delivery) -> list:
@@ -260,7 +294,8 @@ class _Executable:
         self.max_iters = cfg.max_iters
         self.batch_pad = batch_pad
         self._note_trace = note_trace
-        hgp = prep.hgp
+        hgp = prep.exec_hg
+        self.ctx = prep.ctx
         self.device = hgp.device
         self.hg = HyperGraph(
             src=hgp.src.clone(), dst=hgp.dst.clone(),
@@ -278,6 +313,8 @@ class _Executable:
                             for n in (prep.nv, prep.ne))
         self._loaded = weakref.ref(prep)
         self.ids = entity_ids(self.hg)
+        if self.ctx is not None:
+            self.ids = tuple(map(self.ctx.block, self.ids))
         self.state = None
         self.graph = None
         self.pool_bytes = 0          # the graph's private memory pool
@@ -292,7 +329,7 @@ class _Executable:
         it already (the warm serve loop over one hypergraph)."""
         if self._loaded() is prep:
             return
-        theirs = _structure(prep.hgp, prep.v_deg, prep.he_card,
+        theirs = _structure(prep.exec_hg, prep.v_deg, prep.he_card,
                             prep.delivery)
         for mine, src in zip(self._buffers, theirs, strict=True):
             mine.copy_(src)
@@ -307,6 +344,10 @@ class _Executable:
         if self.batch_pad is not None:
             msg = tree_map(lambda x: x.unsqueeze(1).expand(
                 (x.shape[0], self.batch_pad) + x.shape[1:]), msg)
+        if self.ctx is not None:
+            # This rank's part of the state (its id block under sharded).
+            v_attr, he_attr, msg = (tree_map(self.ctx.block, t)
+                                    for t in (v_attr, he_attr, msg))
         if self.state is None:
             self.state = pair_state(v_attr, he_attr, msg, self.max_iters,
                                     self.batch_pad, device=self.device)
@@ -317,7 +358,7 @@ class _Executable:
         self.data_dependent = pair_in_place(
             self.state, self.hg, self.v_program, self.he_program,
             self.v_deg, self.he_card, ids=self.ids, n_real=self.n_real,
-            delivery=self.delivery,
+            delivery=self.delivery, dist=self.ctx,
         )
         return self.data_dependent
 
@@ -330,8 +371,13 @@ class _Executable:
         launches, vmap's set-up, allocations), then capture one pair
         into a CUDA graph.  Both advance the loop state: the caller
         resets it.  A capture failure (a procedure that reads the step
-        on the host, say) raises; nothing falls back to eager pairs."""
+        on the host, say) raises; nothing falls back to eager pairs.
+        A distributed pair is captured with its collectives: one eager
+        collective on the group first makes NCCL's communicator, which
+        NCCL creates lazily and a capture cannot."""
         dev = self.device
+        if self.ctx is not None:
+            dist.all_reduce(torch.zeros(1, device=dev), group=self.ctx.group)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -415,9 +461,8 @@ class CompiledAlgorithm:
 
     With ``checkpoint_every`` set, ``run`` takes the chunked
     checkpoint/resume loop (``_run_checkpointed``) in place of the
-    cached executable.  The JAX package's distributed branches (ROADMAP.md
-    item 10) are not ported: ``ExecutionConfig`` refuses those backends
-    before a compile.  An ``Engine(fault_injector=)`` fires
+    cached executable.  On a distributed backend every rank of the
+    Engine's mesh makes the same calls.  An ``Engine(fault_injector=)`` fires
     ``layout.build`` where a fused layout is built and ``execute`` before
     each request's pairs run (never during a capture; ``warmup`` never
     fires it).  Calls hold the Engine's lock, so a capture on one thread
@@ -435,6 +480,8 @@ class CompiledAlgorithm:
     _init_msg_sig: Any = None
     # Memoized graceful-degradation twin (delivery="xla").
     _xla_twin: Any = None
+    # The plan resolve() chose for hg0 (distributed backends).
+    _plan0: Any = None
 
     # -- public API --------------------------------------------------------
 
@@ -594,6 +641,7 @@ class CompiledAlgorithm:
                 spec=self.spec,
                 config=dataclasses.replace(self.config, delivery="xla"),
                 decision={**self.decision, "degraded_from": "pallas_fused"},
+                _plan0=self._plan0,
             )
         engine.metrics.counter("faults.delivery_degraded").inc()
         with maybe_span(
@@ -615,7 +663,10 @@ class CompiledAlgorithm:
         bitwise equal to the uninterrupted executable and a killed run
         resumes from ``checkpoint_dir``'s latest snapshot."""
         from repro_torch.core.executor import Result
-        from repro_torch.faults.checkpoint import checkpointed_compute
+        from repro_torch.faults.checkpoint import (
+            checkpointed_compute,
+            checkpointed_distributed_compute,
+        )
 
         cfg = self.config
         spec = self.spec
@@ -623,28 +674,48 @@ class CompiledAlgorithm:
         prep = self._prepared(hg, rebind=query is not None)
         q = _canon_query(query) if query is not None else None
         nv, ne = prep.nv, prep.ne
-        hgq = prep.hgp if q is None else spec.bind_query(prep.hgp, q)
-        out = checkpointed_compute(
-            hgq, cfg.max_iters, spec.initial_msg,
-            spec.v_program, spec.he_program,
-            every=cfg.checkpoint_every, ckpt_dir=cfg.checkpoint_dir,
-            return_stats=cfg.collect_stats, n_real=(nv, ne),
-            delivery=prep.delivery, tracer=engine.tracer,
-            metrics=engine.metrics, fault_injector=engine.fault_injector,
-        )
+        plan = prep.plan
+        kw = dict(every=cfg.checkpoint_every, ckpt_dir=cfg.checkpoint_dir,
+                  return_stats=cfg.collect_stats, tracer=engine.tracer,
+                  metrics=engine.metrics,
+                  fault_injector=engine.fault_injector)
+        if plan is not None:
+            # The distributed chunks run on the real-size hypergraph
+            # and the plan's own shards, as Engine.run does.
+            from repro_torch.core.distributed import DistContext
+
+            hgq = prep.base if q is None else spec.bind_query(prep.base, q)
+            ctx = DistContext.for_mesh(engine.mesh, cfg.axis, nv, ne,
+                                       cfg.backend)
+            out = checkpointed_distributed_compute(
+                hgq, plan, engine.mesh, cfg.max_iters, spec.initial_msg,
+                spec.v_program, spec.he_program, axis=cfg.axis,
+                backend=cfg.backend, delivery=cfg.delivery,
+                shard=engine._rank_shard(hgq, plan, ctx, cfg.delivery), **kw,
+            )
+        else:
+            hgq = prep.hgp if q is None else spec.bind_query(prep.hgp, q)
+            out = checkpointed_compute(
+                hgq, cfg.max_iters, spec.initial_msg,
+                spec.v_program, spec.he_program, n_real=(nv, ne),
+                delivery=prep.delivery, **kw,
+            )
         stats = None
         if cfg.collect_stats:
             out, stats = out
-        # The chunks ran on the padded buffers; slice back.
-        out = prep.base.with_attrs(
-            v_attr=tree_map(lambda x: x[:nv], out.v_attr),
-            he_attr=tree_map(lambda x: x[:ne], out.he_attr),
-        )
+        if plan is None:
+            # The chunks ran on the padded buffers; slice back.
+            out = prep.base.with_attrs(
+                v_attr=tree_map(lambda x: x[:nv], out.v_attr),
+                he_attr=tree_map(lambda x: x[:ne], out.he_attr),
+            )
         return Result(
             value=spec.extract(out),
             config=cfg,
             representation=cfg.representation,
             backend=cfg.backend,
+            partition=plan.name if plan is not None else None,
+            partition_stats=plan.stats if plan is not None else None,
             superstep_stats=stats,
             supersteps_executed=None,
             decision={
@@ -695,29 +766,71 @@ class CompiledAlgorithm:
         nv, ne, nnz = base.n_vertices, base.n_hyperedges, base.nnz
         nv_pad, ne_pad = bucket_dim(nv), bucket_dim(ne)
         nnz_pad = bucket_dim(nnz)
+        cfg = self.config
+        plan = ctx = shards = None
+        shard_len_pad = 0
+        if cfg.backend != "local":
+            from repro_torch.core.distributed import DistContext, _pad_to
+
+            plan = self._plan_for(source_probe)
+            nv_pad = _pad_to(nv_pad, plan.n_parts)
+            ne_pad = _pad_to(ne_pad, plan.n_parts)
+            shard_len_pad = bucket_dim(plan.shard_len)
+            shards = _pad_shards(plan, shard_len_pad)
+            ctx = DistContext.for_mesh(engine.mesh, cfg.axis, nv_pad, ne_pad,
+                                       cfg.backend)
         hgp = base.padded(nv_pad, ne_pad, nnz_pad)
         # Fused delivery: the dst-sort + class layouts (and the kernel's
         # launch plans) are built HERE, once per structure and bucket —
-        # from the PADDED structure, whose padding lanes carry e_mask=0
-        # and drop out; their shapes enter the cache signature.
+        # from the PADDED structure (or this rank's padded shard), whose
+        # padding lanes carry e_mask=0 and drop out; their shapes enter
+        # the cache signature.
         delivery = delivery_sig = None
-        if self.config.delivery == "pallas_fused":
+        if cfg.delivery == "pallas_fused":
             inj = engine.fault_injector
             if inj is not None:
                 inj.maybe_raise("layout.build", algorithm=self.spec.name)
-            delivery = engine._delivery_layouts(base, padded=hgp)
+            if ctx is None:
+                delivery = engine._delivery_layouts(base, padded=hgp)
+            else:
+                delivery = engine._shard_layouts(plan, ctx, shards)
             delivery_sig = tuple(lay.shape_signature() for lay in delivery)
+            if ctx is not None:
+                # Every rank's signature, so the ranks' keys agree.
+                sigs = [None] * ctx.n_parts
+                dist.all_gather_object(sigs, delivery_sig, group=ctx.group)
+                delivery_sig = tuple(sigs)
+        v_deg, he_card, exec_hg = hgp.degrees(), hgp.cardinalities(), hgp
+        if ctx is not None:
+            from repro_torch.core.distributed import rank_shard
+
+            shard = rank_shard(ctx, *shards, v_deg, he_card, nv, ne,
+                               delivery, hgp.device)
+            exec_hg, v_deg, he_card = shard.hg, shard.v_deg, shard.he_card
         prep = _Prepared(
             base=base, nv=nv, ne=ne,
             nv_pad=nv_pad, ne_pad=ne_pad, nnz_pad=nnz_pad, hgp=hgp,
-            v_deg=hgp.degrees(), he_card=hgp.cardinalities(),
+            exec_hg=exec_hg, v_deg=v_deg, he_card=he_card,
             delivery=delivery, delivery_sig=delivery_sig,
             attr_sigs=(_attr_sig(hgp.v_attr), _attr_sig(hgp.he_attr),
                        _attr_sig(hgp.e_attr)),
+            ctx=ctx, plan=plan, n_parts=plan.n_parts if plan else 0,
+            shard_len_pad=shard_len_pad,
         )
         self._pad_cache.append((source_probe, rebind, prep))
         del self._pad_cache[:-4]  # bound the strong refs we hold
         return prep
+
+    def _plan_for(self, source_hg):
+        """The plan a distributed request runs: resolve()'s for hg0, else
+        the Engine's cached plan for ``source_hg`` under the resolved
+        strategy."""
+        if source_hg is self.spec.hg0 and self._plan0 is not None:
+            return self._plan0
+        plan, _ = self.engine._cached_plan(
+            source_hg, self.config.n_parts, self.config.partition_strategy
+        )
+        return plan
 
     def _initial_attrs(self, prep: _Prepared, query, batch):
         """The padded starting attributes: bound to ``query``, or for a
@@ -761,6 +874,8 @@ class CompiledAlgorithm:
             batch_pad=b_pad,
             delivery_sig=prep.delivery_sig,
             initial_msg_sig=self._init_msg_sig,
+            shard_len_pad=prep.shard_len_pad,
+            n_parts=prep.n_parts,
         )
         meta = {
             "algorithm": spec.name,
@@ -770,6 +885,7 @@ class CompiledAlgorithm:
             "ne_pad": prep.ne_pad,
             "nnz_pad": prep.nnz_pad,
             "batch_pad": b_pad,
+            "n_parts": prep.n_parts,
         }
         exe = engine._executable_for(
             key,
@@ -790,6 +906,13 @@ class CompiledAlgorithm:
             raise
         if not exe.nbytes:
             exe.measure()
+            if prep.ctx is not None:
+                # The largest over the ranks: every rank evicts alike.
+                most = torch.tensor([exe.nbytes], dtype=torch.int64,
+                                    device=exe.device)
+                dist.all_reduce(most, op=dist.ReduceOp.MAX,
+                                group=prep.ctx.group)
+                exe.nbytes = int(most)
             engine._fit_exec_cache()
         if warm_only:
             return {"source": getattr(exe, "source", None) or "jit",
@@ -817,8 +940,12 @@ class CompiledAlgorithm:
 
         # Slice padding (and batch padding) back off, into tensors the
         # next request cannot overwrite; extract on a real-size
-        # hypergraph whose attrs may carry a leading batch dim.
+        # hypergraph whose attrs may carry a leading batch dim.  A
+        # sharded state is gathered first.
         state, nv, ne = exe.state, prep.nv, prep.ne
+        if prep.ctx is not None:
+            state = {**state, "v_attr": prep.ctx.full(state["v_attr"]),
+                     "he_attr": prep.ctx.full(state["he_attr"])}
         if batch is not None:
             own = lambda x: x.clone(memory_format=torch.contiguous_format)
             take_v = lambda x: own(x[:nv, :b].movedim(1, 0))
@@ -849,7 +976,8 @@ class CompiledAlgorithm:
             "host_syncs": counters["host_syncs"],
             "graph": exe.graph is not None,
         }
-        if tracer is not None and prep.delivery is not None:
+        if (tracer is not None and prep.delivery is not None
+                and prep.ctx is None):
             # Tracer-gated, as in the JAX package: warm serving builds
             # no traffic record by default.
             measured["delivery"] = delivery_traffic_pair(
@@ -860,6 +988,9 @@ class CompiledAlgorithm:
             config=cfg,
             representation=cfg.representation,
             backend=cfg.backend,
+            partition=prep.plan.name if prep.plan is not None else None,
+            partition_stats=(prep.plan.stats if prep.plan is not None
+                             else None),
             superstep_stats=stats,
             supersteps_executed=pairs if batch is not None else None,
             decision=decision,

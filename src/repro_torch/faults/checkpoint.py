@@ -31,8 +31,12 @@ dtypes) degrades gracefully: the run restarts from superstep 0 rather
 than raising.  A restored state lands on the device of the run's
 hypergraph (the Engine's).
 
-The distributed form (``checkpointed_distributed_compute``) waits for
-the distributed backends (ROADMAP.md queue 1, item 10).
+``checkpointed_distributed_compute`` is the distributed form: one
+snapshot holds the full padded loop state (the blocks of the
+``sharded`` backend gathered first), rank 0 writes it and every rank
+waits at a barrier, so each restores the same snapshot; the
+``checkpoint.chunk`` point fires after the same chunk on every rank (each
+rank's injector runs the same plan).
 """
 from __future__ import annotations
 
@@ -45,6 +49,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.api import tree_map
 from repro_torch.core.engine import compute_resumable, initial_superstep_state
 from repro_torch.faults.errors import CheckpointError
 from repro_torch.obs.trace import maybe_span
@@ -275,5 +280,88 @@ def checkpointed_compute(
     if return_stats:
         # Rows past a halt stay 0: the full-length trace ``compute``
         # returns (the JAX package's ``_finish_traces`` pads to it).
+        return out, (state["v_trace"], state["he_trace"])
+    return out
+
+
+def checkpointed_distributed_compute(
+    hg,
+    plan,
+    mesh,
+    max_iters: int,
+    initial_msg,
+    v_program,
+    he_program,
+    *,
+    every: int,
+    ckpt_dir: str | None = None,
+    axis: str = "data",
+    backend: str = "replicated",
+    delivery: str = "xla",
+    return_stats: bool = False,
+    shard=None,
+    tracer=None,
+    metrics=None,
+    fault_injector=None,
+    counters: dict | None = None,
+):
+    """``distributed_compute`` in checkpointed chunks — the distributed
+    twin of ``checkpointed_compute``, called by every rank.
+
+    One snapshot covers the full padded state and the trace of the pairs
+    done, so a run restarted on the same plan resumes bitwise where the
+    last snapshot left it.  ``shard``: this rank's ``plan_rank_shard``,
+    which every chunk reads (built here once when ``None``).
+    ``counters`` as ``checkpointed_compute``'s."""
+    import torch.distributed as dist
+
+    from repro_torch.core.distributed import (
+        DistContext,
+        distributed_compute_resumable,
+        distributed_initial_state,
+        plan_rank_shard,
+    )
+
+    counters = counters if counters is not None else {}
+    for key in ("pairs_run", "host_syncs"):
+        counters.setdefault(key, 0)
+    if shard is None:
+        ctx = DistContext.for_mesh(mesh, axis, hg.n_vertices,
+                                   hg.n_hyperedges, backend)
+        shard = plan_rank_shard(hg, plan, ctx, delivery)
+    group = mesh.get_group(axis)
+    rank = dist.get_rank(group)
+    zeros = torch.zeros(max_iters, dtype=torch.int32, device=hg.device)
+    template = {**distributed_initial_state(hg, plan, initial_msg),
+                "v_trace": zeros, "he_trace": zeros.clone()}
+    state, done = _restore_or_fresh(ckpt_dir, template, tracer, metrics)
+    counters["resumed_from"] = done
+    while done < max_iters and not state["halted"]:
+        k = min(every, max_iters - done)
+        carry, tr = distributed_compute_resumable(
+            hg, plan, mesh, k, state, v_program, he_program, axis=axis,
+            backend=backend, delivery=delivery, shard=shard,
+            counters=counters,
+        )
+        state = {**state, **carry}
+        state["v_trace"][done:done + k] = tr[0]
+        state["he_trace"][done:done + k] = tr[1]
+        done += k
+        if ckpt_dir:
+            if rank == 0:
+                with maybe_span(tracer, "faults.checkpoint_save",
+                                cat="faults", step=done):
+                    save_checkpoint(ckpt_dir, done, state)
+                if metrics is not None:
+                    metrics.counter("faults.checkpoint.saved").inc()
+            dist.barrier(group=group)
+        if fault_injector is not None:
+            fault_injector.maybe_raise("checkpoint.chunk", step=done)
+    counters["halted"] = bool(state["halted"])
+    out = hg.with_attrs(
+        v_attr=tree_map(lambda x: x[:hg.n_vertices], state["v_attr"]),
+        he_attr=tree_map(lambda x: x[:hg.n_hyperedges], state["he_attr"]),
+    )
+    if return_stats:
         return out, (state["v_trace"], state["he_trace"])
     return out

@@ -358,6 +358,19 @@ def tile_block_bounds(
     return bounds, max(max_blocks, 1)
 
 
+def class_tile_bounds(member_degrees: np.ndarray, rows_pad: int,
+                      block_n: int, block_e: int) -> tuple[np.ndarray, int]:
+    """``tile_block_bounds`` of one degree class whose member rows (in
+    slot order) have live degrees ``member_degrees``, its rows padded to
+    ``rows_pad``."""
+    row_counts = np.zeros(rows_pad, np.int64)
+    row_counts[: len(member_degrees)] = member_degrees
+    offsets = np.zeros(rows_pad + 1, np.int64)
+    np.cumsum(row_counts, out=offsets[1:])
+    rows_blk = -(-rows_pad // block_n) * block_n
+    return tile_block_bounds(offsets, rows_blk, block_n, block_e)
+
+
 def build_delivery_layout(
     src,
     dst,
@@ -503,12 +516,8 @@ def build_delivery_layout(
         a_dst = np.full(nnz_c_pad, rows_blk, np.int32)
         a_src[:nnz_c] = e_src
         a_dst[:nnz_c] = e_dst_local
-        row_counts = np.zeros(rows_pad[c], np.int64)
-        members = class_members[c]
-        row_counts[: len(members)] = live_deg[members]
-        offsets = np.zeros(rows_pad[c] + 1, np.int64)
-        np.cumsum(row_counts, out=offsets[1:])
-        bounds, mb = tile_block_bounds(offsets, rows_blk, block_n, be)
+        bounds, mb = class_tile_bounds(live_deg[class_members[c]],
+                                       rows_pad[c], block_n, be)
         class_src_a.append(a_src)
         class_dst_a.append(a_dst)
         class_bounds.append(bounds)

@@ -1,2 +1,3 @@
 """Launch layer of the port: ``repro_torch.launch.hypergraph`` runs the
-built-in algorithms through the ``Engine`` facade."""
+built-in algorithms through the ``Engine`` facade (``--devices N``: N
+ranks over ``repro_torch.launch.mesh``'s process group and mesh)."""

@@ -22,11 +22,28 @@ unless ``--device cpu`` is given:
   PYTHONPATH=src python -m repro_torch.launch.hypergraph \
       --algorithm vertex_pagerank --representation auto --explain \
       --trace trace.json --metrics-json -
+
+  # the distributed backends: 4 gloo ranks on the CPU (one process
+  # each; rank 0 prints), partition and backend chosen by the cost models
+  PYTHONPATH=src python -m repro_torch.launch.hypergraph \
+      --algorithm pagerank --device cpu --devices 4 --backend auto \
+      --partition auto
+
+``--devices N`` (N > 1) spawns N ranks (``launch.mesh.spawn_ranks``),
+each joining one process group (``gloo`` on the CPU, NCCL on the card,
+where N must not exceed the cards: NCCL takes one rank per device) and
+running the same request over ``make_host_mesh(N)``.  A rank that fails
+fails the launcher, and the other ranks are killed; the launcher sets no
+deadline of its own (an ``auto`` partition sweep at full scale takes
+minutes).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
+import tempfile
 import time
 
 ALGORITHMS = ("pagerank", "vertex_pagerank", "pagerank_entropy", "sssp",
@@ -48,6 +65,13 @@ def _parse(argv=None):
                     choices=["auto", "xla", "pallas_fused"])
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs on the host)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks of the distributed backends (1 = local "
+                    "execution)")
+    ap.add_argument("--backend", default="auto",
+                    choices=["auto", "local", "replicated", "sharded"])
+    ap.add_argument("--partition", default="auto",
+                    help="partition strategy name or 'auto'")
     ap.add_argument("--stats", action="store_true",
                     help="print per-superstep activity")
     ap.add_argument("--representation", default="auto",
@@ -183,7 +207,8 @@ def _serve(args, engine, spec, hg) -> int:
         secs.append(time.perf_counter() - t0)
     n = len(queries)
     print(f"design point: representation={res.representation} "
-          f"backend={res.backend} delivery={res.config.delivery}")
+          f"backend={res.backend} partition={res.partition} "
+          f"delivery={res.config.delivery}")
     print(f"served {n} queries: cold {secs[0]:.3f}s ({n / secs[0]:.1f} q/s "
           f"incl. build), warm {secs[1]:.3f}s ({n / secs[1]:.1f} q/s), "
           f"{res.supersteps_executed} superstep pairs, "
@@ -196,7 +221,45 @@ def _serve(args, engine, spec, hg) -> int:
 
 def main(argv=None) -> int:
     args = _parse(argv)
+    if args.devices <= 1:
+        return _main(args, None)
 
+    import torch
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    if args.device.startswith("cuda"):
+        have = torch.cuda.device_count()
+        if args.devices > have:
+            print(f"--devices {args.devices} needs {args.devices} cards, "
+                  f"{have} visible: NCCL takes one rank per device (use "
+                  "--device cpu for gloo ranks)", file=sys.stderr)
+            return 2
+    with tempfile.TemporaryDirectory(prefix="mesh-ranks-") as store:
+        spawn_ranks(_rank_main, args.devices, (args, store))
+    return 0
+
+
+def _rank_main(rank: int, world: int, args, store: str) -> None:
+    """One rank of ``--devices``: join the group, run, leave it; only
+    rank 0 prints."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_local_group, make_host_mesh
+
+    device = init_local_group(rank, world, store, args.device)
+    args = argparse.Namespace(**{**vars(args), "device": str(device)})
+    try:
+        out = sys.stdout if rank == 0 else open(os.devnull, "w")
+        with contextlib.redirect_stdout(out):
+            rc = _main(args, make_host_mesh(world))
+    finally:
+        dist.destroy_process_group()
+    if rc:
+        sys.exit(rc)
+
+
+def _main(args, mesh) -> int:
     from repro_torch.core import Engine, tree_leaves
     from repro_torch.core.device import resolve_device
     from repro_torch.data import make_dataset
@@ -212,9 +275,12 @@ def main(argv=None) -> int:
 
         tracer = Tracer()
     if args.algorithm == "motifs":
-        return _motifs(args, hg, device, tracer)
-    engine = Engine(device=device, tracer=tracer, delivery=args.delivery,
+        return _motifs(args, hg, device, tracer, mesh)
+    engine = Engine(mesh=mesh, device=device, tracer=tracer,
+                    delivery=args.delivery,
                     representation=args.representation,
+                    backend=args.backend,
+                    partition_strategy=args.partition,
                     collect_stats=args.stats)
     spec = build_spec(args.algorithm, hg, args.iters)
     if args.explain:
@@ -229,7 +295,8 @@ def main(argv=None) -> int:
     res = engine.run(spec)
 
     print(f"design point: representation={res.representation} "
-          f"backend={res.backend} delivery={res.config.delivery}")
+          f"backend={res.backend} partition={res.partition} "
+          f"delivery={res.config.delivery}")
     for axis, why in res.decision.items():
         if axis != "measured":
             print(f"  {axis}: {why.get('reason')}")
@@ -240,6 +307,11 @@ def main(argv=None) -> int:
         line += (f" supersteps={m['supersteps']}/{m['max_iters']} "
                  f"host_syncs={m['host_syncs']}")
     print(line)
+    if res.partition_stats is not None:
+        s = res.partition_stats
+        print(f"  plan: vrep={s.vertex_replication:.2f} "
+              f"herep={s.hyperedge_replication:.2f} "
+              f"sync={s.sync_bytes_per_dim / 1e6:.3f} MB/dim")
     if res.superstep_stats is not None:
         v_act, he_act = res.superstep_stats
         print(f"  activity: v={v_act.tolist()}")
@@ -253,13 +325,14 @@ def main(argv=None) -> int:
     return 0
 
 
-def _motifs(args, hg, device, tracer) -> int:
+def _motifs(args, hg, device, tracer, mesh) -> int:
     import numpy as np
 
     from repro_torch.core import AnalyticsSpec, Engine
 
-    engine = Engine(device=device, tracer=tracer,
+    engine = Engine(mesh=mesh, device=device, tracer=tracer,
                     representation=args.representation,
+                    backend=args.backend,
                     intersect_kernel=args.kernel)
     aspec = AnalyticsSpec(
         hg, mode=args.mode, n_samples=args.samples, seed=args.seed,

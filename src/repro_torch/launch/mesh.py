@@ -1,0 +1,148 @@
+"""Process groups and the 1-D mesh the distributed backends run over.
+
+The JAX package builds a ``jax.sharding.Mesh`` over the devices one
+process sees.  The port runs one process per rank, so its mesh is a 1-D
+``torch.distributed.device_mesh.DeviceMesh`` over a world that is
+already initialised, its one dimension named by ``ExecutionConfig.axis``
+(``"data"``).  On the card the group is NCCL (one rank per card: NCCL
+refuses two ranks on one device); on the CPU it is ``gloo``.
+
+* ``init_local_group`` forms a group from a ``FileStore`` (no TCP port,
+  no ``env://``, nothing written to ``os.environ``), with an explicit
+  timeout, so a rank that never arrives, or a collective one rank never
+  joins, raises on every rank instead of hanging.
+* ``spawn_ranks`` runs ``fn(rank, world, *args)`` in ``world`` fresh
+  ``spawn`` processes, each on one thread, and kills them all when one
+  of them fails or a deadline, if given, passes.
+* ``make_host_mesh`` wraps the initialised world in the mesh.
+
+``make_production_mesh`` (the LM side's TPU pod meshes) belongs to
+ROADMAP.md queue 1, item 12.
+"""
+from __future__ import annotations
+
+import datetime
+import multiprocessing
+import os
+import time
+
+import torch
+import torch.distributed as dist
+
+# A group's collectives raise after this long without every rank (the
+# ceiling ``init_local_group`` enforces).
+MAX_GROUP_TIMEOUT_S = 60.0
+
+
+def init_local_group(rank: int, world: int, store_dir: str, device,
+                     timeout_s: float = MAX_GROUP_TIMEOUT_S):
+    """Join rank ``rank`` of ``world`` to the default process group.
+
+    The ranks meet in a ``FileStore`` under ``store_dir`` (every rank
+    passes the same directory; it must start empty of a former group's
+    store file).  ``device`` picks the backend: ``nccl`` for ``cuda``
+    (the rank's card is ``cuda:rank``), ``gloo`` for the CPU.  Returns
+    the device the rank runs on.
+    """
+    if not 0 < timeout_s <= MAX_GROUP_TIMEOUT_S:
+        raise ValueError(f"timeout_s must lie in (0, {MAX_GROUP_TIMEOUT_S}]")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if world > torch.cuda.device_count():
+            raise ValueError(
+                f"{world} ranks need {world} cards, "
+                f"{torch.cuda.device_count()} visible: NCCL takes one rank "
+                "per device"
+            )
+        dev = torch.device("cuda", rank)
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    os.makedirs(store_dir, exist_ok=True)
+    store = dist.FileStore(os.path.join(store_dir, "store"), world)
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(
+        backend, store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=timeout_s), **kw,
+    )
+    return dev
+
+
+def make_host_mesh(n_devices: int | None = None, axis: str = "data"):
+    """A 1-D ``DeviceMesh`` named ``axis`` over the initialised world.
+
+    ``n_devices`` must be the world size (``None``: the world size): a
+    mesh over fewer ranks would need a subgroup every rank creates.
+    """
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "no process group: call init_local_group (or "
+            "torch.distributed.init_process_group) first"
+        )
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if n != world:
+        raise ValueError(
+            f"a host mesh spans the whole world: n_devices={n}, world "
+            f"size {world}"
+        )
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, list(range(n)), mesh_dim_names=(axis,))
+
+
+def mesh_size(mesh, axis: str) -> int:
+    """The extent of ``mesh`` along the named dimension ``axis``."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if axis not in names:
+        raise ValueError(f"mesh has no axis {axis!r} (axes {names})")
+    return int(mesh.size(names.index(axis)))
+
+
+def _child(fn, rank, world, args):
+    torch.set_num_threads(1)
+    fn(rank, world, *args)
+
+
+def spawn_ranks(fn, world: int, args: tuple = (), *,
+                deadline_s: float | None = None) -> None:
+    """Run ``fn(rank, world, *args)`` in ``world`` ``spawn`` processes.
+
+    ``fn`` must be importable by name (a module-level function).  Each
+    child sets ``torch.set_num_threads(1)`` before any work.  Raises
+    ``RuntimeError`` when a child exits non-zero or ``deadline_s``
+    passes (``None``: no deadline); either way every child still
+    running is killed first.
+    """
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_child, args=(fn, r, world, args),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    end = None if deadline_s is None else time.monotonic() + deadline_s
+    failed = None
+    try:
+        while any(p.is_alive() for p in procs):
+            bad = [p for p in procs
+                   if p.exitcode is not None and p.exitcode != 0]
+            if bad:
+                failed = f"rank {procs.index(bad[0])} exited {bad[0].exitcode}"
+                break
+            if end is not None and time.monotonic() > end:
+                failed = f"ranks still running after {deadline_s:.0f} s"
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            p.join(5.0)
+    if failed is None:
+        codes = [p.exitcode for p in procs]
+        if any(c != 0 for c in codes):
+            failed = f"rank exit codes {codes}"
+    if failed is not None:
+        raise RuntimeError(f"spawn_ranks: {failed}")

@@ -17,7 +17,9 @@ one cost model, as in the JAX package's ``repro.motifs.intersect``:
 
 The index is built on the host (numpy) and lives on the hypergraph's
 device; ids and results cross as numpy arrays, as the reference's do.
-A device mesh (the sharded backend) is not ported.
+With a mesh (the sharded backend) every rank holds the whole index, runs
+its block of the pairs through the same path and the blocks meet in one
+``all_gather``.
 """
 from __future__ import annotations
 
@@ -221,18 +223,17 @@ def batch_intersections(
     """Intersection size per (ea[i], eb[i]) pair — or per triple when
     ``ec`` is given — as a host int32 array.
 
+    ``mesh``: pair blocks are tiled across ``mesh[axis]`` (every rank
+    calls with the same ids; each runs its block, a whole number of
+    ``tile``s, and one ``all_gather_into_tensor`` hands every rank all the
+    sizes) — the sharded batch-analytics backend.
+
     bitset: one kernel launch per call on the card, the plain version
     ``tile`` pairs at a time on the CPU.  merge: ``tile`` pairs at a
     time (widened on the card, ``MERGE_TILE_BYTES``).  ``timings``, when
     given, accumulates ``intersect_s`` (wall time of the call, the copy
     back to the host included) and ``intersect_calls``.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "batch_intersections over a mesh (the sharded analytics "
-            "backend) is not ported to repro_torch yet (ROADMAP.md "
-            "queue 1, item 10: core/distributed.py)"
-        )
     t0 = time.perf_counter()
     ea = np.asarray(ea, np.int32)
     eb = np.asarray(eb, np.int32)
@@ -249,6 +250,18 @@ def batch_intersections(
             raise ValueError(
                 f"hyperedge ids must lie in [0, {index.n_hyperedges})")
     dev = index.data.device
+    block = None
+    if mesh is not None:
+        from repro_torch.core.distributed import all_gather_single
+        from repro_torch.launch.mesh import mesh_size
+
+        n_parts = mesh_size(mesh, axis)
+        rank = int(mesh.get_local_rank(axis))
+        block = -(-n // (n_parts * tile)) * tile
+        # Padding pairs are (0, 0): valid rows, their sizes sliced off.
+        arrays = [np.pad(x, (0, block * n_parts - n))[rank * block:
+                                                      (rank + 1) * block]
+                  for x in arrays]
     ids = [torch.as_tensor(x, device=dev) for x in arrays]
     c = ids[2] if ec is not None else None
     if index.kind == "bitset":
@@ -257,6 +270,11 @@ def batch_intersections(
     else:
         out = _batch_merge(index.data, index.n_vertices, ids[0], ids[1], c,
                            tile)
+    if block is not None:
+        full = torch.empty(block * n_parts, dtype=out.dtype, device=dev)
+        all_gather_single(full, out.contiguous(),
+                          group=mesh.get_group(axis))
+        out = full[:n]
     res = out.cpu().numpy()
     add_time(timings, "intersect_s", t0)
     if timings is not None:

@@ -1299,3 +1299,44 @@ def test_cuda_pool_of_two_survives_kill9(card, tmp_path):
         router.close()
         for handle in spawned:
             handle.stop(force=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["replicated", "sharded"])
+def test_cuda_distributed_world1_equals_local_and_captures(card, backend,
+                                                           tmp_path):
+    # One card gives one NCCL rank: the distributed pair, K1 on the
+    # rank's shard layouts and its collectives captured in one graph.
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_local_group, make_host_mesh
+
+    hg = powerlaw_hypergraph(3000, 2000, mean_cardinality=5, seed=11,
+                             device=card)
+    spec = shortest_paths_spec(hg, 0)
+    local = Engine(device=card, delivery="pallas_fused",
+                   collect_stats=True).run(spec)
+    init_local_group(0, 1, str(tmp_path / "store"), "cuda")
+    try:
+        eng = Engine(mesh=make_host_mesh(1), device=card, backend=backend,
+                     delivery="pallas_fused", collect_stats=True,
+                     partition_strategy="random_vertex_cut")
+        deliver_fused_cuda.launches = 0
+        res = eng.run(spec)
+        assert deliver_fused_cuda.launches > 0
+        for a, b in zip(res.value + res.superstep_stats,
+                        local.value + local.superstep_stats):
+            assert torch.equal(a, b)
+        comp = eng.compile(spec)
+        comp.run()
+        got = comp.run()
+        assert got.decision["measured"]["graph"]
+        for a, b in zip(got.value, local.value):
+            assert torch.equal(a, b)
+        batch = comp.run_batch(np.asarray([0, 5, 7]))
+        for i, q in enumerate((0, 5, 7)):
+            want = comp.run(query=q).value
+            for a, b in zip(batch.value, want):
+                assert torch.equal(a[i], b)
+    finally:
+        dist.destroy_process_group()

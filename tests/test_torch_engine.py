@@ -11,8 +11,9 @@
   pairs, zero stats after the halt, resumable bitwise) and counts its
   host syncs.
 * Isolation: the port imports no ``jax`` and nothing of ``repro``;
-  entry points without a card raise unless asked for the CPU; axes not
-  ported raise ``NotImplementedError``.
+  entry points without a card raise unless asked for the CPU; invalid
+  axes raise the reference's errors (a distributed backend without a
+  mesh: "needs a mesh").
 """
 import ast
 import dataclasses
@@ -28,6 +29,7 @@ import torch
 
 import repro.algorithms as jalg
 from repro.core import Engine as JEngine
+from repro.core.executor import ExecutionConfig as JExecutionConfig
 from repro.core.executor import select_delivery as j_select_delivery
 from repro.data import powerlaw_hypergraph as j_powerlaw
 import repro_torch.algorithms as talg
@@ -175,38 +177,52 @@ def test_halting_semantics_and_host_syncs():
     assert m["host_syncs"] == 0 and m["pairs_run"] == m["supersteps"] == 5
 
 
-@pytest.mark.parametrize("overrides,exc", [
-    ({"representation": "clique"}, ValueError),
-    ({"backend": "replicated"}, NotImplementedError),
-    ({"backend": "sharded"}, NotImplementedError),
-    # checkpointing is ported on the local backend (item 8); on a
-    # distributed one it waits for item 10 with the backend itself
-    ({"backend": "replicated", "checkpoint_every": 2,
-      "checkpoint_dir": "ckpt"}, NotImplementedError),
-    ({"delivery": "fast"}, ValueError),
-    ({"backend": "mesh"}, ValueError),
-])
-def test_unported_axes_raise(overrides, exc):
+# The ids are the ones these cases have always had: the distributed
+# backends' cases once raised NotImplementedError and now resolve to the
+# reference's ValueError (a distributed backend needs a mesh, also with
+# checkpointing).
+@pytest.mark.parametrize("overrides", [
+    {"representation": "clique"},
+    {"backend": "replicated"},
+    {"backend": "sharded"},
+    {"backend": "replicated", "checkpoint_every": 2,
+     "checkpoint_dir": "ckpt"},
+    {"delivery": "fast"},
+    {"backend": "mesh"},
+], ids=["overrides0-ValueError", "overrides1-NotImplementedError",
+        "overrides2-NotImplementedError", "overrides3-NotImplementedError",
+        "overrides4-ValueError", "overrides5-ValueError"])
+def test_unported_axes_raise(overrides):
     # "clique" constructs and is refused for a spec that touches
-    # hyperedge state, with the reference's message, once resolved; the
-    # others raise in ExecutionConfig.
-    spec = talg.pagerank_spec(
-        _carry(j_powerlaw(30, 20, mean_cardinality=3, seed=2)), iters=1)
-    with pytest.raises(exc, match="ROADMAP|must be one of|hyperedge state"):
-        Engine(device="cpu", config=ExecutionConfig(**overrides)).resolve(
-            spec)
+    # hyperedge state, with the reference's message, once resolved, and
+    # so is a distributed backend without a mesh; the others raise in
+    # ExecutionConfig.  Each message is the JAX package's.
+    jspec = jalg.pagerank_spec(j_powerlaw(30, 20, mean_cardinality=3,
+                                          seed=2), iters=1)
+    spec = talg.pagerank_spec(_carry(jspec.hg0), iters=1)
+    msgs = []
+    for make in (lambda: JEngine(config=JExecutionConfig(**overrides))
+                 .resolve(jspec),
+                 lambda: Engine(device="cpu",
+                                config=ExecutionConfig(**overrides))
+                 .resolve(spec)):
+        with pytest.raises(ValueError,
+                           match="needs a mesh|must be one of|"
+                           "hyperedge state") as err:
+            make()
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
 
 
 @pytest.mark.parametrize("kw", ["mesh", "plan", "disk_cache",
                                 "fault_injector"])
 def test_unported_engine_arguments_raise(kw):
-    if kw in ("fault_injector", "disk_cache"):
-        # ported with item 8's fault half and item 9b: accepted and kept
-        obj = object()
-        assert getattr(Engine(device="cpu", **{kw: obj}), kw) is obj
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(device="cpu", **{kw: object()})
+    # every argument is ported (mesh and plan: the distributed backends,
+    # item 10; fault_injector: item 8's fault half; disk_cache: item
+    # 9b): accepted and kept, as in the JAX package
+    obj = object()
+    assert getattr(Engine(device="cpu", **{kw: obj}), kw) is obj
+    assert getattr(JEngine(**{kw: obj}), kw) is obj
 
 
 def test_unported_methods_and_wrong_inputs_raise():

@@ -208,11 +208,21 @@ def test_invalid_configs_rejected():
         AnalyticsSpec(hg, mode="guess")
     with pytest.raises(ValueError, match="intersect_kernel"):
         ExecutionConfig(intersect_kernel="gpu_hash")
-    with pytest.raises(NotImplementedError, match="replicated"):
-        Engine(device="cpu", backend="replicated")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Engine(device="cpu", backend="sharded")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the distributed backends are ported: analytics refuses
+    # "replicated", and "sharded" without a mesh, with the reference's
+    # messages; a mesh must name the axis the pair blocks tile over
+    jhg = j_powerlaw(20, 10, seed=0)
+    for backend, match in (("replicated", "does not apply"),
+                           ("sharded", "needs a mesh")):
+        msgs = []
+        for run in (lambda: JEngine(backend=backend).analyze(JSpec(jhg)),
+                    lambda: Engine(device="cpu", backend=backend).analyze(
+                        AnalyticsSpec(hg))):
+            with pytest.raises(ValueError, match=match) as err:
+                run()
+            msgs.append(str(err.value))
+        assert msgs[0] == msgs[1]
+    with pytest.raises(ValueError, match="no axis 'data'"):
         tm.batch_intersections(tm.build_index(hg, "bitset"), [0], [1],
                                mesh=object())
     with pytest.raises(ValueError, match="unknown intersection kernel"):
