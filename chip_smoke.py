@@ -209,9 +209,24 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    PageRank-30 ``run`` against ``Engine.run`` (1e-5 relative) and
    ``run_batch`` of 8 SSSP sources against ``Engine.run`` (bitwise),
    each replayed from a CUDA graph captured with its collectives,
-   queries/s; the group is destroyed at the end.
+   queries/s; the group is destroyed at the end;
+15. the static analysis on the card (``repro_torch.analysis``): (a) the
+   card's shared memory per block without and with the opt-in equals
+   ``shapes``' 49,152 and 232,448; (b) every entry function's static
+   shared memory in phase 1's ``ptxas -v`` output of all four sources
+   equals the model's (read from the sources' ``__shared__`` arrays per
+   template instantiation), and each kernel's largest static and worst
+   dynamic bytes are logged beside its limit; (c) each kernel once at
+   the worst geometry its budget admits (K1 with span ``_MAX_SPAN``,
+   K2a at ``block_n`` 4,096 and at the widest tile, K2b at the largest
+   ``block_e`` for bfloat16 D = 8, K3a at its widest rings, K4 at head
+   dim 256 in both types) against its plain version, bitwise on integer
+   payloads, phase 8's tolerance for K4; (d) ``python -m
+   repro_torch.analysis --device cuda --passes
+   lint,digest,shapes,retrace`` exits 0.
 
-Prints the kernel line (JSON; K1's entry carries phase 9's compiled
+Prints the kernel line (JSON; every entry carries phase 15's
+``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
 launches and times, phase 12's ``phase12_*`` serving keys, phase
 13's ``phase13_*`` pool keys and phase 14's ``dist_*`` keys; the isect
 entries carry phase 14's ``dist_census_launches``; K2b's, phase 11's launches and numbers at the
@@ -3020,6 +3035,95 @@ def distributed_phase(hg, fwd, local3, hg_a, census, flush):
     return k1, k3
 
 
+KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"),
+                  ("isect", "isect.cu"), ("segsum", "segsum.cu"),
+                  ("flash", "flash.cu"))
+ANALYSIS_TIMEOUT_S = 600   # phase 15 (d): the CLI's whole run
+
+
+def analysis_phase(dev):
+    """Phase 15: the static analysis on the card.  (a) the card's
+    shared memory per block, with and without the opt-in, against
+    ``repro_torch.analysis.shapes``' constants; (b) every entry
+    function's static shared memory from phase 1's ``ptxas -v`` against
+    the model's, for all four sources; (c) each kernel at the worst
+    geometry its budget admits (``shapes.worst_launches``) against its
+    plain version: bitwise on integer payloads (K1, K2a, K2b, K3a),
+    phase 8's tolerance for K4; (d) ``python -m repro_torch.analysis
+    --device cuda --passes lint,digest,shapes,retrace`` in a subprocess,
+    which must exit 0.  Returns per kernel id the model's largest static
+    and worst dynamic bytes."""
+    import torch
+
+    from repro_torch.analysis import shapes
+    from repro_torch.kernels import _nvcc
+
+    limits = shapes.device_limits(dev)
+    want = (shapes.DEFAULT_BYTES, shapes.OPTIN_BYTES)
+    log(f"  (a) shared memory a block: {limits[0]} bytes, {limits[1]} "
+        f"opted in (model {want[0]}, {want[1]})")
+    if limits != want:
+        fail(f"device shared memory limits {limits} != model {want}")
+
+    logs = {src: _nvcc.build_log(name, (src,))
+            for name, src in KERNEL_SOURCES}
+    bad = shapes.check_ptxas(logs)
+    if bad:
+        fail("ptxas static shared memory != model: " + "; ".join(
+            f.scope + ": " + f.message for f in bad))
+    n_entries = sum(len(shapes.ptxas_static_smem(t)) for t in logs.values())
+    log(f"  (b) ptxas static shared memory equals the model for all "
+        f"{n_entries} entry functions")
+    rows = shapes.instantiations()
+    budget = {}
+    for kid in ("K1", "K2a", "K2b", "K3a", "K3b", "K4"):
+        mine = [r for r in rows if r.kernel == kid]
+        worst = max(mine, key=lambda r: r.total / r.limit)
+        budget[kid] = {"smem_static": max(r.static for r in mine),
+                       "smem_dynamic_worst": max(r.dynamic for r in mine)}
+        log(f"  {kid}: static up to {budget[kid]['smem_static']} B, worst "
+            f"dynamic {budget[kid]['smem_dynamic_worst']} B; closest to "
+            f"its limit: {worst.entry} {worst.static} + {worst.dynamic} = "
+            f"{worst.total} of {worst.limit} B "
+            f"({worst.limit - worst.total} to spare; {worst.where})")
+    if shapes.check_budgets(rows):
+        fail("a kernel's shared memory exceeds its limit")
+
+    for kid, label, kernel, plain in shapes.worst_launches(dev):
+        got = kernel()
+        ref = plain()
+        torch.cuda.synchronize()
+        tag = f"phase 15 {kid} {label}"
+        if kid == "K4":
+            rtol, atol = FLASH_TOL[str(got.dtype).removeprefix("torch.")]
+            err = check_close(tag, got, ref, rtol, atol)
+            log(f"  (c) {kid} {label}: max abs err {err:.3g} (rtol {rtol}, "
+                f"atol {atol})")
+        else:
+            if got.shape != ref.shape or got.dtype != ref.dtype or (
+                    not torch.equal(got, ref)):
+                fail(f"{tag}: kernel != plain")
+            log(f"  (c) {kid} {label}: bitwise equal to the plain version")
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--device", "cuda",
+         "--passes", "lint,digest,shapes,retrace"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=ANALYSIS_TIMEOUT_S)
+    for line in proc.stdout.splitlines()[-8:]:
+        log(f"    {line}")
+    if proc.returncode != 0:
+        fail(f"python -m repro_torch.analysis exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    log(f"  (d) python -m repro_torch.analysis --device cuda: exit 0 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return budget
+
+
 def main() -> int:
     import torch
 
@@ -3243,6 +3347,14 @@ def main() -> int:
     log(f"phase 14: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 15: the static analysis on the card ----------------------------
+    t0 = time.perf_counter()
+    log("phase 15: shared-memory budgets against the card and ptxas, the "
+        "worst geometries, the analysis CLI")
+    smem = analysis_phase(dev)
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -3259,6 +3371,7 @@ def main() -> int:
         **serve_tier,
         **pool,
         **dist_k1,
+        **smem["K1"],
     }]
     for name, replaces, launches in (
             ("isect", "src/repro/kernels/isect/isect.py:63", k3a_launches),
@@ -3274,6 +3387,7 @@ def main() -> int:
             **isect_entries[name],
             "library_ms": None,  # torch has no popcount op
             "dist_census_launches": dist_k3[name],
+            **smem["K3a" if name == "isect" else "K3b"],
         })
     # K2b's numbers are at its caller's shapes (phase 11: the clique
     # PageRank); phase 7's, at the DBLP incidences, follow as phase7_*.
@@ -3289,12 +3403,12 @@ def main() -> int:
          for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
         caller="none: phase 7's segment_sum_mxu calls (index_add_ measured "
                "faster for graph_pagerank's out-weights)")
-    for name, source, replaces, entry in (
-            ("segsum", "segsum.cu", "segsum/segsum.py:125",
+    for name, kid, source, replaces, entry in (
+            ("segsum", "K2a", "segsum.cu", "segsum/segsum.py:125",
              segsum_entries["segsum"]),
-            ("segsum_sorted", "segsum.cu", "segsum/segsum.py:157",
+            ("segsum_sorted", "K2b", "segsum.cu", "segsum/segsum.py:157",
              segsum_entries["segsum_sorted"]),
-            ("flash", "flash.cu", "flash/flash.py:93", flash_entry)):
+            ("flash", "K4", "flash.cu", "flash/flash.py:93", flash_entry)):
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3307,6 +3421,7 @@ def main() -> int:
             "bound_ms": entry["bound_ms"],
             "bound_by": entry["bound_by"],
             "library_ms": entry["library_ms"],
+            **smem[kid],
         })
     for name in ("segsum", "segsum_sorted"):
         next(k for k in kernels if k["name"] == name).update(

@@ -229,6 +229,8 @@ def compute_resumable(
     included), ``host_syncs`` (activity reads on the host) and
     ``halted``.
     """
+    # analysis: ignore[host-sync] — the state's step is a host int
+    # (``initial_superstep_state``, a checkpoint's restored state)
     step0 = int(state["step"])
     counters = counters if counters is not None else {}
     out = {**state, "step": step0 + 2 * n_iters}
@@ -468,6 +470,9 @@ def halting_loop(pair, state: dict, max_iters: int,
         pairs += 1
         if data_dependent:
             counters["host_syncs"] += 1
+            # analysis: ignore[host-sync] — the halting read: one per
+            # data-dependent pair, by design (the step and the counts
+            # stay on the card; only the decision to stop comes back)
             halted = bool(state["done"])
     counters["pairs_run"] += pairs
     counters["halted"] = halted

@@ -63,6 +63,7 @@ an executable build ``engine.build_executable`` and a request
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 import weakref
 from typing import Any
@@ -374,7 +375,11 @@ class _Executable:
         on the host, say) raises; nothing falls back to eager pairs.
         A distributed pair is captured with its collectives: one eager
         collective on the group first makes NCCL's communicator, which
-        NCCL creates lazily and a capture cannot."""
+        NCCL creates lazily and a capture cannot.  The cyclic garbage
+        collector is off while the capture is open: torch no longer
+        collects on entering one, and a collection inside it that frees
+        another executable's graph (a dead cycle holding it) makes CUDA
+        calls that void this capture."""
         dev = self.device
         if self.ctx is not None:
             dist.all_reduce(torch.zeros(1, device=dev), group=self.ctx.group)
@@ -399,7 +404,13 @@ class _Executable:
                 self.pair()
                 pool.append(torch.cuda.memory_reserved(dev) - reserved)
 
-        self.recorded = captured_launches(record)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            self.recorded = captured_launches(record)
+        finally:
+            if collecting:
+                gc.enable()
         self.graph = graph
         self.pool_bytes = pool[0]
         self._note_trace()
@@ -912,6 +923,8 @@ class CompiledAlgorithm:
                                     device=exe.device)
                 dist.all_reduce(most, op=dist.ReduceOp.MAX,
                                 group=prep.ctx.group)
+                # analysis: ignore[host-sync] — once per entry build
+                # (its bytes agreed over the ranks), not per request
                 exe.nbytes = int(most)
             engine._fit_exec_cache()
         if warm_only:
@@ -924,6 +937,8 @@ class CompiledAlgorithm:
         if inj is not None:
             inj.maybe_raise(
                 "execute", algorithm=spec.name, backend=cfg.backend,
+                # analysis: ignore[host-sync] — b is the host-side batch
+                # size, not a tensor
                 delivery=cfg.delivery, batch=int(b) if b is not None else 0,
             )
         counters: dict = {}
@@ -931,6 +946,7 @@ class CompiledAlgorithm:
         with maybe_span(
             tracer, "engine.execute", cat="execute", algorithm=spec.name,
             backend=cfg.backend, delivery=cfg.delivery,
+            # analysis: ignore[host-sync] — b is the host-side batch size
             batch=int(b) if b is not None else 0,
         ) as sp:
             pairs = halting_loop(exe.replay, exe.state, cfg.max_iters,
@@ -963,6 +979,8 @@ class CompiledAlgorithm:
         )
         t1 = time.perf_counter()
         if exe.device.type == "cuda":
+            # analysis: ignore[host-sync] — a request ends with its
+            # results ready: the device wait it reports (``measured``)
             torch.cuda.synchronize(exe.device)
         t2 = time.perf_counter()
         halted = counters["halted"]

@@ -204,6 +204,9 @@ def leaf_plan(layout: DeliveryLayout) -> LeafPlan:
     hit = _PLANS.get(key)
     if hit is not None and hit[0]() is layout:
         return hit[1]
+    # analysis: ignore[capture-sync] — never during a capture: on the
+    # card the compiled path builds every plan before it captures
+    # (``core/serving.py``'s ``_structure``), and the capture finds it
     plan = _build_leaf_plan(layout)
     _PLANS[key] = (weakref.ref(layout), plan)
     weakref.finalize(layout, _PLANS.pop, key, None)
@@ -241,8 +244,8 @@ def _check_kernel_args(msgs, monoid_name, dev):
         )
 
 
-def _launch(msgs, act, desc, n_classes, block_n, slot_dst, zero_dst,
-            n_zero, out, monoid_name):
+def _launch(msgs, act, desc, n_classes: int, block_n: int, slot_dst,
+            zero_dst, n_zero: int, out, monoid_name: str):
     """One launch of the kernel; counted in ``deliver_fused_cuda.launches``
     (the one counter of the kernel, whichever wrapper launches it)."""
     act_kind = 0 if act is None else _ACT_KINDS[act.dtype]

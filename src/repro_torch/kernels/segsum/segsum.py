@@ -175,11 +175,15 @@ def k2a_geometry(n_edges: int, n: int, d: int, itemsize: int, block_n: int,
 
 
 # K2b's constants, as in csrc/segsum.cu (kK2bThreads, 1 << kLgFan), and
-# the most dynamic shared memory a block may opt into (227 KB less the
-# kernel's static arrays, at most 8 KB).
+# the most dynamic shared memory a block may opt into: 227 KB less the
+# largest static arrays of a k2b_kernel template that runs, those of
+# <bfloat16, 8, false> (s_wval [kK2bWarps][32 * 8] float32, s_ma
+# [kK2bThreads] int32 and 48 bytes of scalars; repro_torch.analysis.shapes
+# reads every template's from the source and holds the largest equal).
 K2B_THREADS = 256
 K2B_FAN_IN = 16
-K2B_SMEM_LIMIT = 232448 - 9 * 1024
+K2B_STATIC_BYTES = 4 * (K2B_THREADS // 32) * 32 * 8 + 4 * K2B_THREADS + 48
+K2B_SMEM_LIMIT = 232448 - K2B_STATIC_BYTES
 # Blocks below which K2b's geometry halves the items a block takes (down
 # to block_e): two for each SM of an H100.
 K2B_MIN_BLOCKS = 256

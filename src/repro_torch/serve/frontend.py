@@ -540,6 +540,7 @@ class Frontend:
             return
         self._record_outcome(flush.group, ok=True)
         executed = getattr(res, "supersteps_executed", None)
+        # analysis: ignore[host-sync] — a host int (the pairs run)
         executed = int(executed) if executed is not None else None
         self.metrics.note_flush(
             flush.group[0], flush.reason, b, bucket, waits, execute_s,
@@ -657,6 +658,8 @@ def _stack(queries: list[Any]):
     """Stack B host queries (trees of scalars or arrays) into one
     batched tree (leading axis B)."""
     return tree_map(
+        # analysis: ignore[host-sync] — queries arrive as host values
+        # (scalars, numpy): batching them is host work, no device read
         lambda *leaves: np.stack([np.asarray(x) for x in leaves]),
         *queries,
     )
@@ -667,6 +670,8 @@ def _unstack(value: Any, b: int) -> list[Any]:
     a view of its flush's tensor, which the flush owns (``run_batch``
     results are copies, never an executable's buffers); a leaf that is
     no tensor becomes a numpy array."""
+    # analysis: ignore[host-sync] — only leaves that are no tensor (host
+    # values) go through numpy; tensors are sliced where they lie
     leaves = [leaf if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
               for leaf in tree_leaves(value)]
     rows = []
@@ -684,4 +689,6 @@ def _block(value: Any) -> None:
     devices = {leaf.device for leaf in tree_leaves(value)
                if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
     for dev in devices:
+        # analysis: ignore[host-sync] — futures resolve to finished
+        # rows: one wait per flush, by design
         torch.cuda.current_stream(dev).synchronize()

@@ -128,20 +128,26 @@ _HOST = threading.local()
 def _to_host(x):
     """One result leaf as numpy.  A card tensor is copied on a stream of
     this thread's own (never the legacy default stream, which another
-    thread's open capture may not tolerate); the ``Frontend`` has
+    thread's open capture may not tolerate), a high-priority one: torch
+    hands out streams of a priority from a ring of 32, and a default one
+    may be the very stream a capture is open on (``torch.cuda.graph``'s
+    capture stream is a default-priority one).  The ``Frontend`` has
     synchronized the flush's stream already."""
     import numpy as np
     import torch
 
     if not isinstance(x, torch.Tensor):
-        return np.asarray(x)
+        return np.asarray(x)  # analysis: ignore[host-sync] — host value
     if x.device.type == "cuda":
         stream = getattr(_HOST, "stream", None)
         if stream is None:
-            stream = _HOST.stream = torch.cuda.Stream(x.device)
+            stream = _HOST.stream = torch.cuda.Stream(x.device, priority=-1)
         with torch.cuda.stream(stream):
+            # analysis: ignore[host-sync] — the answer crosses the pipe
+            # as numpy: one copy per result leaf, by design (the flush
+            # is ready)
             return x.cpu().numpy()
-    return x.numpy()
+    return x.numpy()  # analysis: ignore[host-sync] — a CPU tensor
 
 
 def replica_main(conn, config: ReplicaConfig) -> None:
@@ -303,8 +309,8 @@ def _serve_replica(conn, config: ReplicaConfig) -> None:
         _send(("bye", _stats()))
         try:
             conn.close()
-        except Exception:
-            pass  # last act of a dying process; no one left to tell
+        except Exception:  # analysis: ignore[swallowed-error] — last act
+            pass  # of a dying process; no one left to tell
 
 
 def _chaos_gate(injector, config: ReplicaConfig, last_words) -> bool:

@@ -1225,6 +1225,75 @@ def test_cuda_pipe_thread_host_copy_while_the_worker_captures(
 
 
 @pytest.mark.cuda
+def test_cuda_capture_holds_while_a_dead_engine_awaits_collection(
+        card, monkeypatch):
+    """A dead cycle holds a whole Engine with captured graphs; it is
+    dropped inside the next capture with the collector's threshold at 1,
+    so a cyclic collection would free it there.  The capture keeps the
+    collector off: the compiled run captures and equals ``Engine.run``."""
+    import gc
+
+    from repro_torch.core import serving
+
+    hg = _card_hg(card)
+    old = Engine(device=card, delivery="pallas_fused")
+    old.compile(shortest_paths_spec(hg, 0, 8)).run()
+    keep = [old]
+    del old
+    pair = serving._Executable.pair
+    threshold = gc.get_threshold()
+
+    def dropping_pair(self):
+        if torch.cuda.is_current_stream_capturing() and keep:
+            cycle = [keep.pop()]
+            cycle.append(cycle)
+            del cycle
+            gc.set_threshold(1)
+        return pair(self)
+
+    monkeypatch.setattr(serving._Executable, "pair", dropping_pair)
+    spec = pagerank_spec(hg, iters=3)
+    try:
+        res = Engine(device=card, delivery="pallas_fused").compile(spec).run()
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    assert not keep and res.decision["measured"]["graph"]
+    want = Engine(device=card, delivery="pallas_fused").run(spec)
+    for a, b in zip(res.value, want.value):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_host_copy_stream_is_never_the_capture_stream(card):
+    """Torch hands out streams of one priority from a ring of 32, and
+    ``torch.cuda.graph`` captures on a default-priority one: a pipe
+    thread's copy stream is a high-priority one, so however many threads
+    make theirs, none is the stream a capture is open on."""
+    import threading
+
+    from repro_torch.serve import replica
+
+    graph = torch.cuda.CUDAGraph()
+    x = torch.zeros(4, device=card)
+    with torch.cuda.graph(graph):
+        x.add_(1)
+    capture = torch.cuda.graph.default_capture_stream.cuda_stream
+    row = torch.arange(8, dtype=torch.float32, device=card)
+    streams = []
+
+    def copy():
+        assert np.array_equal(replica._to_host(row), np.arange(8))
+        streams.append(replica._HOST.stream.cuda_stream)
+
+    for _ in range(40):
+        t = threading.Thread(target=copy)
+        t.start()
+        t.join(timeout=60)
+    assert len(streams) == 40 and capture not in streams
+
+
+@pytest.mark.cuda
 def test_cuda_pool_of_two_survives_kill9(card, tmp_path):
     """Two replica processes on the card behind the router, booted from
     the parent's records: kill -9 of one mid-replay, every request
@@ -1340,3 +1409,99 @@ def test_cuda_distributed_world1_equals_local_and_captures(card, backend,
                 assert torch.equal(a[i], b)
     finally:
         dist.destroy_process_group()
+
+
+# -- static analysis on the card: the shared-memory budgets ---------------
+
+KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"), ("isect", "isect.cu"),
+                  ("segsum", "segsum.cu"), ("flash", "flash.cu"))
+
+
+@pytest.mark.cuda
+def test_cuda_k2b_at_the_largest_block_e_the_geometry_admits(card):
+    """bfloat16 D = 8 (``k2b_kernel<__nv_bfloat16, 8, false>``, the
+    template with the most static shared memory) at the largest
+    ``block_e`` ``k2b_geometry`` admits: the launch fits the opt-in limit
+    beside the static arrays and equals the plain version bitwise
+    (integer payloads).  With the 9 KB reserve taken before, the
+    geometry admitted blocks 48 bytes larger than the card gives."""
+    from repro_torch.analysis import shapes
+
+    rng = np.random.default_rng(26)
+    e, n = 50_000, 10_000
+    ids = torch.sort(torch.as_tensor(rng.integers(0, n, e).astype(np.int32),
+                                     device=card)).values
+    offsets = torch.searchsorted(
+        ids, torch.arange(n + 1, dtype=torch.int32, device=card)).to(
+        torch.int32)
+    msgs = torch.as_tensor(rng.integers(-4, 5, (e, 8)).astype(np.float32),
+                           device=card).to(torch.bfloat16)
+    be = shapes._largest_admitted(
+        lambda b: segsum_module.k2b_geometry(e, n, 8, 2, b, True))
+    geo = segsum_module.k2b_geometry(e, n, 8, 2, be, True)
+    static = shapes.static_bytes("segsum.cu", "k2b_kernel",
+                                 ("__nv_bfloat16", "8", "false"))
+    assert geo.items == be and geo.vec == 8
+    assert geo.smem_bytes + static <= shapes.OPTIN_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        segsum_module.k2b_geometry(e, n, 8, 2, be + 4, True)
+    before = segsum_sorted_cuda.launches
+    got = segsum_sorted_cuda(msgs, offsets, n, block_e=be)
+    torch.cuda.synchronize()
+    assert segsum_sorted_cuda.launches == before + 1
+    assert torch.equal(got, segsum_sorted_plain(msgs, offsets, n))
+
+
+@pytest.mark.cuda
+def test_cuda_shared_memory_limits_equal_the_model(card):
+    from repro_torch.analysis import shapes
+
+    assert shapes.device_limits(card) == (shapes.DEFAULT_BYTES,
+                                          shapes.OPTIN_BYTES)
+
+
+@pytest.mark.cuda
+def test_cuda_ptxas_static_shared_memory_equals_the_model(card):
+    """Every entry function of the four builds, with ``ptxas``'s static
+    bytes equal to the model's (read from the sources' arrays)."""
+    from repro_torch.analysis import shapes
+
+    logs = {src: _nvcc.build_log(name, (src,))
+            for name, src in KERNEL_SOURCES}
+    assert all(shapes.ptxas_static_smem(t) for t in logs.values())
+    bad = shapes.check_ptxas(logs)
+    assert bad == [], [f.scope + ": " + f.message for f in bad]
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_at_their_worst_geometry_equal_plain(card):
+    """Each kernel once at the worst geometry its budget admits (K1 at
+    span ``_MAX_SPAN``, K2a at ``block_n`` 4,096 and at the widest tile,
+    K2b at the largest ``block_e``, K3a at its widest rings, K4 at head
+    dim 256): bitwise on integer payloads, K4 within this file's
+    attention tolerance."""
+    from repro_torch.analysis import shapes
+
+    cases = shapes.worst_launches(card)
+    assert sorted({c[0] for c in cases}) == ["K1", "K2a", "K2b", "K3a",
+                                             "K4"]
+    for kid, label, kernel, plain in cases:
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == want.dtype, label
+        if kid == "K4":
+            tol = 2e-5 if got.dtype == torch.float32 else 3e-2
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+        else:
+            assert torch.equal(got, want), (kid, label)
+
+
+@pytest.mark.cuda
+def test_cuda_shape_budget_audit_on_the_card(card):
+    """The ``shapes`` pass with the fused lowering on the card (K1)."""
+    from repro_torch.analysis import shapes
+
+    before = deliver_fused_cuda.launches
+    assert shapes.shape_budget_audit(device=card) == []
+    assert deliver_fused_cuda.launches > before
