@@ -223,7 +223,34 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    dim 256 in both types) against its plain version, bitwise on integer
    payloads, phase 8's tolerance for K4; (d) ``python -m
    repro_torch.analysis --device cuda --passes
-   lint,digest,shapes,retrace`` exits 0.
+   lint,digest,shapes,retrace`` exits 0;
+16. the LM serving path (``repro_torch.launch.serve``) at llama3.2-1b's
+   full width (16 layers, d_model 2,048, 32 heads over 8 KV heads of 64,
+   1,235,814,400 float32 weights from seed 0): (a) K4 with K/V of 8
+   heads for 32 query heads (the KV-head index) against ``flash_plain``
+   at B = 4, S = 4,096 and 4,000, bfloat16 and float32, phase 8's
+   tolerances, each failing two planted mapping faults (KV heads tiled
+   as h % KvH; KV group 1 zeroed), and at S = 4,096 the kernel, its
+   plain version and ``scaled_dot_product_attention(enable_gqa=True)``
+   timed beside the bound, with the layout copies between the model's
+   ``[B, S, H, hd]`` and K4's ``[B, H, S, hd]`` timed apart; (b) the
+   launcher's ``--no-smoke --batch 4 --prompt-len 4096 --gen 16`` through
+   ``serve.generate``: exactly 16 K4 launches a prefill and none a
+   decode step, prefill ms and tokens/s, decode ms a step with the
+   bfloat16 casts kept and with every weight cast each call, and a
+   prefill's and a decode step's card busy time, idle share and kernels
+   under ``torch.profiler``; (c) the
+   prefill's last logits through K4 against the plain route (the
+   script's hook swaps ``flash_plain`` in), within 5e-2 of the largest
+   magnitude, K4's distance from the float32 prefill at most twice the
+   plain route's, and float32 ``serve_step`` over 32 tokens reproducing
+   float32 ``prefill`` within 2e-4 at ``highest`` matmul precision; (d)
+   one timed prefill at ``prefill_32k``'s S = 32,768, its batch of 32 cut
+   to 1; (e) the five LM ``smoke()`` configs (gemma's chunked local
+   layers, command-r's parallel block, qwen3's and llama4's MoE on the
+   global and the grouped dispatch) on the card, K4 route against plain
+   route in float32 (1e-4) and bfloat16 (2e-2 where no router), with
+   greedy decode; peak memory.
 
 Prints the kernel line (JSON; every entry carries phase 15's
 ``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
@@ -231,7 +258,8 @@ launches and times, phase 12's ``phase12_*`` serving keys, phase
 13's ``phase13_*`` pool keys and phase 14's ``dist_*`` keys; the isect
 entries carry phase 14's ``dist_census_launches``; K2b's, phase 11's launches and numbers at the
 clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 7's, with
-the clique out-weights' as ``out_w_*``) and, last, the device line
+the clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase
+16's as ``lm_*``) and, last, the device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
 """
 import json
@@ -3035,6 +3063,387 @@ def distributed_phase(hg, fwd, local3, hg_a, census, flush):
     return k1, k3
 
 
+# Phase 16: the LM serving path at llama3.2-1b's full width.
+LM_ARCH = "llama3.2-1b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 16   # (b): the launcher's run
+LM_LONG = 32768        # (d): prefill_32k's sequence; its batch 32 cut to 1
+LM_F32_PROMPT = 32     # (c): decode against prefill in float32
+LM_SMOKE_BATCH, LM_SMOKE_PROMPT = 4, 128    # (e): 512 tokens, grouped MoE
+# (c) the prefill's last logits, K4 route against the plain route, bf16,
+# as a share of the plain logits' largest magnitude.  Each bf16 route
+# sits about 2e-2 from the float32 prefill on these random weights (the
+# plain route 0.0199, K4 0.0220 on an H100; PERF.md §6): bf16 through 16
+# layers, not the kernel.  Two routes that far from one answer may
+# differ by their sum (~4e-2), so the limit is 5e-2, and K4 is also held
+# to at most twice the plain route's distance from float32.
+LM_ROUTE_TOL = 5e-2
+LM_DECODE_TOL = 2e-4   # tests/test_models_lm.py::test_prefill_matches_decode
+# (e) float32, K4 route against the plain route, of the largest magnitude:
+# K4's float32 kernel is within phase 8's 2e-5 of its plain version.
+LM_SMOKE_F32_TOL = 1e-4
+# (a) K4's GQA form at the model's attention shapes: (dtype, S).
+GQA_CASES = (("bfloat16", 4096), ("float32", 4096), ("bfloat16", 4000),
+             ("float32", 4000))
+
+
+def gqa_bound(dtype, b, h, kvh, s, d, sms, clock):
+    """(bytes s, operations s) of one causal GQA call: q and out with H
+    heads, k and v with KvH, once each; the operations as phase 8's."""
+    import torch
+
+    size = torch.tensor([], dtype=dtype).element_size()
+    _, ops_s = flash_bound(dtype, True, b, h, s, d, sms, clock)
+    return 2 * b * (h + kvh) * s * d * size / HBM_BYTES_PER_S, ops_s
+
+
+def plain_route(q, k, v, causal=True):
+    """The attention route's plain version: ``flash_plain`` in whole
+    4,096-row blocks (the smoke swaps it in for the kernel in (c), (e))."""
+    from repro_torch.kernels.flash import flash_plain
+
+    return flash_plain(q, k, v, causal=causal, block_q=4096, block_k=4096)
+
+
+def with_plain_route(fn):
+    """``fn()`` with ``models.attention``'s K4 route on the plain version
+    (a hook of this script; the program has no switch)."""
+    from repro_torch.models import attention
+
+    kernel = attention.flash_attention
+    attention.flash_attention = plain_route
+    try:
+        return fn()
+    finally:
+        attention.flash_attention = kernel
+
+
+def profiled(call, n):
+    """(wall ms, busy device ms, kernels a call, [(kernel, device ms)])
+    of ``call`` over ``n`` calls under ``torch.profiler`` (CUDA rows
+    only: a host op's row repeats its kernels' time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    rows = [(ev.key, ev.self_device_time_total / 1e3 / n, ev.count / n)
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return (wall, sum(r[1] for r in rows), sum(r[2] for r in rows),
+            [(k, ms) for k, ms, _ in rows])
+
+
+def gqa_checks(dev, flush, sms, clock):
+    """Phase 16 (a): K4 with K/V of fewer heads against ``flash_plain``
+    at llama3.2-1b's shapes, with two planted mapping faults, and the
+    timings at the prefill's shape.  Returns the ``lm_*`` timing keys
+    and the max abs error."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import flash_cuda
+
+    b, h, kvh, d = LM_BATCH, 32, 8, 64
+    rep = h // kvh
+    gen = torch.Generator(device=dev).manual_seed(16)
+    keys, max_err = {}, 0.0
+    for dtype_name, s in GQA_CASES:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(b, kvh, s, d, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        got = flash_cuda(q, k, v, causal=True)
+        want = plain_route(q, k, v)
+        label = f"K4 GQA {dtype_name} B={b} H={h} KvH={kvh} S={s} D={d}"
+        rtol, atol = FLASH_TOL[dtype_name]
+        bound = FLASH_ROW_REL[dtype_name]
+        err = check_close(label, got, want, rtol, atol)
+        rel = row_rel_err(got, want)
+        if rel > bound or not torch.isfinite(got).all():
+            fail(f"{label}: row-relative error {rel:.3g} over {bound}")
+        max_err = max(max_err, err)
+        # Planted: the heads' KV mapped as h % KvH (tiled, not grouped),
+        # and KV head group 1 zeroed; only a wrong KV-head index shows so.
+        kz, vz = k.clone(), v.clone()
+        kz[:, 1] = 0
+        vz[:, 1] = 0
+        faults = [row_rel_err(plain_route(q, k.repeat(1, rep, 1, 1),
+                                          v.repeat(1, rep, 1, 1)), want),
+                  row_rel_err(plain_route(q, kz, vz), want)]
+        if min(faults) <= bound:
+            fail(f"{label}: a planted mapping fault reads {min(faults):.3g}"
+                 f", within the limit {bound}")
+        log(f"  (a) {label}: == plain within rtol {rtol} atol {atol} (max "
+            f"abs err {err:.3g}); row-relative {rel:.3g} of {bound} "
+            f"(planted tiled KV mapping {faults[0]:.3g}, KV group 1 "
+            f"zeroed {faults[1]:.3g})")
+        del kz, vz, want
+        if s != LM_PROMPT:
+            continue
+        reps = dict(n_timed=5, n_warm=1)
+        k_ms = time_cuda(lambda: flash_cuda(q, k, v, causal=True), flush,
+                         **reps)
+        p_ms = time_cuda(lambda: plain_route(q, k, v), flush, n_timed=3,
+                         n_warm=1)
+        try:
+            l_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), flush, **reps)
+            lib = "sdpa enable_gqa"
+        except TypeError:
+            kx, vx = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+            l_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                q, kx, vx, is_causal=True), flush, **reps)
+            lib = "sdpa on expanded K/V"
+        # The model's layout [B, S, H, hd] and its copies into K4's.
+        qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def transposes():
+            tq, tk, tv = (x.transpose(1, 2).contiguous()
+                          for x in (qm, km, vm))
+            return tq.transpose(1, 2).reshape(b, s, h * d)
+
+        t_ms = time_cuda(transposes, flush, **reps)
+        b_s, o_s = gqa_bound(dtype, b, h, kvh, s, d, sms, clock)
+        bound_ms = max(b_s, o_s) * 1e3
+        tflops = 4 * d * flash_pairs(True, b, h, s) / (k_ms * 1e-3) / 1e12
+        log(f"  (a) timed {dtype_name} at the prefill's shape: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, {lib} {l_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({'bytes' if b_s >= o_s else 'operations'}"
+            f"); {bound_ms / k_ms:.1%} of the bound, {tflops:.1f} TFLOP/s; "
+            f"the layout copies q, k, v in and out back {t_ms:.4f} ms")
+        if dtype == torch.bfloat16:
+            keys.update(lm_ms=k_ms, lm_plain_ms=p_ms, lm_library_ms=l_ms,
+                        lm_library=lib, lm_bound_ms=bound_ms,
+                        lm_bound_by="bytes" if b_s >= o_s else "operations",
+                        lm_transpose_ms=t_ms)
+        else:
+            keys.update(lm_f32_ms=k_ms, lm_f32_library_ms=l_ms,
+                        lm_f32_bound_ms=bound_ms)
+        del q, k, v, got, qm, km, vm
+    return keys, max_err
+
+
+def lm_phase(dev, flush, sms, clock, smi):
+    """Phase 16: the LM serving path (``repro_torch.launch.serve``) at
+    llama3.2-1b's full width; see the module docstring.  Returns K4's
+    ``lm_*`` keys for the kernel line."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models.layers import release_casts
+    from repro_torch.models.transformer import (
+        forward,
+        init_cache,
+        param_count,
+        prefill,
+        serve_step,
+    )
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    torch.cuda.reset_peak_memory_stats(dev)
+    if torch.get_float32_matmul_precision() != "highest":
+        fail("float32 matmuls are not at 'highest' precision (TF32 would "
+             "enter the float32 checks)")
+    keys, max_err = gqa_checks(dev, flush, sms, clock)
+    log(f"  {at()} (a) done")
+
+    # (b) the launcher's path: prefill 4 x 4096, then 15 greedy steps.
+    with torch.no_grad():
+        cfg, params = serve.build(LM_ARCH, smoke=False, seed=0, device=dev)
+        n_params = sum(p.numel() for p in params.parameters())
+        if n_params != param_count(cfg):
+            fail(f"{n_params} weights, param_count {param_count(cfg)}")
+        prompts = serve.make_prompts(cfg, LM_BATCH, LM_PROMPT, device=dev)
+        serve.generate(params, cfg, prompts, 2)   # the casts, once
+        flash_cuda.launches = 0
+        last, cache = prefill(params, cfg, prompts)
+        torch.cuda.synchronize()
+        per_prefill = flash_cuda.launches
+        tok = torch.argmax(last, dim=-1)
+        full = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+        for key in full:
+            full[key][:, :, :LM_PROMPT].copy_(cache[key])
+        flash_cuda.launches = 0
+        serve_step(params, cfg, full, tok, LM_PROMPT)
+        torch.cuda.synchronize()
+        per_step = flash_cuda.launches
+        if per_prefill != cfg.n_layers or per_step != 0:
+            fail(f"K4 launched {per_prefill} times a prefill (expected "
+                 f"{cfg.n_layers}) and {per_step} a decode step (expected 0)")
+        flash_cuda.launches = 0
+        ids, walls = serve.generate(params, cfg, prompts, LM_GEN)
+        torch.cuda.synchronize()
+        if flash_cuda.launches != cfg.n_layers:
+            fail(f"generate launched K4 {flash_cuda.launches} times")
+        if tuple(ids.shape) != (LM_BATCH, LM_GEN) or not bool(
+                ((ids >= 0) & (ids < cfg.vocab)).all()):
+            fail(f"generated ids of shape {tuple(ids.shape)} out of range")
+        if not torch.isfinite(last).all():
+            fail("non-finite prefill logits")
+        log(f"  {at()} (b) {LM_ARCH} --no-smoke: {n_params:,} weights "
+            f"(float32, seed 0), prefill {LM_BATCH} x {LM_PROMPT}, "
+            f"{LM_GEN - 1} greedy steps; K4 {per_prefill} launches a "
+            f"prefill, {per_step} a decode step; generate's walls: "
+            f"prefill {walls['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{walls['decode_s'] * 1e3:.1f} ms for {walls['steps']} steps")
+        prefill_ms = time_cuda(lambda: prefill(params, cfg, prompts), flush,
+                               n_timed=3, n_warm=1)
+        step_ms = time_cuda(lambda: serve_step(params, cfg, full, tok,
+                                               LM_PROMPT), flush, n_timed=5,
+                            n_warm=1)
+
+        def uncached_step():
+            release_casts(params)
+            serve_step(params, cfg, full, tok, LM_PROMPT)
+
+        cast_ms = time_cuda(uncached_step, flush, n_timed=3, n_warm=1)
+        serve_step(params, cfg, full, tok, LM_PROMPT)  # casts kept again
+        tokens_s = LM_BATCH * LM_PROMPT / (prefill_ms * 1e-3)
+        log(f"  (b) prefill {prefill_ms:.2f} ms ({tokens_s:,.0f} tokens/s); "
+            f"decode {step_ms:.3f} ms a step with the bf16 casts kept, "
+            f"{cast_ms:.3f} ms casting each weight a call (median of 5 / 3, "
+            f"L2 flushed) [{smi}]")
+        idle = {}
+        for label, call, n in (
+                ("prefill", lambda: prefill(params, cfg, prompts), 2),
+                ("decode step", lambda: serve_step(params, cfg, full, tok,
+                                                   LM_PROMPT), 10)):
+            wall, busy, n_k, rows = profiled(call, n)
+            idle[label] = 1.0 - busy / wall
+            top = "; ".join(f"{k[:48]} {ms:.3f}" for k, ms in rows[:4])
+            log(f"  (b) {label} under torch.profiler: wall {wall:.3f} ms, "
+                f"card busy {busy:.3f} ms, idle {idle[label]:.1%}, "
+                f"{n_k:.0f} kernels a call; top: {top}")
+        del full
+
+        # (c) the K4 route against the plain route, then float32 decode
+        # against float32 prefill.
+        plain_last, _ = with_plain_route(lambda: prefill(params, cfg,
+                                                         prompts))
+        top = plain_last.float().abs().max()
+        route_err = ((last.float() - plain_last.float()).abs().max()
+                     / top).item()
+        # Each bf16 route's distance from the float32 prefill (K4's
+        # float32 kernel, within 2e-5 of its plain version): the scale
+        # on which the two bf16 routes may differ.
+        cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+        ref32, _ = prefill(params, cfg32, prompts)
+        top32 = ref32.abs().max()
+        k4_32 = ((last.float() - ref32).abs().max() / top32).item()
+        plain_32 = ((plain_last.float() - ref32).abs().max() / top32).item()
+        if not (route_err <= LM_ROUTE_TOL and k4_32 <= 2 * plain_32):
+            fail(f"prefill logits, K4 route vs plain: {route_err:.3g} of the "
+                 f"largest magnitude (limit {LM_ROUTE_TOL}); from float32 "
+                 f"K4 {k4_32:.3g}, plain {plain_32:.3g}")
+        del plain_last, cache, ref32
+        toks = prompts[:2, :LM_F32_PROMPT]
+        last32, _ = prefill(params, cfg32, toks)
+        c32 = init_cache(cfg32, 2, LM_F32_PROMPT, dtype=torch.float32,
+                         device=dev)
+        for t in range(LM_F32_PROMPT):
+            step32, c32 = serve_step(params, cfg32, c32, toks[:, t], t)
+        dec_err = (step32 - last32).abs().max().item()
+        if not torch.allclose(step32, last32, rtol=LM_DECODE_TOL,
+                              atol=LM_DECODE_TOL):
+            fail(f"float32 decode vs prefill: max abs err {dec_err:.3g} over "
+                 f"rtol = atol = {LM_DECODE_TOL}")
+        log(f"  {at()} (c) K4 route == plain route within {route_err:.3g} of "
+            f"the logits' largest magnitude (limit {LM_ROUTE_TOL}); from the "
+            f"float32 prefill: K4 route {k4_32:.3g}, plain route "
+            f"{plain_32:.3g} (K4 within twice the plain's); float32 "
+            f"decode == prefill over {LM_F32_PROMPT} tokens, max abs err "
+            f"{dec_err:.3g} (limit {LM_DECODE_TOL}; float32 matmul "
+            f"precision {torch.get_float32_matmul_precision()})")
+        del c32
+
+        # (d) one prefill at prefill_32k's sequence length, batch 1.
+        long = serve.make_prompts(cfg, 1, LM_LONG, device=dev)
+        flash_cuda.launches = 0
+        long_last, _ = prefill(params, cfg, long)
+        torch.cuda.synchronize()
+        if flash_cuda.launches != cfg.n_layers or not torch.isfinite(
+                long_last).all():
+            fail(f"32k prefill: {flash_cuda.launches} K4 launches, finite "
+                 f"{bool(torch.isfinite(long_last).all())}")
+        long_ms = time_cuda(lambda: prefill(params, cfg, long), flush,
+                            n_timed=3, n_warm=0)
+        log(f"  {at()} (d) prefill 1 x {LM_LONG} (prefill_32k's length; its "
+            f"batch of 32 cut to 1 for the phase's time): {long_ms:.1f} ms, "
+            f"{LM_LONG / (long_ms * 1e-3):,.0f} tokens/s, K4 "
+            f"{cfg.n_layers} launches")
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        del params, long, long_last, last
+        torch.cuda.empty_cache()
+
+        # (e) the five smoke configs on the card, K4 route vs plain route.
+        for arch in ARCH_IDS:
+            scfg, sparams = serve.build(arch, smoke=True, seed=0, device=dev)
+            stoks = serve.make_prompts(scfg, LM_SMOKE_BATCH,
+                                       LM_SMOKE_PROMPT, device=dev)
+            variants = [("", scfg)]
+            if scfg.moe is not None:
+                variants.append((" grouped", dataclasses.replace(
+                    scfg, moe=dataclasses.replace(scfg.moe, n_groups=4))))
+            n_global = sum(not scfg.kind(i)[0] for i in range(scfg.n_layers))
+            notes = []
+            for tag, vcfg in variants:
+                c32 = dataclasses.replace(vcfg, compute_dtype=torch.float32)
+                flash_cuda.launches = 0
+                k4_logits, _ = forward(sparams, c32, stoks)
+                torch.cuda.synchronize()
+                if flash_cuda.launches != n_global:
+                    fail(f"{arch}{tag}: {flash_cuda.launches} K4 launches, "
+                         f"expected {n_global}")
+                pl_logits, _ = with_plain_route(
+                    lambda: forward(sparams, c32, stoks))
+                err = ((k4_logits - pl_logits).abs().max()
+                       / pl_logits.abs().max()).item()
+                if not err <= LM_SMOKE_F32_TOL:
+                    fail(f"{arch}{tag} float32 K4 vs plain route: {err:.3g}")
+                k4_last, _ = prefill(sparams, vcfg, stoks)
+                pl_last, _ = with_plain_route(
+                    lambda: prefill(sparams, vcfg, stoks))
+                bf_err = ((k4_last.float() - pl_last.float()).abs().max()
+                          / pl_last.float().abs().max()).item()
+                if scfg.moe is None and not bf_err <= LM_ROUTE_TOL:
+                    fail(f"{arch} bf16 prefill K4 vs plain route: "
+                         f"{bf_err:.3g}")
+                ids, _ = serve.generate(sparams, vcfg, stoks, 4)
+                if not (torch.isfinite(k4_last).all() and bool(
+                        ((ids >= 0) & (ids < vcfg.vocab)).all())):
+                    fail(f"{arch}{tag}: non-finite logits or ids out of range")
+                notes.append(f"{tag.strip() or 'global' if scfg.moe else 'dense'}"
+                             f" f32 {err:.2g}, bf16 {bf_err:.2g}")
+            log(f"  (e) {arch} smoke on the card: K4 {n_global} launches a "
+                f"forward; route vs plain " + "; ".join(notes))
+            del sparams
+    log(f"  {at()} phase 16 done; peak memory {peak:.0f} MiB [{smi}]")
+    keys.update(lm_launches_prefill=per_prefill, lm_launches_decode=per_step,
+                lm_max_abs_err=max_err, lm_prefill_ms=prefill_ms,
+                lm_prefill_tokens_per_s=tokens_s, lm_decode_ms=step_ms,
+                lm_decode_cast_each_call_ms=cast_ms,
+                lm_prefill_32k_ms=long_ms, lm_route_rel_err=route_err,
+                lm_route_f32_rel_err=k4_32, lm_plain_f32_rel_err=plain_32,
+                lm_f32_decode_abs_err=dec_err, lm_peak_mib=peak,
+                lm_prefill_idle_share=idle["prefill"],
+                lm_decode_idle_share=idle["decode step"])
+    return keys
+
+
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"),
                   ("isect", "isect.cu"), ("segsum", "segsum.cu"),
                   ("flash", "flash.cu"))
@@ -3355,6 +3764,14 @@ def main() -> int:
     log(f"phase 15: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 16: the LM serving path at llama3.2-1b's full width --------------
+    t0 = time.perf_counter()
+    log("phase 16: the LM serving path (repro_torch.launch.serve) at "
+        "llama3.2-1b's full width")
+    flash_entry.update(lm_phase(dev, flush, sms, clock, smi))
+    log(f"phase 16: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -3423,6 +3840,9 @@ def main() -> int:
             "library_ms": entry["library_ms"],
             **smem[kid],
         })
+    next(k for k in kernels if k["name"] == "flash").update(
+        {key: val for key, val in flash_entry.items()
+         if key.startswith("lm_")})
     for name in ("segsum", "segsum_sorted"):
         next(k for k in kernels if k["name"] == name).update(
             {key: val for key, val in segsum_entries[name].items()

@@ -118,6 +118,25 @@ HOT_PATHS: dict[str, tuple[str, ...]] = {
         "fused_deliver", "_pallas_leaf", "_mask_per_query",
     ),
     "kernels/deliver/fused.py": ("deliver_leaf_cuda", "_launch"),
+    "kernels/flash/flash.py": ("flash_cuda",),
+    "kernels/flash/ops.py": ("flash_attention",),
+    "models/transformer.py": (
+        "prefill", "serve_step", "encode", "forward", "_qkv",
+        "_attention_block", "_ffn_block", "_residual", "_logits",
+    ),
+    "models/attention.py": (
+        "causal_attention", "naive_attention", "blocked_attention",
+        "chunked_local_attention", "decode_attention",
+    ),
+    "models/moe.py": (
+        "moe_ffn", "_dispatch_group", "_combine_group", "_experts",
+        "_top_k",
+    ),
+    "models/layers.py": (
+        "cast_weight", "dense", "rmsnorm", "swiglu", "rope", "embed",
+        "unembed",
+    ),
+    "launch/serve.py": ("generate", "_sync"),
     "serve/frontend.py": (
         "Frontend.submit", "Frontend.pump", "Frontend._worker",
         "Frontend._serve_loop", "Frontend._run_flush",

@@ -4,8 +4,10 @@
 // Replaces repro/kernels/flash/flash.py::flash_pallas (body
 // _flash_kernel).
 //
-// What it computes, per (batch, head) and query row i of q, k, v
-// [B, H, S, D] (float32 or bfloat16):
+// What it computes, per (batch, head) and query row i of q [B, H, Sq, D]
+// against k, v [B, KvH, Sk, D] (float32 or bfloat16; H a multiple of KvH,
+// grouped-query attention: query head h reads KV head h / (H / KvH), the
+// JAX package's _split_gqa order; KvH = H is multi-head attention):
 //     s[j] = (q[i] . k[j]) * (1 / sqrt(D))                 in float32
 //     s[j] = -1e30 where causal and j > i                  (the TPU
 //            kernel's finite sentinel, with positions from 0 top-left)
@@ -42,7 +44,8 @@
 //     row r at chunk c ^ (r % 8), in blocks of 64 columns;
 //   * K and V sit in a ring of two stages; tile t + 1 is in flight while
 //     tile t is in the products.  One thread fills a stage by TMA, 3-D
-//     maps [bh, S, D] in boxes of 64 columns, so that rows past Sk and
+//     maps (Q's [B H, Sq, D], K's and V's [B KvH, Sk, D], a block's K/V
+//     row given by kv_row) in boxes of 64 columns, so that rows past Sk and
 //     columns past D read as zeros within a head, and every thread waits
 //     on the stage's mbarrier.  TMA needs rows 16-byte aligned
 //     (D % 8 == 0); for other D every thread stores the tiles element by
@@ -94,6 +97,12 @@
 
 namespace {
 
+// The K/V row ([B * KvH] of them) that query row g = batch * H + head
+// reads: batch * KvH + head / (H / KvH).  KvH = H gives g.
+__device__ __forceinline__ long long kv_row(long long g, int h, int kvh) {
+  return (g / h) * kvh + (g % h) / (h / kvh);
+}
+
 namespace f32 {
 
 constexpr int kBQ = 64;       // queries per block
@@ -133,8 +142,9 @@ __device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ src
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int bh, int sq,
-             int sk, int d, float scale, int causal, int n_qtiles) {
+             const T* __restrict__ v, T* __restrict__ o, int bh, int h,
+             int kvh, int sq, int sk, int d, float scale, int causal,
+             int n_qtiles) {
   extern __shared__ float smem[];
   const int ld = d + 1;                 // odd stride: no bank conflicts
   float* qs = smem;                     // [kBQ][ld]
@@ -147,10 +157,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = threadIdx.x >> 4;      // query lane
   const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);
   const long long g = blockIdx.x % bh;  // batch * head
+  const long long gk = kv_row(g, h, kvh);
   const int q0 = qt * kBQ;
   const T* qg = q + g * sq * d;
-  const T* kg = k + g * sk * d;
-  const T* vg = v + g * sk * d;
+  const T* kg = k + gk * sk * d;
+  const T* vg = v + gk * sk * d;
 
   load_tile(qs, qg, q0, kBQ, sq, d, ld);
 
@@ -267,7 +278,7 @@ int smem_bytes(int d) {
 
 template <typename T, int NJ>
 int launch_nj(const void* q, const void* k, const void* v, void* o, int bh,
-              int sq, int sk, int d, float scale, int causal,
+              int h, int kvh, int sq, int sk, int d, float scale, int causal,
               cudaStream_t stream) {
   const int smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
@@ -278,29 +289,34 @@ int launch_nj(const void* q, const void* k, const void* v, void* o, int bh,
   if (blocks > 0x7fffffffLL) return -1;
   flash_kernel<T, NJ><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), bh, sq, sk, d, scale,
-      causal, n_qtiles);
+      static_cast<const T*>(v), static_cast<T*>(o), bh, h, kvh, sq, sk, d,
+      scale, causal, n_qtiles);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, int d, float scale, int causal,
+           int h, int kvh, int sq, int sk, int d, float scale, int causal,
            cudaStream_t st) {
   const int groups = (d + 15) / 16;
   if (groups <= 1) {
-    return launch_nj<T, 1>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+    return launch_nj<T, 1>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
+                           st);
   }
   if (groups <= 2) {
-    return launch_nj<T, 2>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+    return launch_nj<T, 2>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
+                           st);
   }
   if (groups <= 4) {
-    return launch_nj<T, 4>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+    return launch_nj<T, 4>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
+                           st);
   }
   if (groups <= 8) {
-    return launch_nj<T, 8>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+    return launch_nj<T, 8>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
+                           st);
   }
-  return launch_nj<T, 16>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+  return launch_nj<T, 16>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
+                          st);
 }
 
 }  // namespace f32
@@ -547,8 +563,9 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int bh, int sq, int sk,
-                   int d, float scale_log2, int causal, int n_qtiles,
+                   __nv_bfloat16* __restrict__ o, int bh, int h, int kvh,
+                   int sq, int sk, int d, float scale_log2, int causal,
+                   int n_qtiles,
                    int tma, const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v) {
@@ -570,11 +587,12 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);  // longest first
   const long long g = blockIdx.x % bh;   // batch * head
+  const long long gk = kv_row(g, h, kvh);  // its K/V row
   const int q0 = qt * kBQ;
   const int q0w = q0 + 64 * wg;          // this warpgroup's first query
   const __nv_bfloat16* qg = q + g * sq * d;
-  const __nv_bfloat16* kg = k + g * sk * d;
-  const __nv_bfloat16* vg = v + g * sk * d;
+  const __nv_bfloat16* kg = k + gk * sk * d;
+  const __nv_bfloat16* vg = v + gk * sk * d;
   // A masked score in raw (unscaled) units: -1e30 once scaled.
   const float neg_raw = kNegInf2 / scale_log2;
 
@@ -608,9 +626,10 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         }
 #pragma unroll
         for (int c = 0; c < DP / 64; ++c) {
-          tma_load(dst + c * (BK * 128), &map_k, 64 * c, j * BK, (int)g, bar);
+          tma_load(dst + c * (BK * 128), &map_k, 64 * c, j * BK, (int)gk,
+                   bar);
           tma_load(dst + kKVBytes + c * (BK * 128), &map_v, 64 * c, j * BK,
-                   (int)g, bar);
+                   (int)gk, bar);
         }
       }
     } else {
@@ -802,7 +821,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int bh, int len, int d,
 
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int sq, int sk, int d, float scale, int causal,
+           int h, int kvh, int sq, int sk, int d, float scale, int causal,
            cudaStream_t stream) {
   constexpr int kBK = key_tile(DP);
   constexpr int kSmem = smem_bytes(DP, kBK);
@@ -821,31 +840,35 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
                          reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v)) & 15) == 0;
   const int tma = d % 8 == 0 && aligned;
+  // K and V hold B * KvH rows of [Sk, D].
+  const int bkv = bh / h * kvh;
   CUtensorMap map_q = {}, map_k = {}, map_v = {};
   if (tma && !(make_map(&map_q, q, bh, sq, d, kBQ) &&
-               make_map(&map_k, k, bh, sk, d, kBK) &&
-               make_map(&map_v, v, bh, sk, d, kBK))) {
+               make_map(&map_k, k, bkv, sk, d, kBK) &&
+               make_map(&map_v, v, bkv, sk, d, kBK))) {
     return -2;
   }
   kernel<<<(unsigned)blocks, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      bh, sq, sk, d, scale * kLog2e, causal, n_qtiles, tma, map_q, map_k,
-      map_v);
+      bh, h, kvh, sq, sk, d, scale * kLog2e, causal, n_qtiles, tma, map_q,
+      map_k, map_v);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int sq, int sk, int d, float scale, int causal,
+             int h, int kvh, int sq, int sk, int d, float scale, int causal,
              cudaStream_t st) {
   switch (padded_dim(d)) {
     case 64:
-      return launch<64>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+      return launch<64>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal, st);
     case 128:
-      return launch<128>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+      return launch<128>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
+                         st);
     default:
-      return launch<256>(q, k, v, o, bh, sq, sk, d, scale, causal, st);
+      return launch<256>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
+                         st);
   }
 }
 
@@ -854,22 +877,25 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
 }  // namespace
 
 // C entry points, bound with ctypes.  q, o [bh, sq, d] and k, v
-// [bh, sk, d], contiguous; dtype 0 = float32 (the FMA kernel),
-// 1 = bfloat16 (the tensor-core kernel).  Returns -1 for arguments the
-// kernels do not take (d outside [1, 256], an empty side), -2 if the
-// TMA map cannot be made, else cudaGetLastError().
+// [bh / h * kvh, sk, d], contiguous, with bh = B * H and h = H a multiple
+// of kvh = KvH; dtype 0 = float32 (the FMA kernel), 1 = bfloat16 (the
+// tensor-core kernel).  Returns -1 for arguments the kernels do not take
+// (d outside [1, 256], an empty side, H not a multiple of KvH or not
+// dividing bh), -2 if the TMA map cannot be made, else cudaGetLastError().
 extern "C" int flash_launch(const void* q, const void* k, const void* v,
-                            void* o, int bh, int sq, int sk, int d,
-                            float scale, int causal, int dtype,
+                            void* o, int bh, int h, int kvh, int sq, int sk,
+                            int d, float scale, int causal, int dtype,
                             void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 256) return -1;
+  if (h <= 0 || kvh <= 0 || h % kvh != 0 || bh % h != 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return f32::launch<float>(q, k, v, o, bh, sq, sk, d, scale,
+    return f32::launch<float>(q, k, v, o, bh, h, kvh, sq, sk, d, scale,
                               causal != 0, st);
   }
   if (dtype == 1) {
-    return tc::dispatch(q, k, v, o, bh, sq, sk, d, scale, causal != 0, st);
+    return tc::dispatch(q, k, v, o, bh, h, kvh, sq, sk, d, scale,
+                        causal != 0, st);
   }
   return -1;
 }

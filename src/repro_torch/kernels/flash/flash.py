@@ -1,5 +1,5 @@
-"""FlashAttention forward (causal or bidirectional MHA with an online
-softmax) in one CUDA kernel per type.
+"""FlashAttention forward (causal or bidirectional, multi-head or
+grouped-query, with an online softmax) in one CUDA kernel per type.
 
 ``flash_cuda`` (K4, the TPU's ``repro.kernels.flash.flash.flash_pallas``)
 wraps the hand-written Hopper kernels in ``repro_torch/csrc/flash.cu``
@@ -13,6 +13,10 @@ scores scaled by ``1 / sqrt(D)``, the finite mask sentinel ``-1e30``, a
 float32 running max, denominator and accumulator, ``p`` rounded to the
 type of ``v`` before the product, and the denominator clamped at
 ``1e-30``.
+
+K and V may hold fewer heads than Q (``[B, KvH, Sk, D]`` with ``H`` a
+multiple of ``KvH``): query head ``h`` reads KV head ``h // (H // KvH)``,
+the JAX package's ``_split_gqa`` order, by index, with nothing copied.
 """
 from __future__ import annotations
 
@@ -65,32 +69,51 @@ def flash_plan(d: int, dtype: torch.dtype) -> FlashPlan:
     raise TypeError(f"attention takes float32 or bfloat16, got {dtype}")
 
 
+def _kv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
+    """``KvH`` of ``k, v [B, KvH, Sk, D]`` against ``q [B, H, Sq, D]``;
+    raises unless ``H`` is a multiple of it and the other dims agree."""
+    b, h, _, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if k.shape != v.shape or k.shape != (b, kvh, sk, d):
+        raise ValueError(f"k and v must be [B, KvH, Sk, D] = [{b}, KvH, Sk, "
+                         f"{d}], got {tuple(k.shape)} and {tuple(v.shape)}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"query heads {h} must be a multiple of the KV "
+                         f"heads {kvh}")
+    return kvh
+
+
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool = True, block_q: int = 128,
                 block_k: int = 128) -> torch.Tensor:
-    """``q [B, H, Sq, D]``, ``k, v [B, H, Sk, D]`` -> ``[B, H, Sq, D]``
+    """``q [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` -> ``[B, H, Sq, D]``
     in the type of ``q``: the online-softmax recurrence over key blocks
     of ``block_k``, ``block_q`` queries at a time, so that the float32
     scores never take more than ``B H block_q block_k`` elements.  Causal
-    key blocks wholly past a query chunk are skipped (their ``p`` is 0)."""
+    key blocks wholly past a query chunk are skipped (their ``p`` is 0).
+    The ``H // KvH`` query heads of a KV head are one broadcast dim."""
     b, h, sq, d = q.shape
+    kvh = _kv_heads(q, k, v)
     sk = k.shape[2]
     scale = 1.0 / (d ** 0.5)
-    out = torch.empty_like(q)
+    qg = q.view(b, kvh, h // kvh, sq, d)
+    kg, vg = k[:, :, None], v[:, :, None]  # [B, KvH, 1, Sk, D]
+    out = torch.empty_like(qg)
     for q0 in range(0, sq, block_q):
-        qc = q[:, :, q0:q0 + block_q].float()
-        rows = qc.shape[2]
+        qc = qg[:, :, :, q0:q0 + block_q].float()
+        rows = qc.shape[3]
         qpos = torch.arange(q0, q0 + rows, device=q.device)[:, None]
-        m = torch.full((b, h, rows, 1), NEG_INF, device=q.device)
-        l = torch.zeros(b, h, rows, 1, device=q.device)
-        acc = torch.zeros(b, h, rows, d, device=q.device)
+        stat = qc.shape[:4] + (1,)
+        m = torch.full(stat, NEG_INF, device=q.device)
+        l = torch.zeros(stat, device=q.device)
+        acc = torch.zeros(qc.shape, device=q.device)
         k_end = min(sk, q0 + rows) if causal else sk
         for k0 in range(0, k_end, block_k):
-            kc = k[:, :, k0:k0 + block_k].float()
-            vc = v[:, :, k0:k0 + block_k]
+            kc = kg[:, :, :, k0:k0 + block_k].float()
+            vc = vg[:, :, :, k0:k0 + block_k]
             s = (qc @ kc.transpose(-1, -2)) * scale
             if causal:
-                kpos = torch.arange(k0, k0 + kc.shape[2], device=q.device)
+                kpos = torch.arange(k0, k0 + kc.shape[3], device=q.device)
                 s = torch.where(kpos[None, :] <= qpos, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             corr = torch.exp(m - m_new)
@@ -98,8 +121,8 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             l = l * corr + p.sum(dim=-1, keepdim=True)
             acc = acc * corr + p.to(v.dtype).float() @ vc.float()
             m = m_new
-        out[:, :, q0:q0 + rows] = (acc / l.clamp_min(1e-30)).to(q.dtype)
-    return out
+        out[:, :, :, q0:q0 + rows] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return out.view(b, h, sq, d)
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -109,7 +132,7 @@ def _kernel_lib() -> ctypes.CDLL:
     if lib.flash_launch.argtypes is None:
         # Without argtypes ctypes passes each pointer as a 32-bit int.
         lib.flash_launch.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p]
         lib.flash_launch.restype = ctypes.c_int
         lib.flash_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -123,7 +146,9 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernels' tiles are their own, ``flash_plan``'s).  A CPU tensor takes
     the plain version with its default blocks; a CUDA tensor launches the
     kernel for its type (counted in ``flash_cuda.launches``) or raises.
-    ``D`` may be 1 to 256."""
+    ``q [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` with ``H`` a multiple
+    of ``KvH`` (each block reads its KV head by index); ``D`` may be 1 to
+    256."""
     if q.device.type == "cpu":
         return flash_plain(q, k, v, causal=causal)
     dev = q.device
@@ -135,10 +160,8 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_operand("k", k, q.dtype, 4, dev)
     check_operand("v", v, q.dtype, 4, dev)
     b, h, sq, d = q.shape
+    kvh = _kv_heads(q, k, v)
     sk = k.shape[2]
-    if k.shape != v.shape or k.shape != (b, h, sk, d):
-        raise ValueError(f"k and v must be [B, H, Sk, D] = [{b}, {h}, Sk, "
-                         f"{d}], got {tuple(k.shape)} and {tuple(v.shape)}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
     if sk == 0:
@@ -150,8 +173,8 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     rc = _kernel_lib().flash_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b * h, sq, sk, d, 1.0 / (d ** 0.5), int(causal), DTYPES[q.dtype],
-        torch.cuda.current_stream(dev).cuda_stream,
+        b * h, h, kvh, sq, sk, d, 1.0 / (d ** 0.5), int(causal),
+        DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: error {rc}")

@@ -9,8 +9,10 @@ from repro_torch.kernels.flash.flash import flash_cuda
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
-    """MHA forward, ``[B, H, S, D]`` layout (``q [B, H, Sq, D]``,
-    ``k, v [B, H, Sk, D]``, float32 or bfloat16) -> ``[B, H, Sq, D]`` in
+    """Attention forward, ``[B, H, S, D]`` layout (``q [B, H, Sq, D]``,
+    ``k, v [B, KvH, Sk, D]`` with ``H`` a multiple of ``KvH``: query head
+    ``h`` reads KV head ``h // (H // KvH)``, the grouped-query order of
+    the JAX package's model; float32 or bfloat16) -> ``[B, H, Sq, D]`` in
     the type of ``q``: the hand-written CUDA kernels (``csrc/flash.cu``;
     bfloat16 on the tensor cores, float32 on the FMA units) on a CUDA
     tensor, their plain version on a CPU one.  JAX's ``interpret``

@@ -15,9 +15,11 @@ refuses two ranks on one device); on the CPU it is ``gloo``.
   ``spawn`` processes, each on one thread, and kills them all when one
   of them fails or a deadline, if given, passes.
 * ``make_host_mesh`` wraps the initialised world in the mesh.
-
-``make_production_mesh`` (the LM side's TPU pod meshes) belongs to
-ROADMAP.md queue 1, item 12.
+* ``make_production_mesh`` is the LM side's 2-D ``(data, model)`` or
+  3-D ``(pod, data, model)`` mesh of the JAX package's production
+  layout (16 x 16, or 2 x 16 x 16 across two pods), over the first
+  ranks of a world at least that large; ``dp_axes``, ``flat_axes`` and
+  ``total_devices`` read a mesh's axes as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -91,6 +93,50 @@ def make_host_mesh(n_devices: int | None = None, axis: str = "data"):
         )
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, list(range(n)), mesh_dim_names=(axis,))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh: ``(data=16, model=16)``, or ``(pod=2,
+    data=16, model=16)`` with ``multi_pod``, as a ``DeviceMesh`` over
+    ranks ``0 .. n - 1`` of the initialised world.  Raises when the
+    world holds fewer ranks than the mesh needs (or none is
+    initialised), as the JAX package raises on too few devices."""
+    import math
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 0
+    if world < need:
+        raise RuntimeError(
+            f"mesh {shape} needs {need} devices but only {world} "
+            "are visible: start that many ranks (one per card) and "
+            "initialise the process group before building it"
+        )
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(need).reshape(shape),
+                      mesh_dim_names=axes)
+
+
+def _axis_names(mesh) -> tuple:
+    return tuple(getattr(mesh, "mesh_dim_names", None) or ())
+
+
+def dp_axes(mesh) -> tuple:
+    """Axes carrying data parallelism (pod x data when multi-pod)."""
+    return ("pod", "data") if "pod" in _axis_names(mesh) else ("data",)
+
+
+def flat_axes(mesh) -> tuple:
+    """Every mesh axis flattened (GNN node/edge sharding)."""
+    return _axis_names(mesh)
+
+
+def total_devices(mesh) -> int:
+    """The ranks the mesh spans."""
+    return int(mesh.size())
 
 
 def mesh_size(mesh, axis: str) -> int:

@@ -1,0 +1,425 @@
+"""Transformer LM family (dense / GQA / local:global interleave / MoE /
+MoE:dense interleave), the counterpart of the JAX package's
+``repro.models.transformer``; one implementation covers all five LM
+architectures, their differences pure config.
+
+The weights are a ``Transformer`` module (a ``ParamTree``: float32
+master weights, read as the JAX package reads its parameter pytree).
+Where the JAX package stacks each position ``j`` of a layer period into
+``[n_periods, ...]`` leaves and scans over periods, the port keeps one
+block per layer in ``params["layers"]`` (layer ``i`` is period ``i //
+period``, position ``i % period``) and runs them in a Python loop; the
+numbers are the same.  ``params_from_jax`` unstacks a JAX parameter
+pytree into it.
+
+Attention: window-free layers go through ``attention.causal_attention``
+(K4) in ``encode``, ``forward`` and ``prefill``; local layers and decode
+are plain torch (see ``models.attention``).  ``remat`` and
+``scan_layers`` are kept for the JAX signature and change nothing in a
+forward pass.  Kept quirks of the JAX package: ``prefill`` returns the
+last token's logits only and stores K/V in bfloat16 whatever
+``compute_dtype`` is; ``serve_step`` writes one position into a cache of
+static length (here in place) and attends over that
+whole length under a mask; ``parallel_block`` adds attention and FFN to
+the same residual.
+
+Layouts: activations [B, S, D]; caches {k,v}: [L, B, S, KvH, hd].
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    ParamTree,
+    dense,
+    dense_init,
+    embed,
+    embed_init,
+    fused_unembed_cross_entropy,
+    rmsnorm,
+    rmsnorm_init,
+    rope,
+    swiglu,
+    swiglu_init,
+    unembed,
+)
+from repro_torch.models.moe import MoEConfig, moe_ffn, moe_init
+from repro_torch.models.sharding import constrain
+
+Params = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    rope_theta: float = 10_000.0
+    moe: MoEConfig | None = None
+    moe_interleave: int = 1           # layer i is MoE iff i % k == k-1
+    # (n_local, n_global) attention pattern per period; None = all full.
+    local_global: tuple[int, int] | None = None
+    window: int = 1024
+    parallel_block: bool = False      # command-r style parallel attn+ffn
+    tie_embeddings: bool = True
+    remat: bool = True
+    attn_block_size: int = 1024
+    context_parallel_threshold: int = 16384
+    compute_dtype: Any = torch.bfloat16
+    scan_layers: bool = True
+
+    @property
+    def period(self) -> int:
+        attn_p = 1 if self.local_global is None else sum(self.local_global)
+        moe_p = self.moe_interleave if self.moe is not None else 1
+        return math.lcm(attn_p, moe_p)
+
+    @property
+    def layer_kinds(self) -> tuple[tuple[bool, bool], ...]:
+        """(is_local, is_moe) per position within one period."""
+        kinds = []
+        for j in range(self.period):
+            if self.local_global is None:
+                is_local = False
+            else:
+                n_local, _ = self.local_global
+                is_local = (j % sum(self.local_global)) < n_local
+            if self.moe is None:
+                is_moe = False
+            else:
+                is_moe = (j % self.moe_interleave) == self.moe_interleave - 1
+            kinds.append((is_local, is_moe))
+        return tuple(kinds)
+
+    @property
+    def n_periods(self) -> int:
+        if self.n_layers % self.period != 0:
+            raise ValueError(f"{self.name}: n_layers={self.n_layers} not "
+                             f"divisible by period={self.period}")
+        return self.n_layers // self.period
+
+    def flops_per_token(self) -> float:
+        """Forward matmul FLOPs per token (the 2N term of 6ND)."""
+        d, hd = self.d_model, self.head_dim
+        attn_proj = 2 * d * (self.n_heads + 2 * self.n_kv_heads) * hd
+        attn_proj += 2 * self.n_heads * hd * d
+        total = 0.0
+        for (_is_local, is_moe) in self.layer_kinds:
+            if is_moe:
+                ffn = 2 * 3 * d * self.moe.d_ff * self.moe.top_k
+                ffn += 2 * 3 * d * self.moe.d_ff * self.moe.n_shared_experts
+                ffn += 2 * d * self.moe.n_experts
+            else:
+                ffn = 2 * 3 * d * self.d_ff
+            total += attn_proj + ffn
+        total *= self.n_periods
+        total += 2 * d * self.vocab
+        return total
+
+    def kind(self, layer: int) -> tuple[bool, bool]:
+        """(is_local, is_moe) of layer ``layer``."""
+        return self.layer_kinds[layer % self.period]
+
+
+class Transformer(ParamTree):
+    """An LM's weights: ``embed``, one block per layer in ``layers``,
+    ``ln_out`` and, untied, ``lm_head``."""
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _layer_init(gen: torch.Generator, cfg: LMConfig, is_moe: bool):
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "ln_attn": rmsnorm_init(d, device=gen.device),
+        "wq": dense_init(gen, d, h * hd),
+        "wk": dense_init(gen, d, kvh * hd),
+        "wv": dense_init(gen, d, kvh * hd),
+        "wo": dense_init(gen, h * hd, d),
+        "ln_ffn": rmsnorm_init(d, device=gen.device),
+    }
+    if is_moe:
+        p["moe"] = moe_init(gen, cfg.moe, d)
+    else:
+        p["ffn"] = swiglu_init(gen, d, cfg.d_ff)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: LMConfig) -> Transformer:
+    """Random float32 weights drawn from ``gen`` on its device, in the
+    JAX package's scales (its random streams are its own: weights to
+    compare with it come through ``params_from_jax``)."""
+    tree = {
+        "embed": embed_init(gen, cfg.vocab, cfg.d_model),
+        "layers": [_layer_init(gen, cfg, cfg.kind(i)[1])
+                   for i in range(cfg.n_layers)],
+        "ln_out": rmsnorm_init(cfg.d_model, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab)
+    return Transformer(tree)
+
+
+def params_from_jax(tree, cfg: LMConfig, device=None) -> Transformer:
+    """The JAX package's parameter pytree (its leaves as numpy arrays,
+    ``jax.tree.map(np.asarray, params)``) as a ``Transformer`` on
+    ``device``: each ``[n_periods, ...]`` stack of period position ``j``
+    unstacked into layers ``j, j + period, ...``.  Tied embeddings, an
+    untied ``lm_head``, ``moe`` and its ``shared`` expert carry over."""
+    from repro_torch.core.device import resolve_device
+
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return torch.from_numpy(np.array(x, copy=True)).to(dev)
+
+    def take(x, p):
+        if isinstance(x, dict):
+            return {k: take(v, p) for k, v in x.items()}
+        return np.asarray(x)[p]
+
+    stacks = tree["layers"]
+    if len(stacks) != cfg.period:
+        raise ValueError(f"{len(stacks)} period stacks for period "
+                         f"{cfg.period}")
+    layers = []
+    for i in range(cfg.n_layers):
+        p, j = divmod(i, cfg.period)
+        layers.append(conv(take(stacks[j], p)))
+    out = {"embed": conv(tree["embed"]), "layers": layers,
+           "ln_out": conv(tree["ln_out"])}
+    if not cfg.tie_embeddings:
+        out["lm_head"] = conv(tree["lm_head"])
+    return Transformer(out)
+
+
+def param_count(cfg: LMConfig) -> int:
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn_p = d * (h + 2 * kvh) * hd + h * hd * d + 2 * d
+    total = 0
+    for (_l, is_moe) in cfg.layer_kinds:
+        if is_moe:
+            ffn = d * cfg.moe.n_experts
+            ffn += cfg.moe.n_experts * 3 * d * cfg.moe.d_ff
+            ffn += cfg.moe.n_shared_experts * 3 * d * cfg.moe.d_ff
+        else:
+            ffn = 3 * d * cfg.d_ff
+        total += attn_p + ffn
+    total *= cfg.n_periods
+    total += cfg.vocab * d + d
+    if not cfg.tie_embeddings:
+        total += d * cfg.vocab
+    return total
+
+
+def active_param_count(cfg: LMConfig) -> int:
+    """Params touched per token (MoE: top_k + shared experts only)."""
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn_p = d * (h + 2 * kvh) * hd + h * hd * d + 2 * d
+    total = 0
+    for (_l, is_moe) in cfg.layer_kinds:
+        if is_moe:
+            ffn = d * cfg.moe.n_experts
+            ffn += (
+                cfg.moe.top_k + cfg.moe.n_shared_experts
+            ) * 3 * d * cfg.moe.d_ff
+        else:
+            ffn = 3 * d * cfg.d_ff
+        total += attn_p + ffn
+    total *= cfg.n_periods
+    total += cfg.vocab * d + d
+    if not cfg.tie_embeddings:
+        total += d * cfg.vocab
+    return total
+
+
+# --------------------------------------------------------------------------
+# layer bodies
+# --------------------------------------------------------------------------
+
+def _qkv(lp, x, cfg: LMConfig, positions):
+    b, s, _ = x.shape
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    xn = rmsnorm(lp["ln_attn"], x)
+    q = dense(lp["wq"], xn, cfg.compute_dtype).reshape(b, s, h, hd)
+    k = dense(lp["wk"], xn, cfg.compute_dtype).reshape(b, s, kvh, hd)
+    v = dense(lp["wv"], xn, cfg.compute_dtype).reshape(b, s, kvh, hd)
+    q = constrain(q, "dp", None, "tp", None)
+    k = constrain(k, "dp", None, "tp", None)
+    v = constrain(v, "dp", None, "tp", None)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attention_block(lp, x, cfg: LMConfig, is_local: bool, positions):
+    b, s, _ = x.shape
+    q, k, v = _qkv(lp, x, cfg, positions)
+    if is_local and s > cfg.window:
+        o = attn.chunked_local_attention(q, k, v, window=cfg.window)
+    elif not is_local:
+        o = attn.causal_attention(q, k, v)
+    elif s <= 2 * cfg.attn_block_size:
+        o = attn.naive_attention(q, k, v, causal=True, window=cfg.window)
+    else:
+        o = attn.blocked_attention(q, k, v, causal=True, window=cfg.window,
+                                   block_size=cfg.attn_block_size,
+                                   use_scan=cfg.scan_layers)
+    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = constrain(dense(lp["wo"], o, cfg.compute_dtype), "dp", None, None)
+    return out, (k, v)
+
+
+def _ffn_block(lp, x, cfg: LMConfig, is_moe: bool):
+    xn = rmsnorm(lp["ln_ffn"], x)
+    if is_moe:
+        y, aux = moe_ffn(lp["moe"], xn, cfg.moe, cfg.compute_dtype)
+        return constrain(y, "dp", None, None), aux["lb_loss"] + aux["z_loss"]
+    y = swiglu(lp["ffn"], xn, cfg.compute_dtype)
+    return (constrain(y, "dp", None, None),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _residual(lp, x, a, cfg: LMConfig, is_moe: bool):
+    """The layer's output from its attention output ``a``."""
+    if cfg.parallel_block:
+        f, aux = _ffn_block(lp, x, cfg, is_moe)
+        return x + a + f, aux
+    x = x + a
+    f, aux = _ffn_block(lp, x, cfg, is_moe)
+    return x + f, aux
+
+
+def _logits(params, cfg: LMConfig, x):
+    x = rmsnorm(params["ln_out"], x)
+    if cfg.tie_embeddings:
+        logits = unembed(params["embed"], x, cfg.compute_dtype)
+    else:
+        logits = dense(params["lm_head"], x, cfg.compute_dtype)
+    spec = ("dp",) + (None,) * (logits.dim() - 2) + ("tp",)
+    return constrain(logits, *spec)
+
+
+def _positions(s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None, :]
+
+
+# --------------------------------------------------------------------------
+# forward / loss
+# --------------------------------------------------------------------------
+
+def encode(params, cfg: LMConfig, tokens: torch.Tensor):
+    """tokens [B, S] -> (final hidden states [B, S, D], aux loss)."""
+    _, s = tokens.shape
+    x = embed(params["embed"], tokens, cfg.compute_dtype)
+    x = constrain(x, "dp", None, None)
+    positions = _positions(s, tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for i, lp in enumerate(params["layers"]):
+        is_local, is_moe = cfg.kind(i)
+        a, _kv = _attention_block(lp, x, cfg, is_local, positions)
+        x, a_aux = _residual(lp, x, a, cfg, is_moe)
+        aux = aux + a_aux
+    return x, aux
+
+
+def forward(params, cfg: LMConfig, tokens: torch.Tensor):
+    """tokens [B, S] -> (logits [B, S, V], scalar aux loss)."""
+    x, aux = encode(params, cfg, tokens)
+    return _logits(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: LMConfig, batch) -> torch.Tensor:
+    """The training loss (forward only here)."""
+    x, aux = encode(params, cfg, batch["tokens"])
+    x = rmsnorm(params["ln_out"], x)
+    table = (
+        params["embed"]["table"] if cfg.tie_embeddings
+        else params["lm_head"]["w"]
+    )
+    ce = fused_unembed_cross_entropy(
+        table, x, batch["labels"], batch.get("mask"),
+        compute_dtype=cfg.compute_dtype,
+    )
+    return ce + 1e-2 * aux
+
+
+# --------------------------------------------------------------------------
+# decode (KV cache)
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None):
+    from repro_torch.core.device import resolve_device
+
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def prefill(params, cfg: LMConfig, tokens: torch.Tensor):
+    """Full-sequence forward that also returns the KV cache, the serving
+    warm-up path.  Returns (last-token logits [B, V], cache with K/V in
+    bfloat16 [L, B, S, KvH, hd])."""
+    _, s = tokens.shape
+    x = embed(params["embed"], tokens, cfg.compute_dtype)
+    positions = _positions(s, tokens.device)
+    ks, vs = [], []
+    for i, lp in enumerate(params["layers"]):
+        is_local, is_moe = cfg.kind(i)
+        a, (k, v) = _attention_block(lp, x, cfg, is_local, positions)
+        x, _ = _residual(lp, x, a, cfg, is_moe)
+        ks.append(k.to(torch.bfloat16))
+        vs.append(v.to(torch.bfloat16))
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return _logits(params, cfg, x[:, -1:])[:, 0], cache
+
+
+def serve_step(params, cfg: LMConfig, cache, token: torch.Tensor, pos):
+    """One decode step: token [B] ids at position ``pos`` (an int or a
+    0-d integer tensor) against a cache of static max length -> (logits
+    [B, V], the cache, written in place at ``pos``)."""
+    b = token.shape[0]
+    dev = token.device
+    x = embed(params["embed"], token[:, None], cfg.compute_dtype)
+    if isinstance(pos, torch.Tensor):
+        at = pos.to(device=dev, dtype=torch.long).reshape(1)
+        positions = at.reshape(1, 1).to(torch.int32)
+
+        def write(c, new):
+            c.index_copy_(1, at, new.to(c.dtype))
+    else:  # a host int: nothing copied to the card
+        positions = torch.full((1, 1), pos, dtype=torch.int32, device=dev)
+
+        def write(c, new):
+            c[:, pos:pos + 1].copy_(new)
+    h, hd = cfg.n_heads, cfg.head_dim
+    for i, lp in enumerate(params["layers"]):
+        is_local, is_moe = cfg.kind(i)
+        q, k, v = _qkv(lp, x, cfg, positions)
+        kc, vc = cache["k"][i], cache["v"][i]
+        write(kc, k)
+        write(vc, v)
+        o = attn.decode_attention(
+            q, kc, vc, pos + 1,
+            window=cfg.window if is_local else None,
+        )
+        a = dense(lp["wo"], o.reshape(b, 1, h * hd), cfg.compute_dtype)
+        x, _ = _residual(lp, x, a, cfg, is_moe)
+    return _logits(params, cfg, x)[:, 0], cache

@@ -3,7 +3,8 @@ launch per leaf, wide messages too), the bitset intersection kernels
 (their run cache too), the Engine's paths through them (``run``,
 ``analyze``, and ``compile``'s CUDA-graph replay of one superstep pair,
 ``run`` and ``run_batch``), and the segment-sum and attention kernels
-through their entry points.
+through their entry points (K4 with K/V of fewer heads too), with one
+full-width llama3.2-1b prefill through K4 against its plain route.
 
 Every test here is marked ``cuda`` and skips without a CUDA card and
 ``nvcc``.  The file imports nothing of JAX, so it runs where the card is:
@@ -1505,3 +1506,88 @@ def test_cuda_shape_budget_audit_on_the_card(card):
     before = deliver_fused_cuda.launches
     assert shapes.shape_budget_audit(device=card) == []
     assert deliver_fused_cuda.launches > before
+
+
+# K4 with K/V of fewer heads than Q (grouped-query attention): each
+# block reads its KV head by index.  H:KvH of llama3.2-1b (32:8), one KV
+# head (multi-query), 6:3, and D = 20 (the element-wise loads).
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh", [(32, 8), (8, 1), (6, 3)])
+@pytest.mark.parametrize("s,d,causal", [(300, 64, True), (257, 128, False),
+                                        (90, 20, True), (130, 256, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_gqa_equals_plain(card, dtype, s, d, causal, h, kvh):
+    rng = np.random.default_rng(h * 100 + kvh + s + d)
+    q = torch.as_tensor(rng.standard_normal((2, h, s, d)).astype(
+        np.float32) * 0.3, device=card).to(dtype)
+    k, v = (torch.as_tensor(rng.standard_normal((2, kvh, s, d)).astype(
+        np.float32) * scale, device=card).to(dtype) for scale in (0.3, 1.0))
+    before = flash_cuda.launches
+    got = flash_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    rep = h // kvh
+    kx, vx = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    for want in (flash_plain(q, k, v, causal=causal),
+                 attention_ref(q, kx, vx, causal=causal)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    if kvh > 1:  # a tiled mapping (h % KvH) would read other heads
+        wrong = flash_plain(q, k.repeat(1, rep, 1, 1), v.repeat(1, rep, 1, 1),
+                            causal=causal)
+        assert (got.float() - wrong.float()).abs().max() > 10 * tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_gqa_refuses_kv_heads_that_do_not_divide(card):
+    q = torch.zeros(1, 6, 16, 64, device=card)
+    kv = torch.zeros(1, 4, 16, 64, device=card)
+    with pytest.raises(ValueError, match="multiple of the KV heads"):
+        flash_cuda(q, kv, kv)
+
+
+@pytest.mark.cuda
+def test_cuda_llama3_2_1b_full_width_prefill_k4_equals_plain_route(card):
+    """One full-width llama3.2-1b prefill (random float32 weights, bf16
+    compute, 2 x 1,024 tokens): 16 K4 launches, and the last logits
+    within chip_smoke's 5e-2 of the largest magnitude of the same
+    weights' prefill through ``flash_plain``, and no further from the
+    float32 prefill than twice the plain route (``chip_smoke.py``'s
+    ``LM_ROUTE_TOL`` says why)."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.models import attention
+    from repro_torch.models.transformer import prefill
+
+    cfg, params = serve.build("llama3.2-1b", smoke=False, device=card)
+    prompts = serve.make_prompts(cfg, 2, 1024, device=card)
+    kernel = attention.flash_attention
+    try:
+        with torch.no_grad():
+            before = flash_cuda.launches
+            got, cache = prefill(params, cfg, prompts)
+            torch.cuda.synchronize()
+            assert flash_cuda.launches == before + cfg.n_layers == before + 16
+            attention.flash_attention = (
+                lambda q, k, v, causal: flash_plain(
+                    q, k, v, causal=causal, block_q=1024, block_k=1024))
+            want, _ = prefill(params, cfg, prompts)
+    finally:
+        attention.flash_attention = kernel
+    assert cache["k"].shape == (16, 2, 1024, 8, 64)
+    assert cache["k"].dtype == torch.bfloat16
+    assert torch.isfinite(got).all()
+    err = ((got.float() - want.float()).abs().max()
+           / want.float().abs().max()).item()
+    assert err <= 5e-2, err
+    with torch.no_grad():
+        ref, _ = prefill(params, dataclasses.replace(
+            cfg, compute_dtype=torch.float32), prompts)
+    k4_32, plain_32 = (((x.float() - ref).abs().max() / ref.abs().max())
+                       .item() for x in (got, want))
+    assert k4_32 <= 2 * plain_32, (k4_32, plain_32)
+    del params, cache
+    torch.cuda.empty_cache()
