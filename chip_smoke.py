@@ -10,9 +10,10 @@ and nothing of the JAX package.  Phases, each fatal on failure:
 1. the card's name and power limit (``nvidia-smi``), the torch / CUDA
    versions, and the builds of the kernels from
    ``src/repro_torch/csrc/`` (``deliver_fused.cu``, ``isect.cu``,
-   ``segsum.cu`` and ``flash.cu``, one ``nvcc`` each, started together,
-   timed), with ``ptxas``'s registers, spills and shared memory for
-   each ``flash`` template and each ``segsum`` kernel;
+   ``segsum.cu``, ``flash.cu`` and ``flash_bwd.cu``, one ``nvcc`` each,
+   started together, timed), with ``ptxas``'s registers, spills and
+   shared memory for each ``flash`` and ``flash_bwd`` template and each
+   ``segsum`` kernel;
 2. kernel vs plain: on both delivery layouts of the DBLP regime at full
    scale, and on a bucket-padded v->he layout (a tenth of the
    incidences dead, so some hyperedges have live degree 0; every class
@@ -213,7 +214,7 @@ and nothing of the JAX package.  Phases, each fatal on failure:
 15. the static analysis on the card (``repro_torch.analysis``): (a) the
    card's shared memory per block without and with the opt-in equals
    ``shapes``' 49,152 and 232,448; (b) every entry function's static
-   shared memory in phase 1's ``ptxas -v`` output of all four sources
+   shared memory in phase 1's ``ptxas -v`` output of all five sources
    equals the model's (read from the sources' ``__shared__`` arrays per
    template instantiation), and each kernel's largest static and worst
    dynamic bytes are logged beside its limit; (c) each kernel once at
@@ -250,7 +251,35 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    layers, command-r's parallel block, qwen3's and llama4's MoE on the
    global and the grouped dispatch) on the card, K4 route against plain
    route in float32 (1e-4) and bfloat16 (2e-2 where no router), with
-   greedy decode; peak memory.
+   greedy decode; peak memory;
+17. the LM training path (``repro_torch.launch.train``'s ``build``,
+   ``make_step`` and ``synthetic_batch``) at llama3.2-1b's full width:
+   (a) ``train_4k`` with its global batch of 256 cut to 8 (8 x 4,096
+   tokens in 2 micro-batches, float32 masters and AdamW moments, layer
+   remat), 3 steps with ``flash_plain`` and ``flash_plain_backward``
+   made to raise (the script's hook): ms and tokens/s a step, loss,
+   ``grad_norm``, ``lr``, exactly 64 K4 forward launches (16 layers x
+   forward and remat x 2 micro-batches) and 32 backward calls a step,
+   finite, the third loss below the first + 0.5, peak memory; (b) one
+   step under ``torch.profiler``: card busy, idle share, the top
+   kernels, and the shares of K4's forward, its backward, the matmuls
+   and the optimizer (CUDA events around ``adamw_update``); (c) K4's
+   forward lse against ``flash_plain``'s (float32 1e-5, bfloat16 1e-3,
+   of 1 + |lse|), then K4's backward kernels (``flash_bwd.cu``) against
+   ``flash_plain_backward`` of the plain forward's output and lse
+   at B 4, H 32, KvH 8, S 4,096, D 64 in bfloat16 (2e-2 of each
+   tensor's largest magnitude) and at smaller float32 (1e-4) and
+   bfloat16 shapes (D 8, 64, 128, 256, ragged S), two runs bitwise
+   equal, timed beside the bound, the plain version and
+   ``scaled_dot_product_attention(enable_gqa=True)``'s backward; (d) the
+   five LM ``smoke()`` configs 2 steps each on the card, llama3.2-1b
+   smoke's float32 gradients through K4 against the plain route (1e-4 of
+   each leaf's largest magnitude), a checkpoint round trip bitwise, and
+   a run cut at step 2 of 4 and resumed against the straight run
+   (bitwise if two straight runs are, else within their difference);
+   (e) ``python -m repro_torch.launch.train --smoke --steps 4
+   --ckpt-every 2``, then with ``--steps 6 --resume``, which resumes at
+   step 4 and trains steps 4 and 5.
 
 Prints the kernel line (JSON; every entry carries phase 15's
 ``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
@@ -259,10 +288,12 @@ launches and times, phase 12's ``phase12_*`` serving keys, phase
 entries carry phase 14's ``dist_census_launches``; K2b's, phase 11's launches and numbers at the
 clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 7's, with
 the clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase
-16's as ``lm_*``) and, last, the device line
+16's as ``lm_*``, phase 17's as ``train_*`` and its backward's as
+``bwd_*``) and, last, the device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -553,13 +584,14 @@ def build_kernels():
 
     from repro_torch.kernels import _nvcc
     from repro_torch.kernels.deliver.fused import _kernel_lib as fused_lib
+    from repro_torch.kernels.flash.flash import _bwd_lib as flash_bwd_lib
     from repro_torch.kernels.flash.flash import _kernel_lib as flash_lib
     from repro_torch.kernels.isect.isect import _kernel_lib as isect_lib
     from repro_torch.kernels.segsum.segsum import _kernel_lib as segsum_lib
 
     sources = {"deliver_fused": ("deliver_fused.cu",),
                "isect": ("isect.cu",), "segsum": ("segsum.cu",),
-               "flash": ("flash.cu",)}
+               "flash": ("flash.cu",), "flash_bwd": ("flash_bwd.cu",)}
 
     def one(item):
         t0 = time.perf_counter()
@@ -568,7 +600,7 @@ def build_kernels():
 
     with ThreadPoolExecutor(len(sources)) as pool:
         seconds = dict(pool.map(one, sources.items()))
-    for load in (fused_lib, isect_lib, segsum_lib, flash_lib):
+    for load in (fused_lib, isect_lib, segsum_lib, flash_lib, flash_bwd_lib):
         load()
     return seconds
 
@@ -590,6 +622,8 @@ def ptxas_summary(text):
             k = re.search(r"(k2a_[a-z]+)(I.*?Li(\d+)E)?", name)
             b = re.search(r"k2b_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E",
                           name)
+            w = re.search(r"(flash_bwd_[a-z]+)I(f|13__nv_bfloat16)"
+                          r"(?:Li(\d+)ELi(\d+)E)?", name)
             if t:
                 name = (f"bf16 wgmma DP={t.group(1)} BK={t.group(2)}, "
                         f"{t.group(3)} block(s) per SM")
@@ -599,6 +633,10 @@ def ptxas_summary(text):
                 dtype = "bf16" if "bfloat16" in name else "float32"
                 name = k.group(1) + (f" {dtype} VEC={k.group(3)}"
                                      if k.group(3) else "")
+            elif w:
+                dtype = "float32" if w.group(2) == "f" else "bf16"
+                name = f"{w.group(1)} {dtype}" + (
+                    f" R={w.group(3)} NJ={w.group(4)}" if w.group(3) else "")
             elif b:
                 dtype = "float32" if b.group(1) == "f" else "bf16"
                 name = (f"k2b {dtype} "
@@ -3444,9 +3482,486 @@ def lm_phase(dev, flush, sms, clock, smi):
     return keys
 
 
+# Phase 17: the LM training path at llama3.2-1b's full width.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM = 8, 4096, 2   # train_4k, batch 256 cut
+TRAIN_STEPS = 3
+TRAIN_FWD_PER_STEP = 64   # 16 layers x (forward + remat) x 2 micro-batches
+TRAIN_BWD_PER_STEP = 32   # 16 layers x 2 micro-batches
+TRAIN_LOSS_RISE = 0.5     # tests/test_models_lm.py: loss 3 < loss 1 + 0.5
+SMOKE_BATCH, SMOKE_SEQ, SMOKE_STEPS = 4, 64, 2    # (d)
+BWD_FULL = (4, 32, 8, 4096, 64)   # (c): B, H, KvH, S, D of the model
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each tensor's max
+# (c) K4's row lse against flash_plain's: |err| <= tol (1 + |plain|), the
+# card test test_cuda_flash_lse_equals_plain's rtol = atol.
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# (c) smaller shapes: (dtype, B, H, KvH, S, D), D 8 / 128 / 256 and S
+# ragged against the 64- and 32-row tiles.
+BWD_CASES = (("float32", 2, 8, 2, 333, 8), ("float32", 1, 4, 4, 257, 128),
+             ("float32", 1, 4, 1, 130, 256), ("float32", 2, 8, 2, 1000, 64),
+             ("bfloat16", 2, 8, 2, 333, 8), ("bfloat16", 1, 4, 4, 257, 128),
+             ("bfloat16", 1, 4, 1, 130, 256))
+SMOKE_GRAD_TOL = 1e-4     # (d) K4 route vs plain route, float32 gradients
+
+
+def plain_versions_raise():
+    """A context in which ``flash_plain`` and ``flash_plain_backward``
+    raise wherever they are called from (a hook of this script: the
+    program has no switch), so that a run shows no plain version ran."""
+    import contextlib
+
+    import repro_torch.kernels.flash as pkg
+    from repro_torch.kernels.flash import flash
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain attention version ran on the card")
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {(m, n): getattr(m, n) for m in (flash, pkg)
+                 for n in ("flash_plain", "flash_plain_backward")}
+        for m, n in saved:
+            setattr(m, n, refuse)
+        try:
+            yield
+        finally:
+            for (m, n), fn in saved.items():
+                setattr(m, n, fn)
+
+    return ctx()
+
+
+def optimizer_events():
+    """A context that wraps ``train.step``'s ``adamw_update`` in CUDA
+    events; yields the list of (start, end) pairs it records."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.train import step as step_mod
+
+    @contextlib.contextmanager
+    def ctx():
+        real, pairs = step_mod.adamw_update, []
+
+        def timed(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*a, **k)
+            end.record()
+            pairs.append((start, end))
+            return out
+
+        step_mod.adamw_update = timed
+        try:
+            yield pairs
+        finally:
+            step_mod.adamw_update = real
+
+    return ctx()
+
+
+def bwd_bound(dtype, b, h, kvh, s, d, sms, clock):
+    """(bytes s, operations s) of one causal backward call: q, o, dO, dQ
+    with H heads and k, v, dK, dV with KvH once each, the lse; its
+    operations 2.5 x the forward's 4 D per kept pair (five products
+    against the forward's two) over the type's rate, or its exps (one a
+    pair) over the MUFU's, whichever is larger."""
+    import torch
+
+    size = torch.tensor([], dtype=dtype).element_size()
+    pairs = flash_pairs(True, b, h, s)
+    per_clock = (TENSOR_FLOPS_PER_CLOCK_PER_SM if dtype == torch.bfloat16
+                 else FMA_FLOPS_PER_CLOCK_PER_SM)
+    flops_s = 2.5 * 4 * d * pairs / (per_clock * sms * clock)
+    exps_s = pairs / (EX2_PER_CLOCK_PER_SM * sms * clock)
+    nbytes = 4 * b * (h + kvh) * s * d * size + 4 * b * h * s
+    return nbytes / HBM_BYTES_PER_S, max(flops_s, exps_s)
+
+
+def bwd_inputs(gen, dev, dtype, b, h, kvh, s, d):
+    """q, k, v, K4's output and row lse, and a dO, on the card."""
+    import torch
+
+    from repro_torch.kernels.flash import flash_cuda
+
+    q = (torch.randn(b, h, s, d, generator=gen, device=dev) * 0.3).to(dtype)
+    k = (torch.randn(b, kvh, s, d, generator=gen, device=dev) * 0.3).to(
+        dtype)
+    v = torch.randn(b, kvh, s, d, generator=gen, device=dev).to(dtype)
+    out, lse = flash_cuda(q, k, v, causal=True, return_lse=True)
+    dout = torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
+    return q, k, v, out, lse, dout
+
+
+def lse_against_plain(label, dtype_name, args, **blocks):
+    """K4's row log-sum-exp in ``args`` (from ``bwd_inputs``) against
+    ``flash_plain``'s on the same q, k, v, within ``LSE_TOL``.  Returns
+    the plain version's ``(out, lse)``, which the plain backward is then
+    given, and the largest absolute lse error."""
+    import torch
+
+    from repro_torch.kernels.flash import flash_plain
+
+    q, k, v, _, lse, _ = args
+    p_out, p_lse = flash_plain(q, k, v, causal=True, return_lse=True,
+                               **blocks)
+    err = (lse - p_lse).abs()
+    tol = LSE_TOL[dtype_name]
+    if not torch.isfinite(lse).all() or bool(
+            (err > tol * (1 + p_lse.abs())).any()):
+        fail(f"{label}: K4's lse differs from flash_plain's by up to "
+             f"{err.max().item():.3g}, over {tol} (1 + |lse|)")
+    return p_out, p_lse, err.max().item()
+
+
+def rel_max(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def bwd_checks(dev, flush, sms, clock):
+    """Phase 17 (c): K4's backward kernels against
+    ``flash_plain_backward``: at llama3.2-1b's attention shape in bf16
+    (2e-2 of each tensor's largest magnitude), at smaller shapes in both
+    types (float32 1e-4), bitwise over two runs; the time at the model's
+    shape beside the bound, the plain version and SDPA's backward with
+    ``enable_gqa``.  In every case K4's forward lse is first held against
+    ``flash_plain``'s (``LSE_TOL``), and the plain backward takes the
+    plain forward's output and lse, so each comparison covers K4's
+    forward lse and the backward together.  Returns the ``bwd_*``
+    keys."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import (
+        flash_backward_cuda,
+        flash_plain_backward,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    notes, lse_errs = [], {"float32": 0.0, "bfloat16": 0.0}
+    for dtype_name, b, h, kvh, s, d in BWD_CASES:
+        dtype = getattr(torch, dtype_name)
+        label = f"K4 backward {dtype_name} B={b} H={h} KvH={kvh} S={s} D={d}"
+        args = bwd_inputs(gen, dev, dtype, b, h, kvh, s, d)
+        p_out, p_lse, lse_err = lse_against_plain(label, dtype_name, args)
+        lse_errs[dtype_name] = max(lse_errs[dtype_name], lse_err)
+        got = flash_backward_cuda(*args, causal=True)
+        q, k, v, _, _, dout = args
+        want = flash_plain_backward(q, k, v, p_out, p_lse, dout, causal=True)
+        torch.cuda.synchronize()
+        errs = [rel_max(g, w) for g, w in zip(got, want)]
+        if max(errs) > BWD_TOL[dtype_name] or not all(
+                torch.isfinite(g).all() for g in got):
+            fail(f"{label}: dQ, dK, dV {errs} of the largest magnitude over "
+                 f"{BWD_TOL[dtype_name]}")
+        short = "f32" if dtype == torch.float32 else "bf16"
+        notes.append(f"{short} D={d} S={s} H:KvH={h}:{kvh} {max(errs):.2g}")
+    log(f"  (c) K4 forward lse == plain (float32 within "
+        f"{LSE_TOL['float32']} (1 + |lse|), largest error "
+        f"{lse_errs['float32']:.3g}; bf16 {LSE_TOL['bfloat16']}, "
+        f"{lse_errs['bfloat16']:.3g}); K4 backward == plain backward of "
+        f"the plain forward (of each tensor's largest magnitude; float32 "
+        f"limit {BWD_TOL['float32']}, bf16 {BWD_TOL['bfloat16']}): "
+        + "; ".join(notes))
+
+    b, h, kvh, s, d = BWD_FULL
+    dtype = torch.bfloat16
+    label = f"K4 backward bf16 B={b} H={h} KvH={kvh} S={s} D={d}"
+    blocks = dict(block_q=1024, block_k=1024)
+    args = bwd_inputs(gen, dev, dtype, b, h, kvh, s, d)
+    p_out, p_lse, full_lse_err = lse_against_plain(label, "bfloat16", args,
+                                                   **blocks)
+    got = flash_backward_cuda(*args, causal=True)
+    again = flash_backward_cuda(*args, causal=True)
+    q, k, v, _, _, dout = args
+    want = flash_plain_backward(q, k, v, p_out, p_lse, dout, causal=True,
+                                **blocks)
+    del p_out, p_lse
+    torch.cuda.synchronize()
+    errs = [rel_max(g, w) for g, w in zip(got, want)]
+    if max(errs) > BWD_TOL["bfloat16"]:
+        fail(f"{label}: dQ, dK, dV {errs} over {BWD_TOL['bfloat16']}")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"{label}: two runs differ")
+    max_err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+    del got, again, want
+    reps = dict(n_timed=5, n_warm=1)
+    k_ms = time_cuda(lambda: flash_backward_cuda(*args, causal=True), flush,
+                     **reps)
+    p_ms = time_cuda(lambda: flash_plain_backward(*args, causal=True,
+                                                  **blocks),
+                     flush, n_timed=2, n_warm=1)
+    qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    try:
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+        lib = "sdpa enable_gqa backward"
+    except TypeError:
+        ks, vs = (x.detach().repeat_interleave(h // kvh, 1).requires_grad_()
+                  for x in (k, v))
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib = "sdpa backward on expanded K/V"
+    l_ms = time_cuda(lambda: torch.autograd.grad(
+        o, (qs, ks, vs), dout, retain_graph=True), flush, **reps)
+    b_s, o_s = bwd_bound(dtype, b, h, kvh, s, d, sms, clock)
+    bound_ms = max(b_s, o_s) * 1e3
+    by = "bytes" if b_s >= o_s else "operations"
+    tflops = 2.5 * 4 * d * flash_pairs(True, b, h, s) / (k_ms * 1e-3) / 1e12
+    log(f"  (c) {label}: forward lse == plain within {full_lse_err:.3g} "
+        f"(limit {LSE_TOL['bfloat16']} (1 + |lse|)); == plain backward of "
+        f"the plain forward within {max(errs):.3g} of the largest "
+        f"magnitude (dQ {errs[0]:.3g}, dK {errs[1]:.3g}, dV {errs[2]:.3g}; "
+        f"max abs err {max_err:.3g}), two runs bitwise equal; kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, {lib} {l_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({by}); {bound_ms / k_ms:.1%} of the bound, "
+        f"{tflops:.1f} TFLOP/s (2.5 x the forward's products)")
+    del args, qs, ks, vs, o
+    return {"bwd_ms": k_ms, "bwd_plain_ms": p_ms, "bwd_library_ms": l_ms,
+            "bwd_library": lib, "bwd_bound_ms": bound_ms, "bwd_bound_by": by,
+            "bwd_max_abs_err": max_err, "bwd_rel_err": max(errs),
+            "bwd_lse_max_abs_err": full_lse_err,
+            "bwd_lse_max_abs_err_small": lse_errs}
+
+
+def smoke_training(dev):
+    """Phase 17 (d): each LM ``smoke()`` config takes two steps on the
+    card; llama3.2-1b smoke's float32 gradients through the K4 route
+    against the plain route; a checkpoint round trip; a run cut at step
+    2 of 4 and resumed against the straight run.  Returns notes."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.kernels.flash import flash_backward_cuda, flash_cuda
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.train import restore_checkpoint, save_checkpoint
+    from repro_torch.train.tree import leaves
+
+    def run(arch, lo, hi, state=None):
+        cfg, fresh = ltrain.build(arch, smoke=True, seed=0, device=dev)
+        state = fresh if state is None else state
+        step_fn = ltrain.make_step(cfg, total_steps=4)
+        losses = []
+        for i in range(lo, hi):
+            state, m = step_fn(state, ltrain.synthetic_batch(
+                cfg.vocab, SMOKE_BATCH, SMOKE_SEQ, i, 0, dev))
+            losses.append(m["loss"])
+        return cfg, state, torch.stack(losses).tolist()
+
+    notes = []
+    for arch in ARCH_IDS:
+        flash_cuda.launches = flash_backward_cuda.launches = 0
+        cfg, _, losses = run(arch, 0, SMOKE_STEPS)
+        torch.cuda.synchronize()
+        n_global = sum(not cfg.kind(i)[0] for i in range(cfg.n_layers))
+        if flash_backward_cuda.launches != n_global * SMOKE_STEPS:
+            fail(f"{arch} smoke: {flash_backward_cuda.launches} backward "
+                 f"launches in {SMOKE_STEPS} steps, expected "
+                 f"{n_global * SMOKE_STEPS}")
+        if not (all(map(math.isfinite, losses))
+                and losses[-1] < losses[0] + TRAIN_LOSS_RISE):
+            fail(f"{arch} smoke: losses {losses}")
+        notes.append(f"{arch} {losses[0]:.3f} -> {losses[-1]:.3f}")
+    log(f"  (d) {SMOKE_STEPS} steps of {SMOKE_BATCH} x {SMOKE_SEQ} on the "
+        "card, each smoke config (loss first -> last): " + "; ".join(notes))
+
+    # float32 gradients, K4 route against the plain route.
+    cfg, state = ltrain.build(LM_ARCH, smoke=True, seed=0, device=dev)
+    c32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    batch = ltrain.synthetic_batch(cfg.vocab, SMOKE_BATCH, SMOKE_SEQ, 0, 0,
+                                   dev)
+    grads = []
+    for route in (lambda f: f(), with_plain_route):
+        for p in state.params.parameters():
+            p.grad = None
+        route(lambda: loss_fn(state.params, c32, batch).backward())
+        grads.append([p.grad.clone() for p in state.params.parameters()])
+    g_err = max(rel_max(a, b) for a, b in zip(*grads))
+    if not g_err <= SMOKE_GRAD_TOL:
+        fail(f"{LM_ARCH} smoke float32 gradients, K4 vs plain route: "
+             f"{g_err:.3g} of a leaf's largest magnitude")
+    del grads
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_checkpoint(tmp, 0, state)
+        back, _ = restore_checkpoint(path, state)
+        if not all(torch.equal(a, b) for a, b in zip(leaves(state),
+                                                      leaves(back))):
+            fail("checkpoint round trip is not bitwise")
+        _, straight, _ = run(LM_ARCH, 0, 4)
+        _, again, _ = run(LM_ARCH, 0, 4)
+        _, half, _ = run(LM_ARCH, 0, 2)
+        path = save_checkpoint(tmp, 2, half)
+        del half
+        like = ltrain.build(LM_ARCH, smoke=True, seed=1, device=dev)[1]
+        resumed_from, at = restore_checkpoint(path, like)
+        _, resumed, _ = run(LM_ARCH, at, 4, resumed_from)
+
+    def diff(a, b):
+        return max((x.float() - y.float()).abs().max().item()
+                   for x, y in zip(leaves(a), leaves(b)))
+
+    own, res = diff(straight, again), diff(straight, resumed)
+    how = "bitwise" if own == 0.0 else f"within the straight runs' {own:.3g}"
+    if res > own:
+        fail(f"resumed run differs from the straight run by {res:.3g}; "
+             f"two straight runs by {own:.3g}")
+    log(f"  (d) {LM_ARCH} smoke float32: gradients through K4 == plain "
+        f"route within {g_err:.3g} of each leaf's largest magnitude (limit "
+        f"{SMOKE_GRAD_TOL}); checkpoint round trip bitwise; cut at step 2 "
+        f"of 4 and resumed == the straight run {how} (max abs diff "
+        f"{res:.3g})")
+    return {"train_smoke_grad_rel_err": g_err,
+            "train_resume_bitwise": own == 0.0}
+
+
+def train_phase(dev, flush, sms, clock, smi):
+    """Phase 17: the LM training path (``repro_torch.launch.train``'s
+    functions) at llama3.2-1b's full width; see the module docstring.
+    Returns K4's ``train_*`` and ``bwd_*`` keys for the kernel line."""
+    import torch
+
+    from repro_torch.kernels.flash import flash_backward_cuda, flash_cuda
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.transformer import param_count
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # (a) three steps of 8 x 4,096 tokens, two micro-batches each.
+    cfg, state = ltrain.build(LM_ARCH, smoke=False, seed=0, device=dev)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    if n_params != param_count(cfg) or not cfg.remat:
+        fail(f"{n_params} weights (param_count {param_count(cfg)}), remat "
+             f"{cfg.remat}")
+    step_fn = ltrain.make_step(cfg, total_steps=TRAIN_STEPS,
+                               accum_steps=TRAIN_ACCUM)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rows, fwd, bwd = [], [], []
+    with plain_versions_raise():
+        for i in range(TRAIN_STEPS):
+            batch = ltrain.synthetic_batch(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                           i, 0, dev)
+            torch.cuda.synchronize()
+            flash_cuda.launches = flash_backward_cuda.launches = 0
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            fwd.append(flash_cuda.launches)
+            bwd.append(flash_backward_cuda.launches)
+            loss, gnorm, lr = torch.stack(
+                [m["loss"], m["grad_norm"], m["lr"]]).tolist()
+            rows.append((ms, loss, gnorm, lr))
+            log(f"  (a) step {i}: {ms:.1f} ms, {tokens / (ms * 1e-3):,.0f} "
+                f"tokens/s, loss {loss:.4f}, grad_norm {gnorm:.4f}, lr "
+                f"{lr:.3e}; K4 {fwd[-1]} forward launches, "
+                f"{bwd[-1]} backward")
+    losses = [r[1] for r in rows]
+    if not all(math.isfinite(x) for r in rows for x in r[1:3]):
+        fail(f"non-finite loss or grad_norm: {rows}")
+    if not losses[-1] < losses[0] + TRAIN_LOSS_RISE:
+        fail(f"loss {losses[-1]} after {TRAIN_STEPS} steps, first "
+             f"{losses[0]}")
+    if fwd != [TRAIN_FWD_PER_STEP] * TRAIN_STEPS or bwd != [
+            TRAIN_BWD_PER_STEP] * TRAIN_STEPS:
+        fail(f"K4 forward launches {fwd} (expected {TRAIN_FWD_PER_STEP} a "
+             f"step), backward {bwd} (expected {TRAIN_BWD_PER_STEP})")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    step_ms = statistics.median(r[0] for r in rows[1:])
+    log(f"  {at()} (a) {LM_ARCH} full width, {n_params:,} float32 weights "
+        f"(seed 0), AdamW, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+        f"{TRAIN_ACCUM} micro-batches, layer remat; no plain attention "
+        f"ran; step {step_ms:.1f} ms (median of steps 1-{TRAIN_STEPS - 1}), "
+        f"{tokens / (step_ms * 1e-3):,.0f} tokens/s; peak memory "
+        f"{peak:.0f} MiB [{smi}]")
+
+    # (b) one step under torch.profiler.
+    batch = ltrain.synthetic_batch(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                   TRAIN_STEPS, 0, dev)
+    with optimizer_events() as opt_ev:
+        wall, busy, n_k, kern = profiled(lambda: step_fn(state, batch), 1)
+    opt_ms = sum(s.elapsed_time(e) for s, e in opt_ev)
+
+    def share(*words):
+        return sum(ms for k, ms in kern
+                   if any(w in k.lower() for w in words)) / busy
+
+    shares = {"K4 forward": share("flash_wgmma", "flash_kernel"),
+              "K4 backward": share("flash_bwd"),
+              "matmuls": share("gemm", "nvjet", "xmma", "cutlass"),
+              "optimizer": opt_ms / busy}
+    idle = 1.0 - busy / wall
+    top = "; ".join(f"{k[:40]} {ms:.1f}" for k, ms in kern[:6])
+    log(f"  {at()} (b) one step under torch.profiler: wall {wall:.1f} ms, "
+        f"card busy {busy:.1f} ms, idle {idle:.1%}, {n_k:,.0f} kernels; "
+        "shares of busy: "
+        + ", ".join(f"{k} {v:.1%}" for k, v in shares.items())
+        + f" (optimizer {opt_ms:.1f} ms by CUDA events); top: {top}")
+    del state, batch, kern, step_fn
+    torch.cuda.empty_cache()
+
+    # (c) the backward kernels against their plain version, and timed.
+    keys = bwd_checks(dev, flush, sms, clock)
+    log(f"  {at()} (c) done")
+
+    # (d) the smoke configs on the card; checkpoint and resume.
+    keys.update(smoke_training(dev))
+    log(f"  {at()} (d) done")
+
+    # (e) the launcher for 4 steps, then resumed from its step-4
+    # checkpoint for steps 4-5 (it prints step 5, the last, and saves 6).
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH"))
+        if p)}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                LM_ARCH, "--smoke", "--ckpt-dir", tmp, "--ckpt-every", "2"]
+        outs = []
+        for extra in (["--steps", "4"], ["--steps", "6", "--resume"]):
+            proc = subprocess.run(argv + extra, cwd=ROOT, env=env,
+                                  capture_output=True, text=True, timeout=300)
+            if proc.returncode != 0:
+                fail(f"launch.train {' '.join(extra)} exited "
+                     f"{proc.returncode}: {proc.stderr[-2000:]}")
+            outs.append(proc.stdout.strip().splitlines())
+    resumed = outs[1]
+    if not resumed or not (resumed[0].startswith("resumed from ")
+                           and resumed[0].endswith(" at step 4")) or (
+            not any(x.startswith("step     5 loss ") for x in resumed)
+            or not any(x.startswith("checkpoint -> ")
+                       and x.endswith("step_00000006") for x in resumed)
+            or outs[0][-1] != "done" or resumed[-1] != "done"):
+        fail(f"launch.train's lines: {outs}")
+    log(f"  {at()} (e) python -m repro_torch.launch.train --smoke --steps 4 "
+        f"--ckpt-every 2: exit 0 ({outs[0][-2]}); --steps 6 --resume: exit "
+        f"0, '{resumed[0]}', then '{resumed[1]}'")
+    keys.update(train_launches_fwd_per_step=fwd[-1],
+                train_launches_bwd_per_step=bwd[-1], train_step_ms=step_ms,
+                train_steps_ms=[r[0] for r in rows],
+                train_tokens_per_s=tokens / (step_ms * 1e-3),
+                train_losses=losses, train_peak_mib=peak,
+                train_idle_share=idle, train_profiled_wall_ms=wall,
+                train_busy_ms=busy, train_optimizer_ms=opt_ms,
+                **{f"train_share_{k.replace(' ', '_').lower()}": v
+                   for k, v in shares.items()})
+    log(f"  {at()} phase 17 done")
+    return keys
+
+
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"),
                   ("isect", "isect.cu"), ("segsum", "segsum.cu"),
-                  ("flash", "flash.cu"))
+                  ("flash", "flash.cu"), ("flash_bwd", "flash_bwd.cu"))
 ANALYSIS_TIMEOUT_S = 600   # phase 15 (d): the CLI's whole run
 
 
@@ -3455,7 +3970,7 @@ def analysis_phase(dev):
     shared memory per block, with and without the opt-in, against
     ``repro_torch.analysis.shapes``' constants; (b) every entry
     function's static shared memory from phase 1's ``ptxas -v`` against
-    the model's, for all four sources; (c) each kernel at the worst
+    the model's, for all five sources; (c) each kernel at the worst
     geometry its budget admits (``shapes.worst_launches``) against its
     plain version: bitwise on integer payloads (K1, K2a, K2b, K3a),
     phase 8's tolerance for K4; (d) ``python -m repro_torch.analysis
@@ -3578,6 +4093,10 @@ def main() -> int:
     for line in flash_log.splitlines():
         if "wgmma" in line and "Performance Loss" in line:
             log(f"  ptxas: {line.strip()}")
+    for name, regs, st, ld, smem in ptxas_summary(
+            _nvcc.build_log("flash_bwd", ("flash_bwd.cu",))):
+        log(f"  ptxas flash_bwd {name}: {regs} registers, spills {st} B "
+            f"stored / {ld} B loaded, {smem} B static smem")
     for name, regs, st, ld, smem in ptxas_summary(
             _nvcc.build_log("segsum", ("segsum.cu",))):
         log(f"  ptxas segsum {name}: {regs} registers, spills {st} B "
@@ -3772,6 +4291,14 @@ def main() -> int:
     log(f"phase 16: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 17: the LM training path at llama3.2-1b's full width -----------
+    t0 = time.perf_counter()
+    log("phase 17: the LM training path (repro_torch.launch.train) at "
+        "llama3.2-1b's full width, K4's backward kernels")
+    flash_entry.update(train_phase(dev, flush, sms, clock, smi))
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -3842,7 +4369,10 @@ def main() -> int:
         })
     next(k for k in kernels if k["name"] == "flash").update(
         {key: val for key, val in flash_entry.items()
-         if key.startswith("lm_")})
+         if key.startswith(("lm_", "train_", "bwd_"))},
+        bwd_source="src/repro_torch/csrc/flash_bwd.cu",
+        bwd_replaces="none: the JAX package differentiates its stock-op "
+                     "attention")
     for name in ("segsum", "segsum_sorted"):
         next(k for k in kernels if k["name"] == name).update(
             {key: val for key, val in segsum_entries[name].items()

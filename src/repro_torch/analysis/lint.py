@@ -118,11 +118,14 @@ HOT_PATHS: dict[str, tuple[str, ...]] = {
         "fused_deliver", "_pallas_leaf", "_mask_per_query",
     ),
     "kernels/deliver/fused.py": ("deliver_leaf_cuda", "_launch"),
-    "kernels/flash/flash.py": ("flash_cuda",),
+    "kernels/flash/flash.py": (
+        "flash_cuda", "flash_backward_cuda", "FlashAttentionFn",
+    ),
     "kernels/flash/ops.py": ("flash_attention",),
     "models/transformer.py": (
         "prefill", "serve_step", "encode", "forward", "_qkv",
-        "_attention_block", "_ffn_block", "_residual", "_logits",
+        "_attention_block", "_ffn_block", "_residual", "_logits", "_layer",
+        "loss_fn",
     ),
     "models/attention.py": (
         "causal_attention", "naive_attention", "blocked_attention",
@@ -134,9 +137,12 @@ HOT_PATHS: dict[str, tuple[str, ...]] = {
     ),
     "models/layers.py": (
         "cast_weight", "dense", "rmsnorm", "swiglu", "rope", "embed",
-        "unembed",
+        "unembed", "fused_unembed_cross_entropy",
     ),
     "launch/serve.py": ("generate", "_sync"),
+    "train/step.py": ("make_train_step",),
+    "train/optimizer.py": ("adamw_update", "schedule", "global_norm"),
+    "train/tree.py": ("leaves", "named_leaves", "_children"),
     "serve/frontend.py": (
         "Frontend.submit", "Frontend.pump", "Frontend._worker",
         "Frontend._serve_loop", "Frontend._run_flush",

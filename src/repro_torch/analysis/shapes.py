@@ -30,8 +30,10 @@ model is a TPU's: the H100 has none).
     ``class_span`` bounded by ``_MAX_SPAN`` (K1's ``(span + 1)`` row
     starts and ``kStage`` staged ids), ``segsum.py``'s ``k2a_geometry``
     (K2a's tile and row bins) and ``k2b_geometry`` (K2b's offsets and
-    staged rows), ``isect.cu``'s ring (K3a), and ``flash_plan`` at every
-    head dim 1-256 in both types (K4);
+    staged rows), ``isect.cu``'s ring (K3a), ``flash_plan`` at every
+    head dim 1-256 in both types (K4), and ``flash_bwd_plan`` at every
+    head dim for the backward kernels (``flash_bwd.cu``, counted under
+    K4: they have no TPU kernel of their own);
   - whether its launcher calls ``cudaFuncSetAttribute``, read from the
     source.
 
@@ -68,7 +70,8 @@ DEFAULT_BYTES = 49_152
 OPTIN_BYTES = 232_448
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("deliver_fused.cu", "segsum.cu", "isect.cu", "flash.cu")
+SOURCES = ("deliver_fused.cu", "segsum.cu", "isect.cu", "flash.cu",
+           "flash_bwd.cu")
 
 _TYPE_BYTES = {
     "int": 4, "unsigned": 4, "float": 4, "int32_t": 4, "uint32_t": 4,
@@ -378,7 +381,11 @@ def instantiations() -> list[LaunchBudget]:
     static bytes and its worst dynamic bytes."""
     import torch
 
-    from repro_torch.kernels.flash.flash import MAX_HEAD_DIM, flash_plan
+    from repro_torch.kernels.flash.flash import (
+        MAX_HEAD_DIM,
+        flash_bwd_plan,
+        flash_plan,
+    )
 
     rows: list[LaunchBudget] = []
 
@@ -445,6 +452,22 @@ def instantiations() -> list[LaunchBudget]:
         add("K4", "flash.cu", "flash_wgmma_kernel", (str(dp), str(bk),
                                                      blocks),
             dyn, "launch", "flash_plan, bfloat16", after="namespace tc")
+    # K4's backward: the pre-pass and, per (rows a thread R, columns NJ),
+    # the dK / dV and dQ kernels at the widest head dim each admits.
+    bwd: dict[tuple, tuple] = {}
+    for d in range(1, MAX_HEAD_DIM + 1):
+        p = flash_bwd_plan(d)
+        key = (p.block // 16, 1 << (-(-d // 16) - 1).bit_length())
+        old = bwd.get(key, (0, 0))
+        bwd[key] = (max(old[0], p.dkdv_smem), max(old[1], p.dq_smem))
+    for t in ("float", "__nv_bfloat16"):
+        add("K4", "flash_bwd.cu", "flash_bwd_delta", (t,), 0, "launch",
+            "none (row dot products)")
+        for (r, nj), (dkdv, dq) in sorted(bwd.items()):
+            add("K4", "flash_bwd.cu", "flash_bwd_dkdv", (t, str(r), str(nj)),
+                dkdv, "launch_tiles", "flash_bwd_plan, dK / dV")
+            add("K4", "flash_bwd.cu", "flash_bwd_dq", (t, str(r), str(nj)),
+                dq, "launch_tiles", "flash_bwd_plan, dQ")
     return rows
 
 
@@ -491,6 +514,8 @@ MIRRORS = (
      lambda c: 16 * 16),
     ("repro_torch.kernels.flash.flash", "SMEM_LIMIT", "flash.cu",
      lambda c: OPTIN_BYTES),
+    ("repro_torch.kernels.flash.flash", "MAX_HEAD_DIM", "flash_bwd.cu",
+     lambda c: c["kMaxHeadDim"]),
 )
 
 
@@ -555,6 +580,7 @@ MODELED_ARRAYS = {
                    "s_last"),
     "isect_cached": (), "isect_stream": (), "isect_loop": (),
     "flash_kernel": (), "flash_wgmma_kernel": (),
+    "flash_bwd_delta": (), "flash_bwd_dkdv": (), "flash_bwd_dq": (),
 }
 
 

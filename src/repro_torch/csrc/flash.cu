@@ -17,7 +17,9 @@
 // l = l e^(m - m') + sum p, acc = acc e^(m - m') + p v with
 // p = e^(s - m'), where p is rounded to v's type before the product (for
 // bfloat16) and not before the sum.  Keys at or past Sk do not exist
-// (the wrapper pads nothing): their p is 0.
+// (the wrapper pads nothing): their p is 0.  For the backward
+// (flash_bwd.cu), flash_launch also writes each row's log-sum-exp
+// m + log l (natural units, float32) at finalize; serving passes none.
 //
 // Bound: for the shapes attention runs at (S in the thousands), the
 // arithmetic: 4 D flops and one exp per (query, key) pair against
@@ -142,9 +144,9 @@ __device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ src
 template <typename T, int NJ>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int bh, int h,
-             int kvh, int sq, int sk, int d, float scale, int causal,
-             int n_qtiles) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int bh, int h, int kvh, int sq, int sk,
+             int d, float scale, int causal, int n_qtiles) {
   extern __shared__ float smem[];
   const int ld = d + 1;                 // odd stride: no bank conflicts
   float* qs = smem;                     // [kBQ][ld]
@@ -261,6 +263,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     if (r >= sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    // The row's log-sum-exp, for the backward (none when serving).
+    if (lse != nullptr && tx == 0) lse[g * sq + r] = m[i] + logf(den);
     T* orow = o + (g * sq + r) * d;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -277,9 +281,9 @@ int smem_bytes(int d) {
 }
 
 template <typename T, int NJ>
-int launch_nj(const void* q, const void* k, const void* v, void* o, int bh,
-              int h, int kvh, int sq, int sk, int d, float scale, int causal,
-              cudaStream_t stream) {
+int launch_nj(const void* q, const void* k, const void* v, void* o,
+              float* lse, int bh, int h, int kvh, int sq, int sk, int d,
+              float scale, int causal, cudaStream_t stream) {
   const int smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -289,34 +293,34 @@ int launch_nj(const void* q, const void* k, const void* v, void* o, int bh,
   if (blocks > 0x7fffffffLL) return -1;
   flash_kernel<T, NJ><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), bh, h, kvh, sq, sk, d,
-      scale, causal, n_qtiles);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, bh, h, kvh, sq, sk,
+      d, scale, causal, n_qtiles);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int h, int kvh, int sq, int sk, int d, float scale, int causal,
-           cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int h, int kvh, int sq, int sk, int d, float scale,
+           int causal, cudaStream_t st) {
   const int groups = (d + 15) / 16;
   if (groups <= 1) {
-    return launch_nj<T, 1>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
-                           st);
+    return launch_nj<T, 1>(q, k, v, o, lse, bh, h, kvh, sq, sk, d, scale,
+                           causal, st);
   }
   if (groups <= 2) {
-    return launch_nj<T, 2>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
-                           st);
+    return launch_nj<T, 2>(q, k, v, o, lse, bh, h, kvh, sq, sk, d, scale,
+                           causal, st);
   }
   if (groups <= 4) {
-    return launch_nj<T, 4>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
-                           st);
+    return launch_nj<T, 4>(q, k, v, o, lse, bh, h, kvh, sq, sk, d, scale,
+                           causal, st);
   }
   if (groups <= 8) {
-    return launch_nj<T, 8>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
-                           st);
+    return launch_nj<T, 8>(q, k, v, o, lse, bh, h, kvh, sq, sk, d, scale,
+                           causal, st);
   }
-  return launch_nj<T, 16>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
-                          st);
+  return launch_nj<T, 16>(q, k, v, o, lse, bh, h, kvh, sq, sk, d, scale,
+                          causal, st);
 }
 
 }  // namespace f32
@@ -563,8 +567,9 @@ __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
 flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
-                   __nv_bfloat16* __restrict__ o, int bh, int h, int kvh,
-                   int sq, int sk, int d, float scale_log2, int causal,
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int bh, int h, int kvh, int sq, int sk, int d,
+                   float scale_log2, int causal,
                    int n_qtiles,
                    int tma, const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -760,6 +765,11 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = q0w + r0 + 8 * h;
     if (r >= sq) continue;
     const float den = fmaxf(l[h], 1e-30f);
+    // The row's log-sum-exp in natural units, for the backward (none when
+    // serving): m is the log2-domain max.
+    if (lse != nullptr && (lane & 3) == 0) {
+      lse[g * sq + r] = (m[h] + log2f(den)) * 0.6931471805599453f;
+    }
     __nv_bfloat16* orow = o + (g * sq + r) * d;
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
@@ -820,9 +830,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int bh, int len, int d,
 }
 
 template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int h, int kvh, int sq, int sk, int d, float scale, int causal,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, int h, int kvh, int sq, int sk, int d, float scale,
+           int causal, cudaStream_t stream) {
   constexpr int kBK = key_tile(DP);
   constexpr int kSmem = smem_bytes(DP, kBK);
   constexpr int kMinBlocks = min_blocks(DP);
@@ -852,23 +862,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      bh, h, kvh, sq, sk, d, scale * kLog2e, causal, n_qtiles, tma, map_q,
-      map_k, map_v);
+      lse, bh, h, kvh, sq, sk, d, scale * kLog2e, causal, n_qtiles, tma,
+      map_q, map_k, map_v);
   return (int)cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             int h, int kvh, int sq, int sk, int d, float scale, int causal,
-             cudaStream_t st) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, int h, int kvh, int sq, int sk, int d,
+             float scale, int causal, cudaStream_t st) {
   switch (padded_dim(d)) {
     case 64:
-      return launch<64>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal, st);
+      return launch<64>(q, k, v, o, lse, bh, h, kvh, sq, sk, d, scale,
+                        causal, st);
     case 128:
-      return launch<128>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
-                         st);
+      return launch<128>(q, k, v, o, lse, bh, h, kvh, sq, sk, d, scale,
+                         causal, st);
     default:
-      return launch<256>(q, k, v, o, bh, h, kvh, sq, sk, d, scale, causal,
-                         st);
+      return launch<256>(q, k, v, o, lse, bh, h, kvh, sq, sk, d, scale,
+                         causal, st);
   }
 }
 
@@ -879,22 +890,26 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
 // C entry points, bound with ctypes.  q, o [bh, sq, d] and k, v
 // [bh / h * kvh, sk, d], contiguous, with bh = B * H and h = H a multiple
 // of kvh = KvH; dtype 0 = float32 (the FMA kernel), 1 = bfloat16 (the
-// tensor-core kernel).  Returns -1 for arguments the kernels do not take
-// (d outside [1, 256], an empty side, H not a multiple of KvH or not
-// dividing bh), -2 if the TMA map cannot be made, else cudaGetLastError().
+// tensor-core kernel).  lse, if not null, is [bh, sq] float32: each row's
+// log-sum-exp of its scaled, masked scores (m + log l, in natural units),
+// which the backward (flash_bwd.cu) recomputes p from.  Returns -1 for
+// arguments the kernels do not take (d outside [1, 256], an empty side, H
+// not a multiple of KvH or not dividing bh), -2 if the TMA map cannot be
+// made, else cudaGetLastError().
 extern "C" int flash_launch(const void* q, const void* k, const void* v,
-                            void* o, int bh, int h, int kvh, int sq, int sk,
-                            int d, float scale, int causal, int dtype,
-                            void* stream) {
+                            void* o, void* lse, int bh, int h, int kvh,
+                            int sq, int sk, int d, float scale, int causal,
+                            int dtype, void* stream) {
   if (bh <= 0 || sq <= 0 || sk <= 0 || d <= 0 || d > 256) return -1;
   if (h <= 0 || kvh <= 0 || h % kvh != 0 || bh % h != 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse_f = static_cast<float*>(lse);
   if (dtype == 0) {
-    return f32::launch<float>(q, k, v, o, bh, h, kvh, sq, sk, d, scale,
-                              causal != 0, st);
+    return f32::launch<float>(q, k, v, o, lse_f, bh, h, kvh, sq, sk, d,
+                              scale, causal != 0, st);
   }
   if (dtype == 1) {
-    return tc::dispatch(q, k, v, o, bh, h, kvh, sq, sk, d, scale,
+    return tc::dispatch(q, k, v, o, lse_f, bh, h, kvh, sq, sk, d, scale,
                         causal != 0, st);
   }
   return -1;

@@ -11,8 +11,9 @@ segsum/  - segment sum of message rows by destination id, in any order
            (tile buckets summed in shared memory) or dst-sorted (equal
            shares of the merge path of row ends and edges, bitwise
            repeatable) (CUDA, ``csrc/segsum.cu``).
-flash/   - attention forward with an online softmax, causal or
-           bidirectional, head dim up to 256 (CUDA, ``csrc/flash.cu``).
+flash/   - attention with an online softmax, causal or bidirectional,
+           head dim up to 256 (CUDA, ``csrc/flash.cu``), and its backward
+           for training (CUDA, ``csrc/flash_bwd.cu``).
 
 Each kernel has a plain PyTorch version beside it in the same module
 (the CPU path and the kernel's oracle) and a launch counter on its

@@ -1,9 +1,19 @@
 """Attention: ``flash_attention`` over the hand-written CUDA kernels
 (``csrc/flash.cu``, K4: bfloat16 on the tensor cores, float32 on the FMA
-units) and their plain torch version."""
-from repro_torch.kernels.flash.flash import flash_cuda, flash_plain, flash_plan
+units; ``csrc/flash_bwd.cu``, its backward on the FMA units) and their
+plain torch versions."""
+from repro_torch.kernels.flash.flash import (
+    FlashAttentionFn,
+    flash_backward_cuda,
+    flash_bwd_plan,
+    flash_cuda,
+    flash_plain,
+    flash_plain_backward,
+    flash_plan,
+)
 from repro_torch.kernels.flash.ops import flash_attention
 from repro_torch.kernels.flash.ref import attention_ref
 
-__all__ = ["attention_ref", "flash_attention", "flash_cuda", "flash_plain",
-           "flash_plan"]
+__all__ = ["FlashAttentionFn", "attention_ref", "flash_attention",
+           "flash_backward_cuda", "flash_bwd_plan", "flash_cuda",
+           "flash_plain", "flash_plain_backward", "flash_plan"]

@@ -17,6 +17,17 @@ type of ``v`` before the product, and the denominator clamped at
 K and V may hold fewer heads than Q (``[B, KvH, Sk, D]`` with ``H`` a
 multiple of ``KvH``): query head ``h`` reads KV head ``h // (H // KvH)``,
 the JAX package's ``_split_gqa`` order, by index, with nothing copied.
+
+The backward (training) has no TPU kernel: the JAX package takes the
+gradient by autodiff of its stock-op attention.  ``FlashAttentionFn`` is
+the same gradient: its forward is K4 with each row's log-sum-exp kept
+(``flash_cuda(..., return_lse=True)``), its backward
+``flash_backward_cuda``, three hand-written kernels queued by one call
+(``csrc/flash_bwd.cu``: ``delta = rowsum(dO * O)``, then dK / dV per key
+tile and KV head, then dQ per query tile and head, each recomputing
+``p = exp(s * scale - lse)``, deterministic), and
+``flash_plain_backward`` their plain version, the same recurrence over
+key blocks in stock torch.
 """
 from __future__ import annotations
 
@@ -85,13 +96,15 @@ def _kv_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> int:
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool = True, block_q: int = 128,
-                block_k: int = 128) -> torch.Tensor:
+                block_k: int = 128, return_lse: bool = False):
     """``q [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` -> ``[B, H, Sq, D]``
     in the type of ``q``: the online-softmax recurrence over key blocks
     of ``block_k``, ``block_q`` queries at a time, so that the float32
     scores never take more than ``B H block_q block_k`` elements.  Causal
     key blocks wholly past a query chunk are skipped (their ``p`` is 0).
-    The ``H // KvH`` query heads of a KV head are one broadcast dim."""
+    The ``H // KvH`` query heads of a KV head are one broadcast dim.
+    ``return_lse``: also each row's log-sum-exp ``m + log l``, ``[B, H,
+    Sq]`` float32 (what the backward recomputes ``p`` from)."""
     b, h, sq, d = q.shape
     kvh = _kv_heads(q, k, v)
     sk = k.shape[2]
@@ -99,6 +112,8 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qg = q.view(b, kvh, h // kvh, sq, d)
     kg, vg = k[:, :, None], v[:, :, None]  # [B, KvH, 1, Sk, D]
     out = torch.empty_like(qg)
+    lse = (torch.empty(qg.shape[:4], dtype=torch.float32, device=q.device)
+           if return_lse else None)
     for q0 in range(0, sq, block_q):
         qc = qg[:, :, :, q0:q0 + block_q].float()
         rows = qc.shape[3]
@@ -121,8 +136,69 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             l = l * corr + p.sum(dim=-1, keepdim=True)
             acc = acc * corr + p.to(v.dtype).float() @ vc.float()
             m = m_new
-        out[:, :, :, q0:q0 + rows] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+        den = l.clamp_min(1e-30)
+        out[:, :, :, q0:q0 + rows] = (acc / den).to(q.dtype)
+        if lse is not None:
+            lse[:, :, :, q0:q0 + rows] = (m + torch.log(den))[..., 0]
+    if lse is not None:
+        return out.view(b, h, sq, d), lse.view(b, h, sq)
     return out.view(b, h, sq, d)
+
+
+def flash_plain_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, lse: torch.Tensor,
+                         dout: torch.Tensor, *, causal: bool = True,
+                         block_q: int = 128, block_k: int = 128):
+    """The gradient of ``flash_plain``: ``(dq, dk, dv)`` in the types and
+    shapes of ``q, k, v`` from the forward's ``out`` and row ``lse``
+    (``[B, H, Sq]`` float32) and ``dout``, ``block_q`` queries by
+    ``block_k`` keys at a time in float32, the backward kernels' plain
+    version.  Per block, ``p = exp(s * scale - lse)`` with the forward's
+    ``-1e30`` sentinel on masked scores (so their ``p`` is 0),
+    ``dS = p (dO v^T - delta)`` with ``delta = rowsum(dO * O)``; ``dV``
+    sums ``p`` rounded to the type of ``v`` (as the forward's product
+    took it) times ``dO``, ``dK`` and ``dQ`` sum ``dS`` times ``q`` and
+    ``k``, scaled by ``1 / sqrt(D)`` once at the end.  ``dK`` and ``dV``
+    of a KV head sum its ``H // KvH`` query heads.  Causal key blocks
+    wholly past a query chunk are skipped."""
+    b, h, sq, d = q.shape
+    kvh = _kv_heads(q, k, v)
+    sk = k.shape[2]
+    rep = h // kvh
+    scale = 1.0 / (d ** 0.5)
+    qg = q.view(b, kvh, rep, sq, d)
+    dog = dout.reshape(b, kvh, rep, sq, d)
+    delta = (dog.float() * out.reshape(b, kvh, rep, sq, d).float()).sum(
+        -1, keepdim=True)
+    lse_g = lse.reshape(b, kvh, rep, sq, 1)
+    kg, vg = k[:, :, None], v[:, :, None]  # [B, KvH, 1, Sk, D]
+    dq = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    for q0 in range(0, sq, block_q):
+        qc = qg[:, :, :, q0:q0 + block_q].float()
+        doc = dog[:, :, :, q0:q0 + block_q].float()
+        rows = qc.shape[3]
+        qpos = torch.arange(q0, q0 + rows, device=q.device)[:, None]
+        lc = lse_g[:, :, :, q0:q0 + rows]
+        dc = delta[:, :, :, q0:q0 + rows]
+        k_end = min(sk, q0 + rows) if causal else sk
+        for k0 in range(0, k_end, block_k):
+            kc = kg[:, :, :, k0:k0 + block_k].float()
+            vc = vg[:, :, :, k0:k0 + block_k].float()
+            n = kc.shape[3]
+            s = (qc @ kc.transpose(-1, -2)) * scale
+            if causal:
+                kpos = torch.arange(k0, k0 + n, device=q.device)
+                s = torch.where(kpos[None, :] <= qpos, s, NEG_INF)
+            p = torch.exp(s - lc)
+            ds = p * (doc @ vc.transpose(-1, -2) - dc)
+            pv = p.to(v.dtype).float()
+            dv[:, :, k0:k0 + n] += (pv.transpose(-1, -2) @ doc).sum(2)
+            dk[:, :, k0:k0 + n] += (ds.transpose(-1, -2) @ qc).sum(2)
+            dq[:, :, :, q0:q0 + rows] += ds @ kc
+    return ((dq * scale).to(q.dtype).view(b, h, sq, d),
+            (dk * scale).to(k.dtype), dv.to(v.dtype))
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -131,7 +207,7 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _nvcc.load("flash", ("flash.cu",))
     if lib.flash_launch.argtypes is None:
         # Without argtypes ctypes passes each pointer as a 32-bit int.
-        lib.flash_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        lib.flash_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p]
         lib.flash_launch.restype = ctypes.c_int
@@ -141,16 +217,17 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool = True) -> torch.Tensor:
+               causal: bool = True, return_lse: bool = False):
     """K4 through the CUDA kernels: same result as ``flash_plain`` (the
     kernels' tiles are their own, ``flash_plan``'s).  A CPU tensor takes
     the plain version with its default blocks; a CUDA tensor launches the
     kernel for its type (counted in ``flash_cuda.launches``) or raises.
     ``q [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` with ``H`` a multiple
     of ``KvH`` (each block reads its KV head by index); ``D`` may be 1 to
-    256."""
+    256.  ``return_lse``: ``(out, lse)``, with each row's log-sum-exp
+    (``[B, H, Sq]`` float32) written by the same launch."""
     if q.device.type == "cpu":
-        return flash_plain(q, k, v, causal=causal)
+        return flash_plain(q, k, v, causal=causal, return_lse=return_lse)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"no attention kernel for device {dev}")
@@ -169,17 +246,130 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if max(b * h, sq, sk) >= 2**31:
         raise ValueError("B*H, Sq and Sk must be below 2**31")
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if b * h == 0 or sq == 0:
-        return out
+        return (out, lse) if return_lse else out
     rc = _kernel_lib().flash_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None,
         b * h, h, kvh, sq, sk, d, 1.0 / (d ** 0.5), int(causal),
         DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash kernel launch failed: error {rc}")
     flash_cuda.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_cuda.launches = 0
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    from repro_torch.kernels import _nvcc
+
+    lib = _nvcc.load("flash_bwd", ("flash_bwd.cu",))
+    if lib.flash_bwd_launch.argtypes is None:
+        lib.flash_bwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
+            ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+        lib.flash_bwd_launch.restype = ctypes.c_int
+        lib.flash_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_bwd_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+class FlashBwdPlan(NamedTuple):
+    """How ``csrc/flash_bwd.cu`` tiles one head dim (either type)."""
+
+    block: int        # queries and keys per tile (16 x rows a thread)
+    dkdv_smem: int    # dynamic shared memory of the dK / dV kernel
+    dq_smem: int      # dynamic shared memory of the dQ kernel
+
+
+def flash_bwd_plan(d: int) -> FlashBwdPlan:
+    """The tiles ``flash_bwd_launch`` picks for head dim ``d``, as the
+    source computes them (the card tests hold the two equal): 64-row
+    tiles up to ``d`` = 128, 32 above; four float32 ``[block, d + 1]``
+    tiles, one (dQ) or two (dK / dV) ``[block, block + 1]`` product tiles
+    and ``2 block`` row statistics."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    bt = 64 if d <= 128 else 32
+    tiles = 4 * bt * (d + 1) + 2 * bt
+    return FlashBwdPlan(bt, (tiles + 2 * bt * (bt + 1)) * 4,
+                        (tiles + bt * (bt + 1)) * 4)
+
+
+def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True):
+    """K4's backward through the CUDA kernels: ``(dq, dk, dv)`` as
+    ``flash_plain_backward`` computes them.  A CPU tensor takes the plain
+    version; a CUDA tensor queues the three kernels with one call (counted
+    once in ``flash_backward_cuda.launches``) or raises.  ``q, out, dout
+    [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` in one type, ``lse [B, H,
+    Sq]`` float32 from ``flash_cuda(..., return_lse=True)``."""
+    if q.device.type == "cpu":
+        return flash_plain_backward(q, k, v, out, lse, dout, causal=causal)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"no attention kernel for device {dev}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"attention takes float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        check_operand(name, t, q.dtype, 4, dev)
+    check_operand("lse", lse, torch.float32, 3, dev)
+    b, h, sq, d = q.shape
+    kvh = _kv_heads(q, k, v)
+    sk = k.shape[2]
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (
+            b, h, sq):
+        raise ValueError("out and dout must be shaped as q, lse [B, H, Sq]")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    if sk == 0:
+        raise ValueError("attention needs at least one key")
+    if max(b * h, sq, sk) >= 2**31:
+        raise ValueError("B*H, Sq and Sk must be below 2**31")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if b * h == 0 or sq == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    rc = _bwd_lib().flash_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b * h, h, kvh, sq, sk, d,
+        1.0 / (d ** 0.5), int(causal), DTYPES[q.dtype],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash backward launch failed: error {rc}")
+    flash_backward_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_backward_cuda.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K4 with its gradient: the forward keeps q, k, v, the output and the
+    row log-sum-exp; the backward is ``flash_backward_cuda`` (the kernels
+    on a CUDA tensor, their plain version on a CPU one).  ``apply(q, k,
+    v, causal)`` on contiguous ``[B, H, S, D]`` / ``[B, KvH, S, D]``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_cuda(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward_cuda(q, k, v, out, lse,
+                                         dout.contiguous(),
+                                         causal=ctx.causal)
+        return dq, dk, dv, None

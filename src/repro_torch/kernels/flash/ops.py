@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash.flash import flash_cuda
+from repro_torch.kernels.flash.flash import FlashAttentionFn, flash_cuda
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -31,6 +31,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     taken for the JAX signature and checked, and ``block_k`` serves that
     ``Sk`` check only: the kernels' tiles are their own (``flash_plan``),
     and the plain version on a CPU tensor runs with its default blocks.
+
+    Differentiable: while a gradient is being taken of q, k or v, the call
+    goes through ``FlashAttentionFn`` (the same K4 launch, which also keeps
+    each row's log-sum-exp, and the hand-written backward kernels, or on
+    a CPU tensor their plain version).  Without one (serving) it is the
+    forward alone, as before.
     """
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be [B, H, S, D]")
@@ -41,5 +47,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"bidirectional attention needs Sk a multiple of "
                          f"block_k (pad-free Sk): Sk {k.shape[2]}, block_k "
                          f"{block_k}")
-    return flash_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                      causal=causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return flash_cuda(q, k, v, causal=causal)

@@ -21,6 +21,11 @@ relative, so the outputs agree within a few bfloat16 steps, not
 bitwise.  Windowed (local) layers and decode stay plain torch, as in
 the JAX package, which has no kernel for them.
 
+Training differentiates through the same route: ``flash_attention``
+takes K4's hand-written backward while a gradient is being taken (its
+plain version on a CPU tensor), the gradient the JAX package takes by
+autodiff of its stock-op forms.
+
 Layouts:
   q:      [B, Sq, H,  hd]
   k, v:   [B, Sk, KvH, hd]     (GQA: H = KvH * rep)
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels.flash.ops import flash_attention
 
@@ -92,13 +98,16 @@ def blocked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     recurrence in plain torch): the scores never take more than ``Sq *
     block_size`` per head.
 
-    ``use_scan`` is accepted for the JAX signature and has no meaning
-    here: the blocks run in a Python loop, and with a static
-    ``q_offset`` a block wholly past every query (causal) or before
-    every query's window is skipped, as the JAX package's unrolled form
-    does.  That changes no bit of the result: on such a block every
-    ``p`` is exactly 0 and the running max does not move."""
-    del use_scan
+    The blocks run in a Python loop, and with a static ``q_offset`` a
+    block wholly past every query (causal) or before every query's
+    window is skipped, as the JAX package's unrolled form does.  That
+    changes no bit of the result: on such a block every ``p`` is exactly
+    0 and the running max does not move.  ``use_scan`` selects, as in the
+    JAX package, whether the block body is rematerialised for the
+    gradient (its scanned form is the one it checkpoints): while a
+    gradient is being taken with ``use_scan``, each block runs under
+    non-reentrant ``torch.utils.checkpoint``, so a block's float32
+    scores do not outlive its forward."""
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
     rep = h // kvh
@@ -115,15 +124,8 @@ def blocked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     m = torch.full((b, kvh, rep, sq), NEG_INF, device=q.device)
     l = torch.zeros(b, kvh, rep, sq, device=q.device)
     static_offset = isinstance(q_offset, int)
-    for blk_idx in range(n_blocks):
-        lo = blk_idx * block_size
-        if static_offset and causal and lo > q_offset + sq - 1:
-            continue
-        if (static_offset and window is not None
-                and (lo + block_size) <= q_offset - window + 1):
-            continue
-        k_blk = k[:, lo:lo + block_size]
-        v_blk = v[:, lo:lo + block_size]
+
+    def block_update(acc, m, l, k_blk, v_blk, lo: int):
         s = torch.einsum("bsgrd,btgd->bgrst", qg, k_blk.float()) * scale
         kpos = lo + torch.arange(block_size, device=q.device)
         mask = (kpos[None, :] < sk).expand(sq, block_size)
@@ -140,7 +142,25 @@ def blocked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
         # accumulator stays float32.
         acc = acc * corr[..., None] + torch.einsum(
             "bgrst,btgd->bgrsd", p.to(v.dtype), v_blk).float()
-        m = m_new
+        return acc, m_new, l
+
+    remat = use_scan and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    for blk_idx in range(n_blocks):
+        lo = blk_idx * block_size
+        if static_offset and causal and lo > q_offset + sq - 1:
+            continue
+        if (static_offset and window is not None
+                and (lo + block_size) <= q_offset - window + 1):
+            continue
+        k_blk = k[:, lo:lo + block_size]
+        v_blk = v[:, lo:lo + block_size]
+        if remat:
+            acc, m, l = torch.utils.checkpoint.checkpoint(
+                block_update, acc, m, l, k_blk, v_blk, lo,
+                use_reentrant=False)
+        else:
+            acc, m, l = block_update(acc, m, l, k_blk, v_blk, lo)
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     o = torch.movedim(o, 3, 1)  # [b, sq, kvh, rep, d]
     return _merge_gqa(o).to(q.dtype)

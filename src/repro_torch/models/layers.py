@@ -9,11 +9,15 @@ package, with its numerics: ``rmsnorm`` / ``layernorm`` in float32 with
 eps 1e-6, ``rope``'s angles in float32, cross entropy in float32.
 
 ``dense``, ``swiglu`` and ``unembed`` read each weight in the compute
-type through ``cast_weight``: the cast is made once and kept on the
-weight (the same bits as the JAX package's per-call ``astype``) until
-the weight changes in place (its version counter) or is replaced.  A
-decode step then reads the bfloat16 copies (2 bytes a weight), not the
-float32 masters plus a cast (4 + 2 + 2).
+type through ``cast_weight``.  Without a gradient (serving) the cast is
+made once and kept on the weight (the same bits as the JAX package's
+per-call ``astype``) until the weight changes in place (its version
+counter) or is replaced: a decode step then reads the bfloat16 copies
+(2 bytes a weight), not the float32 masters plus a cast (4 + 2 + 2).
+While a gradient is being taken of the weight (training), each call
+casts afresh, differentiably, as ``astype`` does, and keeps nothing; the
+optimizer's in-place update moves the version counter, so no kept cast
+outlives a step.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 Params = Any
 
@@ -29,11 +34,14 @@ DEFAULT_COMPUTE_DTYPE = torch.bfloat16
 
 
 def cast_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``w`` in ``dtype``: the cast kept on the weight, remade when the
-    weight's version counter moves (an in-place change) or ``dtype``
-    differs from the kept one's."""
+    """``w`` in ``dtype``.  While a gradient is being taken of ``w``, a
+    fresh differentiable cast, kept nowhere; otherwise the cast kept on
+    the weight, remade when the weight's version counter moves (an
+    in-place change) or ``dtype`` differs from the kept one's."""
     if w.dtype == dtype:
         return w
+    if w.requires_grad and torch.is_grad_enabled():
+        return w.to(dtype)
     key = (dtype, w._version)
     kept = getattr(w, "_compute_cast", None)
     if kept is not None and kept[0] == key:
@@ -53,11 +61,12 @@ def release_casts(params) -> None:
 
 class ParamTree(torch.nn.Module):
     """A nested dict of weights as an ``nn.Module``: a tensor becomes a
-    registered ``Parameter`` (no gradient: the port's LM runs forward
-    only), a dict a child ``ParamTree`` and a list or tuple an
-    ``nn.ModuleList`` of them.  ``tree["key"]`` reads a child as the JAX
-    package's functions read their parameter pytrees, and ``.to()``,
-    ``state_dict()`` and ``parameters()`` work as on any module."""
+    registered ``Parameter`` (with no gradient, as serving needs:
+    ``train.init_train_state`` turns gradients on), a dict a child
+    ``ParamTree`` and a list or tuple an ``nn.ModuleList`` of them.
+    ``tree["key"]`` reads a child as the JAX package's functions read
+    their parameter pytrees, and ``.to()``, ``state_dict()`` and
+    ``parameters()`` work as on any module."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -214,24 +223,37 @@ def fused_unembed_cross_entropy(
     ``[B, S, V]`` logits never exist whole.  ``table`` is ``[V, D]``
     (tied) or ``[D, V]`` (an untied ``lm_head``).  The chunk's logits are
     float32 sums of ``compute_dtype`` products (the JAX package's
-    ``preferred_element_type``).  Forward only: the JAX package rematerialises
-    each chunk for its gradient, which comes with training."""
+    ``preferred_element_type``).  While a gradient is being taken, each
+    chunk is rematerialised in the backward (non-reentrant
+    ``torch.utils.checkpoint``, as the JAX package's ``jax.checkpoint``),
+    so no chunk's float32 logits outlive its forward."""
     b, s, d = x.shape
     if s % chunk != 0:
         chunk = s  # degenerate fallback (smoke shapes)
     tbl = cast_weight(table, compute_dtype).float()
     if table.shape[0] != d:  # [V, d] -> [d, V]
         tbl = tbl.T
+
+    def chunk_nll(xck, lck, mck):
+        logits = xck.to(compute_dtype).float() @ tbl
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, lck[..., None].long(),
+                                  dim=-1)[..., 0]
+        return ((lse - ll) * mck).sum()
+
+    remat = torch.is_grad_enabled() and (x.requires_grad
+                                         or tbl.requires_grad)
     nll_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     msum = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(s // chunk):
         sl = slice(i * chunk, (i + 1) * chunk)
-        logits = x[:, sl].to(compute_dtype).float() @ tbl
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.take_along_dim(logits, labels[:, sl, None].long(),
-                                  dim=-1)[..., 0]
         m = (mask[:, sl].float() if mask is not None
              else torch.ones(b, chunk, device=x.device))
-        nll_sum = nll_sum + ((lse - ll) * m).sum()
+        if remat:
+            nll = torch.utils.checkpoint.checkpoint(
+                chunk_nll, x[:, sl], labels[:, sl], m, use_reentrant=False)
+        else:
+            nll = chunk_nll(x[:, sl], labels[:, sl], m)
+        nll_sum = nll_sum + nll
         msum = msum + m.sum()
     return nll_sum / torch.clamp(msum, min=1.0)

@@ -13,14 +13,19 @@ numbers are the same.  ``params_from_jax`` unstacks a JAX parameter
 pytree into it.
 
 Attention: window-free layers go through ``attention.causal_attention``
-(K4) in ``encode``, ``forward`` and ``prefill``; local layers and decode
-are plain torch (see ``models.attention``).  ``remat`` and
-``scan_layers`` are kept for the JAX signature and change nothing in a
-forward pass.  Kept quirks of the JAX package: ``prefill`` returns the
-last token's logits only and stores K/V in bfloat16 whatever
-``compute_dtype`` is; ``serve_step`` writes one position into a cache of
-static length (here in place) and attends over that
-whole length under a mask; ``parallel_block`` adds attention and FFN to
+(K4, and its backward kernels in training) in ``encode``, ``forward``
+and ``prefill``; local layers and decode are plain torch (see
+``models.attention``).  While a gradient is being taken, ``remat``
+rematerialises each layer in the backward (non-reentrant
+``torch.utils.checkpoint``: the JAX package's per-layer
+``jax.checkpoint``; its period-level one adds nothing to a Python
+loop), and ``scan_layers`` reaches ``blocked_attention`` as its
+``use_scan`` (its block remat), as in the JAX package; without a
+gradient neither changes anything.  Kept quirks of the JAX package:
+``prefill`` returns the last token's logits only and stores K/V in
+bfloat16 whatever ``compute_dtype`` is; ``serve_step`` writes one
+position into a cache of static length (here in place) and attends over
+that whole length under a mask; ``parallel_block`` adds attention and FFN to
 the same residual.
 
 Layouts: activations [B, S, D]; caches {k,v}: [L, B, S, KvH, hd].
@@ -33,6 +38,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
@@ -323,8 +329,23 @@ def _positions(s: int, device) -> torch.Tensor:
 # forward / loss
 # --------------------------------------------------------------------------
 
+def _layer(lp, x, cfg: LMConfig, is_local: bool, is_moe: bool, positions):
+    """One layer: (its output, its aux loss)."""
+    a, _kv = _attention_block(lp, x, cfg, is_local, positions)
+    return _residual(lp, x, a, cfg, is_moe)
+
+
+def _grad_taken(x, lp) -> bool:
+    """Is a gradient being taken through this layer (of ``x`` or of one
+    of its weights)?"""
+    return torch.is_grad_enabled() and (x.requires_grad or any(
+        p.requires_grad for p in lp.parameters()))
+
+
 def encode(params, cfg: LMConfig, tokens: torch.Tensor):
-    """tokens [B, S] -> (final hidden states [B, S, D], aux loss)."""
+    """tokens [B, S] -> (final hidden states [B, S, D], aux loss).  With
+    ``cfg.remat``, while a gradient is being taken, each layer is
+    rematerialised in the backward, so its internals are not kept."""
     _, s = tokens.shape
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     x = constrain(x, "dp", None, None)
@@ -332,8 +353,12 @@ def encode(params, cfg: LMConfig, tokens: torch.Tensor):
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for i, lp in enumerate(params["layers"]):
         is_local, is_moe = cfg.kind(i)
-        a, _kv = _attention_block(lp, x, cfg, is_local, positions)
-        x, a_aux = _residual(lp, x, a, cfg, is_moe)
+        if cfg.remat and _grad_taken(x, lp):
+            x, a_aux = torch.utils.checkpoint.checkpoint(
+                _layer, lp, x, cfg, is_local, is_moe, positions,
+                use_reentrant=False)
+        else:
+            x, a_aux = _layer(lp, x, cfg, is_local, is_moe, positions)
         aux = aux + a_aux
     return x, aux
 
@@ -345,7 +370,10 @@ def forward(params, cfg: LMConfig, tokens: torch.Tensor):
 
 
 def loss_fn(params, cfg: LMConfig, batch) -> torch.Tensor:
-    """The training loss (forward only here)."""
+    """The training loss: the chunked cross entropy (each chunk
+    rematerialised for the gradient) plus 1e-2 times the MoE aux loss.
+    Differentiable through every layer: ``loss.backward()`` runs K4's
+    backward kernels on the window-free layers."""
     x, aux = encode(params, cfg, batch["tokens"])
     x = rmsnorm(params["ln_out"], x)
     table = (

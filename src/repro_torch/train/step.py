@@ -1,0 +1,95 @@
+"""Train-step factory, the counterpart of the JAX package's
+``repro.train.step``: ``loss_fn(params, batch) -> scalar`` becomes
+``step(state, batch) -> (state, metrics)``.
+
+Gradient (micro-batch) accumulation: the batch is cut into
+``accum_steps`` micro-batches on dim 0 of every leaf; each one's
+``loss.backward()`` adds its gradients into the float32 masters'
+``.grad`` (the JAX package's sum through ``lax.scan``), then the sum and
+the loss are divided by ``accum_steps``.  The step updates the state in
+place (``adamw_update``) and returns it; its metrics are 0-d tensors
+(nothing is read to the host).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.train.tree import leaves
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: Any
+
+
+def init_train_state(params) -> TrainState:
+    """Turns on every parameter's gradient and zeroes the moments and the
+    step."""
+    for p in leaves(params):
+        p.requires_grad_(True)
+    return TrainState(params=params, opt_state=adamw_init(params))
+
+
+def make_train_step(
+    loss_fn: Callable[[Any, Any], torch.Tensor],
+    opt_cfg: AdamWConfig = AdamWConfig(),
+    accum_steps: int = 1,
+):
+    """``loss_fn(params, batch) -> scalar``; the batch (a dict of tensors)
+    micro-batched on dim 0 of every leaf when ``accum_steps > 1``."""
+
+    def train_step(state: TrainState, batch):
+        params = state.params
+        p_leaves = leaves(params)
+        for p in p_leaves:
+            p.grad = None
+        if accum_steps == 1:
+            micro = [batch]
+        else:
+            n = next(iter(batch.values())).shape[0] // accum_steps
+            micro = [{key: x[i * n:(i + 1) * n] for key, x in batch.items()}
+                     for i in range(accum_steps)]
+        loss = None
+        for mb in micro:
+            mb_loss = loss_fn(params, mb)
+            mb_loss.backward()
+            mb_loss = mb_loss.detach().float()
+            loss = mb_loss if loss is None else loss + mb_loss
+        grads = [p.grad if p.grad is not None else torch.zeros_like(
+            p, dtype=torch.float32) for p in p_leaves]
+        if accum_steps > 1:
+            loss = loss / accum_steps
+            for g in grads:
+                g.div_(accum_steps)
+        _, opt_state, opt_metrics = adamw_update(opt_cfg, grads,
+                                                 state.opt_state, params)
+        for p in p_leaves:
+            p.grad = None
+        return TrainState(params, opt_state), {"loss": loss, **opt_metrics}
+
+    return train_step
+
+
+def train_state_from_jax(state, cfg, device=None) -> TrainState:
+    """The JAX package's ``TrainState`` (its leaves as numpy arrays,
+    ``jax.tree.map(np.asarray, state)``) as the port's on ``device``: the
+    parameters and both moments through ``params_from_jax`` (they share
+    the parameters' tree), the step as a 0-d int32 tensor, gradients on."""
+    from repro_torch.core.device import resolve_device
+    from repro_torch.models.transformer import params_from_jax
+
+    dev = resolve_device(device)
+    opt = state.opt_state if hasattr(state, "opt_state") else state[1]
+    params = params_from_jax(state[0], cfg, dev)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    return TrainState(params, {
+        "mu": params_from_jax(opt["mu"], cfg, dev),
+        "nu": params_from_jax(opt["nu"], cfg, dev),
+        "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                             device=dev),
+    })

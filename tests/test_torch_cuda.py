@@ -4,7 +4,9 @@ launch per leaf, wide messages too), the bitset intersection kernels
 ``analyze``, and ``compile``'s CUDA-graph replay of one superstep pair,
 ``run`` and ``run_batch``), and the segment-sum and attention kernels
 through their entry points (K4 with K/V of fewer heads too), with one
-full-width llama3.2-1b prefill through K4 against its plain route.
+full-width llama3.2-1b prefill through K4 against its plain route; K4's
+backward kernels against their plain version, and one smoke training
+step on the card against the same step on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA card and
 ``nvcc``.  The file imports nothing of JAX, so it runs where the card is:
@@ -43,8 +45,11 @@ from repro_torch.kernels.deliver import (
 from repro_torch.kernels.flash import (
     attention_ref,
     flash_attention,
+    flash_backward_cuda,
+    flash_bwd_plan,
     flash_cuda,
     flash_plain,
+    flash_plain_backward,
     flash_plan,
 )
 from repro_torch.kernels.flash.flash import DTYPES as FLASH_DTYPES
@@ -1415,7 +1420,8 @@ def test_cuda_distributed_world1_equals_local_and_captures(card, backend,
 # -- static analysis on the card: the shared-memory budgets ---------------
 
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"), ("isect", "isect.cu"),
-                  ("segsum", "segsum.cu"), ("flash", "flash.cu"))
+                  ("segsum", "segsum.cu"), ("flash", "flash.cu"),
+                  ("flash_bwd", "flash_bwd.cu"))
 
 
 @pytest.mark.cuda
@@ -1591,3 +1597,171 @@ def test_cuda_llama3_2_1b_full_width_prefill_k4_equals_plain_route(card):
     assert k4_32 <= 2 * plain_32, (k4_32, plain_32)
     del params, cache
     torch.cuda.empty_cache()
+
+
+# -- K4's backward (csrc/flash_bwd.cu) -------------------------------------
+
+def _bwd_inputs(rng, dev, dtype, b, h, kvh, s, d, causal):
+    """q, k, v, the forward's output and row lse through K4, and a dO."""
+    q = torch.as_tensor(rng.standard_normal((b, h, s, d)).astype(
+        np.float32) * 0.3, device=dev).to(dtype)
+    k, v = (torch.as_tensor(rng.standard_normal((b, kvh, s, d)).astype(
+        np.float32) * scale, device=dev).to(dtype) for scale in (0.3, 1.0))
+    out, lse = flash_cuda(q, k, v, causal=causal, return_lse=True)
+    dout = torch.as_tensor(rng.standard_normal((b, h, s, d)).astype(
+        np.float32), device=dev).to(dtype)
+    return q, k, v, out, lse, dout
+
+
+def _rel_max(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+# MHA and GQA (llama3.2-1b's 32:8 and multi-query), head dims 8 to 256
+# (both tile sizes), S ragged against the 64- and 32-row tiles.
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 2), (4, 1)])
+@pytest.mark.parametrize("s,d,causal", [(200, 64, True), (70, 8, True),
+                                        (257, 128, True), (130, 256, True),
+                                        (96, 40, False), (65, 256, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_backward_equals_plain(card, dtype, s, d, causal, h, kvh):
+    """dQ, dK, dV of the kernels against ``flash_plain_backward`` on the
+    same saved tensors: float32 within 1e-4 and bfloat16 within 2e-2 of
+    each tensor's largest magnitude; one launch a call."""
+    rng = np.random.default_rng(h * 10 + kvh + s + d)
+    q, k, v, out, lse, dout = _bwd_inputs(rng, card, dtype, 2, h, kvh, s, d,
+                                          causal)
+    before = flash_backward_cuda.launches
+    got = flash_backward_cuda(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_backward_cuda.launches == before + 1
+    want = flash_plain_backward(q, k, v, out, lse, dout, causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, g, w, x in zip("qkv", got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_max(g, w) <= tol, (name, _rel_max(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_backward_is_bitwise_repeatable(card, dtype):
+    """No atomics: two calls give the same bits."""
+    rng = np.random.default_rng(11)
+    args = _bwd_inputs(rng, card, dtype, 2, 8, 2, 333, 64, True)
+    first = flash_backward_cuda(*args, causal=True)
+    second = flash_backward_cuda(*args, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_lse_equals_plain(card, dtype, d):
+    """The forward's row log-sum-exp against ``flash_plain``'s, and its
+    output unchanged by writing it."""
+    rng = np.random.default_rng(d)
+    q, k, v = _flash_qkv(rng, card, dtype, 300, 300, d, b=2, h=4)
+    out, lse = flash_cuda(q, k, v, causal=True, return_lse=True)
+    plain_out, plain_lse = flash_plain(q, k, v, causal=True,
+                                       return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 300)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse, plain_lse, rtol=tol, atol=tol)
+    assert torch.equal(out, flash_cuda(q, k, v, causal=True))
+    assert torch.allclose(out.float(), plain_out.float(), rtol=3e-2,
+                          atol=3e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_plan_matches_the_kernel(card):
+    """``flash_bwd_plan``'s shared memory is what the source launches
+    with."""
+    from repro_torch.kernels.flash.flash import _bwd_lib
+
+    lib = _bwd_lib()
+    for d in range(1, 257):
+        plan = flash_bwd_plan(d)
+        assert (lib.flash_bwd_smem_bytes(d, 0),
+                lib.flash_bwd_smem_bytes(d, 1)) == (plan.dkdv_smem,
+                                                   plan.dq_smem), d
+    assert lib.flash_bwd_smem_bytes(257, 0) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_gradient_through_the_kernels(card, dtype):
+    """``flash_attention`` under autograd: one K4 launch forward, one
+    backward call, and the gradient equal to the plain backward's on the
+    saved tensors."""
+    rng = np.random.default_rng(3)
+    q, k, v, _, _, dout = _bwd_inputs(rng, card, dtype, 1, 8, 2, 150, 64,
+                                      True)
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    f0, b0 = flash_cuda.launches, flash_backward_cuda.launches
+    out = flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (flash_cuda.launches - f0, flash_backward_cuda.launches - b0) == (
+        1, 1)
+    _, lse = flash_plain(q.detach(), k.detach(), v.detach(), causal=True,
+                         return_lse=True)
+    want = flash_plain_backward(q.detach(), k.detach(), v.detach(),
+                                out.detach(), lse, dout, causal=True)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert _rel_max(g, w) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_flash_backward_rejects_what_the_kernels_do_not_take(card):
+    q = torch.zeros(1, 2, 16, 8, device=card)
+    lse = torch.zeros(1, 2, 16, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        flash_backward_cuda(q, q, q, q, lse, q.bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        flash_backward_cuda(q, q, q, q, lse.double(), q)
+    with pytest.raises(ValueError, match="lse"):
+        flash_backward_cuda(q, q, q, q, lse[:, :, :8].contiguous(), q)
+
+
+@pytest.mark.cuda
+def test_cuda_smoke_train_step_equals_the_cpu_step(card):
+    """One llama3.2-1b smoke step in float32 on the card (K4 and its
+    backward kernels) against the same step on the CPU (their plain
+    versions) from the same weights and tokens: loss and ``grad_norm``
+    within rtol 1e-5 / 1e-4, and every weight after the step within
+    2 x ``lr`` + 1e-6 (a first AdamW step moves a weight by about ``lr``
+    times its gradient's sign, so a gradient ~0 on both may go either
+    way)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.kernels.flash import flash_backward_cuda
+    from repro_torch.launch import train as ltrain
+    from repro_torch.train import init_train_state
+
+    cfg, cpu_state = ltrain.build("llama3.2-1b", smoke=True, device="cpu")
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    card_state = init_train_state(copy.deepcopy(cpu_state.params).to(card))
+    batch = ltrain.synthetic_batch(cfg.vocab, 4, 64, 0, device="cpu")
+    step = ltrain.make_step(cfg, total_steps=10)
+    before = flash_backward_cuda.launches
+    card_state, got = step(card_state, {k: v.to(card)
+                                        for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert flash_backward_cuda.launches == before + cfg.n_layers
+    cpu_state, want = step(cpu_state, batch)
+    np.testing.assert_allclose(got["loss"].item(), want["loss"].item(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"].item(),
+                               want["grad_norm"].item(), rtol=1e-4)
+    atol = 2 * want["lr"].item() + 1e-6
+    for (name, a), b in zip(card_state.params.named_parameters(),
+                            cpu_state.params.parameters()):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=atol, msg=name)

@@ -90,7 +90,7 @@ def main() -> int:
     libs = {}
     for name, path, log in built:
         lib = ctypes.CDLL(path)
-        lib.flash_launch.argtypes = [ctypes.c_void_p] * 4 + [
+        lib.flash_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p]
         libs[name] = lib
@@ -113,8 +113,8 @@ def main() -> int:
         for name, lib in libs.items():
             def call(lib=lib):
                 rc = lib.flash_launch(
-                    *(x.data_ptr() for x in qkv), out.data_ptr(), b * h, h,
-                    h, s, s, d, 1.0 / d ** 0.5, int(causal), 1,
+                    *(x.data_ptr() for x in qkv), out.data_ptr(), None,
+                    b * h, h, h, s, s, d, 1.0 / d ** 0.5, int(causal), 1,
                     torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise SystemExit(f"{name}: launch failed: error {rc}")
