@@ -13,7 +13,8 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    ``segsum.cu``, ``flash.cu`` and ``flash_bwd.cu``, one ``nvcc`` each,
    started together, timed), with ``ptxas``'s registers, spills and
    shared memory for each ``flash`` and ``flash_bwd`` template and each
-   ``segsum`` kernel;
+   ``segsum`` kernel; a spill in a ``flash_bwd`` tensor-core kernel, or
+   a ``wgmma`` "Performance Loss" line in its log, fails;
 2. kernel vs plain: on both delivery layouts of the DBLP regime at full
    scale, and on a bucket-padded v->he layout (a tenth of the
    incidences dead, so some hyperedges have live degree 0; every class
@@ -268,10 +269,12 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    of 1 + |lse|), then K4's backward kernels (``flash_bwd.cu``) against
    ``flash_plain_backward`` of the plain forward's output and lse
    at B 4, H 32, KvH 8, S 4,096, D 64 in bfloat16 (2e-2 of each
-   tensor's largest magnitude) and at smaller float32 (1e-4) and
-   bfloat16 shapes (D 8, 64, 128, 256, ragged S), two runs bitwise
-   equal, timed beside the bound, the plain version and
-   ``scaled_dot_product_attention(enable_gqa=True)``'s backward; (d) the
+   tensor's largest magnitude; the tensor-core route) and at smaller
+   float32 (1e-4) and bfloat16 shapes (D 8, 36, 64, 128, 256, ragged S;
+   each case's route logged), two runs bitwise equal, timed beside the
+   bound, the plain version and
+   ``scaled_dot_product_attention(enable_gqa=True)``'s backward, and no
+   slower than ``BWD_MAX_MS``; (d) the
    five LM ``smoke()`` configs 2 steps each on the card, llama3.2-1b
    smoke's float32 gradients through K4 against the plain route (1e-4 of
    each leaf's largest magnitude), a checkpoint round trip bitwise, and
@@ -624,7 +627,10 @@ def ptxas_summary(text):
                           name)
             w = re.search(r"(flash_bwd_[a-z]+)I(f|13__nv_bfloat16)"
                           r"(?:Li(\d+)ELi(\d+)E)?", name)
-            if t:
+            bw = re.search(r"(flash_bwd_[a-z]+)_wgmmaILi(\d+)E", name)
+            if bw:
+                name = f"{bw.group(1)} bf16 wgmma DP={bw.group(2)}"
+            elif t:
                 name = (f"bf16 wgmma DP={t.group(1)} BK={t.group(2)}, "
                         f"{t.group(3)} block(s) per SM")
             elif f:
@@ -3491,15 +3497,18 @@ TRAIN_LOSS_RISE = 0.5     # tests/test_models_lm.py: loss 3 < loss 1 + 0.5
 SMOKE_BATCH, SMOKE_SEQ, SMOKE_STEPS = 4, 64, 2    # (d)
 BWD_FULL = (4, 32, 8, 4096, 64)   # (c): B, H, KvH, S, D of the model
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}   # of each tensor's max
+BWD_MAX_MS = 10.0  # (c) at BWD_FULL: 5x under the FMA tiles' 49.1 ms
 # (c) K4's row lse against flash_plain's: |err| <= tol (1 + |plain|), the
 # card test test_cuda_flash_lse_equals_plain's rtol = atol.
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
-# (c) smaller shapes: (dtype, B, H, KvH, S, D), D 8 / 128 / 256 and S
-# ragged against the 64- and 32-row tiles.
+# (c) smaller shapes: (dtype, B, H, KvH, S, D), D 8 / 36 / 64 / 128 / 256
+# and S ragged against the 64-, 128- and 32-row tiles; bfloat16 D 8, 64
+# and 128 take the tensor-core route, D 36 and 256 the FMA one.
 BWD_CASES = (("float32", 2, 8, 2, 333, 8), ("float32", 1, 4, 4, 257, 128),
              ("float32", 1, 4, 1, 130, 256), ("float32", 2, 8, 2, 1000, 64),
              ("bfloat16", 2, 8, 2, 333, 8), ("bfloat16", 1, 4, 4, 257, 128),
-             ("bfloat16", 1, 4, 1, 130, 256))
+             ("bfloat16", 1, 4, 1, 130, 256), ("bfloat16", 2, 8, 2, 1000, 64),
+             ("bfloat16", 1, 32, 8, 390, 128), ("bfloat16", 1, 4, 2, 200, 36))
 SMOKE_GRAD_TOL = 1e-4     # (d) K4 route vs plain route, float32 gradients
 
 
@@ -3636,6 +3645,7 @@ def bwd_checks(dev, flush, sms, clock):
 
     from repro_torch.kernels.flash import (
         flash_backward_cuda,
+        flash_bwd_plan,
         flash_plain_backward,
     )
 
@@ -3657,7 +3667,9 @@ def bwd_checks(dev, flush, sms, clock):
             fail(f"{label}: dQ, dK, dV {errs} of the largest magnitude over "
                  f"{BWD_TOL[dtype_name]}")
         short = "f32" if dtype == torch.float32 else "bf16"
-        notes.append(f"{short} D={d} S={s} H:KvH={h}:{kvh} {max(errs):.2g}")
+        route = flash_bwd_plan(d, dtype).kernel
+        notes.append(f"{short} D={d} S={s} H:KvH={h}:{kvh} {route} "
+                     f"{max(errs):.2g}")
     log(f"  (c) K4 forward lse == plain (float32 within "
         f"{LSE_TOL['float32']} (1 + |lse|), largest error "
         f"{lse_errs['float32']:.3g}; bf16 {LSE_TOL['bfloat16']}, "
@@ -3668,7 +3680,8 @@ def bwd_checks(dev, flush, sms, clock):
 
     b, h, kvh, s, d = BWD_FULL
     dtype = torch.bfloat16
-    label = f"K4 backward bf16 B={b} H={h} KvH={kvh} S={s} D={d}"
+    route = flash_bwd_plan(d, dtype).kernel
+    label = f"K4 backward bf16 B={b} H={h} KvH={kvh} S={s} D={d} ({route})"
     blocks = dict(block_q=1024, block_k=1024)
     args = bwd_inputs(gen, dev, dtype, b, h, kvh, s, d)
     p_out, p_lse, full_lse_err = lse_against_plain(label, "bfloat16", args,
@@ -3706,6 +3719,8 @@ def bwd_checks(dev, flush, sms, clock):
         lib = "sdpa backward on expanded K/V"
     l_ms = time_cuda(lambda: torch.autograd.grad(
         o, (qs, ks, vs), dout, retain_graph=True), flush, **reps)
+    if k_ms > BWD_MAX_MS:
+        fail(f"{label}: {k_ms:.4f} ms a call, over {BWD_MAX_MS} ms")
     b_s, o_s = bwd_bound(dtype, b, h, kvh, s, d, sms, clock)
     bound_ms = max(b_s, o_s) * 1e3
     by = "bytes" if b_s >= o_s else "operations"
@@ -3723,7 +3738,7 @@ def bwd_checks(dev, flush, sms, clock):
             "bwd_library": lib, "bwd_bound_ms": bound_ms, "bwd_bound_by": by,
             "bwd_max_abs_err": max_err, "bwd_rel_err": max(errs),
             "bwd_lse_max_abs_err": full_lse_err,
-            "bwd_lse_max_abs_err_small": lse_errs}
+            "bwd_lse_max_abs_err_small": lse_errs, "bwd_route": route}
 
 
 def smoke_training(dev):
@@ -4093,10 +4108,15 @@ def main() -> int:
     for line in flash_log.splitlines():
         if "wgmma" in line and "Performance Loss" in line:
             log(f"  ptxas: {line.strip()}")
-    for name, regs, st, ld, smem in ptxas_summary(
-            _nvcc.build_log("flash_bwd", ("flash_bwd.cu",))):
+    bwd_log = _nvcc.build_log("flash_bwd", ("flash_bwd.cu",))
+    for name, regs, st, ld, smem in ptxas_summary(bwd_log):
         log(f"  ptxas flash_bwd {name}: {regs} registers, spills {st} B "
             f"stored / {ld} B loaded, {smem} B static smem")
+        if "wgmma" in name and st + ld > 0:
+            fail(f"ptxas: {name} spills ({st} B stored, {ld} B loaded)")
+    for line in bwd_log.splitlines():
+        if "wgmma" in line and "Performance Loss" in line:
+            fail(f"ptxas, flash_bwd: {line.strip()}")
     for name, regs, st, ld, smem in ptxas_summary(
             _nvcc.build_log("segsum", ("segsum.cu",))):
         log(f"  ptxas segsum {name}: {regs} registers, spills {st} B "

@@ -32,8 +32,9 @@ model is a TPU's: the H100 has none).
     (K2a's tile and row bins) and ``k2b_geometry`` (K2b's offsets and
     staged rows), ``isect.cu``'s ring (K3a), ``flash_plan`` at every
     head dim 1-256 in both types (K4), and ``flash_bwd_plan`` at every
-    head dim for the backward kernels (``flash_bwd.cu``, counted under
-    K4: they have no TPU kernel of their own);
+    head dim in both types for the backward kernels (``flash_bwd.cu``,
+    FMA and tensor-core routes, counted under K4: they have no TPU
+    kernel of their own);
   - whether its launcher calls ``cudaFuncSetAttribute``, read from the
     source.
 
@@ -452,22 +453,34 @@ def instantiations() -> list[LaunchBudget]:
         add("K4", "flash.cu", "flash_wgmma_kernel", (str(dp), str(bk),
                                                      blocks),
             dyn, "launch", "flash_plan, bfloat16", after="namespace tc")
-    # K4's backward: the pre-pass and, per (rows a thread R, columns NJ),
-    # the dK / dV and dQ kernels at the widest head dim each admits.
-    bwd: dict[tuple, tuple] = {}
+    # K4's backward: the pre-pass; on the FMA route, per (rows a thread R,
+    # columns NJ), the dK / dV and dQ kernels at the widest head dim each
+    # admits in either type; on the tensor-core route (bfloat16), per
+    # padded width.
+    fma: dict[tuple, tuple] = {}
+    wgmma: dict[int, tuple] = {}
     for d in range(1, MAX_HEAD_DIM + 1):
-        p = flash_bwd_plan(d)
-        key = (p.block // 16, 1 << (-(-d // 16) - 1).bit_length())
-        old = bwd.get(key, (0, 0))
-        bwd[key] = (max(old[0], p.dkdv_smem), max(old[1], p.dq_smem))
+        for dtype in (torch.float32, torch.bfloat16):
+            p = flash_bwd_plan(d, dtype)
+            if p.kernel == "wgmma":
+                wgmma[p.head_dim] = (p.dkdv_smem, p.dq_smem)
+                continue
+            key = (p.block_rows // 16, 1 << (-(-d // 16) - 1).bit_length())
+            old = fma.get(key, (0, 0))
+            fma[key] = (max(old[0], p.dkdv_smem), max(old[1], p.dq_smem))
     for t in ("float", "__nv_bfloat16"):
         add("K4", "flash_bwd.cu", "flash_bwd_delta", (t,), 0, "launch",
             "none (row dot products)")
-        for (r, nj), (dkdv, dq) in sorted(bwd.items()):
+        for (r, nj), (dkdv, dq) in sorted(fma.items()):
             add("K4", "flash_bwd.cu", "flash_bwd_dkdv", (t, str(r), str(nj)),
-                dkdv, "launch_tiles", "flash_bwd_plan, dK / dV")
+                dkdv, "launch_tiles", "flash_bwd_plan fma, dK / dV")
             add("K4", "flash_bwd.cu", "flash_bwd_dq", (t, str(r), str(nj)),
-                dq, "launch_tiles", "flash_bwd_plan, dQ")
+                dq, "launch_tiles", "flash_bwd_plan fma, dQ")
+    for dp, (dkdv, dq) in sorted(wgmma.items()):
+        add("K4", "flash_bwd.cu", "flash_bwd_dkdv_wgmma", (str(dp),), dkdv,
+            "launch", "flash_bwd_plan wgmma, dK / dV", after="namespace tc")
+        add("K4", "flash_bwd.cu", "flash_bwd_dq_wgmma", (str(dp),), dq,
+            "launch", "flash_bwd_plan wgmma, dQ", after="namespace tc")
     return rows
 
 
@@ -548,7 +561,7 @@ def check_mirrors(mirrors=MIRRORS, constants=None) -> list[Finding]:
         if got != want:
             mismatch(f"{module.rsplit('.', 1)[-1]}.{attr}", got, want,
                      source)
-    from repro_torch.kernels.flash.flash import flash_plan
+    from repro_torch.kernels.flash.flash import flash_bwd_plan, flash_plan
     from repro_torch.kernels.segsum.segsum import K2B_STATIC_BYTES
 
     # K2b's opt-in limit is 227 KB less its largest static arrays.
@@ -565,6 +578,16 @@ def check_mirrors(mirrors=MIRRORS, constants=None) -> list[Finding]:
             ("flash_plan wgmma stages", wg.stages, c["tc::kStages"])):
         if got != want:
             mismatch(scope, got, want, "flash.cu")
+    c = consts("flash_bwd.cu")
+    bw = flash_bwd_plan(128, torch.bfloat16)
+    for scope, got, want in (
+            ("flash_bwd_plan wgmma block_rows", bw.block_rows,
+             c["tc::kRows"]),
+            ("flash_bwd_plan wgmma block_cols", bw.block_cols,
+             c["tc::kCols"]),
+            ("flash_bwd_plan wgmma stages", bw.stages, c["tc::kStages"])):
+        if got != want:
+            mismatch(scope, got, want, "flash_bwd.cu")
     return findings
 
 
@@ -581,6 +604,7 @@ MODELED_ARRAYS = {
     "isect_cached": (), "isect_stream": (), "isect_loop": (),
     "flash_kernel": (), "flash_wgmma_kernel": (),
     "flash_bwd_delta": (), "flash_bwd_dkdv": (), "flash_bwd_dq": (),
+    "flash_bwd_dkdv_wgmma": (), "flash_bwd_dq_wgmma": (),
 }
 
 

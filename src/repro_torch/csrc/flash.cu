@@ -97,6 +97,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_tc.cuh"  // smem_addr, mbar_*, tma_load, make_desc, wgmma_*
+
 namespace {
 
 // The K/V row ([B * KvH] of them) that query row g = batch * H + head
@@ -330,7 +332,6 @@ namespace tc {
 constexpr int kBQ = 128;      // queries per block: two warpgroups of 64
 constexpr int kThreads = 256;
 constexpr int kStages = 2;    // K/V ring
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNegInf2 = -1e30f * kLog2e;  // the sentinel, pre-scaled
 
 // Dynamic shared memory of the DP-wide kernel with BK-key tiles: Q, then
@@ -354,209 +355,6 @@ __host__ __device__ constexpr int key_tile(int dp) {
 // 128 measured slower on an H100).
 __host__ __device__ constexpr int min_blocks(int dp) {
   return dp == 64 ? 2 : 1;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// mbarriers in shared memory: a stage's tile has landed once its
-// barrier's phase flips.
-__device__ __forceinline__ void mbar_init(uint32_t bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// TMA: one [64 columns, rows, 1] box of a [bh, S, D] tensor at (col, row,
-// head) into shared memory, 128-byte swizzled as the map says; rows past
-// S and columns past D are zero.  Completion counts on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int col, int row, int head,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head),
-      "r"(bar)
-      : "memory");
-}
-
-// Makes this thread's generic-proxy writes to shared memory (st.shared)
-// visible to the async proxy that wgmma reads through.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Pins registers in place around the asynchronous products: the compiler
-// may neither move a write before the wgmma.fence nor a read before the
-// wgmma.wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets, all in 16-byte units.  The swizzle
-// atoms are 1,024-byte aligned, so the base offset is 0.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-// The accumulator registers of a wgmma, as inline-asm operands: c is
-// "+f" (accumulate) or "=f" (overwrite).
-#define WG_ACC8(c, i)                                                   \
-  c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3]), c(d[i + 4]),          \
-      c(d[i + 5]), c(d[i + 6]), c(d[i + 7])
-#define WG_ACC32(c, i) \
-  WG_ACC8(c, i), WG_ACC8(c, i + 8), WG_ACC8(c, i + 16), WG_ACC8(c, i + 24)
-#define WG_ACC64(c) WG_ACC32(c, 0), WG_ACC32(c, 32)
-#define WG_ACC128(c) WG_ACC64(c), WG_ACC32(c, 64), WG_ACC32(c, 96)
-#define WG_D32                                                           \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
-  "%30, %31"
-#define WG_D64                                                           \
-  WG_D32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
-  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
-  "%58, %59, %60, %61, %62, %63"
-#define WG_D128                                                          \
-  WG_D64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, " \
-  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, " \
-  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, "   \
-  "%103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, "     \
-  "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "     \
-  "%125, %126, %127"
-
-// S (+)= A B^T over one k-step of 16: A [64 x 16] and B [N x 16], both
-// K-major in shared memory; N = 64 or 128 keys.  The first k-step
-// overwrites S (its registers are outputs only, so their old values are
-// not kept alive), the others accumulate.
-#define WG_SS_ASM(NN, DLIST, ACC, C, IA, IB, IP, SCALE_D)                  \
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"           \
-               "wgmma.mma_async.sync.aligned.m64n" NN                     \
-               "k16.f32.bf16.bf16 {" DLIST "}, %" IA ", %" IB             \
-               ", p, 1, 1, 0, 0;\n}\n"                                     \
-               : ACC(C)                                                   \
-               : "l"(da), "l"(db), "r"(SCALE_D))
-#define WG_SS(NN, R, DLIST, ACC, IA, IB, IP)                               \
-  __device__ __forceinline__ void wgmma_ss(float(&d)[R], uint64_t da,     \
-                                           uint64_t db, bool accumulate) { \
-    if (accumulate) {                                                     \
-      WG_SS_ASM(NN, DLIST, ACC, "+f", IA, IB, IP, 1);                     \
-    } else {                                                              \
-      WG_SS_ASM(NN, DLIST, ACC, "=f", IA, IB, IP, 0);                     \
-    }                                                                     \
-  }
-#define WG_ACC32_0(c) WG_ACC32(c, 0)
-WG_SS("64", 32, WG_D32, WG_ACC32_0, "32", "33", "34")
-WG_SS("128", 64, WG_D64, WG_ACC64, "64", "65", "66")
-
-// D += A B over one k-step of 16: A [64 x 16] bf16 in registers, B
-// [16 x N] MN-major in shared memory (the transpose flag); N = 64, 128
-// or 256 columns.
-#define WG_RS(NN, R, DLIST, ACC, IA, IB, IP)                               \
-  __device__ __forceinline__ void wgmma_rs(                               \
-      float(&d)[R], const uint32_t(&a)[4], uint64_t db) {                 \
-    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"         \
-                 "wgmma.mma_async.sync.aligned.m64n" NN                   \
-                 "k16.f32.bf16.bf16 {" DLIST "}, {" IA "}, %" IB          \
-                 ", p, 1, 1, 1;\n}\n"                                      \
-                 : ACC("+f")                                              \
-                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),   \
-                   "r"(1));                                               \
-  }
-WG_RS("64", 32, WG_D32, WG_ACC32_0, "%32, %33, %34, %35", "36", "37")
-WG_RS("128", 64, WG_D64, WG_ACC64, "%64, %65, %66, %67", "68", "69")
-WG_RS("256", 128, WG_D128, WG_ACC128, "%128, %129, %130, %131", "132", "133")
-
-// 2^x on the MUFU, denormal results flushed to 0.
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// Rows [row0, row0 + R) of a [len, d] bf16 slab into a swizzled [R, DP]
-// tile at shared address dst, element by element, as TMA would lay it
-// out: 16-byte chunk c (columns 8c .. 8c + 7) of row r goes to
-// (c / 8) * R * 128 + r * 128 + ((c % 8) ^ (r % 8)) * 16.  Rows at or
-// past len and columns at or past d are zero.
-template <int R, int DP>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          int row0, int len, int d) {
-  constexpr int kRowChunks = DP / 8;
-  constexpr int kChunks = R * kRowChunks;
-  static_assert(kChunks % kThreads == 0, "whole passes over the tile");
-#pragma unroll
-  for (int i = 0; i < kChunks / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c / kRowChunks;
-    const int c8 = c % kRowChunks;
-    const uint32_t to = dst + (c8 >> 3) * (R * 128) + r * 128 +
-                        (((c8 & 7) ^ (r & 7)) << 4);
-    const int row = row0 + r;
-    const int col = c8 * 8;
-    const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
-    uint32_t w[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      uint32_t lo = 0, hi = 0;
-      if (row < len) {
-        const long long at = (long long)row * d + col + 2 * e;
-        if (col + 2 * e < d) lo = s16[at];
-        if (col + 2 * e + 1 < d) hi = s16[at + 1];
-      }
-      w[e] = lo | (hi << 16);
-    }
-    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(to),
-                 "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
-                 : "memory");
-  }
 }
 
 // tma: Q, K and V come by TMA through the three maps (rows 16-byte
@@ -638,9 +436,9 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     } else {
-      if (j == 0) load_tile<kBQ, DP>(s_q, qg, q0, sq, d);
-      load_tile<BK, DP>(dst, kg, j * BK, sk, d);
-      load_tile<BK, DP>(dst + kKVBytes, vg, j * BK, sk, d);
+      if (j == 0) load_tile<kBQ, DP, kThreads>(s_q, qg, q0, sq, d);
+      load_tile<BK, DP, kThreads>(dst, kg, j * BK, sk, d);
+      load_tile<BK, DP, kThreads>(dst + kKVBytes, vg, j * BK, sk, d);
     }
   };
   // Waits until K(j), V(j) (and Q with tile 0) are in shared memory and
@@ -785,48 +583,6 @@ flash_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled from libcuda, looked up at run time (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// The TMA map of a [bh, len, d] bf16 tensor read in boxes of 64 columns
-// by `rows` rows of one head, 128-byte swizzled; out-of-range elements
-// read as zero.  Returns false if the encoding is refused.
-bool make_map(CUtensorMap* map, const void* ptr, int bh, int len, int d,
-              int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)len,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2,
-                                 (cuuint64_t)d * 2 * (cuuint64_t)len};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP>

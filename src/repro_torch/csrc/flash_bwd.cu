@@ -18,27 +18,73 @@
 // j > i, keys at or past Sk) have p = exp(-1e30 - lse) = 0 exactly.  Query
 // head h reads KV head h / (H / KvH); dK and dV of a KV head sum its
 // H / KvH query heads in a fixed order.  Inputs float32 or bfloat16,
-// every product and sum in float32, outputs in the input type.
+// every sum in float32, outputs in the input type.  No atomics: each
+// kernel writes its own rows, so two calls give the same bits.
 //
-// Three kernels, queued by one call, each deterministic (no atomics):
-//   1. flash_bwd_delta: delta, one warp a row;
-//   2. flash_bwd_dkdv: one block of 256 threads a (key tile, batch * KvH):
-//      K and V tiles stay in shared memory while the block walks the
-//      group's query heads and, causal, the query tiles from the key
-//      tile's diagonal on; each thread holds R keys x NJ columns of dK
-//      and dV in registers;
-//   3. flash_bwd_dq: one block a (query tile, batch * H), longest causal
-//      tiles first: Q and dO stay, K and V stream through, R queries x
-//      NJ columns of dQ a thread.
-// Tiles are BT = 16 R rows square (R = 4 up to D = 128, else 2), stored
-// as float32 with an odd row stride (D + 1) so that a warp's lanes read
-// distinct banks, as f32::flash_kernel does.  Products run on the FMA
-// units: simple and right first (tensor cores are later work).
+// Bound: 10 D flops (five products of 2 D) and one exp per kept pair
+// against 4 (B H + B KvH) S D elements moved: the arithmetic, on the
+// tensor cores for bfloat16.  Three kernels, queued by one call:
+//   1. flash_bwd_delta: delta, one warp a row (both routes);
+//   2. dK / dV, one block a (key tile, batch * KvH): K and V stay while
+//      the block walks the group's query heads and, causal, the query
+//      tiles from the key tile's diagonal on;
+//   3. dQ, one block a (query tile, batch * H), longest causal tiles
+//      first: Q and dO stay, K and V stream through.
+// Kernels 2 and 3 each recompute S and dP (14 D flops a pair in all, two
+// exps), which keeps dQ free of atomics.  The route is static, by type
+// and head dim (wgmma_route):
+//
+// bfloat16 with D % 8 == 0 and D <= 128: flash_bwd_dkdv_wgmma and
+// flash_bwd_dq_wgmma, on the tensor cores with the forward's forms
+// (flash_tc.cuh).  The head dim is padded to DP = 64 or 128 as the
+// forward pads it (zero columns add nothing; columns past D are not
+// stored).
+//   * two warpgroups a block, 64 of the block's 128 rows (keys for dK /
+//     dV, queries for dQ) each; the streamed tiles are 64 rows (queries
+//     of the group's heads for dK / dV, keys for dQ) in a ring of three
+//     stages (3% faster than two at llama3.2-1b's shape on an H100) that
+//     one thread fills by TMA from 3-D maps ([B H, Sq, D],
+//     [B KvH, Sk, D]: rows past S and columns past D read as zero), the
+//     resident tiles arrive with the first stage;
+//   * dK / dV: S^T = K Q^T and dP^T = V dO^T by wgmma_ss into registers;
+//     P^T = 2^(S^T scale log2 e - lse log2 e) on the MUFU (the row
+//     statistics of a stage, lse in log2 units and delta, are staged in
+//     shared memory beside it); dS^T = P^T (dP^T - delta); both become
+//     bf16 A fragments in place, and dV += P^T dO, dK += dS^T Q by
+//     wgmma_rs with dO and Q read MN-major from the same stage;
+//   * dQ: S = Q K^T and dP = dO V^T by wgmma_ss, dS in registers,
+//     dQ += dS K by wgmma_rs with K read MN-major;
+//   * masks only on tiles that cross the diagonal or Sk (dQ); a
+//     warpgroup skips causal tiles wholly above its diagonal; in dK / dV
+//     queries past Sq are zero rows of Q and dO with lse = delta = 0, so
+//     they add nothing, and keys past Sk are rows that are not stored;
+//   * the one rounding the FMA route does not make: dS to bf16 before
+//     the dK and dQ products (the tensor cores take bf16 operands); P is
+//     rounded to bf16 before dV as on both routes;
+//   * registers: dK and dV take DP float32 a thread, S^T and dP^T 32 each;
+//     at DP = 256 dK and dV alone would need 256, above the 255 a thread
+//     may hold, so DP = 256 stays on the FMA route.
+//   Not done here (later work): a producer warp with setmaxnreg, S of the
+//   next tile under the exps of this one, dQ by atomics in the dK / dV
+//   pass (one pass, not deterministic), persistent blocks.  Measured no
+//   faster on an H100 (tools/flash_variants.py --backward): the exps
+//   under the dP product in two wgmma groups, dK / dV blocks ordered by
+//   KV head, three warpgroups a block, two dK / dV blocks an SM.
+//
+// float32, and bfloat16 with D % 8 != 0 (TMA needs 16-byte rows) or
+// D > 128: flash_bwd_dkdv and flash_bwd_dq on the FMA units, IEEE float32
+// products (tensor cores would mean TF32).  256 threads a block; each
+// holds R keys (or queries) x NJ columns of dK and dV (or dQ) in
+// registers.  Tiles are BT = 16 R rows square (R = 4 up to D = 128, else
+// 2), stored as float32 with an odd row stride (D + 1) so that a warp's
+// lanes read distinct banks, as f32::flash_kernel does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "flash_tc.cuh"  // smem_addr, mbar_*, tma_load, make_desc, wgmma_*
 
 namespace {
 
@@ -410,11 +456,487 @@ int launch_tiles(const T* q, const T* k, const T* v, const T* dout,
   return (int)cudaGetLastError();
 }
 
+namespace tc {
+
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kRows = 128;     // a block's own rows, 64 a warpgroup
+constexpr int kCols = 64;      // rows of a streamed tile
+constexpr int kStages = 3;     // the streamed ring
+
+// The padded head dim of a head dim d the route takes (d <= 128).
+__host__ __device__ constexpr int padded_dim(int d) {
+  return d <= 64 ? 64 : 128;
+}
+
+// Dynamic shared memory at padded width dp: the two resident tiles
+// (kRows rows each), kStages pairs of streamed tiles (kCols rows each),
+// for dK / dV each stage's kCols lse and delta floats, one 8-byte
+// mbarrier per stage (64 bytes kept) and 1,024 bytes to align the base
+// to a 128-byte swizzle atom of 8 rows.
+__host__ __device__ constexpr int dq_smem(int dp) {
+  return 2 * dp * (2 * kRows + 2 * kStages * kCols) + 64 + 1024;
+}
+__host__ __device__ constexpr int dkdv_smem(int dp) {
+  return dq_smem(dp) + kStages * 2 * kCols * 4;
+}
+
+// dK and dV of kRows keys of one KV head (see the header).
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkdv_wgmma(const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk,
+                     __nv_bfloat16* __restrict__ dv, int bkv, int h,
+                     int kvh, int sq, int sk, int d, float scale,
+                     float scale_log2, int causal,
+                     const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do) {
+  constexpr int kKBytes = kRows * DP * 2;  // K or V
+  constexpr int kQBytes = kCols * DP * 2;  // one stage's Q or dO
+  constexpr int kNS = kCols / 2;           // S^T registers a thread
+  constexpr int kNO = DP / 2;              // dK or dV registers a thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_k = base;
+  const uint32_t s_v = s_k + kKBytes;
+  const uint32_t s_q = s_v + kKBytes;  // stage st: Q at s_q + 2 st kQBytes
+  const uint32_t s_stat = s_q + kStages * 2 * kQBytes;
+  const uint32_t s_bar = s_stat + kStages * 2 * kCols * 4;
+  float* stat = reinterpret_cast<float*>(smem_raw + (s_stat - raw));
+
+  const int wg = threadIdx.x >> 7;         // keys 64 wg .. of the block's
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // and r0 + 8, of the 64 keys
+  const int cq = 2 * (lane & 3);           // column in each 8-column chunk
+
+  const int kt = (int)(blockIdx.x / bkv);  // the first tiles walk longest
+  const long long gk = blockIdx.x % bkv;   // batch * KvH + KV head
+  const int k0 = kt * kRows;
+  const int k0w = k0 + 64 * wg;            // this warpgroup's first key
+  const int rep = h / kvh;
+  const long long g0 = (gk / kvh) * h + (gk % kvh) * rep;  // first q head
+  // Causal: query tiles wholly before the key tile see none of its keys.
+  const int n_qt = (sq + kCols - 1) / kCols;
+  const int qt0 = causal ? k0 / kCols : 0;
+  const int per_head = max(n_qt - qt0, 0);
+  const int n_tiles = rep * per_head;      // heads outer, query tiles inner
+  auto head_of = [&](int t) { return (int)(g0 + t / per_head); };
+  auto q0_of = [&](int t) { return (qt0 + t % per_head) * kCols; };
+
+  // A: this warpgroup's keys of K and V, K-major.  B of S^T and dP^T: a
+  // stage's Q and dO, K-major; B of dV and dK: the same tiles, MN-major.
+  // A k-step or stage moves the start address (16-byte units).
+  const uint64_t desc_k = make_desc(s_k + wg * (64 * 128), 16, 1024);
+  const uint64_t desc_v = make_desc(s_v + wg * (64 * 128), 16, 1024);
+  const uint64_t desc_q = make_desc(s_q, 16, 1024);
+  const uint64_t desc_do = make_desc(s_q + kQBytes, 16, 1024);
+  const uint64_t desc_qt = make_desc(s_q, kCols * 128, 1024);
+  const uint64_t desc_dot = make_desc(s_q + kQBytes, kCols * 128, 1024);
+  auto stage_of = [](int t) {
+    return (uint32_t)((t % kStages) * (2 * kQBytes / 16));
+  };
+  // Copies tile t's Q and dO (and, with tile 0, K and V) into its stage
+  // by TMA: one thread, DP / 64 boxes each, against the stage's barrier.
+  auto load_tiles = [&](int t) {
+    if (threadIdx.x != 0) return;
+    const uint32_t bar = s_bar + 8 * (t % kStages);
+    const uint32_t dst = s_q + (t % kStages) * 2 * kQBytes;
+    mbar_expect(bar, 2 * kQBytes + (t == 0 ? 2 * kKBytes : 0));
+#pragma unroll
+    for (int c = 0; c < DP / 64; ++c) {
+      if (t == 0) {
+        tma_load(s_k + c * (kRows * 128), &map_k, 64 * c, k0, (int)gk, bar);
+        tma_load(s_v + c * (kRows * 128), &map_v, 64 * c, k0, (int)gk, bar);
+      }
+      tma_load(dst + c * (kCols * 128), &map_q, 64 * c, q0_of(t),
+               head_of(t), bar);
+      tma_load(dst + kQBytes + c * (kCols * 128), &map_do, 64 * c, q0_of(t),
+               head_of(t), bar);
+    }
+  };
+  // Stages tile t's row statistics: lse in log2 units, then delta; 0 for
+  // queries past Sq (their Q and dO rows are zero).
+  auto load_stat = [&](int t) {
+    const int i = threadIdx.x;
+    if (i >= 2 * kCols) return;
+    const int qpos = q0_of(t) + (i % kCols);
+    const long long row = (long long)head_of(t) * sq + qpos;
+    float x = 0.0f;
+    if (qpos < sq) x = i < kCols ? lse[row] * kLog2e : delta[row];
+    stat[(t % kStages) * 2 * kCols + i] = x;
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) mbar_init(s_bar + 8 * st);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (n_tiles > 0) load_stat(0);
+  __syncthreads();
+  if (n_tiles > 0) load_tiles(0);
+
+  float acc_k[kNO], acc_v[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) {
+    acc_k[i] = 0.0f;
+    acc_v[i] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // Tile t + 1 is copied while tile t is in the products.
+    if (t + 1 < n_tiles) {
+      load_tiles(t + 1);
+      load_stat(t + 1);
+    }
+    mbar_wait(s_bar + 8 * (t % kStages), (t / kStages) & 1);
+    const int q0 = q0_of(t);
+    // A causal tile wholly above this warpgroup's diagonal (every key
+    // past every query) adds nothing.
+    if (!(causal && k0w > q0 + kCols - 1)) {
+      float st[kNS], dpt[kNS];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t col = ((kk & 3) << 5) >> 4;  // 32 bytes a k-step
+        wgmma_ss(st, desc_k + (kk >> 2) * (kRows * 128 / 16) + col,
+                 desc_q + stage_of(t) + (kk >> 2) * (kCols * 128 / 16) + col,
+                 kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t col = ((kk & 3) << 5) >> 4;
+        wgmma_ss(dpt, desc_v + (kk >> 2) * (kRows * 128 / 16) + col,
+                 desc_do + stage_of(t) + (kk >> 2) * (kCols * 128 / 16) +
+                     col,
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      // Register i is key k0w + r0 + 8 ((i >> 1) & 1) and query
+      // q0 + cq + jc, jc = 8 (i >> 2) + (i & 1); causal, the pair is
+      // masked where the key is past the query: jc < diag + 8 h.
+      const float* lse2 = stat + (t % kStages) * 2 * kCols;
+      const float* dl = lse2 + kCols;
+      const bool edge = causal && k0w + 63 > q0;
+      const int diag = k0w + r0 - q0 - cq;
+      uint32_t pf[kCols / 16][4], dsf[kCols / 16][4];
+#pragma unroll
+      for (int i = 0; i < kNS; i += 2) {
+        const int jc = 8 * (i >> 2);
+        const int lim = diag + 8 * ((i >> 1) & 1);
+        const float2 l = *reinterpret_cast<const float2*>(lse2 + jc + cq);
+        const float2 e = *reinterpret_cast<const float2*>(dl + jc + cq);
+        // p = 2^(s scale log2 e - lse log2 e): one FFMA and one MUFU op.
+        float p0 = ex2(fmaf(st[i], scale_log2, -l.x));
+        float p1 = ex2(fmaf(st[i + 1], scale_log2, -l.y));
+        if (edge) {
+          if (jc < lim) p0 = 0.0f;
+          if (jc + 1 < lim) p1 = 0.0f;
+        }
+        pf[i >> 3][(i >> 1) & 3] = pack_bf16(p0, p1);
+        dsf[i >> 3][(i >> 1) & 3] =
+            pack_bf16(p0 * (dpt[i] - e.x), p1 * (dpt[i + 1] - e.y));
+      }
+
+      // dV += P^T dO, dK += dS^T Q: 16 queries (2,048 bytes) a k-step.
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+      fence_regs(pf);
+      fence_regs(dsf);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        wgmma_rs(acc_v, pf[kk],
+                 desc_dot + stage_of(t) + kk * (16 * 128 / 16));
+      }
+#pragma unroll
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        wgmma_rs(acc_k, dsf[kk],
+                 desc_qt + stage_of(t) + kk * (16 * 128 / 16));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+
+  // Keys past Sk are not stored; d % 8 == 0, so a stored column's pair is
+  // whole.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0w + r0 + 8 * hh;
+    if (key >= sk) continue;
+    __nv_bfloat16* krow = dk + (gk * sk + key) * d;
+    __nv_bfloat16* vrow = dv + (gk * sk + key) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col >= d) continue;
+      const int i = 4 * j + 2 * hh;
+      *reinterpret_cast<__nv_bfloat162*>(krow + col) =
+          __floats2bfloat162_rn(acc_k[i] * scale, acc_k[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + col) =
+          __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+    }
+  }
+}
+
+// dQ of kRows queries of one head (see the header).
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_wgmma(const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   __nv_bfloat16* __restrict__ dq, int bh, int h, int kvh,
+                   int sq, int sk, int d, float scale, float scale_log2,
+                   int causal, int n_qtiles,
+                   const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do) {
+  constexpr int kQBytes = kRows * DP * 2;  // Q or dO
+  constexpr int kKBytes = kCols * DP * 2;  // one stage's K or V
+  constexpr int kNS = kCols / 2;           // S registers a thread
+  constexpr int kNO = DP / 2;              // dQ registers a thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t s_do = s_q + kQBytes;
+  const uint32_t s_kv = s_do + kQBytes;  // stage st: K at s_kv + 2 st kKBytes
+  const uint32_t s_bar = s_kv + kStages * 2 * kKBytes;
+
+  const int wg = threadIdx.x >> 7;         // queries 64 wg .. of the block's
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // and r0 + 8, of the 64 queries
+  const int cq = 2 * (lane & 3);
+
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);  // longest first
+  const long long g = blockIdx.x % bh;     // batch * head
+  const long long gk = kv_row(g, h, kvh);  // its K/V row
+  const int q0 = qt * kRows;
+  const int q0w = q0 + 64 * wg;            // this warpgroup's first query
+  // Causal: keys past the tile's last query are masked for all its rows.
+  const int k_end = causal ? min(sk, q0 + kRows) : sk;
+  const int n_tiles = (k_end + kCols - 1) / kCols;
+
+  // This thread's two rows' statistics: lse in log2 units and delta.
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0w + r0 + 8 * hh;
+    lse2[hh] = r < sq ? lse[g * sq + r] * kLog2e : 0.0f;
+    dl[hh] = r < sq ? delta[g * sq + r] : 0.0f;
+  }
+
+  // A: this warpgroup's rows of Q and dO, K-major.  B of S and dP: a
+  // stage's K and V, K-major; B of dQ: the stage's K, MN-major.
+  const uint64_t desc_q = make_desc(s_q + wg * (64 * 128), 16, 1024);
+  const uint64_t desc_do = make_desc(s_do + wg * (64 * 128), 16, 1024);
+  const uint64_t desc_k = make_desc(s_kv, 16, 1024);
+  const uint64_t desc_v = make_desc(s_kv + kKBytes, 16, 1024);
+  const uint64_t desc_kt = make_desc(s_kv, kCols * 128, 1024);
+  auto stage_of = [](int t) {
+    return (uint32_t)((t % kStages) * (2 * kKBytes / 16));
+  };
+  // Copies K(t) and V(t) (and, with tile 0, Q and dO) into their stage.
+  auto load_tiles = [&](int t) {
+    if (threadIdx.x != 0) return;
+    const uint32_t bar = s_bar + 8 * (t % kStages);
+    const uint32_t dst = s_kv + (t % kStages) * 2 * kKBytes;
+    mbar_expect(bar, 2 * kKBytes + (t == 0 ? 2 * kQBytes : 0));
+#pragma unroll
+    for (int c = 0; c < DP / 64; ++c) {
+      if (t == 0) {
+        tma_load(s_q + c * (kRows * 128), &map_q, 64 * c, q0, (int)g, bar);
+        tma_load(s_do + c * (kRows * 128), &map_do, 64 * c, q0, (int)g, bar);
+      }
+      tma_load(dst + c * (kCols * 128), &map_k, 64 * c, t * kCols, (int)gk,
+               bar);
+      tma_load(dst + kKBytes + c * (kCols * 128), &map_v, 64 * c, t * kCols,
+               (int)gk, bar);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < kStages; ++st) mbar_init(s_bar + 8 * st);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  load_tiles(0);
+
+  float acc[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) load_tiles(t + 1);
+    mbar_wait(s_bar + 8 * (t % kStages), (t / kStages) & 1);
+    const int k0 = t * kCols;
+    // A causal tile wholly above this warpgroup's diagonal adds nothing.
+    if (!(causal && k0 > q0w + 63)) {
+      float sc[kNS], dp[kNS];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t col = ((kk & 3) << 5) >> 4;
+        wgmma_ss(sc, desc_q + (kk >> 2) * (kRows * 128 / 16) + col,
+                 desc_k + stage_of(t) + (kk >> 2) * (kCols * 128 / 16) + col,
+                 kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint32_t col = ((kk & 3) << 5) >> 4;
+        wgmma_ss(dp, desc_do + (kk >> 2) * (kRows * 128 / 16) + col,
+                 desc_v + stage_of(t) + (kk >> 2) * (kCols * 128 / 16) + col,
+                 kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // Register i is query q0w + r0 + 8 h, h = (i >> 1) & 1, and key
+      // k0 + cq + jc, jc = 8 (i >> 2) + (i & 1): masked at jc >= key_lim
+      // (no such key) or, causal, jc > diag + 8 h.
+      const bool edge = k0 + kCols > sk || (causal && k0 + kCols - 1 > q0w);
+      const int key_lim = sk - k0 - cq;
+      const int diag = q0w + r0 - k0 - cq;
+      uint32_t dsf[kCols / 16][4];
+#pragma unroll
+      for (int i = 0; i < kNS; i += 2) {
+        const int hh = (i >> 1) & 1;
+        const int jc = 8 * (i >> 2);
+        float p0 = ex2(fmaf(sc[i], scale_log2, -lse2[hh]));
+        float p1 = ex2(fmaf(sc[i + 1], scale_log2, -lse2[hh]));
+        if (edge) {
+          if (jc >= key_lim || (causal && jc > diag + 8 * hh)) p0 = 0.0f;
+          if (jc + 1 >= key_lim || (causal && jc + 1 > diag + 8 * hh)) {
+            p1 = 0.0f;
+          }
+        }
+        dsf[i >> 3][(i >> 1) & 3] =
+            pack_bf16(p0 * (dp[i] - dl[hh]), p1 * (dp[i + 1] - dl[hh]));
+      }
+
+      // dQ += dS K: 16 keys (2,048 bytes) a k-step.
+      fence_regs(acc);
+      fence_regs(dsf);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        wgmma_rs(acc, dsf[kk], desc_kt + stage_of(t) + kk * (16 * 128 / 16));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncthreads();  // the stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0w + r0 + 8 * hh;
+    if (r >= sq) continue;
+    __nv_bfloat16* row = dq + (g * sq + r) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col >= d) continue;
+      const int i = 4 * j + 2 * hh;
+      *reinterpret_cast<__nv_bfloat162*>(row + col) =
+          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
+    }
+  }
+}
+
+template <int DP>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, void* dk,
+           void* dv, int bh, int h, int kvh, int sq, int sk, int d,
+           float scale, int causal, cudaStream_t stream) {
+  constexpr int kSmemKV = dkdv_smem(DP);
+  constexpr int kSmemQ = dq_smem(DP);
+  static_assert(kSmemKV <= 232448, "fits one SM's shared memory");
+  auto dkdv = flash_bwd_dkdv_wgmma<DP>;
+  auto dqk = flash_bwd_dq_wgmma<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKV);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemQ);
+  if (err != cudaSuccess) return (int)err;
+  // TMA reads rows 16 bytes aligned: d % 8 == 0 (the route) and bases.
+  if (((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) &
+       15) != 0) {
+    return -1;
+  }
+  const int bkv = bh / h * kvh;  // K and V hold B * KvH rows of [Sk, D]
+  const long long kv_blocks = (long long)((sk + kRows - 1) / kRows) * bkv;
+  const int n_qtiles = (sq + kRows - 1) / kRows;
+  const long long q_blocks = (long long)n_qtiles * bh;
+  if (kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL) return -1;
+  // Maps of the streamed tiles (kCols rows) and the resident ones (kRows).
+  CUtensorMap q_s = {}, do_s = {}, k_r = {}, v_r = {};
+  CUtensorMap q_r = {}, do_r = {}, k_s = {}, v_s = {};
+  if (!(make_map(&q_s, q, bh, sq, d, kCols) &&
+        make_map(&do_s, dout, bh, sq, d, kCols) &&
+        make_map(&k_r, k, bkv, sk, d, kRows) &&
+        make_map(&v_r, v, bkv, sk, d, kRows) &&
+        make_map(&q_r, q, bh, sq, d, kRows) &&
+        make_map(&do_r, dout, bh, sq, d, kRows) &&
+        make_map(&k_s, k, bkv, sk, d, kCols) &&
+        make_map(&v_s, v, bkv, sk, d, kCols))) {
+    return -2;
+  }
+  const float scale_log2 = scale * kLog2e;
+  dkdv<<<(unsigned)kv_blocks, kThreads, kSmemKV, stream>>>(
+      lse, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), bkv, h, kvh, sq, sk, d, scale,
+      scale_log2, causal, q_s, k_r, v_r, do_s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dqk<<<(unsigned)q_blocks, kThreads, kSmemQ, stream>>>(
+      lse, delta, static_cast<__nv_bfloat16*>(dq), bh, h, kvh, sq, sk, d,
+      scale, scale_log2, causal, n_qtiles, q_r, k_s, v_s, do_r);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, void* dq, void* dk,
+             void* dv, int bh, int h, int kvh, int sq, int sk, int d,
+             float scale, int causal, cudaStream_t st) {
+  if (padded_dim(d) == 64) {
+    return launch<64>(q, k, v, dout, lse, delta, dq, dk, dv, bh, h, kvh, sq,
+                      sk, d, scale, causal, st);
+  }
+  return launch<128>(q, k, v, dout, lse, delta, dq, dk, dv, bh, h, kvh, sq,
+                     sk, d, scale, causal, st);
+}
+
+}  // namespace tc
+
+// The route of a call: the tensor-core kernels for bfloat16 (dtype 1)
+// with D % 8 == 0 up to D = 128, the FMA tiles otherwise.
+constexpr bool wgmma_route(int d, int dtype) {
+  return dtype == 1 && d % 8 == 0 && d <= 128;
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int bh, int h, int kvh, int sq, int sk, int d,
-           float scale, int causal, cudaStream_t st) {
+           float scale, int causal, int dtype, cudaStream_t st) {
   const long long rows = (long long)bh * sq;
   const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
   if (blocks > 0x7fffffffLL) return -1;
@@ -427,6 +949,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if (wgmma_route(d, dtype)) {
+    return tc::dispatch(q, k, v, dout, lse, delta, dq, dk, dv, bh, h, kvh, sq,
+                        sk, d, scale, causal, st);
+  }
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -452,8 +978,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // dk, dv [bh / h * kvh, sk, d], contiguous, in one type (dtype 0 =
 // float32, 1 = bfloat16), with bh = B * H and h = H a multiple of
 // kvh = KvH; lse [bh, sq] float32 from flash_launch; delta a [bh, sq]
-// float32 workspace.  Queues the three kernels on the stream.  Returns -1
-// for arguments the kernels do not take, else cudaGetLastError().
+// float32 workspace.  Queues the three kernels of the call's route
+// (flash_bwd_route) on the stream.  Returns -1 for arguments the kernels
+// do not take (on the tensor-core route also q, k, v or dout not 16-byte
+// aligned), -2 if a TMA map cannot be made, else cudaGetLastError().
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* lse, void* delta, void* dq,
@@ -467,22 +995,34 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
   float* delta_f = static_cast<float*>(delta);
   if (dtype == 0) {
     return launch<float>(q, k, v, o, dout, lse_f, delta_f, dq, dk, dv, bh, h,
-                         kvh, sq, sk, d, scale, causal != 0, st);
+                         kvh, sq, sk, d, scale, causal != 0, dtype, st);
   }
   if (dtype == 1) {
     return launch<__nv_bfloat16>(q, k, v, o, dout, lse_f, delta_f, dq, dk,
                                  dv, bh, h, kvh, sq, sk, d, scale,
-                                 causal != 0, st);
+                                 causal != 0, dtype, st);
   }
   return -1;
 }
 
+// The route flash_bwd_launch takes at head dim d and dtype (as above): 1
+// for the tensor-core kernels, 0 for the FMA tiles, -1 for what it does
+// not take.
+extern "C" int flash_bwd_route(int d, int dtype) {
+  if (d <= 0 || d > kMaxHeadDim || (dtype != 0 && dtype != 1)) return -1;
+  return wgmma_route(d, dtype) ? 1 : 0;
+}
+
 // Dynamic shared memory, in bytes, of the dK / dV kernel (which = 0) or
-// the dQ kernel (which = 1) at head dim d; -1 for what it does not take.
-extern "C" int flash_bwd_smem_bytes(int d, int which) {
-  if (d <= 0 || d > kMaxHeadDim) return -1;
+// the dQ kernel (which = 1) at head dim d and dtype; -1 for what it does
+// not take.
+extern "C" int flash_bwd_smem_bytes(int d, int dtype, int which) {
+  const int route = flash_bwd_route(d, dtype);
+  if (route < 0 || (which != 0 && which != 1)) return -1;
+  if (route == 1) {
+    const int dp = tc::padded_dim(d);
+    return which == 0 ? tc::dkdv_smem(dp) : tc::dq_smem(dp);
+  }
   const int bt = 16 * rows_per_thread(d);
-  if (which == 0) return dkdv_smem_bytes(d, bt);
-  if (which == 1) return dq_smem_bytes(d, bt);
-  return -1;
+  return which == 0 ? dkdv_smem_bytes(d, bt) : dq_smem_bytes(d, bt);
 }

@@ -3,8 +3,10 @@ library with a plain C interface, loaded with ``ctypes``.
 
 A kernel is built at its first use, from the sources in the package's
 ``csrc/``, into ``build/kernels/`` at the root of the checkout; the
-library's file name carries a hash of its sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+library's file name carries a hash of its sources, the local headers
+they include (``#include "..."``, followed through headers) and the
+flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.
 ``nvcc``'s output, with ``ptxas``'s registers, spills and shared memory
 per kernel, is kept beside the library (``build_log``).  Processes
 that start at once on a cold build directory (the replicas of a serving
@@ -19,6 +21,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,15 +48,42 @@ def find_nvcc() -> str | None:
     return str(default) if default.exists() else None
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def included(paths: list[Path]) -> list[Path]:
+    """``paths`` and every local ``#include "..."`` they reach, each once,
+    in the order first met (a header's path is relative to its
+    includer's directory)."""
+    seen: list[Path] = []
+    todo = [Path(os.path.realpath(p)) for p in paths]
+    while todo:
+        p = todo.pop(0)
+        if p in seen:
+            continue
+        seen.append(p)
+        for m in _INCLUDE.finditer(p.read_bytes()):
+            dep = Path(os.path.realpath(p.parent / m.group(1).decode()))
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
+def source_hash(paths: list[Path]) -> str:
+    """The hash a library's file name carries: its sources, the headers
+    they include and the flags."""
+    h = hashlib.sha256()
+    for p in included(paths):
+        h.update(p.name.encode() + b"\0" + p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str, sources: tuple[str, ...]) -> Path:
     """Compile ``csrc/<sources>`` into ``build/kernels/<name>-<hash>.so``
     unless that file exists; returns its path."""
     paths = [CSRC / s for s in sources]
-    h = hashlib.sha256()
-    for p in paths:
-        h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"{name}-{source_hash(paths)}.so"
     if out.exists():
         return out
     with _claim(out.with_suffix(".lock")):

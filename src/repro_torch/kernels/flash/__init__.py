@@ -1,6 +1,7 @@
 """Attention: ``flash_attention`` over the hand-written CUDA kernels
 (``csrc/flash.cu``, K4: bfloat16 on the tensor cores, float32 on the FMA
-units; ``csrc/flash_bwd.cu``, its backward on the FMA units) and their
+units; ``csrc/flash_bwd.cu``, its backward, bfloat16 on the tensor cores
+where TMA can read the rows, the rest on the FMA units) and their
 plain torch versions."""
 from repro_torch.kernels.flash.flash import (
     FlashAttentionFn,

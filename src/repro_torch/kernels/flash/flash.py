@@ -25,7 +25,9 @@ the same gradient: its forward is K4 with each row's log-sum-exp kept
 ``flash_backward_cuda``, three hand-written kernels queued by one call
 (``csrc/flash_bwd.cu``: ``delta = rowsum(dO * O)``, then dK / dV per key
 tile and KV head, then dQ per query tile and head, each recomputing
-``p = exp(s * scale - lse)``, deterministic), and
+``p = exp(s * scale - lse)``, deterministic; bfloat16 at ``D % 8 == 0``
+up to 128 on the tensor cores with ``wgmma`` and TMA, the rest on the
+FMA units, ``flash_bwd_plan``), and
 ``flash_plain_backward`` their plain version, the same recurrence over
 key blocks in stock torch.
 """
@@ -274,30 +276,55 @@ def _bwd_lib() -> ctypes.CDLL:
             ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                                  ctypes.c_void_p]
         lib.flash_bwd_launch.restype = ctypes.c_int
-        lib.flash_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_bwd_route.argtypes = [ctypes.c_int] * 2
+        lib.flash_bwd_route.restype = ctypes.c_int
+        lib.flash_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.flash_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
 class FlashBwdPlan(NamedTuple):
-    """How ``csrc/flash_bwd.cu`` tiles one head dim (either type)."""
+    """How ``csrc/flash_bwd.cu`` tiles one head dim and type."""
 
-    block: int        # queries and keys per tile (16 x rows a thread)
+    kernel: str       # "wgmma" (tensor cores) or "fma" (FMA units)
+    head_dim: int     # the width the kernels compute over, >= D
+    block_rows: int   # a block's own rows: keys (dK / dV), queries (dQ)
+    block_cols: int   # rows of a streamed tile: queries (dK / dV), keys
+    stages: int       # streamed tiles in the shared-memory ring
     dkdv_smem: int    # dynamic shared memory of the dK / dV kernel
     dq_smem: int      # dynamic shared memory of the dQ kernel
 
 
-def flash_bwd_plan(d: int) -> FlashBwdPlan:
-    """The tiles ``flash_bwd_launch`` picks for head dim ``d``, as the
-    source computes them (the card tests hold the two equal): 64-row
-    tiles up to ``d`` = 128, 32 above; four float32 ``[block, d + 1]``
-    tiles, one (dQ) or two (dK / dV) ``[block, block + 1]`` product tiles
-    and ``2 block`` row statistics."""
+def flash_bwd_plan(d: int, dtype: torch.dtype) -> FlashBwdPlan:
+    """The route and tiles ``flash_bwd_launch`` picks for head dim ``d``
+    and ``dtype``, as the source computes them (the card tests hold the
+    two equal).
+
+    bfloat16 with ``d % 8 == 0`` up to 128 (TMA's 16-byte rows; dK and
+    dV of ``d`` = 256 would take every register a thread has): the
+    tensor-core kernels, ``d`` padded to 64 or 128, 128 rows a block
+    (two warpgroups of 64), streamed tiles of 64 rows in a ring of three;
+    the two resident and six streamed bf16 tiles, for dK / dV each
+    stage's 64 ``lse`` and ``delta`` floats, three mbarriers (64 bytes
+    kept) and 1 KB to align the 128-byte swizzle atoms.
+    float32, and bfloat16 otherwise: the FMA tiles, 64 rows square up to
+    ``d`` = 128, 32 above; four float32 ``[block, d + 1]`` tiles, one
+    (dQ) or two (dK / dV) ``[block, block + 1]`` product tiles and
+    ``2 block`` row statistics."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
+    if dtype not in DTYPES:
+        raise TypeError(f"attention takes float32 or bfloat16, got {dtype}")
+    if dtype == torch.bfloat16 and d % 8 == 0 and d <= 128:
+        dp = 64 if d <= 64 else 128
+        rows, cols, stages = 128, 64, 3
+        dq = 2 * dp * (2 * rows + 2 * stages * cols) + 64 + 1024
+        return FlashBwdPlan("wgmma", dp, rows, cols, stages,
+                            dq + stages * 2 * cols * 4, dq)
     bt = 64 if d <= 128 else 32
     tiles = 4 * bt * (d + 1) + 2 * bt
-    return FlashBwdPlan(bt, (tiles + 2 * bt * (bt + 1)) * 4,
+    return FlashBwdPlan("fma", d, bt, bt, 1,
+                        (tiles + 2 * bt * (bt + 1)) * 4,
                         (tiles + bt * (bt + 1)) * 4)
 
 
@@ -305,9 +332,11 @@ def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True):
     """K4's backward through the CUDA kernels: ``(dq, dk, dv)`` as
-    ``flash_plain_backward`` computes them.  A CPU tensor takes the plain
-    version; a CUDA tensor queues the three kernels with one call (counted
-    once in ``flash_backward_cuda.launches``) or raises.  ``q, out, dout
+    ``flash_plain_backward`` computes them (the tensor-core route rounds
+    ``dS`` to bfloat16 before the dK and dQ products).  A CPU tensor takes
+    the plain version; a CUDA tensor queues the three kernels of its
+    route (``flash_bwd_plan``) with one call (counted once in
+    ``flash_backward_cuda.launches``) or raises.  ``q, out, dout
     [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` in one type, ``lse [B, H,
     Sq]`` float32 from ``flash_cuda(..., return_lse=True)``."""
     if q.device.type == "cpu":
@@ -333,6 +362,10 @@ def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention needs at least one key")
     if max(b * h, sq, sk) >= 2**31:
         raise ValueError("B*H, Sq and Sk must be below 2**31")
+    if flash_bwd_plan(d, q.dtype).kernel == "wgmma" and any(
+            t.data_ptr() % 16 for t in (q, k, v, dout)):
+        raise ValueError("the tensor-core backward reads q, k, v and dout "
+                         "by TMA: their data must start 16-byte aligned")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if b * h == 0 or sq == 0:
         return dq, dk.zero_(), dv.zero_()

@@ -523,6 +523,30 @@ def test_budget_model_is_clean_and_covers_six_kernels():
         2 * 256 * (128 + 2 * 2 * 64) + 64 + 1024)
 
 
+def test_budget_model_counts_both_backward_routes():
+    """K4's backward: the tensor-core kernels at DP 64 and 128 beside the
+    FMA tiles of both types, their plan's tiles mirrored from the
+    source's constants."""
+    rows = {r.entry: r for r in shapes.instantiations()
+            if r.source == "flash_bwd.cu"}
+    for entry, dynamic in (("flash_bwd_dkdv_wgmma<64>", 84_544),
+                           ("flash_bwd_dq_wgmma<64>", 83_008),
+                           ("flash_bwd_dkdv_wgmma<128>", 166_464),
+                           ("flash_bwd_dq_wgmma<128>", 164_928)):
+        assert (rows[entry].dynamic, rows[entry].static) == (dynamic, 0)
+        assert rows[entry].opt_in
+    assert {"flash_bwd_dkdv<float, 4, 8>", "flash_bwd_dq<float, 2, 16>",
+            "flash_bwd_dkdv<__nv_bfloat16, 4, 1>",
+            "flash_bwd_dq<__nv_bfloat16, 2, 16>"} <= set(rows)
+    consts = {**shapes.source_constants("flash_bwd.cu"), "tc::kCols": 32}
+    found = shapes.check_mirrors(constants={"flash_bwd.cu": consts})
+    assert [f.scope for f in found] == ["flash_bwd_plan wgmma block_cols"]
+    assert shapes.parse_entry(
+        "_ZN45_GLOBAL__N__b7f7edad_12_flash_bwd_cu_5acdb5282tc20flash_bwd_"
+        "dkdv_wgmmaILi64EEEvPKfS3_P13__nv_bfloat16S5_iiiiiiffi14CUtensorMap_"
+        "stS6_S6_S6_") == ("flash_bwd_dkdv_wgmma", ("64",))
+
+
 def test_source_constants_read_namespaces_and_expressions():
     c = shapes.source_constants("flash.cu")
     assert (c["f32::kBQ"], c["tc::kBQ"], c["tc::kStages"]) == (64, 128, 2)

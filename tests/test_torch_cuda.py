@@ -5,8 +5,9 @@ launch per leaf, wide messages too), the bitset intersection kernels
 ``run`` and ``run_batch``), and the segment-sum and attention kernels
 through their entry points (K4 with K/V of fewer heads too), with one
 full-width llama3.2-1b prefill through K4 against its plain route; K4's
-backward kernels against their plain version, and one smoke training
-step on the card against the same step on the CPU.
+backward kernels on both routes (bfloat16 on the tensor cores, the FMA
+tiles) against their plain version, and one smoke training step on the
+card against the same step on the CPU.
 
 Every test here is marked ``cuda`` and skips without a CUDA card and
 ``nvcc``.  The file imports nothing of JAX, so it runs where the card is:
@@ -1601,11 +1602,13 @@ def test_cuda_llama3_2_1b_full_width_prefill_k4_equals_plain_route(card):
 
 # -- K4's backward (csrc/flash_bwd.cu) -------------------------------------
 
-def _bwd_inputs(rng, dev, dtype, b, h, kvh, s, d, causal):
-    """q, k, v, the forward's output and row lse through K4, and a dO."""
+def _bwd_inputs(rng, dev, dtype, b, h, kvh, s, d, causal, sk=None):
+    """q, k, v, the forward's output and row lse through K4, and a dO
+    (``sk`` keys, ``s`` by default)."""
+    sk = s if sk is None else sk
     q = torch.as_tensor(rng.standard_normal((b, h, s, d)).astype(
         np.float32) * 0.3, device=dev).to(dtype)
-    k, v = (torch.as_tensor(rng.standard_normal((b, kvh, s, d)).astype(
+    k, v = (torch.as_tensor(rng.standard_normal((b, kvh, sk, d)).astype(
         np.float32) * scale, device=dev).to(dtype) for scale in (0.3, 1.0))
     out, lse = flash_cuda(q, k, v, causal=causal, return_lse=True)
     dout = torch.as_tensor(rng.standard_normal((b, h, s, d)).astype(
@@ -1619,20 +1622,26 @@ def _rel_max(got, want):
 
 
 # MHA and GQA (llama3.2-1b's 32:8 and multi-query), head dims 8 to 256
-# (both tile sizes), S ragged against the 64- and 32-row tiles.
+# (both FMA tile sizes; bfloat16 D 8, 40, 64, 120 and 128 on the tensor
+# cores, D 36 and 256 on the FMA units), S ragged against the 32-, 64-
+# and 128-row tiles, and causal Sq != Sk both ways.
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 2), (4, 1)])
-@pytest.mark.parametrize("s,d,causal", [(200, 64, True), (70, 8, True),
-                                        (257, 128, True), (130, 256, True),
-                                        (96, 40, False), (65, 256, False)])
+@pytest.mark.parametrize("h,kvh", [(4, 4), (8, 2), (4, 1), (32, 8)])
+@pytest.mark.parametrize("s,sk,d,causal", [
+    (200, 200, 64, True), (70, 70, 8, True), (257, 257, 128, True),
+    (130, 130, 256, True), (96, 96, 40, False), (65, 65, 256, False),
+    (129, 129, 128, True), (100, 100, 36, True), (128, 128, 64, True),
+    (257, 257, 120, True), (64, 192, 64, True), (300, 100, 128, True),
+    (190, 70, 64, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_backward_equals_plain(card, dtype, s, d, causal, h, kvh):
+def test_cuda_flash_backward_equals_plain(card, dtype, s, sk, d, causal, h,
+                                          kvh):
     """dQ, dK, dV of the kernels against ``flash_plain_backward`` on the
     same saved tensors: float32 within 1e-4 and bfloat16 within 2e-2 of
     each tensor's largest magnitude; one launch a call."""
-    rng = np.random.default_rng(h * 10 + kvh + s + d)
+    rng = np.random.default_rng(h * 10 + kvh + sk + d)
     q, k, v, out, lse, dout = _bwd_inputs(rng, card, dtype, 2, h, kvh, s, d,
-                                          causal)
+                                          causal, sk=sk)
     before = flash_backward_cuda.launches
     got = flash_backward_cuda(q, k, v, out, lse, dout, causal=causal)
     torch.cuda.synchronize()
@@ -1646,11 +1655,45 @@ def test_cuda_flash_backward_equals_plain(card, dtype, s, d, causal, h, kvh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 40, "wgmma"), (torch.float32, 64, "fma"),
+    (torch.bfloat16, 36, "fma"), (torch.bfloat16, 256, "fma")])
+def test_cuda_flash_backward_launches_its_routes_kernels(card, dtype, d,
+                                                         route):
+    """bfloat16 at D % 8 == 0 up to 128 runs the tensor-core kernels, and
+    float32, D % 8 != 0 and D = 256 the FMA ones: the plan, the source's
+    ``flash_bwd_route`` and the kernels the profiler sees agree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash.flash import _bwd_lib
+
+    assert flash_bwd_plan(d, dtype).kernel == route
+    assert _bwd_lib().flash_bwd_route(d, FLASH_DTYPES[dtype]) == (
+        route == "wgmma")
+    rng = np.random.default_rng(d)
+    args = _bwd_inputs(rng, card, dtype, 1, 4, 2, 150, d, True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_backward_cuda(*args, causal=True)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "flash_bwd" in e.key]
+    tc = [n for n in names if "_wgmma<" in n]
+    fma = [n for n in names if "flash_bwd_dkdv<" in n or "flash_bwd_dq<" in n]
+    assert any("flash_bwd_delta<" in n for n in names), names
+    if route == "wgmma":
+        assert len(tc) == 2 and not fma, names
+    else:
+        assert len(fma) == 2 and not tc, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_backward_is_bitwise_repeatable(card, dtype):
-    """No atomics: two calls give the same bits."""
+def test_cuda_flash_backward_is_bitwise_repeatable(card, dtype, d):
+    """No atomics: two calls give the same bits (bfloat16 on the
+    tensor-core route)."""
     rng = np.random.default_rng(11)
-    args = _bwd_inputs(rng, card, dtype, 2, 8, 2, 333, 64, True)
+    args = _bwd_inputs(rng, card, dtype, 2, 8, 2, 333, d, True)
     first = flash_backward_cuda(*args, causal=True)
     second = flash_backward_cuda(*args, causal=True)
     torch.cuda.synchronize()
@@ -1679,17 +1722,21 @@ def test_cuda_flash_lse_equals_plain(card, dtype, d):
 
 @pytest.mark.cuda
 def test_cuda_flash_bwd_plan_matches_the_kernel(card):
-    """``flash_bwd_plan``'s shared memory is what the source launches
-    with."""
+    """``flash_bwd_plan``'s route and shared memory are what the source
+    launches with, in both types."""
     from repro_torch.kernels.flash.flash import _bwd_lib
 
     lib = _bwd_lib()
-    for d in range(1, 257):
-        plan = flash_bwd_plan(d)
-        assert (lib.flash_bwd_smem_bytes(d, 0),
-                lib.flash_bwd_smem_bytes(d, 1)) == (plan.dkdv_smem,
-                                                   plan.dq_smem), d
-    assert lib.flash_bwd_smem_bytes(257, 0) == -1
+    for dtype, code in FLASH_DTYPES.items():
+        for d in range(1, 257):
+            plan = flash_bwd_plan(d, dtype)
+            assert (lib.flash_bwd_smem_bytes(d, code, 0),
+                    lib.flash_bwd_smem_bytes(d, code, 1)) == (
+                        plan.dkdv_smem, plan.dq_smem), (dtype, d)
+            assert lib.flash_bwd_route(d, code) == (plan.kernel == "wgmma")
+        assert lib.flash_bwd_smem_bytes(257, code, 0) == -1
+        assert lib.flash_bwd_route(0, code) == -1
+    assert lib.flash_bwd_smem_bytes(64, 2, 0) == -1
 
 
 @pytest.mark.cuda
@@ -1727,6 +1774,16 @@ def test_cuda_flash_backward_rejects_what_the_kernels_do_not_take(card):
         flash_backward_cuda(q, q, q, q, lse.double(), q)
     with pytest.raises(ValueError, match="lse"):
         flash_backward_cuda(q, q, q, q, lse[:, :, :8].contiguous(), q)
+    # The tensor-core route reads by TMA: data 2 bytes past an aligned
+    # start is refused before any launch.
+    odd = torch.zeros(1 + q.numel(), dtype=torch.bfloat16,
+                      device=card)[1:].view(q.shape)
+    assert odd.is_contiguous() and odd.data_ptr() % 16 == 2
+    before = flash_backward_cuda.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_backward_cuda(odd, q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                            lse, q.bfloat16())
+    assert flash_backward_cuda.launches == before
 
 
 @pytest.mark.cuda

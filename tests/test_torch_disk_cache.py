@@ -386,6 +386,30 @@ def test_nvcc_builds_once_across_processes(tmp_path):
     assert count.read_text() == "built\n"
 
 
+def test_nvcc_hash_follows_local_includes(tmp_path):
+    """A library's hash covers the headers its sources include, through
+    headers, so that a change to a header alone rebuilds it; a header it
+    does not reach changes nothing.  No nvcc is needed."""
+    from repro_torch.kernels import _nvcc
+
+    (tmp_path / "sub").mkdir()
+    (tmp_path / "a.cu").write_text('#include <cuda.h>\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text('#include "sub/c.cuh"\nint b;\n')
+    (tmp_path / "sub" / "c.cuh").write_text('#include "../b.cuh"\nint c;\n')
+    (tmp_path / "other.cuh").write_text("int o;\n")
+    src = [tmp_path / "a.cu"]
+    assert [p.name for p in _nvcc.included(src)] == ["a.cu", "b.cuh",
+                                                     "c.cuh"]
+    before = _nvcc.source_hash(src)
+    (tmp_path / "other.cuh").write_text("int o2;\n")
+    assert _nvcc.source_hash(src) == before
+    (tmp_path / "sub" / "c.cuh").write_text('#include "../b.cuh"\nint d;\n')
+    assert _nvcc.source_hash(src) != before
+    for source in ("flash.cu", "flash_bwd.cu"):
+        assert [p.name for p in _nvcc.included([_nvcc.CSRC / source])] == [
+            source, "flash_tc.cuh"]
+
+
 # --------------------------------------------------------------------------
 # real processes: the pool, kill -9, the launcher under every point
 # --------------------------------------------------------------------------

@@ -25,9 +25,11 @@ import repro.models.attention as jattn
 import repro.train as jtrain
 from repro_torch.kernels.flash import (
     flash_attention,
+    flash_bwd_plan,
     flash_plain,
     flash_plain_backward,
 )
+from repro_torch.kernels.flash.flash import SMEM_LIMIT
 from repro_torch.launch import train as ltrain
 from repro_torch.train import (
     AdamWConfig,
@@ -337,6 +339,42 @@ def test_flash_plain_lse_is_the_rows_logsumexp():
                                atol=1e-6)
     assert torch.equal(out, flash_plain(q, k, v, causal=True, block_q=8,
                                         block_k=8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_plan_routes_every_head_dim_within_a_block(dtype):
+    """The backward's route over head dims 1-256: bfloat16 on the tensor
+    cores wherever TMA reads whole 16-byte rows and dK, dV fit a thread's
+    registers (D % 8 == 0, D <= 128), padded to 64 or 128; everything
+    else on the FMA tiles.  Every plan's shared memory fits the 232,448
+    bytes a block may opt into."""
+    for d in range(1, 257):
+        p = flash_bwd_plan(d, dtype)
+        tc = dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
+        assert p.kernel == ("wgmma" if tc else "fma"), d
+        assert 0 < p.dq_smem <= p.dkdv_smem <= SMEM_LIMIT, d
+        if tc:
+            assert p.head_dim == (64 if d <= 64 else 128), d
+            assert (p.block_rows, p.block_cols, p.stages) == (128, 64, 3)
+        else:
+            assert p.head_dim == d
+            assert p.block_rows == p.block_cols == (64 if d <= 128 else 32)
+
+
+def test_flash_bwd_plan_shared_memory_and_refusals():
+    """The tensor-core tiles' bytes: two resident 128-row tiles, three
+    stages of two 64-row tiles (bf16, at the padded width), the dK / dV
+    stages' lse and delta, the mbarriers (64 bytes) and the 1 KB
+    alignment."""
+    assert flash_bwd_plan(64, torch.bfloat16)[-2:] == (84_544, 83_008)
+    assert flash_bwd_plan(128, torch.bfloat16)[-2:] == (166_464, 164_928)
+    assert flash_bwd_plan(40, torch.bfloat16)[-2:] == (84_544, 83_008)
+    assert flash_bwd_plan(128, torch.float32)[-2:] == (165_888, 149_248)
+    for d in (0, 257):
+        with pytest.raises(ValueError, match="head dim"):
+            flash_bwd_plan(d, torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_bwd_plan(64, torch.float16)
 
 
 # --------------------------------------------------------------------------
