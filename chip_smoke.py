@@ -283,14 +283,42 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    (e) ``python -m repro_torch.launch.train --smoke --steps 4
    --ckpt-every 2``, then with ``--steps 6 --resume``, which resumes at
    step 4 and trains steps 4 and 5.
+18. the GNN side (``repro_torch.models.gnn`` through
+   ``make_train_step``; every float message sum is ``mp_segment_sum`` on
+   K2a): (a) gat-cora on ``full_graph_sm`` (2,708 nodes, 10,556 edges,
+   1,433 features), PNA, NequIP and MACE on ``molecule`` (128 molecules
+   of 30 nodes and 64 edges; positions, species and per-molecule
+   energies for the equivariant ones), each at its ``CONFIG`` from seed
+   0: 3 AdamW steps, finite losses, the third below the first + 0.5,
+   ms a step (median of steps 1-2), peak memory and K2a's launches a
+   step (> 0, the same each step); the forward and every gradient on the
+   K2a route against the plain route (the script's hook swaps
+   ``segsum_plain`` in) within 1e-4 of each tensor's largest magnitude,
+   NequIP's ``forces`` too, each route also against the same call in
+   float64 (the scatter's route), where float32 cannot meet 1e-4 K2a
+   no further from float64 than twice the plain route; K2a against
+   ``index_add_`` at the message shapes of those models (in turns); (b) gat-cora on ``ogb_products``
+   (2,449,029 nodes, 61,859,140 random edges drawn on the card, d_in
+   100, 47 classes, as ``launch/tasks.py``'s ``_gnn_model_cfg``), the
+   edges cut by 5% a try only while the step does not fit the card
+   (printed as ``reduced``): a step's ms and peak memory, 4 K2a
+   launches, the step on K2a and on ``index_add_`` in turns, and K2a's
+   calls at its four shapes alone beside the byte bound and
+   ``index_add_`` (layer 1's ``[E, 64]`` also beside its plain version);
+   (c) ``launch.gnn_sharded.make_edge_sharded_step`` in an NCCL group of
+   one against the plain step for gat-cora, NequIP and MACE at (a)'s
+   shapes (parameters within 5e-4, the loss within 5e-4 of max(1,
+   |loss|)), the ``all_reduce`` calls a step counted.
 
 Prints the kernel line (JSON; every entry carries phase 15's
 ``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
 launches and times, phase 12's ``phase12_*`` serving keys, phase
 13's ``phase13_*`` pool keys and phase 14's ``dist_*`` keys; the isect
 entries carry phase 14's ``dist_census_launches``; K2b's, phase 11's launches and numbers at the
-clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 7's, with
-the clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase
+clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 18's (its
+launches over one step of each GNN; its times at gat-cora's layer-1
+messages on ``ogb_products``) with the rest of phase 18 as ``gnn_*``,
+phase 7's as ``phase7_*`` and the clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase
 16's as ``lm_*``, phase 17's as ``train_*`` and its backward's as
 ``bwd_*``) and, last, the device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
@@ -3276,6 +3304,14 @@ def gqa_checks(dev, flush, sms, clock):
     return keys, max_err
 
 
+def lm_arch_ids(arch_ids):
+    """The LM family's ids among ``configs.ARCH_IDS`` (which also holds
+    the GNN ones)."""
+    from repro_torch.configs import get_config
+
+    return [a for a in arch_ids if get_config(a, smoke=True).family == "lm"]
+
+
 def lm_phase(dev, flush, sms, clock, smi):
     """Phase 16: the LM serving path (``repro_torch.launch.serve``) at
     llama3.2-1b's full width; see the module docstring.  Returns K4's
@@ -3434,7 +3470,7 @@ def lm_phase(dev, flush, sms, clock, smi):
         torch.cuda.empty_cache()
 
         # (e) the five smoke configs on the card, K4 route vs plain route.
-        for arch in ARCH_IDS:
+        for arch in lm_arch_ids(ARCH_IDS):
             scfg, sparams = serve.build(arch, smoke=True, seed=0, device=dev)
             stoks = serve.make_prompts(scfg, LM_SMOKE_BATCH,
                                        LM_SMOKE_PROMPT, device=dev)
@@ -3770,7 +3806,7 @@ def smoke_training(dev):
         return cfg, state, torch.stack(losses).tolist()
 
     notes = []
-    for arch in ARCH_IDS:
+    for arch in lm_arch_ids(ARCH_IDS):
         flash_cuda.launches = flash_backward_cuda.launches = 0
         cfg, _, losses = run(arch, 0, SMOKE_STEPS)
         torch.cuda.synchronize()
@@ -3974,6 +4010,578 @@ def train_phase(dev, flush, sms, clock, smi):
     return keys
 
 
+# Phase 18: the GNN side (gat-cora, pna, nequip, mace) at published width.
+GNN_STEPS = 3
+GNN_LOSS_RISE = 0.5       # phase 17's rule: loss 3 < loss 1 + 0.5
+GNN_ROUTE_TOL = 1e-4      # K2a route vs plain route, of each tensor's max
+# tests/test_gnn_sharded.py's bound; for the loss, of max(1, |loss|): at
+# the published widths an energy MSE reaches ~1.7e4, where float32's
+# spacing is ~2e-3 and K2a's order moves the last bits (PERF.md §6).
+GNN_SHARD_TOL = 5e-4
+# lr 1e-4: at the published widths a first step of 1e-3 throws MACE's
+# loss up (78.5 -> 6,712 on 16 molecules, on the CPU); 1e-4 lowers
+# all four.
+GNN_OPT = dict(lr=1e-4, warmup_steps=1, total_steps=GNN_STEPS)
+MOLECULES, MOLECULE_NODES, MOLECULE_EDGES = 128, 30, 64
+OGB_NODES, OGB_EDGES, OGB_FEAT, OGB_CLASSES = 2_449_029, 61_859_140, 100, 47
+OGB_CUT = 0.95            # (b): E cut by 5% a try while the step does not fit
+OGB_CUTS = 8              # (b): at most this many cuts
+OGB_TIMED = 5             # (b): medians of 5 for the largest K2a calls
+
+
+def k2_route(rows_fn):
+    """A context in which ``SegmentSumFn`` sums with ``rows_fn(msgs, dst,
+    n)`` in place of ``segment_sum_mxu`` (K2a): a hook of this script
+    (the program has no switch)."""
+    import contextlib
+
+    from repro_torch.kernels.segsum import ops
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = ops.segment_sum_mxu
+        ops.segment_sum_mxu = rows_fn
+        try:
+            yield
+        finally:
+            ops.segment_sum_mxu = saved
+
+    return ctx()
+
+
+def index_add_rows(msgs, dst, n):
+    """The library's one call for K2a's function: ``index_add_`` into
+    float32 (every id in range, as in the GNN graphs here)."""
+    import torch
+
+    out = torch.zeros(n, msgs.shape[1], dtype=torch.float32,
+                      device=msgs.device)
+    return out.index_add_(0, dst.long(), msgs.float()).to(msgs.dtype)
+
+
+def plain_rows(msgs, dst, n):
+    from repro_torch.kernels.segsum import segsum_plain
+
+    return segsum_plain(msgs, dst, n)
+
+
+def k2a_bound_ms(e, n, d, itemsize=4):
+    """K2a's byte bound: messages and ids read once, the output written
+    once, at the card's memory rate."""
+    return (e * d * itemsize + 4 * e + n * d * itemsize) / HBM_BYTES_PER_S * 1e3
+
+
+def tree_rel(got, want, floor_share=1e-7):
+    """Largest error of a list of tensors against another, each as a
+    share of its own largest magnitude, that floored at ``floor_share``
+    of the whole list's (a gradient that vanishes by symmetry is float
+    noise in both)."""
+    scale = max(float(w.abs().max()) for w in want if w.numel())
+    worst = 0.0
+    for g, w in zip(got, want):
+        if w.numel():
+            den = max(float(w.abs().max()), floor_share * scale, 1e-30)
+            worst = max(worst, float((g.double() - w.double()).abs().max())
+                        / den)
+    return worst
+
+
+def step_profile(call):
+    """One step under ``torch.profiler`` (``profiled``): wall and busy ms,
+    the idle share, K2a's share of busy time (its ``k2a_*`` kernels) and
+    the top kernels by device time."""
+    wall, busy, n_kernels, rows = profiled(call, 1)
+    k2a = sum(ms for name, ms in rows if "k2a_" in name)
+    return dict(prof_wall_ms=wall, prof_busy_ms=busy,
+                prof_idle=1 - busy / wall, prof_kernels=n_kernels,
+                prof_k2a_ms=k2a, prof_top=[(k[:60], ms) for k, ms in rows[:6]])
+
+
+def log_profile(label, prof):
+    log(f"  {label} profiled step: wall {prof['prof_wall_ms']:.2f} ms, busy "
+        f"{prof['prof_busy_ms']:.2f} (idle {prof['prof_idle']:.1%}), "
+        f"{prof['prof_kernels']:.0f} kernels, K2a {prof['prof_k2a_ms']:.3f} "
+        f"ms; top: " + "; ".join(f"{k} {ms:.3f}"
+                                   for k, ms in prof["prof_top"]))
+
+
+def gnn_inputs(arch, dev, seed=0):
+    """``(module, config, graph)`` of ``arch`` at its ``CONFIG`` on the
+    shape it is published for: gat-cora on ``full_graph_sm`` (Cora's
+    2,708 nodes and 10,556 edges), the rest on ``molecule`` (128
+    molecules of 30 nodes and 64 edges), the equivariant ones with
+    positions, species and a per-molecule energy target."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn import equivariant, gat, pna, random_graph
+
+    spec = get_config(arch)
+    cfg = spec.model
+    if arch == "gat-cora":
+        dims = spec.shape("full_graph_sm").dims
+        g = random_graph(dims["n_nodes"], dims["n_edges"],
+                         d_feat=dims["d_feat"], n_classes=dims["n_classes"],
+                         seed=seed, device=dev)
+        return gat, cfg, g
+    dims = spec.shape("molecule").dims
+    if (dims["n_nodes"], dims["n_edges"], dims["batch"]) != (
+            MOLECULE_NODES, MOLECULE_EDGES, MOLECULES):
+        fail(f"molecule shape {dims}")
+    n, e = MOLECULES * MOLECULE_NODES, MOLECULES * MOLECULE_EDGES
+    if arch == "pna":
+        return pna, cfg, random_graph(
+            n, e, d_feat=dims["d_feat"], n_classes=dims["n_classes"],
+            n_graphs=MOLECULES, seed=seed, device=dev)
+    g = random_graph(n, e, with_positions=True, n_species=cfg.n_species,
+                     n_graphs=MOLECULES, seed=seed, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return equivariant, cfg, dataclasses.replace(
+        g, labels=torch.randn(MOLECULES, generator=gen, device=dev))
+
+
+def float64_tree(tree):
+    """A float64 copy of a parameter tree (no gradient history)."""
+    if isinstance(tree, dict):
+        return {k: float64_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [float64_tree(v) for v in tree]
+    return tree.detach().double()
+
+
+def float64_graph(g):
+    """``g`` with its float arrays in float64."""
+    import dataclasses
+
+    return dataclasses.replace(g, **{
+        f.name: getattr(g, f.name).double()
+        for f in dataclasses.fields(g)
+        if hasattr(getattr(g, f.name), "is_floating_point")
+        and getattr(g, f.name).is_floating_point()})
+
+
+def route_check(label, k2a, plain, f64):
+    """K2a's route against the plain route within ``GNN_ROUTE_TOL`` of
+    each tensor's largest magnitude; where float32 itself cannot meet
+    that (the plain route strays that far from the float64 call), K2a
+    within twice the plain route's distance from float64 instead (phase
+    16's rule for K4).  Returns the three distances."""
+    r = dict(k2a_plain=tree_rel(k2a, plain), k2a_f64=tree_rel(k2a, f64),
+             plain_f64=tree_rel(plain, f64))
+    if not (r["k2a_plain"] <= GNN_ROUTE_TOL
+            or r["k2a_f64"] <= 2 * r["plain_f64"]):
+        fail(f"phase 18 {label}: K2a route vs plain {r['k2a_plain']:.3g}, "
+             f"vs float64 {r['k2a_f64']:.3g} (plain {r['plain_f64']:.3g})")
+    return r
+
+
+def gnn_grads(mod, cfg, g, params):
+    """(forward output, loss, gradients in leaf order) of one call."""
+    import torch
+
+    from repro_torch.train.tree import leaves
+
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+        p.grad = None
+    loss = mod.loss_fn(params, cfg, g)
+    loss.backward()
+    grads = [p.grad.detach().clone() if p.grad is not None
+             else torch.zeros_like(p) for p in ps]
+    with torch.no_grad():
+        out = mod.forward(params, cfg, g)
+    for p in ps:
+        p.grad = None
+    return out, loss.detach(), grads
+
+
+def gnn_models(dev):
+    """Phase 18 (a): each GNN at its ``CONFIG`` on its published shape."""
+    import torch
+
+    from repro_torch.kernels.segsum import segsum_cuda
+    from repro_torch.models.gnn import equivariant
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.tree import leaves
+
+    rows = {}
+    for arch in ("gat-cora", "pna", "nequip", "mace"):
+        mod, cfg, g = gnn_inputs(arch, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = init_train_state(mod.init_params(gen, cfg))
+        n_params = sum(p.numel() for p in leaves(state.params))
+        step = make_train_step(lambda p, b: mod.loss_fn(p, cfg, b),
+                               AdamWConfig(**GNN_OPT))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, ms, launches = [], [], []
+        for _ in range(GNN_STEPS):
+            segsum_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, g)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(segsum_cuda.launches)
+            losses.append(float(m["loss"]))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        prof = step_profile(lambda: step(state, g))
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"phase 18 {arch}: losses {losses}")
+        if not losses[-1] < losses[0] + GNN_LOSS_RISE:
+            fail(f"phase 18 {arch}: loss 3 {losses[-1]} not below loss 1 "
+                 f"{losses[0]} + {GNN_LOSS_RISE}")
+        if min(launches) == 0 or len(set(launches)) != 1:
+            fail(f"phase 18 {arch}: K2a launches a step {launches}")
+        step_ms = statistics.median(ms[1:])
+
+        # The K2a route against the plain route (forward, gradients,
+        # NequIP's forces), each also against the same call in float64
+        # (the scatter's route: K2a sums float32 / bfloat16 only).
+        params = state.params
+        params64 = float64_tree(params)
+        g64 = float64_graph(g)
+        out_k, _, grads_k = gnn_grads(mod, cfg, g, params)
+        with k2_route(plain_rows):
+            out_p, _, grads_p = gnn_grads(mod, cfg, g, params)
+        out_d, _, grads_d = gnn_grads(mod, cfg, g64, params64)
+        checks = {"forward": ([out_k], [out_p], [out_d]),
+                  "gradients": (grads_k, grads_p, grads_d)}
+        if arch == "nequip":
+            f_k = equivariant.forces(params, cfg, g)
+            with k2_route(plain_rows):
+                f_p = equivariant.forces(params, cfg, g)
+            checks["forces"] = ([f_k], [f_p],
+                                [equivariant.forces(params64, cfg, g64)])
+        row = dict(params=n_params, step_ms=step_ms, steps_ms=ms,
+                   peak_mib=peak, k2a_launches=launches[0], losses=losses,
+                   nodes=g.n_nodes, edges=int(g.edge_src.shape[0]), **prof)
+        for what, (k, p, d) in checks.items():
+            row[f"{what}_route"] = route_check(f"{arch} {what}", k, p, d)
+        log(f"  (a) {arch} ({n_params:,} weights; {g.n_nodes} nodes, "
+            f"{row['edges']} edges): step {step_ms:.2f} ms (steps "
+            f"{', '.join(f'{x:.2f}' for x in ms)}), peak {peak:.0f} MiB, "
+            f"{launches[0]} K2a launches a step, losses "
+            f"{', '.join(f'{x:.4g}' for x in losses)}; K2a route vs plain "
+            "(vs float64: K2a, plain): " + "; ".join(
+                f"{what} {r['k2a_plain']:.3g} ({r['k2a_f64']:.3g}, "
+                f"{r['plain_f64']:.3g})"
+                for what, r in ((w[:-6], row[w]) for w in row
+                                if w.endswith("_route"))))
+        log_profile(f"(a) {arch}", prof)
+        rows[arch] = row
+        del state, params, grads_k, grads_p, g
+    return rows
+
+
+def ogb_graph(dev, n, e, gen):
+    """gat-cora's ``ogb_products`` cell on the card: ``n`` nodes, ``e``
+    random edges (int32, drawn on the card), ``OGB_FEAT`` features,
+    ``OGB_CLASSES`` labels."""
+    import torch
+
+    from repro_torch.models.gnn import GraphBatch
+
+    src = torch.randint(0, n, (e,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    dst = torch.randint(0, n, (e,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    return GraphBatch(
+        edge_src=src, edge_dst=dst,
+        edge_mask=torch.ones(e, device=dev), n_nodes=n,
+        node_feat=torch.randn(n, OGB_FEAT, generator=gen, device=dev),
+        node_mask=torch.ones(n, device=dev),
+        labels=torch.randint(0, OGB_CLASSES, (n,), generator=gen,
+                             device=dev, dtype=torch.int32))
+
+
+def ogb_memory_gb(e, n):
+    """A reckoning of the step's peak bytes (GB) before running: layer
+    1's saved gather ``h[src]`` and its gradient's two [E, 8, 8] float32
+    temporaries, about seven [E, 8] tensors kept by the softmax chain,
+    layer 2's saved [E, 1, 47] gather, K2a's scratch at D = 64
+    (``k2a_geometry``) and the node side."""
+    from repro_torch.kernels.segsum.segsum import k2a_geometry
+
+    geo = k2a_geometry(e, n, 64, 4, 128, 512)
+    scratch = 4 * (geo.int_words + geo.partial_floats)
+    return (3 * e * 64 * 4 + 7 * e * 8 * 4 + e * 47 * 4 + scratch
+            + n * (OGB_FEAT + 8 * 64) * 4) / 1e9
+
+
+def ogb_step(dev, flush, e):
+    """Phase 18 (b) at ``e`` edges: one warm step on K2a, then the step on
+    K2a and on ``index_add_`` in turns (index_add_, K2a, K2a,
+    index_add_), then the K2a calls of its shapes alone.  Raises
+    ``torch.cuda.OutOfMemoryError`` when the card cannot hold it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.segsum import segsum_cuda, segsum_plain
+    from repro_torch.models.gnn import gat
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+
+    spec = get_config("gat-cora")
+    # launch/tasks.py's _gnn_model_cfg: the shape's feature and class dims.
+    cfg = dataclasses.replace(spec.model, d_in=OGB_FEAT,
+                              n_classes=OGB_CLASSES)
+    n = OGB_NODES
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = ogb_graph(dev, n, e, gen)
+    state = init_train_state(gat.init_params(gen, cfg))
+    step = make_train_step(lambda p, b: gat.loss_fn(p, cfg, b),
+                           AdamWConfig(**GNN_OPT))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = step(state, g)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, float(m["loss"])
+
+    segsum_cuda.launches = 0
+    first_ms, loss0 = timed()
+    launches = segsum_cuda.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    walls = {"k2a": [], "index_add": []}
+    for route in ("index_add", "k2a", "k2a", "index_add"):
+        if route == "k2a":
+            walls[route].append(timed()[0])
+        else:
+            with k2_route(index_add_rows):
+                walls[route].append(timed()[0])
+    if not math.isfinite(loss0) or launches != 4:
+        fail(f"phase 18 (b): loss {loss0}, {launches} K2a launches a step "
+             "(expected 4: two per layer)")
+    prof = step_profile(lambda: step(state, g))
+    del state, step
+
+    # K2a's calls at the step's shapes, alone: layer 1's [E, 8 x 8]
+    # messages and [E, 8] softmax denominators, layer 2's [E, 47] and
+    # [E, 1].  The layer-1 messages are the kernel line's numbers.
+    calls = {}
+    for label, d in (("msg1", 64), ("msg2", 47), ("den1", 8), ("den2", 1)):
+        msgs = torch.randn(e, d, generator=gen, device=dev)
+        k_ms = time_cuda(lambda: segsum_cuda(msgs, g.edge_dst, n), flush,
+                         n_timed=OGB_TIMED)
+        l_ms = time_cuda(lambda: index_add_rows(msgs, g.edge_dst, n), flush,
+                         n_timed=OGB_TIMED)
+        calls[label] = dict(d=d, ms=k_ms, library_ms=l_ms,
+                            bound_ms=k2a_bound_ms(e, n, d))
+        if label == "msg1":
+            got = segsum_cuda(msgs, g.edge_dst, n)
+            want = segsum_plain(msgs, g.edge_dst, n)
+            calls[label]["max_abs_err"] = float((got - want).abs().max())
+            del got, want
+            torch.cuda.empty_cache()
+            calls[label]["plain_ms"] = time_cuda(
+                lambda: segsum_plain(msgs, g.edge_dst, n), flush,
+                n_timed=OGB_TIMED)
+        del msgs
+        torch.cuda.empty_cache()
+    return dict(edges=e, nodes=n, first_ms=first_ms, loss=loss0,
+                k2a_launches=launches, peak_gib=peak,
+                k2a_step_ms=statistics.median(walls["k2a"]),
+                index_add_step_ms=statistics.median(walls["index_add"]),
+                k2a_steps_ms=walls["k2a"],
+                index_add_steps_ms=walls["index_add"], calls=calls, **prof)
+
+
+def gnn_ogb(dev, flush):
+    """Phase 18 (b): gat-cora on ``ogb_products``, its edges cut by 5% a
+    try, only while the card cannot hold the step."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    dims = get_config("gat-cora").shape("ogb_products").dims
+    if (dims["n_nodes"], dims["n_edges"], dims["d_feat"],
+            dims["n_classes"]) != (OGB_NODES, OGB_EDGES, OGB_FEAT,
+                                   OGB_CLASSES):
+        fail(f"ogb_products shape {dims}")
+    e, reduced = OGB_EDGES, None
+    log(f"  (b) gat-cora on ogb_products: {OGB_NODES:,} nodes, {e:,} edges, "
+        f"d_in {OGB_FEAT}, {OGB_CLASSES} classes; reckoned peak "
+        f"{ogb_memory_gb(e, OGB_NODES):.1f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}")
+    for _ in range(OGB_CUTS + 1):
+        try:
+            res = ogb_step(dev, flush, e)
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass
+        gc.collect()
+        torch.cuda.empty_cache()
+        e = int(e * OGB_CUT)
+        reduced = f"n_edges {OGB_EDGES:,} -> {e:,}: the step did not fit"
+        log(f"  (b) out of memory; cutting to {e:,} edges")
+    else:
+        fail("phase 18 (b): no edge count tried fits the card")
+    res["reduced"] = reduced
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (b) {res['edges']:,} edges: first step {res['first_ms']:.1f} ms, "
+        f"loss {res['loss']:.4f}, peak {res['peak_gib']:.2f} GiB, "
+        f"{res['k2a_launches']} K2a launches a step; step with K2a "
+        f"{res['k2a_step_ms']:.1f} ms ({', '.join(f'{x:.1f}' for x in res['k2a_steps_ms'])}) "
+        f"against index_add_ {res['index_add_step_ms']:.1f} ms "
+        f"({', '.join(f'{x:.1f}' for x in res['index_add_steps_ms'])}), "
+        f"in turns; reduced: {reduced}")
+    log_profile("(b)", res)
+    for label, c in res["calls"].items():
+        log(f"  (b) K2a [{res['edges']:,}, {c['d']}] -> [{res['nodes']:,}, "
+            f"{c['d']}] ({label}): {c['ms']:.4f} ms, bound "
+            f"{c['bound_ms']:.4f} ({c['bound_ms'] / c['ms']:.1%}), "
+            f"index_add_ {c['library_ms']:.4f}"
+            + (f", plain {c['plain_ms']:.4f}, max abs err "
+               f"{c['max_abs_err']:.3g}" if "plain_ms" in c else ""))
+    return res
+
+
+def gnn_shapes(dev, flush):
+    """K2a against ``index_add_`` at (a)'s message shapes: the evidence a
+    width floor would need (PERF.md §6)."""
+    import torch
+
+    from repro_torch.kernels.segsum import segsum_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    mol_n, mol_e = MOLECULES * MOLECULE_NODES, MOLECULES * MOLECULE_EDGES
+    out = []
+    for label, e, n, d in (("gat full_graph_sm msg1", 10556, 2708, 64),
+                           ("gat full_graph_sm msg2", 10556, 2708, 7),
+                           ("gat full_graph_sm den1", 10556, 2708, 8),
+                           ("pna molecule msg", mol_e, mol_n, 75),
+                           ("molecule deg", mol_e, mol_n, 1),
+                           ("nequip l=0", mol_e, mol_n, 32),
+                           ("nequip l=2", mol_e, mol_n, 160),
+                           ("mace l=0", mol_e, mol_n, 128),
+                           ("mace l=2", mol_e, mol_n, 640)):
+        dst = torch.randint(0, n, (e,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        msgs = torch.randn(e, d, generator=gen, device=dev)
+        k_ms, l_ms = time_two(lambda: segsum_cuda(msgs, dst, n),
+                              lambda: index_add_rows(msgs, dst, n), flush)
+        out.append(dict(label=label, e=e, n=n, d=d, ms=k_ms, library_ms=l_ms,
+                        bound_ms=k2a_bound_ms(e, n, d)))
+        log(f"  (a) K2a [{e}, {d}] -> [{n}, {d}] ({label}): {k_ms:.4f} ms "
+            f"against index_add_ {l_ms:.4f} (in turns, from an idle card), "
+            f"bound {out[-1]['bound_ms']:.5f}")
+    return out
+
+
+def gnn_sharded(dev):
+    """Phase 18 (c): the edge-sharded step at world size 1 (an NCCL group
+    of one) against the plain step, from the same state: gat-cora,
+    NequIP and MACE at (a)'s shapes; the collectives a step."""
+    import copy
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.gnn_sharded import make_edge_sharded_step
+    from repro_torch.launch.mesh import init_local_group
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.tree import leaves
+
+    store = tempfile.mkdtemp(prefix="chip-smoke-gnn-group-")
+    init_local_group(0, 1, store, dev.type)
+    res = {}
+    real = dist.all_reduce
+    try:
+        log(f"  (c) {dist.get_backend()} group of world size 1")
+        for arch in ("gat-cora", "nequip", "mace"):
+            mod, cfg, g = gnn_inputs(arch, dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = mod.init_params(gen, cfg)
+            plain = init_train_state(copy.deepcopy(params))
+            sharded = init_train_state(params)
+            opt = AdamWConfig(**GNN_OPT)
+            plain, m_p = make_train_step(
+                lambda p, b: mod.loss_fn(p, cfg, b), opt)(plain, g)
+            count = [0]
+
+            def counted(*a, **k):
+                count[0] += 1
+                return real(*a, **k)
+
+            dist.all_reduce = counted
+            try:
+                sharded, m_s = make_edge_sharded_step(mod, cfg, None, opt)(
+                    sharded, g)
+                torch.cuda.synchronize()
+            finally:
+                dist.all_reduce = real
+            dl = abs(float(m_p["loss"]) - float(m_s["loss"])) / max(
+                1.0, abs(float(m_p["loss"])))
+            dp = max(float((a - b).detach().abs().max()) for a, b in
+                     zip(leaves(plain.params), leaves(sharded.params)))
+            if not (dl < GNN_SHARD_TOL and dp < GNN_SHARD_TOL):
+                fail(f"phase 18 (c) {arch}: sharded vs plain loss {dl}, "
+                     f"params {dp}")
+            res[arch] = dict(loss_diff=dl, param_diff=dp,
+                             collectives=count[0])
+            log(f"  (c) {arch}: sharded step = plain step (loss within "
+                f"{dl:.3g} of max(1, |loss|), parameters within {dp:.3g}); "
+                f"{count[0]} "
+                "all_reduce calls a step")
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def gnn_phase(dev, flush, smi):
+    """Phase 18: the GNN side.  Returns K2a's entry (its main keys at the
+    GNN's largest shape, ``gnn_*`` beside them)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    log(f"  card: {smi}; {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+        "allocated on entry")
+    models = gnn_models(dev)
+    log(f"  {at()} (a) done")
+    shapes = gnn_shapes(dev, flush)
+    log(f"  {at()} (a) shapes done")
+    ogb = gnn_ogb(dev, flush)
+    log(f"  {at()} (b) done")
+    sharded = gnn_sharded(dev)
+    log(f"  {at()} (c) done")
+    torch.cuda.empty_cache()
+    msg1 = ogb["calls"]["msg1"]
+    launches = sum(r["k2a_launches"] for r in models.values())
+    return {
+        "launches": launches,
+        "max_abs_err": msg1["max_abs_err"],
+        "ms": msg1["ms"],
+        "plain_ms": msg1["plain_ms"],
+        "bound_ms": msg1["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": msg1["library_ms"],
+        "gnn_card": smi,
+        "gnn_models": models,
+        "gnn_shapes": shapes,
+        "gnn_ogb": {k: v for k, v in ogb.items() if k != "calls"},
+        "gnn_ogb_calls": ogb["calls"],
+        "gnn_reduced": ogb["reduced"],
+        "gnn_sharded": sharded,
+    }
+
+
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"),
                   ("isect", "isect.cu"), ("segsum", "segsum.cu"),
                   ("flash", "flash.cu"), ("flash_bwd", "flash_bwd.cu"))
@@ -4064,6 +4672,8 @@ def analysis_phase(dev):
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4319,6 +4929,19 @@ def main() -> int:
     log(f"phase 17: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 18: the GNN side (K2a as mp_segment_sum's kernel) -------------
+    # Its (b) sizes gat-cora's graph by what the card can hold: the
+    # hypergraph phases' inputs go first.
+    del hg, fwd, local3, hg_a, bits, triples, batches, census
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 18: gat-cora, pna, nequip and mace at their published widths, "
+        "gat-cora on ogb_products, the edge-sharded step")
+    gnn_entry = gnn_phase(dev, flush, smi)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -4354,19 +4977,21 @@ def main() -> int:
             **smem["K3a" if name == "isect" else "K3b"],
         })
     # K2b's numbers are at its caller's shapes (phase 11: the clique
-    # PageRank); phase 7's, at the DBLP incidences, follow as phase7_*.
-    # K2a has no system caller (index_add_ measured faster for the clique
-    # out-weights): its line stays phase 7's, with the out-weights'
-    # numbers beside it as out_w_*.
-    seven = segsum_entries["segsum_sorted"]
-    segsum_entries["segsum_sorted"] = {
-        **clique_entries["segsum_sorted"],
-        **{f"phase7_{key}": val for key, val in seven.items()}}
+    # PageRank), K2a's at its caller's (phase 18: the GNN side, the
+    # largest call gat-cora's layer-1 messages on ogb_products); phase
+    # 7's, at the DBLP incidences, follow as phase7_*, with K2a's at the
+    # clique out-weights as out_w_*.
+    for name, caller in (("segsum_sorted", clique_entries["segsum_sorted"]),
+                         ("segsum", gnn_entry)):
+        seven = segsum_entries[name]
+        segsum_entries[name] = {
+            **{f"phase7_{key}": val for key, val in seven.items()},
+            **caller}
     segsum_entries["segsum"].update(
         {f"out_w_{key}": clique_entries["segsum"][key]
          for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
-        caller="none: phase 7's segment_sum_mxu calls (index_add_ measured "
-               "faster for graph_pagerank's out-weights)")
+        caller="models.gnn through sparse.mp_segment_sum (phase 18); "
+               "index_add_ measured faster for graph_pagerank's out-weights")
     for name, kid, source, replaces, entry in (
             ("segsum", "K2a", "segsum.cu", "segsum/segsum.py:125",
              segsum_entries["segsum"]),
@@ -4397,7 +5022,7 @@ def main() -> int:
         next(k for k in kernels if k["name"] == name).update(
             {key: val for key, val in segsum_entries[name].items()
              if key.startswith(("phase7_", "out_w_", "shuffled_",
-                                "one_segment_", "skew_")) or key in (
+                                "one_segment_", "skew_", "gnn_")) or key in (
                  "caller", "clique_ms", "bipartite_ms",
                  "graph_pagerank_ms", "to_graph_s")})
     print(json.dumps({"kernels": kernels}))

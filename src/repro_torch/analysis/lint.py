@@ -140,6 +140,23 @@ HOT_PATHS: dict[str, tuple[str, ...]] = {
         "unembed", "fused_unembed_cross_entropy",
     ),
     "launch/serve.py": ("generate", "_sync"),
+    "sparse/segment.py": (
+        "mp_segment_sum", "mp_segment_max", "mp_segment_min",
+        "_mp_extreme", "_merge_sum", "_MergeSum", "_MergeExtreme",
+        "_all_reduced", "_segment_sum", "_take", "segment_count",
+        "segment_mean", "segment_std", "segment_softmax",
+        "segment_logsumexp",
+    ),
+    "kernels/segsum/ops.py": ("SegmentSumFn", "segment_sum_mxu"),
+    "kernels/segsum/segsum.py": ("segsum_cuda",),
+    "models/gnn/gat.py": ("forward", "loss_fn"),
+    "models/gnn/pna.py": ("forward", "loss_fn", "_finite_or_zero"),
+    "models/gnn/equivariant.py": (
+        "forward", "loss_fn", "forces", "_tensor_product_msg",
+        "_self_product", "_update",
+    ),
+    "models/gnn/irreps.py": ("sph_harm", "bessel_basis"),
+    "launch/gnn_sharded.py": ("make_edge_sharded_step", "edge_shard"),
     "train/step.py": ("make_train_step",),
     "train/optimizer.py": ("adamw_update", "schedule", "global_norm"),
     "train/tree.py": ("leaves", "named_leaves", "_children"),

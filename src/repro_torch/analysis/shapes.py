@@ -673,8 +673,9 @@ def check_width_gate(*, width_budget_bytes: float | None = None
 def worst_launches(device) -> list[tuple[str, str, object, object]]:
     """Each kernel at the worst geometry its budget admits, as ``(kernel
     id, label, kernel call, plain call)``: K1 through a one-class plan
-    whose span is ``_MAX_SPAN``; K2a at ``block_n`` = ``K2A_MAX_ROWS`` and
-    at the widest tile ``K2A_SMEM_BYTES`` holds; K2b at the largest
+    whose span is ``_MAX_SPAN``; K2a at ``block_n`` = ``K2A_MAX_ROWS``, at
+    the widest tile ``K2A_SMEM_BYTES`` holds and, on the card, at the GNN
+    side's largest call (``[61,859,140, 64]``); K2b at the largest
     ``block_e`` ``k2b_geometry`` admits for bfloat16 D = 8 (the template
     with the most static bytes); K3a at its widest rings (int4 and int
     units); K4 at head dim 256 in both types.  Payloads are integers
@@ -742,6 +743,23 @@ def worst_launches(device) -> list[tuple[str, str, object, object]]:
         cases.append(("K2a", f"block_n {bn} D={d}",
                       lambda m=m, bn=bn: segsum_cuda(m, ids, n, block_n=bn),
                       lambda m=m: segsum_plain(m, ids, n)))
+
+    if dev.type == "cuda":
+        # The GNN side's largest K2a call: gat-cora's layer-1 messages
+        # [E, 8 x 8] on ogb_products (61,859,140 edges into 2,449,029
+        # rows; chip_smoke.py phase 18 (b)), whose partials and int32
+        # scratch are the largest k2a_geometry sizes on a system path
+        # (7.9 GB and 0.5 GB).  Drawn on the card (15.8 GB of messages);
+        # the CPU's callers never reach this size.
+        gen = torch.Generator(device=dev).manual_seed(15)
+        e_gnn, n_gnn = 61_859_140, 2_449_029
+        ids_gnn = torch.randint(0, n_gnn, (e_gnn,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        m_gnn = torch.randint(-4, 5, (e_gnn, 64), generator=gen, device=dev,
+                              dtype=torch.int8).float()
+        cases.append(("K2a", f"GNN E={e_gnn} D=64",
+                      lambda: segsum_cuda(m_gnn, ids_gnn, n_gnn),
+                      lambda: segsum_plain(m_gnn, ids_gnn, n_gnn)))
 
     sorted_ids = torch.sort(ids).values
     offsets = torch.searchsorted(

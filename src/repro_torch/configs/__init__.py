@@ -2,10 +2,9 @@
 the counterpart of the JAX package's ``repro.configs``.
 
 ``ARCH_IDS`` holds the architectures the port runs: the five LM ones
-today.  It grows as ROADMAP items 12c (the GNN side: ``mace``,
-``nequip``, ``gat-cora``, ``pna``) and 12d (recsys: ``bert4rec``) are
-ported; until then ``get_config`` raises a ``KeyError`` naming the item
-for those ids.
+and the four GNN ones (``ArchSpec.family`` tells them apart).  It grows
+as ROADMAP item 12d (recsys: ``bert4rec``) is ported; until then
+``get_config`` raises a ``KeyError`` naming the item for that id.
 """
 from __future__ import annotations
 
@@ -19,14 +18,15 @@ _MODULES = {
     "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
     "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b",
+    "mace": "repro_torch.configs.mace",
+    "nequip": "repro_torch.configs.nequip",
+    "gat-cora": "repro_torch.configs.gat_cora",
+    "pna": "repro_torch.configs.pna",
 }
 
 # Architectures of the JAX package the port does not run yet, by the
 # ROADMAP item that brings them.
-_NOT_PORTED = {
-    "mace": "12c", "nequip": "12c", "gat-cora": "12c", "pna": "12c",
-    "bert4rec": "12d",
-}
+_NOT_PORTED = {"bert4rec": "12d"}
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -1,7 +1,12 @@
 """Segment sum: ``segment_sum_mxu`` over the hand-written CUDA kernels
 (``csrc/segsum.cu``: K2a unsorted, K2b sorted) and their plain torch
-versions."""
-from repro_torch.kernels.segsum.ops import csr_row_offsets, segment_sum_mxu
+versions; ``SegmentSumFn`` gives K2a a gradient for the GNN side's
+message sums."""
+from repro_torch.kernels.segsum.ops import (
+    SegmentSumFn,
+    csr_row_offsets,
+    segment_sum_mxu,
+)
 from repro_torch.kernels.segsum.ref import segment_sum_ref
 from repro_torch.kernels.segsum.segsum import (
     segsum_cuda,
@@ -11,6 +16,7 @@ from repro_torch.kernels.segsum.segsum import (
 )
 
 __all__ = [
+    "SegmentSumFn",
     "csr_row_offsets",
     "segment_sum_mxu",
     "segment_sum_ref",

@@ -88,3 +88,32 @@ def segment_sum_mxu(
         raise ValueError("sorted_dst=True needs non-decreasing dst ids "
                          "(see HyperGraph.sorted_by_dst)")
     return segsum_sorted_cuda(msgs, off, num_segments, block_e=block_e)
+
+
+class SegmentSumFn(torch.autograd.Function):
+    """``segment_sum_mxu`` (K2a: ids in any order) with a gradient: the
+    GNN side's message sum.  The forward launches K2a on a CUDA tensor
+    and runs its plain version on a CPU one; the backward is the gather
+    ``grad_out[dst]``, zero for ids outside ``[0, num_segments)``, as
+    the JAX package's segment-sum gradient is (a gather, not a kernel).
+    """
+
+    @staticmethod
+    def forward(ctx, msgs: torch.Tensor, dst: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+        ctx.save_for_backward(dst)
+        ctx.num_segments = num_segments
+        return segment_sum_mxu(msgs, dst, num_segments)
+
+    @staticmethod
+    def backward(ctx, grad_out: torch.Tensor):
+        (dst,) = ctx.saved_tensors
+        n = ctx.num_segments
+        if n == 0:
+            grad = grad_out.new_zeros((dst.shape[0], grad_out.shape[1]))
+            return grad, None, None
+        rows = grad_out[dst.clamp(0, n - 1).long()]
+        # In place: at full graph sizes a second [E, D] copy does not fit.
+        rows.masked_fill_(((dst < 0) | (dst >= n))[:, None], 0)
+        return rows, None, None
+

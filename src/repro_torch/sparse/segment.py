@@ -11,13 +11,25 @@ in PyTorch.
 identity-filled output: empty segments read the identity, exactly as
 ``jax.ops.segment_*`` fill them, and ids outside ``[0, num_segments)``
 are dropped (the JAX ``FILL_OR_DROP`` rule).
+
+The GNN side's message-passing reductions (``mp_segment_sum`` /
+``_max`` / ``_min`` and the segment statistics built on them) follow.
+``mp_segment_sum`` of float32 or bfloat16 rows runs on K2a
+(``kernels.segsum.SegmentSumFn``: the hand-written kernel on the card,
+its plain version on the CPU); max and min take the scatter.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
+import threading
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.kernels.segsum.ops import SegmentSumFn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,3 +148,204 @@ def segment_reduce(
 ) -> torch.Tensor:
     """Reduce ``data`` rows by key; empty segments get the identity."""
     return resolve_monoid(combiner).segment(data, segment_ids, num_segments)
+
+
+# ---------------------------------------------------------------------------
+# Edge-sharded execution (the MESH replicated backend, exposed to every
+# consumer of the message-passing reductions).  Inside
+# ``edge_sharded(group)`` each ``mp_segment_*`` reduction computes this
+# rank's partial over its shard of the edges and merges it across the
+# ``torch.distributed`` group with the matching ``all_reduce``
+# (SUM / MAX / MIN); models stay oblivious, only the executor
+# (``launch.gnn_sharded``) cuts the edges and enters the context.
+#
+# Gradients: every merge's backward all-reduces (SUMs) its cotangent.
+# With each rank back-propagating ``loss / world`` and the parameters'
+# gradients summed across ranks afterwards, the result is the gradient
+# of the unsharded loss: the replicated (node-side) part of every
+# gradient is a world-th on each rank, and each edge shard's part sees
+# the whole cotangent of the merged value.  The max / min merges send
+# that cotangent to the rank(s) whose partial holds the extreme, as the
+# JAX package's ``_pmax`` / ``_pmin`` do, but split among the rows that
+# reach it across ranks (the reference gives each tied shard the whole
+# cotangent, "exact up to fp ties across shards"): duplicate edges tie
+# exactly, and the split keeps the sharded gradient the plain one.
+# ---------------------------------------------------------------------------
+_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def edge_sharded(group):
+    """Merge every ``mp_segment_*`` reduction across ``group`` (a
+    process group, or ``torch.distributed.group.WORLD``) while inside;
+    the counterpart of the JAX package's ``edge_sharded(axes)``."""
+    prev = getattr(_CTX, "group", None)
+    _CTX.group = group
+    try:
+        yield
+    finally:
+        _CTX.group = prev
+
+
+def _merge_group():
+    return getattr(_CTX, "group", None)
+
+
+def _all_reduced(x: torch.Tensor, op, group) -> torch.Tensor:
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=op, group=group)
+    return y
+
+
+class _MergeSum(torch.autograd.Function):
+    """``all_reduce`` SUM; its backward all-reduces the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduced(x, dist.ReduceOp.SUM, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduced(grad, dist.ReduceOp.SUM, ctx.group), None
+
+
+class _MergeExtreme(torch.autograd.Function):
+    """``all_reduce`` MAX or MIN of this rank's partial ``x``, whose
+    extremes ``ties`` rows of its shard reach.  The all-reduced
+    cotangent goes to the rank(s) whose partial equals the merged
+    extreme, split among the rows that reach it on every rank, as the
+    plain scatter's gradient splits it among tied rows."""
+
+    @staticmethod
+    def forward(ctx, x, ties, op, group):
+        ctx.group = group
+        m = _all_reduced(x, op, group)
+        holds = x == m
+        total = _all_reduced(torch.where(holds, ties, 0),
+                             dist.ReduceOp.SUM, group)
+        ctx.save_for_backward(holds, ties, total)
+        return m
+
+    @staticmethod
+    def backward(ctx, grad):
+        holds, ties, total = ctx.saved_tensors
+        grad = _all_reduced(grad, dist.ReduceOp.SUM, ctx.group)
+        share = ties.to(grad.dtype) / total.clamp(min=1).to(grad.dtype)
+        return torch.where(holds, grad * share, 0), None, None, None
+
+
+def _merge_sum(x: torch.Tensor) -> torch.Tensor:
+    group = _merge_group()
+    return x if group is None else _MergeSum.apply(x, group)
+
+
+def _mp_extreme(name: str, op, data, segment_ids, num_segments):
+    local = MONOIDS[name].segment(data, segment_ids, num_segments)
+    group = _merge_group()
+    if group is None:
+        return local
+    # Rows of this shard that reach their segment's local extreme.
+    reach = (data == _take(local, segment_ids)).to(torch.int32)
+    ties = MONOIDS["sum"].segment(reach, segment_ids, num_segments)
+    return _MergeExtreme.apply(local, ties, op, group)
+
+
+def _segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """A segment sum, unmerged: float32 / bfloat16 rows of any rank on
+    K2a as ``[E, prod(rest)]``, other types (integer counts) on the
+    scatter, since K2a sums floats only."""
+    if data.dtype not in (torch.float32, torch.bfloat16):
+        return MONOIDS["sum"].segment(data, segment_ids, num_segments)
+    rest = tuple(data.shape[1:])
+    flat = data.reshape(data.shape[0], math.prod(rest))
+    return SegmentSumFn.apply(flat, segment_ids, num_segments).reshape(
+        (num_segments,) + rest)
+
+
+def _take(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``x[ids]`` with the JAX package's indexing rule: negative ids
+    count from the end, then every id is clamped into range."""
+    n = x.shape[0]
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, max(n - 1, 0))
+    return x[idx]
+
+
+def mp_segment_sum(data, segment_ids, num_segments):
+    """Segment sum that merges across edge shards when inside
+    ``edge_sharded`` (this rank's partial + ``all_reduce`` SUM)."""
+    return _merge_sum(_segment_sum(data, segment_ids, num_segments))
+
+
+def mp_segment_max(data, segment_ids, num_segments):
+    return _mp_extreme("max", dist.ReduceOp.MAX, data, segment_ids,
+                       num_segments)
+
+
+def mp_segment_min(data, segment_ids, num_segments):
+    return _mp_extreme("min", dist.ReduceOp.MIN, data, segment_ids,
+                       num_segments)
+
+
+def segment_count(segment_ids: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """Edges per segment, int32 (merged across edge shards)."""
+    return mp_segment_sum(torch.ones_like(segment_ids, dtype=torch.int32),
+                          segment_ids, num_segments)
+
+
+def _per_row(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    return v.reshape((-1,) + (1,) * (ndim - 1))
+
+
+def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    total = mp_segment_sum(data, segment_ids, num_segments)
+    count = segment_count(segment_ids, num_segments)
+    count = count.clamp(min=1).to(data.dtype)
+    return total / _per_row(count, data.dim())
+
+
+def segment_std(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int, eps: float = 1e-5) -> torch.Tensor:
+    """Per-segment standard deviation (PNA's ``std`` aggregator),
+    ``sqrt(var + eps)``.  Two passes: the mean, then the mean square of
+    the centred values.  The JAX package's one pass, E[x²] − E[x]² in
+    float32, cancels on values far from 0 with a small spread (its
+    clip at 0 then reads the error as the variance); centring first
+    does not."""
+    mean = segment_mean(data, segment_ids, num_segments)
+    centred = data - _take(mean, segment_ids)
+    var = segment_mean(centred * centred, segment_ids, num_segments)
+    return torch.sqrt(var + eps)
+
+
+def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
+    """Numerically stable softmax within each segment (GAT's edge
+    softmax); edge-shard-aware: the max and the denominator merge."""
+    seg_max = mp_segment_max(logits, segment_ids, num_segments)
+    seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    exp = torch.exp(logits - _take(seg_max, segment_ids))
+    denom = mp_segment_sum(exp, segment_ids, num_segments)
+    return exp / _take(denom, segment_ids).clamp(min=1e-30)
+
+
+def segment_logsumexp(logits: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    seg_max = mp_segment_max(logits, segment_ids, num_segments)
+    safe_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
+    exp = torch.exp(logits - _take(safe_max, segment_ids))
+    s = mp_segment_sum(exp, segment_ids, num_segments)
+    return safe_max + torch.log(s.clamp(min=1e-30))
+
+
+def segment_normalize(data: torch.Tensor, segment_ids: torch.Tensor,
+                      num_segments: int) -> torch.Tensor:
+    """Divide each row by its segment's sum (unmerged, as the JAX
+    package's: PageRank's broadcast)."""
+    denom = _segment_sum(data, segment_ids, num_segments)
+    denom = torch.where(denom.abs() < 1e-30, 1.0, denom)
+    return data / _take(denom, segment_ids)

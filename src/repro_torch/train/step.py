@@ -74,13 +74,18 @@ def make_train_step(
     return train_step
 
 
-def train_state_from_jax(state, cfg, device=None) -> TrainState:
+def train_state_from_jax(state, cfg, device=None,
+                         params_from_jax=None) -> TrainState:
     """The JAX package's ``TrainState`` (its leaves as numpy arrays,
     ``jax.tree.map(np.asarray, state)``) as the port's on ``device``: the
-    parameters and both moments through ``params_from_jax`` (they share
-    the parameters' tree), the step as a 0-d int32 tensor, gradients on."""
+    parameters and both moments through the model family's
+    ``params_from_jax(tree, cfg, device)`` (the transformer's unless
+    given: a GNN module's for a GNN state; the moments share the
+    parameters' tree), the step as a 0-d int32 tensor, gradients on."""
     from repro_torch.core.device import resolve_device
-    from repro_torch.models.transformer import params_from_jax
+
+    if params_from_jax is None:
+        from repro_torch.models.transformer import params_from_jax
 
     dev = resolve_device(device)
     opt = state.opt_state if hasattr(state, "opt_state") else state[1]

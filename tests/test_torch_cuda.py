@@ -7,7 +7,9 @@ through their entry points (K4 with K/V of fewer heads too), with one
 full-width llama3.2-1b prefill through K4 against its plain route; K4's
 backward kernels on both routes (bfloat16 on the tensor cores, the FMA
 tiles) against their plain version, and one smoke training step on the
-card against the same step on the CPU.
+card against the same step on the CPU; the GNN side's K2a route
+(``SegmentSumFn`` forward and gradient, ``mp_segment_sum``) and one
+step of each GNN smoke config against the CPU's.
 
 Every test here is marked ``cuda`` and skips without a CUDA card and
 ``nvcc``.  The file imports nothing of JAX, so it runs where the card is:
@@ -370,14 +372,25 @@ def _segsum_tol(e, n, dtype):
     return dict(rtol=tol, atol=tol * 10 * max(1.0, (e / n) ** 0.5 / 3.0))
 
 
+def _segsum_f64(msgs, ids, n):
+    """The exact sum, as far as float64 goes: ``msgs`` summed by ``ids``
+    with an ``index_add_`` in float64, ids outside ``[0, n)`` dropped.
+    (A float32 reference strays from it further than K2a does.)"""
+    keep = (ids >= 0) & (ids < n)
+    out = torch.zeros(n, msgs.shape[1], dtype=torch.float64,
+                      device=msgs.device)
+    return out.index_add_(0, ids[keep].long(), msgs[keep].double())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 3, 64, 100, 256, 1000])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_segsum_kernels_equal_plain(card, dtype, d):
-    """Both forms against the plain version.  K2a with block_e = 300:
-    every tile of 128 rows splits into several work items; a long row
-    and heavy tiles (the last one partial) run its combine tree; D = 256
-    and 1000 cut the columns into slices; shuffled ids too."""
+    """Both forms against the float64 sum of the same messages under
+    ``_segsum_tol``.  K2a with block_e = 300: every tile of 128 rows
+    splits into several work items; a long row and heavy tiles (the
+    last one partial) run its combine tree; D = 256 and 1000 cut the
+    columns into slices; shuffled ids too."""
     rng = np.random.default_rng(d)
     e, n = 50000, 3000
     msgs = torch.as_tensor(rng.standard_normal((e, d)).astype(np.float32),
@@ -397,19 +410,19 @@ def test_cuda_segsum_kernels_equal_plain(card, dtype, d):
     assert (segsum_cuda.launches, segsum_sorted_cuda.launches) == (
         before[0] + 1, before[1] + 2)
     assert got.dtype == dtype and got.shape == (n, d)
-    want = segsum_plain(msgs, ids, n).float()
-    torch.testing.assert_close(got.float(), want, **tol)
-    torch.testing.assert_close(got_s.float(), want, **tol)
+    want = _segsum_f64(msgs, ids, n)
+    torch.testing.assert_close(got.double(), want, **tol)
+    torch.testing.assert_close(got_s.double(), want, **tol)
     assert torch.equal(got_s, again)                   # K2b: same bits
     # Ids outside [0, N) are dropped: the same sums as without them.
     keep = (ids >= 0) & (ids < n)
     torch.testing.assert_close(
-        got.float(), segsum_plain(msgs[keep], ids[keep], n).float(), **tol)
+        got.double(), _segsum_f64(msgs[keep], ids[keep], n), **tol)
     perm = torch.as_tensor(rng.permutation(e), device=card)
     mp, ip = msgs[perm].contiguous(), ids[perm].contiguous()
     torch.testing.assert_close(
-        segment_sum_mxu(mp, ip, n, block_e=300).float(),
-        segsum_plain(mp, ip, n).float(), **tol)
+        segment_sum_mxu(mp, ip, n, block_e=300).double(),
+        _segsum_f64(mp, ip, n), **tol)
 
 
 @pytest.mark.cuda
@@ -1822,3 +1835,123 @@ def test_cuda_smoke_train_step_equals_the_cpu_step(card):
                             cpu_state.params.parameters()):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
                                    atol=atol, msg=name)
+
+
+# --------------------------------------------------------------------------
+# the GNN side: K2a as mp_segment_sum's kernel
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 8, 47, 64, 640])
+def test_cuda_k2_autograd_function_equals_plain(card, d):
+    """``SegmentSumFn`` on the card (K2a, one launch a call) against the
+    float64 sum in its forward (``_segsum_tol``) and against its plain
+    twin's gradient (a gather: bitwise), with ids outside ``[0, N)``;
+    ``mp_segment_sum`` of ``[E, 8, d // 8 or 1]`` rows reaches it."""
+    from repro_torch.kernels.segsum import SegmentSumFn
+    from repro_torch.sparse.segment import mp_segment_sum
+
+    rng = np.random.default_rng(100 + d)
+    e, n = 60000, 7000
+    x = rng.standard_normal((e, d)).astype(np.float32)
+    ids = rng.integers(-3, n + 3, e).astype(np.int32)
+    g = rng.standard_normal((n, d)).astype(np.float32)
+    a = torch.as_tensor(x, device=card).requires_grad_(True)
+    b = torch.as_tensor(x).requires_grad_(True)
+    ids_c = torch.as_tensor(ids, device=card)
+    before = segsum_cuda.launches
+    got = SegmentSumFn.apply(a, ids_c, n)
+    torch.cuda.synchronize()
+    assert segsum_cuda.launches == before + 1
+    torch.testing.assert_close(got.double(), _segsum_f64(a.detach(), ids_c,
+                                                         n),
+                               **_segsum_tol(e, n, torch.float32))
+    (got * torch.as_tensor(g, device=card)).sum().backward()
+    (SegmentSumFn.apply(b, torch.as_tensor(ids), n)
+     * torch.as_tensor(g)).sum().backward()
+    assert torch.equal(a.grad.cpu(), b.grad)
+    rows = (d // 8, 8) if d % 8 == 0 else (d,)
+    before = segsum_cuda.launches
+    out = mp_segment_sum(a.detach().reshape((e,) + rows), ids_c, n)
+    torch.cuda.synchronize()
+    assert segsum_cuda.launches == before + 1
+    assert out.shape == (n,) + rows
+    torch.testing.assert_close(out.reshape(n, d), got.detach(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_k2_autograd_function_launch_failure_raises(card, monkeypatch):
+    """A K2a launch that fails raises from ``mp_segment_sum``: no plain
+    twin on the card."""
+    from repro_torch.sparse.segment import mp_segment_sum
+
+    class Broken:
+        def segsum_launch(self, *args):
+            return 700
+
+    monkeypatch.setattr(segsum_module, "_kernel_lib", lambda: Broken())
+    x = torch.ones(10, 4, device=card)
+    with pytest.raises(RuntimeError, match="segsum kernel launch failed"):
+        mp_segment_sum(x, torch.zeros(10, dtype=torch.int32, device=card), 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gat-cora", "pna", "nequip", "mace"])
+def test_cuda_gnn_smoke_step_equals_the_cpu_step(card, arch):
+    """One AdamW step of each GNN ``smoke()`` config on the card (K2a in
+    every float message sum) against the same step on the CPU (K2a's
+    plain version) from the same weights and graph: the loss within
+    rtol 1e-5, ``grad_norm`` within rtol 1e-4, every weight after the
+    step within 2 x ``lr`` + 1e-6 (a first AdamW step moves a weight by
+    about ``lr`` times its gradient's sign), K2a launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.gnn import equivariant, gat, pna, random_graph
+    from repro_torch.train import (
+        AdamWConfig,
+        init_train_state,
+        make_train_step,
+    )
+    from repro_torch.train.tree import leaves
+
+    mod = {"gat-cora": gat, "pna": pna}.get(arch, equivariant)
+    cfg = get_config(arch, smoke=True).model
+
+    def graph(dev):
+        if mod is equivariant:
+            g = random_graph(60, 240, with_positions=True,
+                             n_species=cfg.n_species, n_graphs=4, seed=3,
+                             device=dev)
+            return dataclasses.replace(
+                g, labels=torch.linspace(-1, 1, 4, device=dev))
+        return random_graph(60, 240, d_feat=cfg.d_in,
+                            n_classes=cfg.n_classes, seed=3, device=dev)
+
+    params = mod.init_params(torch.Generator().manual_seed(0), cfg)
+    step = make_train_step(lambda p, b: mod.loss_fn(p, cfg, b),
+                           AdamWConfig(lr=1e-2, total_steps=10))
+    card_state = init_train_state(_tree_to(params, card))
+    cpu_state = init_train_state(params)
+    before = segsum_cuda.launches
+    card_state, got = step(card_state, graph(card))
+    torch.cuda.synchronize()
+    assert segsum_cuda.launches > before
+    cpu_state, want = step(cpu_state, graph("cpu"))
+    np.testing.assert_allclose(got["loss"].item(), want["loss"].item(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"].item(),
+                               want["grad_norm"].item(), rtol=1e-4)
+    atol = 2 * want["lr"].item() + 1e-6
+    for a, b in zip(leaves(card_state.params), leaves(cpu_state.params)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=atol)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.detach().to(dev)

@@ -40,7 +40,8 @@ from repro_torch.train import (
 )
 from repro_torch.train.tree import named_leaves
 
-ARCHS = list(tcfg.ARCH_IDS)
+ARCHS = [a for a in tcfg.ARCH_IDS
+         if tcfg.get_config(a, True).family == "lm"]
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 GNORM_RTOL = 1e-4

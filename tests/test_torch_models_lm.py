@@ -65,7 +65,8 @@ from repro_torch.kernels.flash import attention_ref, flash_plain
 from repro_torch.launch import serve as tserve
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = list(tcfg.ARCH_IDS)
+ARCHS = [a for a in tcfg.ARCH_IDS
+         if tcfg.get_config(a, True).family == "lm"]
 DT = {"float32": (jnp.float32, torch.float32),
       "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 F32_REL = 1e-5
@@ -164,7 +165,11 @@ def _fields(obj):
 def test_arch_ids_are_the_reference_lm_ids():
     lm = [a for a in jcfg.ARCH_IDS
           if jcfg.get_config(a, smoke=True).family == "lm"]
-    assert list(tcfg.ARCH_IDS) == lm
+    assert ARCHS == lm
+    # The other ids the port runs are the reference's, in its order
+    # (the GNN side; bert4rec waits for item 12d).
+    assert list(tcfg.ARCH_IDS) == [a for a in jcfg.ARCH_IDS
+                                   if a != "bert4rec"]
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -208,9 +213,7 @@ def test_shape_sets(long_skip, accum):
             k: _fields(v) for k, v in ref.items()}
 
 
-@pytest.mark.parametrize("arch,item", [("mace", "12c"), ("nequip", "12c"),
-                                       ("gat-cora", "12c"), ("pna", "12c"),
-                                       ("bert4rec", "12d")])
+@pytest.mark.parametrize("arch,item", [("bert4rec", "12d")])
 def test_unported_arch_names_its_roadmap_item(arch, item):
     assert arch in jcfg.ARCH_IDS
     with pytest.raises(KeyError, match=f"item {item}"):
@@ -218,7 +221,9 @@ def test_unported_arch_names_its_roadmap_item(arch, item):
 
 
 def test_all_configs_are_the_lm_ones():
-    assert set(tcfg.all_configs(smoke=True)) == set(ARCHS)
+    specs = tcfg.all_configs(smoke=True)
+    assert {a for a, s in specs.items() if s.family == "lm"} == set(ARCHS)
+    assert {s.family for s in specs.values()} == {"lm", "gnn"}
 
 
 # --------------------------------------------------------------------------
