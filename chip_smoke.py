@@ -127,7 +127,9 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    leaf, on DBLP at scales 0.002, 0.01, 0.05, 0.25 and 1.0 (5,660 to
    2,838,951 incidences) and D = 1, 2, 8, 16 and 64, each pair checked
    (1e-5) and timed (L2 flushed, median of 20); the grid is printed
-   with ``select_delivery``'s pick, which must be the faster path at
+   with ``select_delivery``'s pick as ``Engine.resolve`` makes it (rows
+   over 64 bytes are contested: it times one pair on each lowering
+   itself, and the times are logged), which must be the faster path at
    every point unless the two are within 10% (logged), and the traffic
    model's calibration record (``obs.delivery_calibration``);
 11. the clique representation on DBLP at full scale: ``to_graph``
@@ -309,6 +311,33 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    one against the plain step for gat-cora, NequIP and MACE at (a)'s
    shapes (parameters within 5e-4, the loss within 5e-4 of max(1,
    |loss|)), the ``all_reduce`` calls a step counted.
+19. the recsys side at bert4rec's ``CONFIG`` (a 1,000,448 x 64 float32
+   item table, 2 blocks, 2 heads of 32, S = 200, from seed 0; every
+   attention is ``models.attention.bidirectional_attention``: K4 with
+   ``causal=False`` on the FMA tiles): (a) ``train_batch``'s
+   ``loss_sampled`` (20 masked positions, 8,192 shared negatives) through
+   ``make_train_step`` with ``AdamWConfig()``, its batch of 65,536 halved
+   while a step does not fit (printed as ``reduced``), 3 steps with the
+   plain attention versions made to raise: ms a step, sequences/s, peak
+   memory, exactly 2 K4 forward and 2 backward launches a step, finite
+   losses, the third below the first + 0.5, and one step under
+   ``torch.profiler``; (b) ``serve_p99`` (512 sequences, ``serve_score``
+   + top-100 over the catalog, median of 5), all of ``serve_bulk``
+   (262,144 in chunks of 4,096, each its own top-100; its first rows
+   against ``serve_p99``'s) and ``retrieval_cand`` (1 x 1,000,000
+   candidates + top-100; the scores the full catalog's at the
+   candidates within 1e-5); (c) on (a)'s weights and its first 1,024
+   sequences, ``encode`` (1e-5) and one step's gradients (1e-4 of each
+   leaf's largest magnitude) through K4 against the plain route
+   (``naive_attention(causal=False)``), or K4 within twice the plain
+   route's distance from a float64 call; K4 alone at [512 and (a)'s
+   batch, 2, 200, 32], forward and backward against the plain version,
+   timed beside the bound, ``scaled_dot_product_attention`` and the plain
+   version; (d) ``sparse.embedding_bag`` over the table with bags = (a)'s
+   sequences: one K2a launch a sum call, sum, mean and max against their
+   plain versions (1e-4 of the largest magnitude), K2a on the gathered
+   rows against ``index_add_`` (in turns) and its plain version beside
+   the byte bound.
 
 Prints the kernel line (JSON; every entry carries phase 15's
 ``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
@@ -318,9 +347,10 @@ entries carry phase 14's ``dist_census_launches``; K2b's, phase 11's launches an
 clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 18's (its
 launches over one step of each GNN; its times at gat-cora's layer-1
 messages on ``ogb_products``) with the rest of phase 18 as ``gnn_*``,
-phase 7's as ``phase7_*`` and the clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase
-16's as ``lm_*``, phase 17's as ``train_*`` and its backward's as
-``bwd_*``) and, last, the device line
+phase 19's bag pooling as ``bag_*``, phase 7's as ``phase7_*`` and the
+clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase 16's as
+``lm_*``, phase 17's as ``train_*``, its backward's as ``bwd_*`` and
+phase 19's as ``recsys_*``) and, last, the device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
 """
 import json
@@ -404,25 +434,13 @@ def time_two(fn_a, fn_b, flush, n_timed=N_TIMED, n_warm=N_WARM):
     is done, so the host's dispatch counts in full.  (``time_cuda``
     starts it behind the flush, which hides up to the flush's ~80 us of
     a call's dispatch: a call of many small launches looks faster than
-    it runs in a loop.)"""
-    import torch
+    it runs in a loop.)  The port's ``time_in_turns``, with which
+    ``select_delivery`` times a contested point, so that phase 10's
+    check and the pick measure alike."""
+    from repro_torch.core.executor import time_in_turns
 
-    for _ in range(n_warm):
-        fn_a()
-        fn_b()
-    times = ([], [])
-    for _ in range(n_timed):
-        for fn, out in ((fn_a, times[0]), (fn_b, times[1])):
-            flush.zero_()
-            torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end))
-    return statistics.median(times[0]), statistics.median(times[1])
+    return time_in_turns(fn_a, fn_b, flush.device, flush=flush,
+                         turns=n_timed, warm=n_warm)
 
 
 def time_device(fn, flush, n=N_TIMED):
@@ -1991,13 +2009,15 @@ def delivery_grid(hg_full, flush):
     (``deliver`` with the Engine's layouts), on DBLP at
     ``DELIVERY_SCALES`` and ``DELIVERY_WIDTHS``: each checked against the
     other (1e-5), timed in turns (``time_two``: L2 flushed, from an
-    idle card, median of 20), and priced by ``select_delivery``.
+    idle card, median of 20), and priced by ``select_delivery`` as
+    ``Engine.resolve`` runs it (at a contested point, rows over 64 bytes,
+    it times one pair on each lowering itself: its times are logged).
     Beside them, ``loop_ms``: a pair's share of 20 pairs queued back to
     back, as a superstep loop runs them (informational).  Returns the
     grid's records."""
     import torch
 
-    from repro_torch.core import Engine, Program, deliver, select_delivery
+    from repro_torch.core import Engine, Program, deliver
     from repro_torch.data import make_dataset
     from repro_torch.obs import delivery_traffic_pair
 
@@ -2014,7 +2034,8 @@ def delivery_grid(hg_full, flush):
     for scale in DELIVERY_SCALES:
         hg = (hg_full if scale == 1.0
               else make_dataset("dblp", scale, seed=0, device=dev))
-        fwd, bwd = Engine(device=dev)._delivery_layouts(hg)
+        eng = Engine(device=dev)
+        fwd, bwd = eng._delivery_layouts(hg)
         nv, ne = hg.n_vertices, hg.n_hyperedges
         for d in DELIVERY_WIDTHS:
             shape = (lambda n: (n,)) if d == 1 else (lambda n: (n, d))
@@ -2044,22 +2065,27 @@ def delivery_grid(hg_full, flush):
                 end.record()
                 end.synchronize()
                 loop[fused] = start.elapsed_time(end) / N_TIMED
-            pick, why = select_delivery(delivery_probe(hg, d), hg)
+            resolved, _, decision = eng.resolve(delivery_probe(hg, d))
+            pick, why = resolved.delivery, decision["delivery"]
             traffic = delivery_traffic_pair((fwd, bwd), 4.0 * d)
             records.append({
                 "scale": scale, "nnz": hg.nnz, "d": d, "xla_ms": x_ms,
                 "fused_ms": f_ms, "xla_loop_ms": loop[False],
                 "fused_loop_ms": loop[True], "auto_picks": pick,
                 "reason": why["reason"],
+                "measured_ms": why.get("measured_ms"),
                 "model_traffic_ratio": (traffic["reference_total_bytes"]
                                         / traffic["total_bytes"]),
                 "fused_speedup": x_ms / f_ms,
             })
             log(f"  {scale:<6} {hg.nnz:>9} {d:>3} {x_ms:8.4f} {f_ms:9.4f} "
                 f"{x_ms / f_ms:10.3f}  {pick:<12}  {loop[False]:7.4f} "
-                f"{loop[True]:8.4f}")
+                f"{loop[True]:8.4f}" + (
+                    f"  (auto measured xla {why['measured_ms']['xla']:.4f}, "
+                    f"fused {why['measured_ms']['pallas_fused']:.4f})"
+                    if "measured_ms" in why else ""))
             del m_v, m_he
-        del fwd, bwd
+        del fwd, bwd, eng
     return records
 
 
@@ -3606,16 +3632,17 @@ def optimizer_events():
     return ctx()
 
 
-def bwd_bound(dtype, b, h, kvh, s, d, sms, clock):
-    """(bytes s, operations s) of one causal backward call: q, o, dO, dQ
-    with H heads and k, v, dK, dV with KvH once each, the lse; its
-    operations 2.5 x the forward's 4 D per kept pair (five products
-    against the forward's two) over the type's rate, or its exps (one a
-    pair) over the MUFU's, whichever is larger."""
+def bwd_bound(dtype, b, h, kvh, s, d, sms, clock, causal=True):
+    """(bytes s, operations s) of one backward call (causal unless
+    ``causal=False``): q, o, dO, dQ with H heads and k, v, dK, dV with
+    KvH once each, the lse; its operations 2.5 x the forward's 4 D per
+    kept pair (five products against the forward's two) over the type's
+    rate, or its exps (one a pair) over the MUFU's, whichever is
+    larger."""
     import torch
 
     size = torch.tensor([], dtype=dtype).element_size()
-    pairs = flash_pairs(True, b, h, s)
+    pairs = flash_pairs(causal, b, h, s)
     per_clock = (TENSOR_FLOPS_PER_CLOCK_PER_SM if dtype == torch.bfloat16
                  else FMA_FLOPS_PER_CLOCK_PER_SM)
     flops_s = 2.5 * 4 * d * pairs / (per_clock * sms * clock)
@@ -3624,8 +3651,9 @@ def bwd_bound(dtype, b, h, kvh, s, d, sms, clock):
     return nbytes / HBM_BYTES_PER_S, max(flops_s, exps_s)
 
 
-def bwd_inputs(gen, dev, dtype, b, h, kvh, s, d):
-    """q, k, v, K4's output and row lse, and a dO, on the card."""
+def bwd_inputs(gen, dev, dtype, b, h, kvh, s, d, causal=True):
+    """q, k, v, K4's output and row lse (``causal`` unless told
+    otherwise), and a dO, on the card."""
     import torch
 
     from repro_torch.kernels.flash import flash_cuda
@@ -3634,7 +3662,7 @@ def bwd_inputs(gen, dev, dtype, b, h, kvh, s, d):
     k = (torch.randn(b, kvh, s, d, generator=gen, device=dev) * 0.3).to(
         dtype)
     v = torch.randn(b, kvh, s, d, generator=gen, device=dev).to(dtype)
-    out, lse = flash_cuda(q, k, v, causal=True, return_lse=True)
+    out, lse = flash_cuda(q, k, v, causal=causal, return_lse=True)
     dout = torch.randn(b, h, s, d, generator=gen, device=dev).to(dtype)
     return q, k, v, out, lse, dout
 
@@ -4582,6 +4610,578 @@ def gnn_phase(dev, flush, smi):
     }
 
 
+# Phase 19: the recsys side (bert4rec) at its published width.
+RECSYS_BATCH = 65_536     # train_batch's batch, halved while a step does not fit
+RECSYS_MASKED = 20        # launch/tasks.py: n_masked
+RECSYS_NEG = 8_192        # launch/tasks.py: n_neg (shared negatives)
+RECSYS_STEPS = 3
+RECSYS_LOSS_RISE = 0.5    # phase 17's rule: loss 3 < loss 1 + 0.5
+RECSYS_TOPK = 100
+RECSYS_CHUNK = 4_096      # serve_bulk rows a chunk, each with its own top-k
+RECSYS_ROUTE_BATCH = 1_024  # (c): the training batch's first sequences
+RECSYS_HIDDEN_TOL = 1e-5  # (c) encode, K4 route vs plain, of the largest
+RECSYS_GRAD_TOL = 1e-4    # (c) gradients, of each leaf's largest magnitude
+RETRIEVAL_TOL = 1e-5      # tests/test_recsys.py: rtol = atol
+BAG_TOL = 1e-4            # (d) of the output's largest magnitude
+RECSYS_TIMED = 5          # medians of 5
+
+
+def recsys_batch(cfg, b, gen, dev):
+    """A cloze batch of ``b`` sequences on the card: items in ``[1,
+    n_items]`` after a PAD prefix of 0-99 positions, ``RECSYS_MASKED``
+    distinct masked positions a row among the items (set to MASK, their
+    items the labels) and ``RECSYS_NEG`` shared negatives."""
+    import torch
+
+    s = cfg.max_seq
+    items = torch.randint(1, cfg.n_items + 1, (b, s), generator=gen,
+                          device=dev, dtype=torch.int32)
+    pad = torch.randint(0, 100, (b, 1), generator=gen, device=dev)
+    at = torch.arange(s, device=dev)[None]
+    items = torch.where(at < pad, 0, items)
+    # distinct positions among the items: the largest of random keys
+    keys = torch.rand(b, s, generator=gen, device=dev).masked_fill(
+        at < pad, -1.0)
+    pos = keys.topk(RECSYS_MASKED, dim=1).indices.to(torch.int32)
+    labels = items.gather(1, pos.long())
+    items = items.scatter(1, pos.long(), cfg.mask_id)
+    neg = torch.randint(1, cfg.n_items + 1, (RECSYS_NEG,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    return {"items": items, "masked_pos": pos, "labels": labels,
+            "negatives": neg}
+
+
+def recsys_params(cfg, dev):
+    """BERT4Rec's float32 weights from seed 0, drawn on the card."""
+    import torch
+
+    from repro_torch.models.recsys import bert4rec
+
+    return bert4rec.init_params(torch.Generator(device=dev).manual_seed(0),
+                                cfg)
+
+
+def with_naive_attention(fn):
+    """``fn()`` with ``models.attention.bidirectional_attention`` on
+    ``naive_attention(causal=False)``, the reference's plain form (a hook
+    of this script; the program has no switch)."""
+    from repro_torch.models import attention
+
+    kernel = attention.bidirectional_attention
+    attention.bidirectional_attention = (
+        lambda q, k, v: attention.naive_attention(q, k, v, causal=False))
+    try:
+        return fn()
+    finally:
+        attention.bidirectional_attention = kernel
+
+
+def float64_route(fn):
+    """``fn()`` with BERT4Rec's layer norms and attention in the type of
+    their input (the program's run in float32, its plain attention's
+    softmax too): a float64 call is then float64 through the encoder (a
+    hook of this script; the program has no switch)."""
+    import torch
+
+    from repro_torch.models import attention
+    from repro_torch.models.recsys import bert4rec
+
+    def layernorm(params, x, eps=1e-6):
+        mean = x.mean(dim=-1, keepdim=True)
+        var = (x - mean).square().mean(dim=-1, keepdim=True)
+        return ((x - mean) * torch.rsqrt(var + eps) * params["scale"]
+                + params["bias"])
+
+    def attend(q, k, v):
+        scores = torch.einsum("bshd,bthd->bhst", q, k) / q.shape[-1] ** 0.5
+        return torch.einsum("bhst,bthd->bshd", scores.softmax(dim=-1), v)
+
+    saved = bert4rec.layernorm, attention.bidirectional_attention
+    bert4rec.layernorm, attention.bidirectional_attention = layernorm, attend
+    try:
+        return fn()
+    finally:
+        bert4rec.layernorm, attention.bidirectional_attention = saved
+
+
+def recsys_step_at(dev, cfg, b):
+    """(a) at batch ``b``: 3 AdamW steps of ``loss_sampled`` (the port's
+    ``make_train_step`` with ``AdamWConfig()``, as ``launch/tasks.py``
+    composes the step; ``accum_steps`` 1, since micro-batching would cut
+    the shared negatives too), then one step under ``torch.profiler``.
+    Raises ``torch.cuda.OutOfMemoryError`` when the card cannot hold
+    it."""
+    import torch
+
+    from repro_torch.kernels.flash import flash_backward_cuda, flash_cuda
+    from repro_torch.models.recsys import bert4rec
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = recsys_batch(cfg, b, gen, dev)
+    state = init_train_state(recsys_params(cfg, dev))
+    step = make_train_step(lambda p, x: bert4rec.loss_sampled(p, cfg, x),
+                           AdamWConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, ms, launches = [], [], []
+    with plain_versions_raise():
+        for _ in range(RECSYS_STEPS):
+            f0, b0 = flash_cuda.launches, flash_backward_cuda.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append((flash_cuda.launches - f0,
+                             flash_backward_cuda.launches - b0))
+            losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    wall, busy, n_kernels, rows = profiled(lambda: step(state, batch), 1)
+    k4 = sum(t for name, t in rows if "flash" in name)
+    return dict(
+        batch=b, state=state, data=batch, losses=losses, steps_ms=ms,
+        step_ms=statistics.median(ms[1:]), launches=launches, peak_gib=peak,
+        prof_wall_ms=wall, prof_busy_ms=busy, prof_idle=1 - busy / wall,
+        prof_kernels=n_kernels, prof_k4_ms=k4,
+        prof_top=[(k[:60], t) for k, t in rows[:6]])
+
+
+def recsys_train(dev, cfg):
+    """Phase 19 (a): ``train_batch`` halved from 65,536 while a step does
+    not fit the card."""
+    import gc
+
+    import torch
+
+    b, reduced = RECSYS_BATCH, None
+    while True:
+        try:
+            res = recsys_step_at(dev, cfg, b)
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass
+        gc.collect()
+        torch.cuda.empty_cache()
+        if b <= 512:
+            fail("phase 19 (a): no training batch down to 512 fits the card")
+        log(f"  (a) batch {b:,}: out of memory; halving")
+        b //= 2
+        reduced = (f"train_batch {RECSYS_BATCH:,} -> {b:,} sequences: the "
+                   "step did not fit one card")
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 19 (a): losses {losses}")
+    if not losses[-1] < losses[0] + RECSYS_LOSS_RISE:
+        fail(f"phase 19 (a): loss 3 {losses[-1]} not below loss 1 "
+             f"{losses[0]} + {RECSYS_LOSS_RISE}")
+    if set(res["launches"]) != {(2, 2)}:
+        fail(f"phase 19 (a): K4 launches a step {res['launches']} "
+             "(expected 2 forward and 2 backward: one a block)")
+    res["reduced"] = reduced
+    res["seq_per_s"] = b / (res["step_ms"] * 1e-3)
+    log(f"  (a) train_batch at {b:,} x {cfg.max_seq} ({RECSYS_MASKED} masked "
+        f"positions, {RECSYS_NEG:,} shared negatives): step "
+        f"{res['step_ms']:.1f} ms (steps "
+        f"{', '.join(f'{x:.1f}' for x in res['steps_ms'])}), "
+        f"{res['seq_per_s']:,.0f} sequences/s, peak {res['peak_gib']:.2f} "
+        f"GiB, K4 launches a step (forward, backward) {res['launches'][0]}, "
+        f"losses {', '.join(f'{x:.5g}' for x in losses)}; reduced: {reduced}")
+    log(f"  (a) profiled step: wall {res['prof_wall_ms']:.2f} ms, busy "
+        f"{res['prof_busy_ms']:.2f} (idle {res['prof_idle']:.1%}), "
+        f"{res['prof_kernels']:.0f} kernels, K4 {res['prof_k4_ms']:.3f} ms; "
+        "top: " + "; ".join(f"{k} {t:.3f}" for k, t in res["prof_top"]))
+    return res
+
+
+def recsys_serve(dev, cfg, params, flush):
+    """Phase 19 (b): ``serve_p99`` (512 sequences), all of ``serve_bulk``
+    (262,144, in chunks of ``RECSYS_CHUNK``) and ``retrieval_cand`` (one
+    sequence against 1,000,000 candidates), each ``serve_score`` or
+    ``retrieval_score`` + ``torch.topk(100)``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.models.recsys import bert4rec
+
+    shapes = get_config("bert4rec").shapes
+    p99, bulk = (shapes[n].dims["batch"] for n in ("serve_p99",
+                                                   "serve_bulk"))
+    n_cand = shapes["retrieval_cand"].dims["n_candidates"]
+    gen = torch.Generator(device=dev).manual_seed(2)
+    items = recsys_batch(cfg, bulk, gen, dev)["items"]
+
+    def serve(x):
+        return torch.topk(bert4rec.serve_score(params, cfg, x), RECSYS_TOPK)
+
+    out = {}
+    with torch.no_grad(), plain_versions_raise():
+        f0 = flash_cuda.launches
+        p_vals, p_idx = serve(items[:p99])
+        out["serve_p99_launches"] = flash_cuda.launches - f0
+        out["serve_p99_ms"] = time_cuda(lambda: serve(items[:p99]), flush,
+                                        n_timed=RECSYS_TIMED, n_warm=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        vals = torch.empty(bulk, RECSYS_TOPK, device=dev)
+        idx = torch.empty(bulk, RECSYS_TOPK, dtype=torch.int64, device=dev)
+        for c0 in range(0, bulk, RECSYS_CHUNK):
+            vals[c0:c0 + RECSYS_CHUNK], idx[c0:c0 + RECSYS_CHUNK] = serve(
+                items[c0:c0 + RECSYS_CHUNK])
+        end.record()
+        end.synchronize()
+        out["serve_bulk_wall_ms"] = (time.perf_counter() - t0) * 1e3
+        out["serve_bulk_ms"] = start.elapsed_time(end)
+        out["serve_bulk_rows_per_s"] = bulk / (out["serve_bulk_ms"] * 1e-3)
+        if not (torch.isfinite(vals).all() and bool((idx >= 0).all())
+                and bool((idx < cfg.vocab).all())):
+            fail("phase 19 (b): serve_bulk's top-100 is not finite and in "
+                 "the catalog")
+        # A row's top-100 depends on its row alone: the first chunk's
+        # first 512 rows are serve_p99's.
+        out["serve_chunk_rel"] = rel_max(vals[:p99], p_vals)
+        if out["serve_chunk_rel"] > RETRIEVAL_TOL:
+            fail(f"phase 19 (b): serve_bulk's first rows differ from "
+                 f"serve_p99's by {out['serve_chunk_rel']:.3g}")
+        del vals, idx, p_vals, p_idx
+
+        one = items[:1]
+        cand = torch.randint(1, cfg.n_items + 1, (n_cand,), generator=gen,
+                             device=dev, dtype=torch.int32)
+
+        def retrieve():
+            return torch.topk(bert4rec.retrieval_score(params, cfg, one,
+                                                       cand), RECSYS_TOPK)
+
+        r_vals, r_idx = retrieve()
+        out["retrieval_ms"] = time_cuda(retrieve, flush,
+                                        n_timed=RECSYS_TIMED, n_warm=1)
+        sub = bert4rec.retrieval_score(params, cfg, one, cand)
+        full = bert4rec.serve_score(params, cfg, one)[0]
+        want = full[cand.long()]
+        ok = torch.allclose(sub, want, rtol=RETRIEVAL_TOL, atol=RETRIEVAL_TOL)
+        out["retrieval_max_abs_err"] = float((sub - want).abs().max())
+        if not ok or not torch.equal(r_vals, sub[r_idx]):
+            fail(f"phase 19 (b): retrieval scores differ from the full "
+                 f"catalog's by {out['retrieval_max_abs_err']:.3g} (rtol = "
+                 f"atol = {RETRIEVAL_TOL})")
+    del items
+    log(f"  (b) serve_p99: {p99} sequences, serve_score + top-{RECSYS_TOPK} "
+        f"over {cfg.vocab:,} items ({p99 * cfg.vocab * 4 / 1e9:.2f} GB of "
+        f"scores): {out['serve_p99_ms']:.3f} ms (median of {RECSYS_TIMED}, "
+        f"L2 flushed), {out['serve_p99_launches']} K4 launches a call")
+    log(f"  (b) serve_bulk: {bulk:,} sequences in chunks of {RECSYS_CHUNK:,} "
+        f"({RECSYS_CHUNK * cfg.vocab * 4 / 1e9:.1f} GB of scores a chunk), "
+        f"each with its own top-{RECSYS_TOPK}: {out['serve_bulk_ms']:.1f} ms "
+        f"on the card ({out['serve_bulk_wall_ms']:.1f} ms wall), "
+        f"{out['serve_bulk_rows_per_s']:,.0f} rows/s; its first {p99} rows' "
+        f"top-100 within {out['serve_chunk_rel']:.3g} of serve_p99's")
+    log(f"  (b) retrieval_cand: 1 sequence x {n_cand:,} candidates + "
+        f"top-{RECSYS_TOPK}: {out['retrieval_ms']:.3f} ms; scores == the "
+        f"full catalog's at the candidates within "
+        f"{out['retrieval_max_abs_err']:.3g}")
+    return out
+
+
+def recsys_grads(cfg, params, batch):
+    """(loss, gradients in leaf order) of ``loss_sampled``."""
+    import torch
+
+    from repro_torch.models.recsys import bert4rec
+    from repro_torch.train.tree import leaves
+
+    ps = leaves(params)
+    for p in ps:
+        p.requires_grad_(True)
+        p.grad = None
+    loss = bert4rec.loss_sampled(params, cfg, batch)
+    loss.backward()
+    grads = [p.grad.detach().clone() for p in ps]
+    for p in ps:
+        p.grad = None
+    return loss.detach(), grads
+
+
+def recsys_routes(dev, cfg, params, data):
+    """Phase 19 (c), first half: on the training state's weights and the
+    first ``RECSYS_ROUTE_BATCH`` sequences of (a)'s batch, ``encode``'s
+    hidden states and one step's gradients through K4 against the plain
+    route (``naive_attention(causal=False)``), each also against the
+    same call in float64 (``float64_route``; the sampled logits are
+    float32 in every route, as in the reference)."""
+    import torch
+
+    from repro_torch.models.recsys import bert4rec
+
+    batch = {k: (v[:RECSYS_ROUTE_BATCH] if k != "negatives" else v)
+             for k, v in data.items()}
+    params64 = float64_tree(params)
+    with torch.no_grad():
+        h_k = bert4rec.encode(params, cfg, batch["items"])
+        h_p = with_naive_attention(
+            lambda: bert4rec.encode(params, cfg, batch["items"]))
+        h_d = float64_route(
+            lambda: bert4rec.encode(params64, cfg, batch["items"]))
+    loss_k, g_k = recsys_grads(cfg, params, batch)
+    loss_p, g_p = with_naive_attention(
+        lambda: recsys_grads(cfg, params, batch))
+    loss_d, g_d = float64_route(lambda: recsys_grads(cfg, params64, batch))
+    out = {}
+    for what, k, p, d, tol in (("hidden", [h_k], [h_p], [h_d],
+                                RECSYS_HIDDEN_TOL),
+                               ("gradients", g_k, g_p, g_d,
+                                RECSYS_GRAD_TOL)):
+        r = dict(k4_plain=tree_rel(k, p), k4_f64=tree_rel(k, d),
+                 plain_f64=tree_rel(p, d))
+        if not (r["k4_plain"] <= tol or r["k4_f64"] <= 2 * r["plain_f64"]):
+            fail(f"phase 19 (c) {what}: K4 route vs plain {r['k4_plain']:.3g}"
+                 f" (limit {tol}), vs float64 {r['k4_f64']:.3g} (plain "
+                 f"{r['plain_f64']:.3g})")
+        out[what] = r
+    out["loss"] = (float(loss_k), float(loss_p), float(loss_d))
+    log(f"  (c) K4 route vs plain route (naive_attention) on the trained "
+        f"weights, {RECSYS_ROUTE_BATCH} sequences: encode "
+        f"{out['hidden']['k4_plain']:.3g} of the largest magnitude (limit "
+        f"{RECSYS_HIDDEN_TOL}; vs float64: K4 {out['hidden']['k4_f64']:.3g}, "
+        f"plain {out['hidden']['plain_f64']:.3g}); gradients "
+        f"{out['gradients']['k4_plain']:.3g} of each leaf's largest (limit "
+        f"{RECSYS_GRAD_TOL}; vs float64: K4 "
+        f"{out['gradients']['k4_f64']:.3g}, plain "
+        f"{out['gradients']['plain_f64']:.3g}); losses K4 {out['loss'][0]:.7g}"
+        f", plain {out['loss'][1]:.7g}, float64 {out['loss'][2]:.7g}")
+    del params64, g_k, g_p, g_d, h_k, h_p, h_d
+    return out
+
+
+def recsys_k4(dev, flush, sms, clock, train_b):
+    """Phase 19 (c), second half: K4 alone at ``[B, 2, 200, 32]`` float32,
+    bidirectional, for ``serve_p99``'s 512 and the training batch:
+    forward and backward against the plain version (``flash_plain`` /
+    ``flash_plain_backward``: forward 2e-5, backward 1e-4 of each
+    tensor's largest magnitude), timed beside the bound, the plain
+    version and ``scaled_dot_product_attention``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import (
+        flash_backward_cuda,
+        flash_cuda,
+        flash_plain,
+        flash_plain_backward,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    h, s, d = 2, 200, 32
+    out = {}
+    for label, b in (("p99", 512), ("train", train_b)):
+        args = bwd_inputs(gen, dev, torch.float32, b, h, h, s, d,
+                          causal=False)
+        q, k, v, o, lse, dout = args
+        p_o, p_lse = flash_plain(q, k, v, causal=False, return_lse=True)
+        fwd_err = rel_max(o, p_o)
+        got = flash_backward_cuda(*args, causal=False)
+        want = flash_plain_backward(q, k, v, p_o, p_lse, dout, causal=False)
+        torch.cuda.synchronize()
+        bwd_err = max(rel_max(g, w) for g, w in zip(got, want))
+        if fwd_err > 2e-5 or bwd_err > BWD_TOL["float32"]:
+            fail(f"phase 19 (c) K4 float32 bidirectional B={b}: forward "
+                 f"{fwd_err:.3g}, backward {bwd_err:.3g} of the largest "
+                 "magnitude")
+        max_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        del got, want, p_o, p_lse
+        reps = dict(n_timed=RECSYS_TIMED, n_warm=1)
+        f_ms = time_cuda(lambda: flash_cuda(q, k, v, causal=False), flush,
+                         **reps)
+        fp_ms = time_cuda(lambda: flash_plain(q, k, v, causal=False), flush,
+                          n_timed=2, n_warm=1)
+        fl_ms = time_cuda(lambda: F.scaled_dot_product_attention(q, k, v),
+                          flush, **reps)
+        b_ms = time_cuda(lambda: flash_backward_cuda(*args, causal=False),
+                         flush, **reps)
+        bp_ms = time_cuda(lambda: flash_plain_backward(*args, causal=False),
+                          flush, n_timed=2, n_warm=1)
+        qs, ks, vs = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        so = F.scaled_dot_product_attention(qs, ks, vs)
+        bl_ms = time_cuda(lambda: torch.autograd.grad(
+            so, (qs, ks, vs), dout, retain_graph=True), flush, **reps)
+        fb, fo = flash_bound(torch.float32, False, b, h, s, d, sms, clock)
+        bb, bo = bwd_bound(torch.float32, b, h, h, s, d, sms, clock,
+                           causal=False)
+        row = dict(b=b, fwd_ms=f_ms, fwd_plain_ms=fp_ms, fwd_sdpa_ms=fl_ms,
+                   fwd_bound_ms=max(fb, fo) * 1e3,
+                   fwd_bound_by="bytes" if fb >= fo else "operations",
+                   bwd_ms=b_ms, bwd_plain_ms=bp_ms, bwd_sdpa_ms=bl_ms,
+                   bwd_bound_ms=max(bb, bo) * 1e3,
+                   bwd_bound_by="bytes" if bb >= bo else "operations",
+                   fwd_rel_err=fwd_err, bwd_rel_err=bwd_err,
+                   bwd_max_abs_err=max_err)
+        out[label] = row
+        log(f"  (c) K4 float32 bidirectional [{b}, {h}, {s}, {d}]: == plain "
+            f"(forward {fwd_err:.3g}, backward {bwd_err:.3g} of the largest "
+            f"magnitude); forward {f_ms:.4f} ms (bound "
+            f"{row['fwd_bound_ms']:.4f}, {row['fwd_bound_by']}; "
+            f"{row['fwd_bound_ms'] / f_ms:.1%}), sdpa {fl_ms:.4f}, plain "
+            f"{fp_ms:.4f}; backward {b_ms:.4f} ms (bound "
+            f"{row['bwd_bound_ms']:.4f}, {row['bwd_bound_by']}; "
+            f"{row['bwd_bound_ms'] / b_ms:.1%}), sdpa backward {bl_ms:.4f}, "
+            f"plain {bp_ms:.4f}")
+        del args, q, k, v, o, lse, dout, qs, ks, vs, so
+        torch.cuda.empty_cache()
+    return out
+
+
+def bag_plain(table, idx, bags, n, mode):
+    """``embedding_bag``'s plain version: the rows by ``index_select``,
+    then ``index_add_`` (sum, and over ``bincount``'s counts for mean) or
+    ``scatter_reduce`` amax (max, an empty bag 0)."""
+    import torch
+
+    rows = table.index_select(0, idx.long())
+    ids = bags.long()
+    if mode == "max":
+        out = torch.full((n, rows.shape[1]), -math.inf, device=rows.device)
+        out.scatter_reduce_(0, ids[:, None].expand_as(rows), rows, "amax")
+        return torch.where(torch.isfinite(out), out, 0.0)
+    out = torch.zeros(n, rows.shape[1], device=rows.device).index_add_(
+        0, ids, rows)
+    if mode == "mean":
+        out /= torch.bincount(ids, minlength=n).clamp(min=1)[:, None]
+    return out
+
+
+def recsys_bags(dev, flush, table, items):
+    """Phase 19 (d): ``embedding_bag`` over the item table with bags = (a)'s
+    item sequences.  ``sum``: K2a's launches a call, the call's ms, and
+    K2a on the gathered rows against ``index_add_`` (in turns) and its
+    plain version, beside the byte bound; ``sum``, ``mean`` and ``max``
+    against ``bag_plain`` within ``BAG_TOL`` of the output's largest
+    magnitude."""
+    import torch
+
+    from repro_torch.kernels.segsum import segsum_cuda, segsum_plain
+    from repro_torch.sparse import embedding_bag
+
+    b, s = items.shape
+    idx = items.reshape(-1)
+    bags = torch.arange(b, device=dev, dtype=torch.int32).repeat_interleave(s)
+    e, d = idx.numel(), table.shape[1]
+    out = {}
+    with torch.no_grad():
+        segsum_cuda.launches = 0
+        got = embedding_bag(table, idx, bags, b, mode="sum")
+        torch.cuda.synchronize()
+        out["bag_launches"] = segsum_cuda.launches
+        if out["bag_launches"] != 1:
+            fail(f"phase 19 (d): {out['bag_launches']} K2a launches for one "
+                 "embedding_bag(mode='sum') call")
+        errs = {}
+        for mode in ("sum", "mean", "max"):
+            if mode != "sum":
+                got = embedding_bag(table, idx, bags, b, mode=mode)
+            want = bag_plain(table, idx, bags, b, mode)
+            errs[mode] = rel_max(got, want)
+            if errs[mode] > BAG_TOL or got.shape != (b, d):
+                fail(f"phase 19 (d) embedding_bag {mode}: {errs[mode]:.3g} "
+                     f"of the output's largest magnitude (limit {BAG_TOL})")
+            if mode == "sum":
+                out["bag_max_abs_err"] = float((got - want).abs().max())
+        del got, want
+        reps = dict(n_timed=RECSYS_TIMED, n_warm=1)
+        out["bag_call_ms"] = time_cuda(
+            lambda: embedding_bag(table, idx, bags, b, mode="sum"), flush,
+            **reps)
+        rows = table.index_select(0, idx.long())
+        out["bag_ms"], out["bag_library_ms"] = time_two(
+            lambda: segsum_cuda(rows, bags, b),
+            lambda: index_add_rows(rows, bags, b), flush, **reps)
+        out["bag_plain_ms"] = time_cuda(lambda: segsum_plain(rows, bags, b),
+                                        flush, **reps)
+        out["bag_bound_ms"] = k2a_bound_ms(e, b, d)
+        out["bag_bound_by"] = "bytes"
+        out["bag_rel_err"] = errs
+        del rows
+    log(f"  (d) embedding_bag over the {table.shape[0]:,} x {d} table, bags "
+        f"= (a)'s {b:,} sequences ({e:,} ids, {e * d * 4 / 1e6:.0f} MB of "
+        f"rows): {out['bag_launches']} K2a launch a sum call; sum, mean, "
+        f"max == plain within {errs['sum']:.3g}, {errs['mean']:.3g}, "
+        f"{errs['max']:.3g} of the largest magnitude; the call "
+        f"{out['bag_call_ms']:.4f} ms; K2a on the rows {out['bag_ms']:.4f} "
+        f"ms against index_add_ {out['bag_library_ms']:.4f} (in turns), "
+        f"plain {out['bag_plain_ms']:.4f}, bound {out['bag_bound_ms']:.4f} "
+        f"(bytes; {out['bag_bound_ms'] / out['bag_ms']:.1%})")
+    return out
+
+
+def recsys_phase(dev, flush, sms, clock, smi):
+    """Phase 19: the recsys side at BERT4Rec's ``CONFIG``.  Returns (K4's
+    ``recsys_*`` keys, K2a's ``bag_*`` keys)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.tree import leaves
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    cfg = get_config("bert4rec").model
+    log(f"  card: {smi}; bert4rec: {cfg.vocab:,} x {cfg.embed_dim} item "
+        f"table, {cfg.n_blocks} blocks, {cfg.n_heads} heads of "
+        f"{cfg.embed_dim // cfg.n_heads}, S = {cfg.max_seq}, float32 from "
+        f"seed 0")
+    train = recsys_train(dev, cfg)
+    log(f"  {at()} (a) done")
+    state, data = train.pop("state"), train.pop("data")
+    params = state.params
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    for p in leaves(params):
+        p.requires_grad_(False)
+    serve = recsys_serve(dev, cfg, params, flush)
+    log(f"  {at()} (b) done")
+    routes = recsys_routes(dev, cfg, params, data)
+    k4 = recsys_k4(dev, flush, sms, clock, train["batch"])
+    log(f"  {at()} (c) done")
+    bags = recsys_bags(dev, flush, params["item_embed"].detach(),
+                       data["items"])
+    log(f"  {at()} (d) done")
+    reduced = [train["reduced"],
+               f"serve_bulk in chunks of {RECSYS_CHUNK:,} rows, each with "
+               "its own top-100 (a row's top-100 depends on its row alone)"]
+    log("  reduced: " + "; ".join(r for r in reduced if r))
+    del params, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    recsys = {
+        "recsys_card": smi,
+        "recsys_reduced": [r for r in reduced if r],
+        "recsys_train_batch": train["batch"],
+        "recsys_step_ms": train["step_ms"],
+        "recsys_steps_ms": train["steps_ms"],
+        "recsys_seq_per_s": train["seq_per_s"],
+        "recsys_peak_gib": train["peak_gib"],
+        "recsys_losses": train["losses"],
+        "recsys_launches_step": {"forward": train["launches"][0][0],
+                                 "backward": train["launches"][0][1]},
+        "recsys_prof": {k: train[k] for k in (
+            "prof_wall_ms", "prof_busy_ms", "prof_idle", "prof_kernels",
+            "prof_k4_ms", "prof_top")},
+        "recsys_serve_p99_launches": serve["serve_p99_launches"],
+        **{f"recsys_{k}": v for k, v in serve.items()
+           if k != "serve_p99_launches"},
+        "recsys_routes": routes,
+    }
+    for label, row in k4.items():
+        recsys.update({f"recsys_{label}_{k}": v for k, v in row.items()})
+    return recsys, bags
+
+
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"),
                   ("isect", "isect.cu"), ("segsum", "segsum.cu"),
                   ("flash", "flash.cu"), ("flash_bwd", "flash_bwd.cu"))
@@ -4942,6 +5542,17 @@ def main() -> int:
     log(f"phase 18: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 19: the recsys side (K4 bidirectional, embedding_bag on K2a) --
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 19: bert4rec training, serving and retrieval at its published "
+        "width; K4 bidirectional in float32, embedding_bag on K2a")
+    recsys_entry, bag_entry = recsys_phase(dev, flush, sms, clock, smi)
+    flash_entry.update(recsys_entry)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -4990,8 +5601,10 @@ def main() -> int:
     segsum_entries["segsum"].update(
         {f"out_w_{key}": clique_entries["segsum"][key]
          for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
-        caller="models.gnn through sparse.mp_segment_sum (phase 18); "
-               "index_add_ measured faster for graph_pagerank's out-weights")
+        caller="models.gnn through sparse.mp_segment_sum (phase 18), "
+               "sparse.embedding_bag's sum (phase 19, bag_*); index_add_ "
+               "measured faster for graph_pagerank's out-weights",
+        **bag_entry)
     for name, kid, source, replaces, entry in (
             ("segsum", "K2a", "segsum.cu", "segsum/segsum.py:125",
              segsum_entries["segsum"]),
@@ -5014,7 +5627,7 @@ def main() -> int:
         })
     next(k for k in kernels if k["name"] == "flash").update(
         {key: val for key, val in flash_entry.items()
-         if key.startswith(("lm_", "train_", "bwd_"))},
+         if key.startswith(("lm_", "train_", "bwd_", "recsys_"))},
         bwd_source="src/repro_torch/csrc/flash_bwd.cu",
         bwd_replaces="none: the JAX package differentiates its stock-op "
                      "attention")
@@ -5022,7 +5635,8 @@ def main() -> int:
         next(k for k in kernels if k["name"] == name).update(
             {key: val for key, val in segsum_entries[name].items()
              if key.startswith(("phase7_", "out_w_", "shuffled_",
-                                "one_segment_", "skew_", "gnn_")) or key in (
+                                "one_segment_", "skew_", "gnn_", "bag_"))
+             or key in (
                  "caller", "clique_ms", "bipartite_ms",
                  "graph_pagerank_ms", "to_graph_s")})
     print(json.dumps({"kernels": kernels}))

@@ -128,7 +128,7 @@ HOT_PATHS: dict[str, tuple[str, ...]] = {
         "loss_fn",
     ),
     "models/attention.py": (
-        "causal_attention", "naive_attention", "blocked_attention",
+        "causal_attention", "bidirectional_attention", "naive_attention", "blocked_attention",
         "chunked_local_attention", "decode_attention",
     ),
     "models/moe.py": (
@@ -156,6 +156,12 @@ HOT_PATHS: dict[str, tuple[str, ...]] = {
         "_self_product", "_update",
     ),
     "models/gnn/irreps.py": ("sph_harm", "bessel_basis"),
+    "models/recsys/bert4rec.py": (
+        "encode", "logits_all_items", "loss_fn", "loss_sampled",
+        "serve_score", "retrieval_score",
+    ),
+    "sparse/embedding_bag.py": ("embedding_bag", "embedding_bag_dense"),
+    "sparse/gather.py": ("take_rows",),
     "launch/gnn_sharded.py": ("make_edge_sharded_step", "edge_shard"),
     "train/step.py": ("make_train_step",),
     "train/optimizer.py": ("adamw_update", "schedule", "global_norm"),

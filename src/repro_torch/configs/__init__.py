@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution for the launcher,
 the counterpart of the JAX package's ``repro.configs``.
 
-``ARCH_IDS`` holds the architectures the port runs: the five LM ones
-and the four GNN ones (``ArchSpec.family`` tells them apart).  It grows
-as ROADMAP item 12d (recsys: ``bert4rec``) is ported; until then
-``get_config`` raises a ``KeyError`` naming the item for that id.
+``ARCH_IDS`` holds the architectures the port runs, the JAX package's
+ten in its order: the five LM ones, the four GNN ones and ``bert4rec``
+(recsys); ``ArchSpec.family`` tells them apart.  ``_NOT_PORTED`` names
+the ROADMAP item of an architecture the port does not run yet (none
+now): ``get_config`` raises a ``KeyError`` naming it.
 """
 from __future__ import annotations
 
@@ -22,11 +23,12 @@ _MODULES = {
     "nequip": "repro_torch.configs.nequip",
     "gat-cora": "repro_torch.configs.gat_cora",
     "pna": "repro_torch.configs.pna",
+    "bert4rec": "repro_torch.configs.bert4rec",
 }
 
 # Architectures of the JAX package the port does not run yet, by the
 # ROADMAP item that brings them.
-_NOT_PORTED = {"bert4rec": "12d"}
+_NOT_PORTED: dict[str, str] = {}
 
 ARCH_IDS = tuple(_MODULES)
 

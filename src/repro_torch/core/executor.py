@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import statistics
 import threading
 import time
 from collections import OrderedDict
@@ -45,11 +46,12 @@ from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch.core.api import tree_leaves
+from repro_torch.core.api import constant_initial_msg, tree_leaves, tree_map
 from repro_torch.core.clique import clique_expansion_size, to_graph
 from repro_torch.core.device import resolve_device
-from repro_torch.core.engine import compute
+from repro_torch.core.engine import compute, deliver
 from repro_torch.core.hypergraph import HyperGraph
 from repro_torch.kernels.deliver import (
     DELIVERY_MODES,
@@ -406,13 +408,26 @@ FUSED_MIN_NNZ = 4096
 # The card's term, measured: one delivery pair (v->he + he->v, float32
 # sum) through the xla lowering and the fused K1 leaf on one H100 (700
 # W), over DBLP at 5,660 to 2,838,951 incidences and 4 to 256 bytes a
-# row (``chip_smoke.py`` phase 10; PERF.md §6).  K1 won at every width
-# and size: 1.9-10.1x up to 64-byte rows, 1.14-1.43x at 256 bytes, where
-# the two smallest sizes are launch-bound (K1 0.22-0.27 ms a pair,
-# xla's host dispatch of ~20 launches 0.25-0.33).  So the card has no
-# width bound, and its nnz floor is the smallest size measured: below
-# it, unmeasured, auto keeps the reference lowering.
+# row (``chip_smoke.py`` phase 10; PERF.md §6).  Up to 64-byte rows K1
+# led at every size in every recorded grid, by 1.9x or more.  At 256-byte
+# rows it did not: its lead there ran from 0.88x to 2.1x, no size showed
+# it 1.5x ahead in every grid, and at the small sizes the order followed
+# the host (xla is bound by the host's dispatch of ~20 launches, K1 by
+# the card).  So rows wider than ``H100_CONTESTED_WIDTH_BYTES`` are
+# contested at every size: ``select_delivery`` times one pair on each
+# lowering there (``time_in_turns``, as phase 10 times its pairs).  On
+# one host xla's time there moves between two levels (~0.23 and ~0.55
+# ms at 28,396 incidences) within seconds, K1's far less
+# (``tools/delivery_pick_probe.py``), so a timing that puts xla a little
+# ahead does not say the next will: xla is taken only when it leads by
+# more than ``DELIVERY_MEASURE_MARGIN``, else the kernel.  Elsewhere
+# the nnz floor is the smallest size measured: below it, unmeasured, auto
+# keeps the reference lowering.
 H100_FUSED_MIN_NNZ = 5_660
+H100_CONTESTED_WIDTH_BYTES = 64.0
+DELIVERY_MEASURE_TURNS = 20   # pairs timed a lowering at a contested point
+DELIVERY_MEASURE_WARM = 3     # untimed pairs a lowering before them
+DELIVERY_MEASURE_MARGIN = 0.10  # xla's lead that the pick asks for
 
 
 def _non_monoid_reason(spec) -> str | None:
@@ -439,7 +454,74 @@ def message_width_bytes(initial_msg: Any) -> float:
     return max(total, 1.0)
 
 
-def select_delivery(spec, hg: HyperGraph) -> tuple[str, dict]:
+def time_in_turns(fn_a: Callable[[], Any], fn_b: Callable[[], Any],
+                  device, flush: torch.Tensor | None = None,
+                  turns: int = DELIVERY_MEASURE_TURNS,
+                  warm: int = DELIVERY_MEASURE_WARM,
+                  ) -> tuple[float, float]:
+    """Median ms of ``fn_a()`` and of ``fn_b()`` on the card ``device``,
+    timed in turns (a, b, a, b, ...) after ``warm`` calls each, so that
+    both meet the same state of the host: every call after an L2 flush
+    (``flush``, by default twice the card's L2 of int32) and from an
+    idle card, the timer started once the flush is done, so that the
+    host's dispatch counts in full.  ``select_delivery``'s contested
+    pick and ``chip_smoke.py``'s phase 10 check both time with it."""
+    if flush is None:
+        flush = torch.empty(
+            max(2 * torch.cuda.get_device_properties(device).L2_cache_size,
+                1 << 20) // 4, dtype=torch.int32, device=device)
+    for _ in range(warm):
+        fn_a()
+        fn_b()
+    times: tuple[list, list] = ([], [])
+    for _ in range(turns):
+        for fn, out in ((fn_a, times[0]), (fn_b, times[1])):
+            flush.zero_()
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def measure_delivery_pair(spec, hg: HyperGraph,
+                          layouts) -> tuple[float, float]:
+    """``(xla_ms, fused_ms)``: one delivery pair (v->he with the spec's
+    ``v_program``, he->v with its ``he_program``) of messages shaped as
+    ``spec.initial_msg`` on ``hg``, through the reference lowering and
+    through the fused ``layouts`` (``layout_pair``'s), timed by
+    ``time_in_turns``."""
+
+    def msgs(n):
+        return tree_map(lambda x: x.contiguous(), constant_initial_msg(
+            spec.initial_msg, n, device=hg.device))
+
+    m_v, m_he = msgs(hg.n_vertices), msgs(hg.n_hyperedges)
+
+    def pair(fwd, bwd):
+        deliver(m_v, None, hg.src, hg.dst, hg.n_hyperedges, spec.v_program,
+                hg.e_attr, hg.e_mask, layout=fwd)
+        deliver(m_he, None, hg.dst, hg.src, hg.n_vertices, spec.he_program,
+                hg.e_attr, hg.e_mask, layout=bwd)
+
+    return time_in_turns(lambda: pair(None, None), lambda: pair(*layouts),
+                         hg.device)
+
+
+def measured_pick(xla_ms: float, fused_ms: float) -> str:
+    """The lowering a contested point takes from its two times: ``xla``
+    where it leads the fused kernel by more than
+    ``DELIVERY_MEASURE_MARGIN``, else ``pallas_fused``."""
+    if xla_ms * (1.0 + DELIVERY_MEASURE_MARGIN) < fused_ms:
+        return "xla"
+    return "pallas_fused"
+
+
+def select_delivery(spec, hg: HyperGraph, measure=None) -> tuple[str, dict]:
     """Fused vs reference delivery for one spec.
 
     Hard gates first: custom ``reducer``s / ``edge_transform`` (which
@@ -450,9 +532,14 @@ def select_delivery(spec, hg: HyperGraph) -> tuple[str, dict]:
       while the degree-class padding stays within
       ``FUSED_ELL_WORK_BUDGET`` slots per incidence and the message row
       within ``FUSED_MAX_WIDTH_BYTES``.
-    * ``cuda``: the card's measured term — fused from
-      ``H100_FUSED_MIN_NNZ`` live incidences up, at any message width
-      (the fused kernel won at every width and size measured).
+    * ``cuda``: the card's measured term.  Rows wider than
+      ``H100_CONTESTED_WIDTH_BYTES`` are contested: one delivery pair is
+      timed on each lowering by ``measure(spec, hg) -> (xla_ms,
+      fused_ms)`` (the ``Engine``'s ``_measure_delivery``, cached per
+      structure and width, the same on every rank), both times in
+      ``why["measured_ms"]``, and ``measured_pick`` decides; without
+      ``measure`` such a point raises.  Narrower rows take the fused kernel from
+      ``H100_FUSED_MIN_NNZ`` live incidences up.
     """
     reason = _non_monoid_reason(spec)
     why: dict[str, Any] = {}
@@ -478,6 +565,22 @@ def select_delivery(spec, hg: HyperGraph) -> tuple[str, dict]:
     why["message_width_bytes"] = width
     if lowering == "cuda":
         why.update(nnz=nnz, min_nnz=H100_FUSED_MIN_NNZ)
+        if width > H100_CONTESTED_WIDTH_BYTES:
+            if measure is None:
+                raise ValueError(
+                    f"rows of {width:g} bytes are contested on the card: "
+                    "the pick is measured; pass measure= (Engine.resolve "
+                    "does)")
+            xla_ms, fused_ms = measure(spec, hg)
+            why["measured_ms"] = {"xla": xla_ms, "pallas_fused": fused_ms}
+            why["reason"] = (
+                f"contested on the card (rows of {width:g} bytes > "
+                f"{H100_CONTESTED_WIDTH_BYTES:g}): one delivery pair timed "
+                f"on this structure, xla {xla_ms:.4f} ms, fused "
+                f"{fused_ms:.4f} ms; xla only if it leads by more than "
+                f"{DELIVERY_MEASURE_MARGIN:.0%}"
+            )
+            return measured_pick(xla_ms, fused_ms), why
         if nnz < H100_FUSED_MIN_NNZ:
             why["reason"] = (
                 f"incidence below the smallest measured on the card ({nnz} "
@@ -486,9 +589,8 @@ def select_delivery(spec, hg: HyperGraph) -> tuple[str, dict]:
             return "xla", why
         why["reason"] = (
             "monoid path on the card: the fused CUDA kernel measured "
-            f"faster at every width and size from {H100_FUSED_MIN_NNZ} "
-            "incidences (1.14-10.1x; no crossover up to 256-byte rows and "
-            "2.84 M incidences)"
+            f"faster at every size from {H100_FUSED_MIN_NNZ} incidences up "
+            f"to {H100_CONTESTED_WIDTH_BYTES:g}-byte rows (1.9-11.2x)"
         )
         return "pallas_fused", why
     if nnz < FUSED_MIN_NNZ:
@@ -633,6 +735,9 @@ class Engine:
         # incidence tensors: the dst-sort + ELL/CSR precompute is paid
         # once per structure (and per padded bucket).
         self._delivery_cache: list = []
+        # Measured delivery pairs at contested points, keyed as the
+        # layouts are and by message width: [(tensors, width, times)].
+        self._delivery_times: list = []
         # The compile-once executable cache (see ``compile``).
         self.exec_cache_size = int(exec_cache_size)
         if exec_cache_bytes is None and self.device.type == "cuda":
@@ -845,7 +950,33 @@ class Engine:
                     "delivery='pallas_fused' needs a non-empty incidence"
                 )
             return "pallas_fused", {"reason": "explicitly configured"}
-        return select_delivery(spec, spec.hg0)
+        return select_delivery(spec, spec.hg0,
+                               measure=self._measure_delivery)
+
+    def _measure_delivery(self, spec, hg) -> tuple[float, float]:
+        """``measure_delivery_pair`` over this Engine's layouts of ``hg``,
+        once per structure (the identity of its incidence tensors) and
+        message width.  With a mesh every rank measures, and every rank
+        takes the largest time of each lowering (one ``all_reduce``
+        MAX), so that all ranks make one pick: replicated ranks stay
+        bitwise equal.  The pair is timed on the whole structure, not on
+        a rank's shard."""
+        tensors = (hg.src, hg.dst, hg.e_mask)
+        width = message_width_bytes(spec.initial_msg)
+        for c_tensors, c_width, times in self._delivery_times:
+            if c_width == width and all(
+                    a is b for a, b in zip(c_tensors, tensors)):
+                return times
+        times = measure_delivery_pair(spec, hg, self._delivery_layouts(hg))
+        if self.mesh is not None:
+            both = torch.tensor(times, dtype=torch.float64,
+                                device=self.device)
+            dist.all_reduce(both, op=dist.ReduceOp.MAX,
+                            group=self.mesh.get_group())
+            times = tuple(both.tolist())
+        self._delivery_times.append((tensors, width, times))
+        del self._delivery_times[:-16]  # bound the strong refs we hold
+        return times
 
     def _delivery_layouts(self, hg, padded=None):
         """Both directions' fused layouts for one structure, cached by
@@ -1627,7 +1758,7 @@ class Engine:
         # Run the cost model even when the axis was pinned or gated, so
         # the non-winning candidate's predicted cost is always visible.
         gate = _non_monoid_reason(spec)
-        _, dwhy = select_delivery(spec, hg0)
+        _, dwhy = select_delivery(spec, hg0, measure=self._measure_delivery)
         width = dwhy.get(
             "message_width_bytes", message_width_bytes(spec.initial_msg)
         )

@@ -1,8 +1,7 @@
 """Model zoo of the port: the LM family (``transformer``, ``attention``,
-``moe``, ``layers``, ``sharding``) and the GNN family (``gnn``: GAT,
-PNA, NequIP, MACE), the counterpart of the JAX package's
-``repro.models``.  The recsys name (``BERT4RecConfig``) joins with
-ROADMAP item 12d."""
+``moe``, ``layers``, ``sharding``), the GNN family (``gnn``: GAT, PNA,
+NequIP, MACE) and the recsys family (``recsys``: BERT4Rec), the
+counterpart of the JAX package's ``repro.models``."""
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
 from repro_torch.models.gnn import (
@@ -12,6 +11,7 @@ from repro_torch.models.gnn import (
     PNAConfig,
     random_graph,
 )
+from repro_torch.models.recsys import BERT4RecConfig
 
 __all__ = [
     "LMConfig",
@@ -21,4 +21,5 @@ __all__ = [
     "GraphBatch",
     "PNAConfig",
     "random_graph",
+    "BERT4RecConfig",
 ]

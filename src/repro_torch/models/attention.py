@@ -21,6 +21,12 @@ relative, so the outputs agree within a few bfloat16 steps, not
 bitwise.  Windowed (local) layers and decode stay plain torch, as in
 the JAX package, which has no kernel for them.
 
+``bidirectional_attention`` is the same route with ``causal=False``,
+the attention of encoders over a whole sequence (BERT4Rec's ``encode``,
+where the JAX package calls ``naive_attention(causal=False)``, which
+stays the plain form and the oracle).  Every key enters every query's
+softmax; K4 stops at ``Sk`` and pads nothing, so no key is added.
+
 Training differentiates through the same route: ``flash_attention``
 takes K4's hand-written backward while a gradient is being taken (its
 plain version on a CPU tensor), the gradient the JAX package takes by
@@ -67,6 +73,20 @@ def causal_attention(q, k, v):
     it (copies) and the result transposed back (a view)."""
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True)
+    return o.transpose(1, 2)
+
+
+def bidirectional_attention(q, k, v):
+    """Attention of every query over every key through K4 (``causal=
+    False``): ``q [B, S, H, hd]``, ``k, v [B, Sk, KvH, hd]`` -> ``[B, S,
+    H, hd]``, transposed into and out of K4's ``[B, H, S, hd]`` as in
+    ``causal_attention``.  ``block_k`` is ``Sk``: ``flash_attention``
+    refuses a bidirectional ``Sk`` that is no multiple of its
+    ``block_k``, since the JAX kernel would pad keys into the softmax;
+    K4 pads none, so one block of all the keys is the exact call."""
+    o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), causal=False,
+                        block_k=max(k.shape[1], 1))
     return o.transpose(1, 2)
 
 

@@ -27,7 +27,7 @@ from repro_torch.models.gnn.irreps import (
     real_cg,
     sph_harm,
 )
-from repro_torch.models.gnn.params import normal, tree_from_jax
+from repro_torch.models.params import normal, tree_from_jax
 from repro_torch.sparse.segment import MONOIDS, mp_segment_sum
 
 

@@ -10,7 +10,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.gnn.graph import GraphBatch
-from repro_torch.models.gnn.params import normal, tree_from_jax
+from repro_torch.models.params import normal, tree_from_jax
 from repro_torch.sparse.segment import mp_segment_sum, segment_softmax
 
 

@@ -9,7 +9,7 @@ import dataclasses
 import torch
 
 from repro_torch.models.gnn.graph import GraphBatch
-from repro_torch.models.gnn.params import normal, tree_from_jax
+from repro_torch.models.params import normal, tree_from_jax
 from repro_torch.sparse.segment import (
     MONOIDS,
     mp_segment_max,

@@ -21,12 +21,13 @@ outlives a step.
 """
 from __future__ import annotations
 
-import math
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+
+from repro_torch.sparse.gather import take_rows
 
 Params = Any
 
@@ -179,16 +180,8 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
 def embed(params, ids, compute_dtype=DEFAULT_COMPUTE_DTYPE):
     """Rows of the table by id, as ``jnp.take`` (its ``fill`` mode): an id
     in ``[-V, 0)`` counts from the end, and a row for an id outside
-    ``[-V, V)`` is NaN.  Nothing is read back to the host."""
-    table = params["table"]
-    n = table.shape[0]
-    idx = torch.where(ids < 0, ids + n, ids)
-    ok = (idx >= 0) & (idx < n)
-    rows = table[idx.clamp(0, n - 1)]
-    rows = torch.where(ok[..., None], rows, torch.full((), math.nan,
-                                                       dtype=rows.dtype,
-                                                       device=rows.device))
-    return rows.to(compute_dtype)
+    ``[-V, V)`` is NaN (``sparse.gather.take_rows``)."""
+    return take_rows(params["table"], ids).to(compute_dtype)
 
 
 def unembed(params, x, compute_dtype=DEFAULT_COMPUTE_DTYPE):

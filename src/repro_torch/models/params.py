@@ -1,7 +1,7 @@
-"""Parameter trees of the GNN side: nested dicts and lists of float32
-tensors in the JAX package's structure (``train.tree`` walks them in
-``jax.tree.leaves``' order), drawn from a torch generator or carried
-over from the JAX package's numpy leaves."""
+"""Parameter trees of the GNN and recsys models: nested dicts and lists
+of float32 tensors in the JAX package's structure (``train.tree`` walks
+them in ``jax.tree.leaves``' order), drawn from a torch generator or
+carried over from the JAX package's numpy leaves."""
 from __future__ import annotations
 
 import numpy as np

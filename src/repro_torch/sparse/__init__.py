@@ -1,8 +1,8 @@
 """Sparse/ragged primitives: the segment ops under the MESH engine
-(index gathers + ``scatter_reduce`` folds) and the GNN side's
-message-passing reductions (K2a for float sums), in PyTorch.
-``embedding_bag`` and the neighbour sampler join with ROADMAP item
-12d."""
+(index gathers + ``scatter_reduce`` folds), the GNN side's
+message-passing reductions (K2a for float sums), ``embedding_bag`` (a
+gather + a per-bag reduce: its sum on K2a) and the host-side neighbour
+sampler, in PyTorch."""
 from repro_torch.sparse.segment import (
     MONOIDS,
     Monoid,
@@ -20,6 +20,8 @@ from repro_torch.sparse.segment import (
     segment_softmax,
     segment_std,
 )
+from repro_torch.sparse.embedding_bag import EmbeddingBagSpec, embedding_bag
+from repro_torch.sparse.sampler import NeighborSampler, SampledBlock, build_csr
 
 __all__ = [
     "MONOIDS",
@@ -37,4 +39,9 @@ __all__ = [
     "segment_reduce",
     "segment_softmax",
     "segment_std",
+    "embedding_bag",
+    "EmbeddingBagSpec",
+    "NeighborSampler",
+    "SampledBlock",
+    "build_csr",
 ]

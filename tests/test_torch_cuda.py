@@ -9,7 +9,10 @@ backward kernels on both routes (bfloat16 on the tensor cores, the FMA
 tiles) against their plain version, and one smoke training step on the
 card against the same step on the CPU; the GNN side's K2a route
 (``SegmentSumFn`` forward and gradient, ``mp_segment_sum``) and one
-step of each GNN smoke config against the CPU's.
+step of each GNN smoke config against the CPU's; the recsys side: K4
+bidirectional in float32 at BERT4Rec's attention shape (forward and
+backward), ``embedding_bag`` on K2a, and one BERT4Rec smoke step against
+the CPU's.
 
 Every test here is marked ``cuda`` and skips without a CUDA card and
 ``nvcc``.  The file imports nothing of JAX, so it runs where the card is:
@@ -930,22 +933,34 @@ def test_cuda_clique_run_and_vertex_pagerank_auto(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,nnz_scale,pick", [
     (1, 0.002, "pallas_fused"), (16, 0.002, "pallas_fused"),
-    (64, 0.002, "pallas_fused"), (64, 0.05, "pallas_fused"),
-    (1, 0.001, "xla"), (64, 0.001, "xla")])
+    (64, 0.002, "measured"), (64, 0.05, "measured"),
+    (1, 0.001, "xla"), (64, 0.001, "measured")])
 def test_cuda_select_delivery_names_the_measured_term(card, d, nnz_scale,
                                                       pick):
+    """Rows up to 64 bytes take the fixed term; wider rows (D = 64,
+    256 bytes) are contested: ``Engine.resolve``'s pick follows one
+    delivery pair timed on each lowering (``measured_pick``: ``xla`` only
+    where it leads by more than the margin), both times in ``why``."""
     from repro_torch.algorithms import AlgorithmSpec
-    from repro_torch.core.executor import H100_FUSED_MIN_NNZ, select_delivery
+    from repro_torch.core.executor import H100_FUSED_MIN_NNZ, measured_pick
     from repro_torch.data import make_dataset
 
     hg = make_dataset("dblp", nnz_scale, seed=0, device=card)
     prog = Program(procedure=None, combiner="sum")
     spec = AlgorithmSpec(hg0=hg, initial_msg=torch.zeros(d), v_program=prog,
                          he_program=prog, max_iters=1, extract=lambda o: o)
-    got, why = select_delivery(spec, hg)
-    assert got == pick
+    resolved, _, decision = Engine(device=card).resolve(spec)
+    got, why = resolved.delivery, decision["delivery"]
     assert why["lowering"] == "cuda"
     assert why["min_nnz"] == H100_FUSED_MIN_NNZ
+    if pick == "measured":
+        times = why["measured_ms"]
+        assert all(t > 0 for t in times.values())
+        assert got == measured_pick(times["xla"], times["pallas_fused"])
+        assert "contested" in why["reason"]
+        return
+    assert got == pick
+    assert "measured_ms" not in why
     assert (hg.nnz >= H100_FUSED_MIN_NNZ) == (pick == "pallas_fused")
     assert ("measured faster" if pick == "pallas_fused"
             else "smallest measured") in why["reason"]
@@ -1955,3 +1970,136 @@ def _tree_to(tree, dev):
     if isinstance(tree, list):
         return [_tree_to(v, dev) for v in tree]
     return tree.detach().to(dev)
+
+
+# --------------------------------------------------------------------------
+# the recsys side: K4 bidirectional in float32, embedding_bag on K2a
+# --------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4, 1])
+def test_cuda_flash_bidirectional_float32_at_bert4rec_shape(card, b):
+    """K4 at BERT4Rec's attention shape (``[B, 2, 200, 32]`` float32,
+    ``causal=False``: the FMA tiles, 200 keys in one ``block_k``) through
+    ``models.attention.bidirectional_attention``: the forward within
+    2e-5 of ``flash_plain`` and ``naive_attention(causal=False)``, the
+    backward kernels within 1e-4 of each tensor's largest magnitude of
+    ``flash_plain_backward``; one forward and one backward launch."""
+    from repro_torch.models.attention import (
+        bidirectional_attention,
+        naive_attention,
+    )
+
+    rng = np.random.default_rng(200 + b)
+    q, k, v, out, lse, dout = _bwd_inputs(rng, card, torch.float32, b, 2, 2,
+                                          200, 32, False)
+    p_out, p_lse = flash_plain(q, k, v, causal=False, return_lse=True)
+    torch.testing.assert_close(out, p_out, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=1e-5)
+    # The model's route, [B, S, H, hd], with a gradient.
+    qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    before = (flash_cuda.launches, flash_backward_cuda.launches)
+    got = bidirectional_attention(qs, ks, vs)
+    got.backward(dout.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert (flash_cuda.launches, flash_backward_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = naive_attention(*(t.detach() for t in (qs, ks, vs)),
+                           causal=False)
+    torch.testing.assert_close(got.detach(), want, rtol=2e-5, atol=2e-5)
+    grads = flash_plain_backward(q, k, v, p_out, p_lse, dout, causal=False)
+    for name, g, w in zip("qkv", (qs.grad, ks.grad, vs.grad), grads):
+        g = g.transpose(1, 2)
+        assert torch.isfinite(g).all(), name
+        assert _rel_max(g, w) <= 1e-4, (name, _rel_max(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+def test_cuda_embedding_bag_on_k2a_equals_plain(card, mode):
+    """``sparse.embedding_bag`` on the card: ``sum`` and ``mean`` through
+    K2a (one launch a call), ``max`` through the scatter, against the
+    same call on the CPU (K2a's plain version) within 1e-4 of the
+    output's largest magnitude; bags in any order, empty ones too; the
+    sum's gradient against the CPU's."""
+    from repro_torch.sparse import embedding_bag
+
+    rng = np.random.default_rng(31)
+    table = rng.standard_normal((5000, 64)).astype(np.float32)
+    idx = rng.integers(0, 5000, 40_000)
+    bags = rng.integers(0, 700, 40_000)
+    bags[bags == 5] = 6                         # bag 5 stays empty
+    w = rng.uniform(0.5, 2.0, 40_000).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (table, idx, bags, w)]
+    want_t = args[0].clone().requires_grad_(True)
+    want = embedding_bag(want_t, args[1], args[2], 700, mode=mode,
+                         weights=args[3])
+    got_t = args[0].to(card).requires_grad_(True)
+    before = segsum_cuda.launches
+    got = embedding_bag(got_t, args[1].to(card), args[2].to(card), 700,
+                        mode=mode, weights=args[3].to(card))
+    torch.cuda.synchronize()
+    assert segsum_cuda.launches == before + (0 if mode == "max" else 1)
+    assert got.shape == (700, 64) and bool((got[5] == 0).all())
+    assert _rel_max(got.detach().cpu(), want.detach()) <= 1e-4
+    cot = torch.from_numpy(rng.standard_normal((700, 64)).astype(np.float32))
+    (want * cot).sum().backward()
+    (got * cot.to(card)).sum().backward()
+    assert _rel_max(got_t.grad.cpu(), want_t.grad) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_bert4rec_smoke_step_equals_the_cpu_step(card):
+    """One BERT4Rec smoke step (``loss_sampled``, AdamW) on the card (K4
+    bidirectional: two forward and two backward launches) against the
+    same step on the CPU from the same weights and batch: the loss within
+    rtol 1e-5, ``grad_norm`` within 1e-4, every weight within 2 x ``lr``
+    + 1e-6; then ``serve_score`` and ``retrieval_score`` against the
+    CPU's within 1e-5 of their largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.recsys import bert4rec
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.tree import leaves
+
+    cfg = get_config("bert4rec", smoke=True).model
+    rng = np.random.default_rng(0)
+    items = rng.integers(1, cfg.n_items, (8, cfg.max_seq))
+    items[:, :3] = 0
+    pos = np.stack([rng.choice(cfg.max_seq, 3, replace=False)
+                    for _ in range(8)])
+    labels = np.take_along_axis(items, pos, axis=1)
+    np.put_along_axis(items, pos, cfg.mask_id, axis=1)
+    batch = {"items": items, "masked_pos": pos, "labels": labels,
+             "negatives": rng.integers(1, cfg.n_items, 64)}
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    params = bert4rec.init_params(torch.Generator().manual_seed(0), cfg)
+    step = make_train_step(lambda p, b: bert4rec.loss_sampled(p, cfg, b),
+                           AdamWConfig(lr=1e-3, total_steps=10))
+    card_state = init_train_state(_tree_to(params, card))
+    cpu_state = init_train_state(params)
+    before = (flash_cuda.launches, flash_backward_cuda.launches)
+    card_state, got = step(card_state, {k: v.to(card)
+                                        for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert (flash_cuda.launches - before[0],
+            flash_backward_cuda.launches - before[1]) == (2, 2)
+    cpu_state, want = step(cpu_state, batch)
+    np.testing.assert_allclose(got["loss"].item(), want["loss"].item(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"].item(),
+                               want["grad_norm"].item(), rtol=1e-4)
+    atol = 2 * want["lr"].item() + 1e-6
+    for a, b in zip(leaves(card_state.params), leaves(cpu_state.params)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), rtol=0,
+                                   atol=atol)
+    with torch.no_grad():
+        x = batch["items"][:2]
+        cand = batch["negatives"]
+        s_card = bert4rec.serve_score(card_state.params, cfg, x.to(card))
+        s_cpu = bert4rec.serve_score(cpu_state.params, cfg, x)
+        assert _rel_max(s_card.cpu(), s_cpu) <= 1e-5
+        r_card = bert4rec.retrieval_score(card_state.params, cfg,
+                                          x[:1].to(card), cand.to(card))
+        assert _rel_max(r_card.cpu(), s_cpu[0][cand]) <= 1e-5

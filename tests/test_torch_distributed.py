@@ -23,7 +23,10 @@ JAX package's answers; rank 0 writes the results under
 * a checkpointed sharded PageRank cut by the injector and resumed,
   bitwise against the uninterrupted distributed run;
 * compiled ``run`` / ``run_batch`` on both backends against
-  ``Engine.run`` and sequential queries.
+  ``Engine.run`` and sequential queries;
+* one delivery pick on every rank where the card's pick is measured
+  and each rank's timer reports other times (the lowering forced to
+  ``cuda``, the timer injected).
 
 World size 1, in this process: a fixture forms a group with a
 ``FileStore`` in ``tmp_path`` and destroys it; under it the reference's
@@ -55,6 +58,7 @@ from repro.data import make_dataset as j_make
 from repro.partition import partition as j_partition
 import repro_torch.algorithms as talg
 from repro_torch.core import Engine, HyperGraph
+from repro_torch.core.executor import measured_pick
 from repro_torch.launch.mesh import (
     init_local_group,
     make_host_mesh,
@@ -177,6 +181,25 @@ def test_scatter_equals_all_reduce_and_slice(answers, monoid):
         else:
             assert have.dtype == want.dtype
             assert np.array_equal(have, want)
+
+
+def test_ranks_agree_on_a_measured_delivery_pick(answers):
+    """Alone, even ranks would pick the fused lowering and odd ranks
+    ``xla``; with a mesh every rank takes each lowering's largest time
+    and so one pick, on both backends, from one measurement a rank."""
+    got, _ = answers
+    per_rank = got["delivery_pick"]
+    assert len(per_rank) == WORLD
+    own = [ranks.pick_times(r) for r in range(WORLD)]
+    assert {measured_pick(x, f) for x, f in own} == {"xla", "pallas_fused"}
+    want_ms = {"xla": max(x for x, _ in own),
+               "pallas_fused": max(f for _, f in own)}
+    want = measured_pick(want_ms["xla"], want_ms["pallas_fused"])
+    assert want == "xla"
+    for mine in per_rank:
+        assert mine["calls"] == 1
+        for backend in ranks.BACKENDS:
+            assert mine[backend] == (want, want_ms)
 
 
 def test_sharded_census_matches_jax(answers):

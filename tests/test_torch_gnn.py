@@ -17,8 +17,7 @@ Each JAX function is jitted once per module.  Held:
   ``tests/test_models_gnn.py``; ``forces`` against ``jax.grad``;
 * the CG, Wigner and spherical-harmonic tables to 1e-12;
 * PNA's edge-mask padding invariance;
-* ``get_config`` for the four ids, field for field; ``bert4rec`` still
-  raising with item 12d.
+* ``get_config`` for the four ids, field for field.
 """
 import dataclasses
 
@@ -123,11 +122,6 @@ def test_gnn_config_field_for_field(arch, smoke):
     assert dataclasses.asdict(got.model) == dataclasses.asdict(want.model)
     assert type(got.model).__name__ == type(want.model).__name__
     assert set(got.shapes) == set(want.shapes)
-
-
-def test_bert4rec_still_names_item_12d():
-    with pytest.raises(KeyError, match="item 12d"):
-        tcfg.get_config("bert4rec")
 
 
 @pytest.mark.parametrize("kw", [

@@ -166,10 +166,9 @@ def test_arch_ids_are_the_reference_lm_ids():
     lm = [a for a in jcfg.ARCH_IDS
           if jcfg.get_config(a, smoke=True).family == "lm"]
     assert ARCHS == lm
-    # The other ids the port runs are the reference's, in its order
-    # (the GNN side; bert4rec waits for item 12d).
-    assert list(tcfg.ARCH_IDS) == [a for a in jcfg.ARCH_IDS
-                                   if a != "bert4rec"]
+    # The port runs every id of the reference, in its order (the GNN
+    # side and bert4rec too).
+    assert tcfg.ARCH_IDS == jcfg.ARCH_IDS
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -213,17 +212,29 @@ def test_shape_sets(long_skip, accum):
             k: _fields(v) for k, v in ref.items()}
 
 
-@pytest.mark.parametrize("arch,item", [("bert4rec", "12d")])
-def test_unported_arch_names_its_roadmap_item(arch, item):
-    assert arch in jcfg.ARCH_IDS
-    with pytest.raises(KeyError, match=f"item {item}"):
-        tcfg.get_config(arch)
+def test_arch_ids_are_the_reference_ids_in_full():
+    assert tcfg.ARCH_IDS == jcfg.ARCH_IDS
+    assert not tcfg._NOT_PORTED
+    for smoke in (False, True):
+        assert {a: s.family for a, s in tcfg.all_configs(smoke).items()} \
+            == {a: s.family for a, s in jcfg.all_configs(smoke).items()}
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_bert4rec_config_field_for_field(smoke):
+    got = tcfg.get_config("bert4rec", smoke)
+    want = jcfg.get_config("bert4rec", smoke)
+    assert got.family == want.family == "recsys"
+    assert _fields(got) == _fields(want)
+    assert got.model.compute_dtype == torch.float32
+    assert (got.model.vocab, got.model.mask_id) == (want.model.vocab,
+                                                     want.model.mask_id)
 
 
 def test_all_configs_are_the_lm_ones():
     specs = tcfg.all_configs(smoke=True)
     assert {a for a, s in specs.items() if s.family == "lm"} == set(ARCHS)
-    assert {s.family for s in specs.values()} == {"lm", "gnn"}
+    assert {s.family for s in specs.values()} == {"lm", "gnn", "recsys"}
 
 
 # --------------------------------------------------------------------------

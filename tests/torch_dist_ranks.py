@@ -183,6 +183,51 @@ def _compiled(mesh, hg, plan, out):
             }
 
 
+def pick_times(rank):
+    """The delivery pair's times rank ``rank``'s timer reports: alone,
+    even ranks would pick the fused lowering and odd ranks ``xla`` (its
+    lead over 10%)."""
+    return 1.0 + 0.01 * rank, 0.9 if rank % 2 == 0 else 1.2
+
+
+def _delivery_pick(mesh, hg, out):
+    """``Engine.resolve`` of a 256-byte-row spec with the card's
+    lowering forced and each rank's timer reporting ``pick_times``:
+    every rank's pick, measured times and timer calls, gathered."""
+    from repro_torch.algorithms import AlgorithmSpec
+    from repro_torch.core import Engine, Program, executor
+    from repro_torch.partition import partition
+
+    rank = dist.get_rank()
+    calls = []
+
+    def timer(xla_pair, fused_pair, device):
+        calls.append(device)
+        return pick_times(rank)
+
+    prog = Program(procedure=None, combiner="sum")
+    spec = AlgorithmSpec(hg0=hg, initial_msg=torch.zeros(64),
+                         v_program=prog, he_program=prog, max_iters=1,
+                         extract=lambda o: o)
+    saved = executor.select_lowering, executor.time_in_turns
+    executor.select_lowering = lambda device: "cuda"
+    executor.time_in_turns = timer
+    try:
+        plan = partition("random_vertex_cut", hg, mesh.size())
+        eng = Engine(plan=plan, mesh=mesh, device="cpu")
+        mine = {}
+        for backend in BACKENDS:
+            resolved, _, decision = eng.resolve(spec, backend=backend)
+            mine[backend] = (resolved.delivery,
+                             decision["delivery"]["measured_ms"])
+        mine["calls"] = len(calls)
+    finally:
+        executor.select_lowering, executor.time_in_turns = saved
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out["delivery_pick"] = every
+
+
 def fail_or_hang(rank, world):
     """Rank 1 fails at once; every other rank would run for ten minutes."""
     import sys
@@ -214,6 +259,7 @@ def run_cases(rank, world, store_dir, out_dir):
         plan = partition("random_vertex_cut", hg, world)
         _checkpoint(mesh, hg, plan, os.path.join(out_dir, "ck"), out)
         _compiled(mesh, hg, plan, out)
+        _delivery_pick(mesh, hg, out)
         import sys
 
         out["jax_imported"] = "jax" in sys.modules
