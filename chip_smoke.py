@@ -338,6 +338,31 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    plain versions (1e-4 of the largest magnitude), K2a on the gathered
    rows against ``index_add_`` (in turns) and its plain version beside
    the byte bound.
+20. the dry-run (``repro_torch.launch.dryrun``: each cell traced at full
+   size on fake tensors over a fake world of 512 ranks, priced on the
+   H100's peaks, on the host): (a) ``--mesh single --out`` and ``--mesh
+   multi --no-roofline`` in two subprocesses side by side, over the
+   cells of ``DRYRUN_ARCHS`` x ``DRYRUN_SHAPES`` (the JAX package's
+   smoke test's three cells and one cell of every other shape kind;
+   ``--all`` takes longer than the phase's five minutes, on the MoE
+   trains above all): both exit 0,
+   every cell not skipped ``ok``, the table and the seconds printed; (b)
+   the cells phases 16-19 ran, at their cuts (printed as ``reduced``),
+   built on a 1 x 1 mesh over an NCCL group of one and traced: the
+   llama3.2-1b prefill of 4 x 4,096, its ``train_4k`` step of 8 x 4,096
+   in 2 micro-batches, gat-cora's ``full_graph_sm`` and PNA, NequIP and
+   MACE's ``molecule`` steps, BERT4Rec's ``train_batch`` step at (19
+   a)'s batch and ``serve_p99``; each then runs once more on the card
+   (one warm call, one measured) with the phase's own inputs, and its
+   line holds the phase's measured time (and its peak where the phase
+   kept one per cell), the roofline's ``step_time_s`` and its share of
+   that time, ``useful_ratio``, the predicted arguments, temp and
+   outputs, and the card's ``max_memory_allocated`` over the call less
+   what was held before its inputs were made; predicted and measured
+   peaks more than 2x apart either way fail; (c) the traces launch no
+   kernel and allocate nothing on the card: K4's, its backward's and
+   K2a's launch counts and ``torch.cuda.memory_allocated()`` are the
+   same after them as before.
 
 Prints the kernel line (JSON; every entry carries phase 15's
 ``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
@@ -1239,6 +1264,7 @@ def segsum_phase(hg, flush):
         segsum_sorted_cuda,
         segsum_sorted_plain,
     )
+    from repro_torch.roofline.analysis import segsum_work
 
     t0 = time.perf_counter()
     dev = hg.dst.device
@@ -1380,7 +1406,7 @@ def segsum_phase(hg, flush):
             "segsum": (lambda: segsum_cuda(m, dst, n),
                        lambda: segsum_plain(m, dst, n),
                        lambda: index_add_f32(m, dst, d, dtype),
-                       rows_bytes + 4 * e),
+                       segsum_work(e, n, d, size)[1]),
             "segsum_sorted": (lambda: segsum_sorted_cuda(m_s, off, n),
                               lambda: segsum_sorted_plain(m_s, off, n),
                               lambda: index_add_f32(m_s, dst_s, d, dtype),
@@ -1488,24 +1514,29 @@ EX2_PER_CLOCK_PER_SM = 16              # MUFU
 
 def flash_pairs(causal, b, h, s):
     """(query, key) pairs one attention call keeps: causal keeps
-    S (S + 1) / 2 of the S^2."""
-    return b * h * (s * (s + 1) // 2 if causal else s * s)
+    S (S + 1) / 2 of the S^2 (``roofline.analysis.flash_pairs``)."""
+    from repro_torch.roofline.analysis import flash_pairs as pairs
+
+    return pairs(causal, b, h, s, s)
 
 
 def flash_bound(dtype, causal, b, h, s, d, sms, clock):
     """(bytes s, operations s) of one attention call: q, k, v, out once
     over the memory rate; the larger of its flops (4 D per pair kept)
     over the tensor (bf16) or FMA (f32) rate and its exps over the MUFU
-    rate."""
+    rate.  The work is ``roofline.analysis.flash_work``'s."""
     import torch
+
+    from repro_torch.roofline.analysis import flash_work
 
     pairs = flash_pairs(causal, b, h, s)
     size = torch.tensor([], dtype=dtype).element_size()
+    flops, nbytes = flash_work(b, h, h, s, s, d, size, causal)
     per_clock = (TENSOR_FLOPS_PER_CLOCK_PER_SM if dtype == torch.bfloat16
                  else FMA_FLOPS_PER_CLOCK_PER_SM)
-    flops_s = 4 * d * pairs / (per_clock * sms * clock)
+    flops_s = flops / (per_clock * sms * clock)
     exps_s = pairs / (EX2_PER_CLOCK_PER_SM * sms * clock)
-    return 4 * b * h * s * d * size / HBM_BYTES_PER_S, max(flops_s, exps_s)
+    return nbytes / HBM_BYTES_PER_S, max(flops_s, exps_s)
 
 
 def row_rel_err(got, want):
@@ -3186,12 +3217,16 @@ GQA_CASES = (("bfloat16", 4096), ("float32", 4096), ("bfloat16", 4000),
 
 def gqa_bound(dtype, b, h, kvh, s, d, sms, clock):
     """(bytes s, operations s) of one causal GQA call: q and out with H
-    heads, k and v with KvH, once each; the operations as phase 8's."""
+    heads, k and v with KvH, once each (``roofline.analysis.flash_work``);
+    the operations as phase 8's."""
     import torch
+
+    from repro_torch.roofline.analysis import flash_work
 
     size = torch.tensor([], dtype=dtype).element_size()
     _, ops_s = flash_bound(dtype, True, b, h, s, d, sms, clock)
-    return 2 * b * (h + kvh) * s * d * size / HBM_BYTES_PER_S, ops_s
+    _, nbytes = flash_work(b, h, kvh, s, s, d, size, True)
+    return nbytes / HBM_BYTES_PER_S, ops_s
 
 
 def plain_route(q, k, v, causal=True):
@@ -3638,16 +3673,18 @@ def bwd_bound(dtype, b, h, kvh, s, d, sms, clock, causal=True):
     KvH once each, the lse; its operations 2.5 x the forward's 4 D per
     kept pair (five products against the forward's two) over the type's
     rate, or its exps (one a pair) over the MUFU's, whichever is
-    larger."""
+    larger.  The work is ``roofline.analysis.flash_bwd_work``'s."""
     import torch
+
+    from repro_torch.roofline.analysis import flash_bwd_work
 
     size = torch.tensor([], dtype=dtype).element_size()
     pairs = flash_pairs(causal, b, h, s)
+    flops, nbytes = flash_bwd_work(b, h, kvh, s, s, d, size, causal)
     per_clock = (TENSOR_FLOPS_PER_CLOCK_PER_SM if dtype == torch.bfloat16
                  else FMA_FLOPS_PER_CLOCK_PER_SM)
-    flops_s = 2.5 * 4 * d * pairs / (per_clock * sms * clock)
+    flops_s = flops / (per_clock * sms * clock)
     exps_s = pairs / (EX2_PER_CLOCK_PER_SM * sms * clock)
-    nbytes = 4 * b * (h + kvh) * s * d * size + 4 * b * h * s
     return nbytes / HBM_BYTES_PER_S, max(flops_s, exps_s)
 
 
@@ -4095,8 +4132,11 @@ def plain_rows(msgs, dst, n):
 
 def k2a_bound_ms(e, n, d, itemsize=4):
     """K2a's byte bound: messages and ids read once, the output written
-    once, at the card's memory rate."""
-    return (e * d * itemsize + 4 * e + n * d * itemsize) / HBM_BYTES_PER_S * 1e3
+    once (``roofline.analysis.segsum_work``), at the card's memory
+    rate."""
+    from repro_torch.roofline.analysis import segsum_work
+
+    return segsum_work(e, n, d, itemsize)[1] / HBM_BYTES_PER_S * 1e3
 
 
 def tree_rel(got, want, floor_share=1e-7):
@@ -5182,6 +5222,276 @@ def recsys_phase(dev, flush, sms, clock, smi):
     return recsys, bags
 
 
+
+# Phase 20: the dry-run, and its roofline held against phases 16-19.
+# (a)'s cells: the JAX package's dry-run smoke test's three
+# (tests/test_dryrun_smoke.py) and one of every other shape kind; the
+# launcher's filter takes the product of --arch and --shape.
+DRYRUN_ARCHS = ("llama3.2-1b", "gat-cora", "bert4rec")
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "molecule",
+                 "train_batch", "serve_p99", "retrieval_cand")
+DRYRUN_TIMEOUT_S = 300     # (a): each subprocess
+MEMORY_RATIO_MAX = 2.0     # (b): predicted against measured peak, either way
+
+
+def dryrun_subprocesses(smi):
+    """Phase 20 (a): the dry-run CLI over ``DRYRUN_ARCHS`` x
+    ``DRYRUN_SHAPES`` on both meshes, in two subprocesses side by side.
+    Returns the single mesh's rows."""
+    import tempfile
+
+    out = os.path.join(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"),
+                       "single.json")
+    cells = [a for arch in DRYRUN_ARCHS for a in ("--arch", arch)] + [
+        a for shape in DRYRUN_SHAPES for a in ("--shape", shape)]
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", *cells]
+    t0 = time.perf_counter()
+    procs = {
+        "single": subprocess.Popen(base + ["--mesh", "single", "--out", out],
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True,
+                                   env=env, cwd=ROOT),
+        "multi": subprocess.Popen(base + ["--mesh", "multi", "--no-roofline"],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True,
+                                  env=env, cwd=ROOT),
+    }
+    results = {}
+    try:
+        for kind, proc in procs.items():
+            stdout, stderr = proc.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter()
+                                                     - t0)))
+            results[kind] = (proc.returncode, stdout, stderr,
+                             time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for kind, (rc, stdout, stderr, secs) in results.items():
+        lines = [ln for ln in stdout.splitlines() if ln.startswith("[")]
+        for ln in lines:
+            log(f"  (a) {ln}")
+        bad = [ln for ln in lines if not ln.startswith(("[ok", "[skipped"))]
+        log(f"  (a) --mesh {kind}: exit {rc}, {len(lines)} cells, done "
+            f"after {secs:.1f} s [{smi}]")
+        if rc != 0 or bad or not lines:
+            fail(f"phase 20 (a) --mesh {kind}: exit {rc}, {bad}: "
+                 f"{stderr[-2000:]}")
+    with open(out) as f:
+        return json.load(f)
+
+
+def card_cells(dev, flash_entry, gnn_entry):
+    """Phase 20 (b)'s cells: ``(label, arch, shape spec, reduced, run,
+    phase ms, phase peak MiB or None)``; ``run()`` makes the cell's
+    inputs as its phase does and returns a call of one step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models.recsys import bert4rec
+    from repro_torch.models.transformer import prefill
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+
+    lm = get_config(LM_ARCH)
+    b4r = get_config("bert4rec")
+    recsys_b = flash_entry["recsys_train_batch"]
+
+    def prefill_run():
+        cfg, params = serve.build(LM_ARCH, smoke=False, seed=0, device=dev)
+        prompts = serve.make_prompts(cfg, LM_BATCH, LM_PROMPT, device=dev)
+
+        def call():
+            with torch.no_grad():
+                return prefill(params, cfg, prompts)
+        return call
+
+    def train_run():
+        cfg, state = ltrain.build(LM_ARCH, smoke=False, seed=0, device=dev)
+        step = ltrain.make_step(cfg, total_steps=TRAIN_STEPS,
+                                accum_steps=TRAIN_ACCUM)
+        batch = ltrain.synthetic_batch(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, 0,
+                                       0, dev)
+        return lambda: step(state, batch)
+
+    def gnn_run(arch):
+        def run():
+            mod, cfg, g = gnn_inputs(arch, dev)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            state = init_train_state(mod.init_params(gen, cfg))
+            step = make_train_step(lambda p, b: mod.loss_fn(p, cfg, b),
+                                   AdamWConfig(**GNN_OPT))
+            return lambda: step(state, g)
+        return run
+
+    def recsys_train_run():
+        cfg = b4r.model
+        gen = torch.Generator(device=dev).manual_seed(1)
+        batch = recsys_batch(cfg, recsys_b, gen, dev)
+        state = init_train_state(recsys_params(cfg, dev))
+        step = make_train_step(lambda p, x: bert4rec.loss_sampled(p, cfg, x),
+                               AdamWConfig())
+        return lambda: step(state, batch)
+
+    def recsys_serve_run():
+        cfg = b4r.model
+        params = recsys_params(cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        items = recsys_batch(cfg, b4r.shape("serve_p99").dims["batch"], gen,
+                             dev)["items"]
+
+        def call():
+            with torch.no_grad():
+                return torch.topk(bert4rec.serve_score(params, cfg, items),
+                                  RECSYS_TOPK)
+        return call
+
+    def cut(spec, name, **dims):
+        shape = spec.shape(name)
+        return dataclasses.replace(shape, dims={**shape.dims, **dims})
+
+    models = gnn_entry["gnn_models"]
+    cells = [
+        ("llama3.2-1b:prefill", LM_ARCH,
+         cut(lm, "prefill_32k", seq_len=LM_PROMPT, global_batch=LM_BATCH),
+         f"prefill_32k's 32 x 32,768 -> {LM_BATCH} x {LM_PROMPT:,} "
+         "(phase 16 (b))", prefill_run, flash_entry["lm_prefill_ms"], None),
+        ("llama3.2-1b:train_4k", LM_ARCH,
+         cut(lm, "train_4k", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+             accum_steps=TRAIN_ACCUM),
+         f"train_4k's 256 x 4,096 in 8 micro-batches -> {TRAIN_BATCH} x "
+         f"{TRAIN_SEQ:,} in {TRAIN_ACCUM} (phase 17 (a))", train_run,
+         flash_entry["train_step_ms"], flash_entry["train_peak_mib"]),
+    ]
+    for arch, shape in (("gat-cora", "full_graph_sm"), ("pna", "molecule"),
+                        ("nequip", "molecule"), ("mace", "molecule")):
+        cells.append((f"{arch}:{shape}", arch, get_config(arch).shape(shape),
+                      "", gnn_run(arch), models[arch]["step_ms"],
+                      models[arch]["peak_mib"]))
+    cells += [
+        ("bert4rec:train_batch", "bert4rec",
+         cut(b4r, "train_batch", batch=recsys_b),
+         f"train_batch's 65,536 -> {recsys_b:,} sequences (phase 19 (a))",
+         recsys_train_run, flash_entry["recsys_step_ms"],
+         flash_entry["recsys_peak_gib"] * 1024),
+        ("bert4rec:serve_p99", "bert4rec", b4r.shape("serve_p99"), "",
+         recsys_serve_run, flash_entry["recsys_serve_p99_ms"], None),
+    ]
+    return cells
+
+
+def dryrun_phase(dev, flash_entry, gnn_entry, smi):
+    """Phase 20: the dry-run's subprocesses (a), then the roofline of the
+    cells phases 16-19 ran against the card (b), and the traces' silence
+    on the card (c).  Returns the rows of (a) and (b) for the log."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash import flash_backward_cuda, flash_cuda
+    from repro_torch.kernels.segsum import segsum_cuda
+    from repro_torch.launch.mesh import init_local_group
+    from repro_torch.launch.tasks import build_task
+    from repro_torch.roofline.analysis import analyze_task
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    rows = dryrun_subprocesses(smi)
+    log(f"  {at()} (a) done")
+
+    # (b) the predictions: each cell traced in this process on a 1 x 1
+    # mesh over an NCCL group of one.
+    store = tempfile.mkdtemp(prefix="chip-smoke-dryrun-group-")
+    init_local_group(0, 1, store, "cuda")
+    try:
+        mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+        torch.cuda.synchronize()
+        counts = lambda: (flash_cuda.launches, flash_backward_cuda.launches,
+                          segsum_cuda.launches, torch.cuda.memory_allocated())
+        before = counts()
+        cells = card_cells(dev, flash_entry, gnn_entry)
+        preds = {}
+        for label, arch, shape, reduced, _, _, _ in cells:
+            task = build_task(get_config(arch), shape, mesh)
+            rep = analyze_task(task)
+            preds[label] = (task.trace(), task.memory_per_device(), rep)
+            del task
+        torch.cuda.synchronize()
+        after = counts()
+    finally:
+        dist.destroy_process_group()
+    log(f"  {at()} (b) {len(preds)} cells traced on a 1 x 1 mesh")
+    # (c) nothing ran on the card.
+    log(f"  (c) K4 forward / backward / K2a launches and bytes allocated "
+        f"before the traces {before}, after {after}")
+    if after != before:
+        fail(f"phase 20 (c): the dry-run touched the card: {before} -> "
+             f"{after}")
+
+    # (b) the measurements: each cell once more on the card.
+    out = []
+    for label, arch, shape, reduced, run, phase_ms, phase_mib in cells:
+        trace, mem, rep = preds[label]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        call = run()
+        call()                                   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        own_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        del call
+        pred_peak = trace.peak_bytes
+        ratio = pred_peak / peak
+        row = dict(cell=label, reduced=reduced, phase_ms=phase_ms,
+                   phase_peak_mib=phase_mib, own_ms=own_ms,
+                   step_time_s=rep.step_time_s, dominant=rep.dominant,
+                   share=rep.step_time_s * 1e3 / phase_ms,
+                   useful_ratio=rep.useful_ratio,
+                   roofline_fraction=rep.roofline_fraction,
+                   argument_gb=mem["argument"] / 1e9,
+                   temp_gb=mem["temp"] / 1e9, output_gb=mem["output"] / 1e9,
+                   predicted_peak_gb=pred_peak / 1e9,
+                   measured_peak_gb=peak / 1e9, memory_ratio=ratio,
+                   flops=trace.flops, bytes=trace.bytes,
+                   trace_s=trace.seconds)
+        out.append(row)
+        log(f"  (b) {label}{' reduced: ' + reduced if reduced else ''}: "
+            f"phase {phase_ms:.2f} ms"
+            + (f" (peak {phase_mib:.0f} MiB)" if phase_mib else "")
+            + f", here {own_ms:.2f} ms; roofline {rep.step_time_s * 1e3:.3f} "
+            f"ms ({rep.dominant}), {row['share']:.1%} of the phase's; "
+            f"useful_ratio {rep.useful_ratio:.3f}; predicted args "
+            f"{row['argument_gb']:.3f} + temp {row['temp_gb']:.3f} + out "
+            f"{row['output_gb']:.3f} = peak {row['predicted_peak_gb']:.3f} "
+            f"GB, measured {row['measured_peak_gb']:.3f} GB (ratio "
+            f"{ratio:.2f}); traced in {trace.seconds:.1f} s [{smi}]")
+        if not 1 / MEMORY_RATIO_MAX <= ratio <= MEMORY_RATIO_MAX:
+            fail(f"phase 20 (b) {label}: predicted peak "
+                 f"{pred_peak / 1e9:.3f} GB, measured {peak / 1e9:.3f} GB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  {at()} phase 20 done")
+    return {"dryrun_card": smi, "dryrun_single": rows, "dryrun_cells": out}
+
+
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"),
                   ("isect", "isect.cu"), ("segsum", "segsum.cu"),
                   ("flash", "flash.cu"), ("flash_bwd", "flash_bwd.cu"))
@@ -5551,6 +5861,16 @@ def main() -> int:
     recsys_entry, bag_entry = recsys_phase(dev, flush, sms, clock, smi)
     flash_entry.update(recsys_entry)
     log(f"phase 19: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 20: the dry-run and its roofline against phases 16-19 ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 20: the dry-run (fake tensors, a fake world of 512) and its "
+        "roofline against the cells of phases 16-19")
+    dryrun_phase(dev, flash_entry, gnn_entry, smi)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [{

@@ -19,7 +19,21 @@ Each kernel has a plain PyTorch version beside it in the same module
 (the CPU path and the kernel's oracle) and a launch counter on its
 wrapper.  ``_nvcc`` builds the CUDA sources at first use;
 ``check_operand`` is the input check every wrapper makes.
+
+A fake tensor (``torch._subclasses.FakeTensor``: shapes, no memory, as
+the dry-run traces a step) takes a kernel's fake route where the
+dry-run reaches it (K4 forward and backward, K2a): the CUDA route's
+shape checks, its outputs allocated as fake tensors, and the kernel's
+work charged to the trace (``roofline.analysis.kernel_work``).
+``is_fake`` tells such a tensor apart.
 """
+
+
+def is_fake(t) -> bool:
+    """Is ``t`` a fake tensor (shapes only, no data)?"""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+
+    return _is_fake(t)
 
 
 def check_operand(name: str, t, dtype, ndim: int, device) -> None:

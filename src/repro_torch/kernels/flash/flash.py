@@ -38,7 +38,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import check_operand
+from repro_torch.kernels import check_operand, is_fake
 from repro_torch.kernels.flash.ref import NEG_INF
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -218,26 +218,14 @@ def _kernel_lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool = True, return_lse: bool = False):
-    """K4 through the CUDA kernels: same result as ``flash_plain`` (the
-    kernels' tiles are their own, ``flash_plan``'s).  A CPU tensor takes
-    the plain version with its default blocks; a CUDA tensor launches the
-    kernel for its type (counted in ``flash_cuda.launches``) or raises.
-    ``q [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` with ``H`` a multiple
-    of ``KvH`` (each block reads its KV head by index); ``D`` may be 1 to
-    256.  ``return_lse``: ``(out, lse)``, with each row's log-sum-exp
-    (``[B, H, Sq]`` float32) written by the same launch."""
-    if q.device.type == "cpu":
-        return flash_plain(q, k, v, causal=causal, return_lse=return_lse)
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"no attention kernel for device {dev}")
+def _check_forward(q, k, v) -> tuple[int, int, int, int, int, int]:
+    """The forward's checks (types, layouts, heads, widths):
+    ``(B, H, KvH, Sq, Sk, D)``."""
     if q.dtype not in DTYPES:
         raise TypeError(f"attention takes float32 or bfloat16, got {q.dtype}")
-    check_operand("q", q, q.dtype, 4, dev)
-    check_operand("k", k, q.dtype, 4, dev)
-    check_operand("v", v, q.dtype, 4, dev)
+    check_operand("q", q, q.dtype, 4, q.device)
+    check_operand("k", k, q.dtype, 4, q.device)
+    check_operand("v", v, q.dtype, 4, q.device)
     b, h, sq, d = q.shape
     kvh = _kv_heads(q, k, v)
     sk = k.shape[2]
@@ -247,10 +235,40 @@ def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("attention needs at least one key")
     if max(b * h, sq, sk) >= 2**31:
         raise ValueError("B*H, Sq and Sk must be below 2**31")
+    return b, h, kvh, sq, sk, d
+
+
+def flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+               causal: bool = True, return_lse: bool = False):
+    """K4 through the CUDA kernels: same result as ``flash_plain`` (the
+    kernels' tiles are their own, ``flash_plan``'s).  A CPU tensor takes
+    the plain version with its default blocks; a CUDA tensor launches the
+    kernel for its type (counted in ``flash_cuda.launches``) or raises.
+    ``q [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` with ``H`` a multiple
+    of ``KvH`` (each block reads its KV head by index); ``D`` may be 1 to
+    256.  ``return_lse``: ``(out, lse)``, with each row's log-sum-exp
+    (``[B, H, Sq]`` float32) written by the same launch.  A fake tensor
+    (``kernels.is_fake``) takes the fake route: the same checks, ``out``
+    and ``lse`` allocated, the work (``roofline.analysis.flash_work``)
+    charged to the dry-run's trace, no launch."""
+    fake = is_fake(q)
+    if q.device.type == "cpu" and not fake:
+        return flash_plain(q, k, v, causal=causal, return_lse=return_lse)
+    dev = q.device
+    if dev.type != "cuda" and not fake:
+        raise ValueError(f"no attention kernel for device {dev}")
+    b, h, kvh, sq, sk, d = _check_forward(q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=dev)
            if return_lse else None)
     if b * h == 0 or sq == 0:
+        return (out, lse) if return_lse else out
+    if fake:
+        from repro_torch.roofline.analysis import flash_work, kernel_work
+
+        kernel_work("flash", *flash_work(b, h, kvh, sq, sk, d,
+                                         q.element_size(), causal,
+                                         lse=return_lse))
         return (out, lse) if return_lse else out
     rc = _kernel_lib().flash_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -338,11 +356,14 @@ def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route (``flash_bwd_plan``) with one call (counted once in
     ``flash_backward_cuda.launches``) or raises.  ``q, out, dout
     [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` in one type, ``lse [B, H,
-    Sq]`` float32 from ``flash_cuda(..., return_lse=True)``."""
-    if q.device.type == "cpu":
+    Sq]`` float32 from ``flash_cuda(..., return_lse=True)``.  A fake
+    tensor takes the fake route (``flash_cuda``'s; its work is
+    ``roofline.analysis.flash_bwd_work``)."""
+    fake = is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return flash_plain_backward(q, k, v, out, lse, dout, causal=causal)
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not fake:
         raise ValueError(f"no attention kernel for device {dev}")
     if q.dtype not in DTYPES:
         raise TypeError(f"attention takes float32 or bfloat16, got {q.dtype}")
@@ -362,6 +383,17 @@ def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention needs at least one key")
     if max(b * h, sq, sk) >= 2**31:
         raise ValueError("B*H, Sq and Sk must be below 2**31")
+    if fake:
+        # The fake route: dQ, dK, dV allocated (not the kernels' delta
+        # rows), the work charged to the trace.
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        if b * h == 0 or sq == 0:
+            return dq, dk.zero_(), dv.zero_()
+        from repro_torch.roofline.analysis import flash_bwd_work, kernel_work
+
+        kernel_work("flash_bwd", *flash_bwd_work(b, h, kvh, sq, sk, d,
+                                                 q.element_size(), causal))
+        return dq, dk, dv
     if flash_bwd_plan(d, q.dtype).kernel == "wgmma" and any(
             t.data_ptr() % 16 for t in (q, k, v, dout)):
         raise ValueError("the tensor-core backward reads q, k, v and dout "

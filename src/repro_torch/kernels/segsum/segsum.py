@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import check_operand
+from repro_torch.kernels import check_operand, is_fake
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -280,9 +280,9 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def _check_common(msgs: torch.Tensor, num_segments: int, block: int,
-                  block_name: str) -> torch.device:
+                  block_name: str, fake: bool = False) -> torch.device:
     dev = msgs.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not fake:
         raise ValueError(f"no segment-sum kernel for device {dev}")
     _check_dtype(msgs)
     check_operand("msgs", msgs, None, 2, dev)
@@ -301,16 +301,19 @@ def segsum_cuda(msgs: torch.Tensor, dst: torch.Tensor, num_segments: int,
     memory, ``block_e`` edges per work item (``k2a_geometry``).  A CPU
     tensor takes the plain version; a CUDA tensor launches the kernels
     (one call queues them all; counted once in ``segsum_cuda.launches``)
-    or raises.
+    or raises.  A fake tensor takes the fake route (``kernels.is_fake``):
+    the same checks, the output allocated, the work charged to the
+    dry-run's trace, no launch.
 
     The order in which a tile adds a row's edges (set by atomics in the
     bucketing and the counting sort) changes from run to run: a float
     sum may differ in its last bits between two runs (it is not bitwise
     repeatable; the sorted form is).
     """
-    if msgs.device.type == "cpu":
+    fake = is_fake(msgs)
+    if msgs.device.type == "cpu" and not fake:
         return segsum_plain(msgs, dst, num_segments)
-    dev = _check_common(msgs, num_segments, block_e, "block_e")
+    dev = _check_common(msgs, num_segments, block_e, "block_e", fake)
     check_operand("dst", dst, torch.int32, 1, dev)
     e, d = msgs.shape
     if dst.shape[0] != e:
@@ -318,6 +321,14 @@ def segsum_cuda(msgs: torch.Tensor, dst: torch.Tensor, num_segments: int,
     out = torch.empty(num_segments, d, dtype=msgs.dtype, device=dev)
     if e == 0 or num_segments == 0 or d == 0:
         return out.zero_()
+    if fake:
+        # The fake route: the output rows, and K2a's work charged to the
+        # trace (its scratch and partials are not allocated).
+        from repro_torch.roofline.analysis import kernel_work, segsum_work
+
+        kernel_work("segsum", *segsum_work(e, num_segments, d,
+                                           msgs.element_size()))
+        return out
     geo = k2a_geometry(e, num_segments, d, msgs.element_size(), block_n,
                        block_e, msgs.data_ptr() % 16 == 0)
     scratch = torch.empty(geo.int_words, dtype=torch.int32, device=dev)

@@ -20,6 +20,10 @@ refuses two ranks on one device); on the CPU it is ``gloo``.
   layout (16 x 16, or 2 x 16 x 16 across two pods), over the first
   ranks of a world at least that large; ``dp_axes``, ``flat_axes`` and
   ``total_devices`` read a mesh's axes as the JAX package's do.
+* ``init_fake_world`` makes this one process rank 0 of a world of any
+  size on torch's ``fake`` backend (its collectives do nothing), so the
+  production meshes can be built without their ranks: the dry-run's
+  counterpart of the JAX package's 512 forced host devices.
 """
 from __future__ import annotations
 
@@ -69,6 +73,22 @@ def init_local_group(rank: int, world: int, store_dir: str, device,
         timeout=datetime.timedelta(seconds=timeout_s), **kw,
     )
     return dev
+
+
+def init_fake_world(world: int) -> None:
+    """Make this process rank 0 of a world of ``world`` ranks on the
+    ``fake`` process-group backend (``torch.testing``'s ``FakeStore`` and
+    ``FakeProcessGroup``: no other rank exists, and every collective
+    returns at once without moving data).  For tracing on fake tensors
+    only; the caller destroys the group
+    (``torch.distributed.destroy_process_group``) when done."""
+    # Importing the module registers the "fake" backend.
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=int(world))
 
 
 def make_host_mesh(n_devices: int | None = None, axis: str = "data"):
