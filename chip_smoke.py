@@ -699,7 +699,16 @@ def ptxas_summary(text):
             w = re.search(r"(flash_bwd_[a-z]+)I(f|13__nv_bfloat16)"
                           r"(?:Li(\d+)ELi(\d+)E)?", name)
             bw = re.search(r"(flash_bwd_[a-z]+)_wgmmaILi(\d+)E", name)
-            if bw:
+            tb = re.search(r"(flash_bwd_[a-z]+)_tf32ILi(\d+)ELi(\d+)E", name)
+            tf = re.search(r"flash_tf32_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                           name)
+            if tb:
+                name = (f"{tb.group(1)} float32 tf32 DP={tb.group(2)}, "
+                        f"{tb.group(3)} block(s) per SM")
+            elif tf:
+                name = (f"float32 tf32 DP={tf.group(1)} BK={tf.group(2)}, "
+                        f"{tf.group(3)} block(s) per SM")
+            elif bw:
                 name = f"{bw.group(1)} bf16 wgmma DP={bw.group(2)}"
             elif t:
                 name = (f"bf16 wgmma DP={t.group(1)} BK={t.group(2)}, "
@@ -1509,7 +1518,18 @@ FLASH_ROW_REL = {"float32": 1e-4, "bfloat16": 2e-2}
 TENSOR_FLOPS_PER_CLOCK_PER_SM = 4096   # dense bf16: 989.4 TFLOP/s at
                                        # 1830 MHz on 132 SMs
 FMA_FLOPS_PER_CLOCK_PER_SM = 256       # float32: 128 FMA lanes
+TF32_FLOPS_PER_CLOCK_PER_SM = 2048     # dense TF32: 494.7 TFLOP/s at
+                                       # 1830 MHz on 132 SMs
 EX2_PER_CLOCK_PER_SM = 16              # MUFU
+
+
+def route_rate(route):
+    """Flops a clock per SM of a K4 route's products: bf16 on the tensor
+    cores (``wgmma``), float32 in three TF32 passes on them (``tf32``:
+    each float32 flop costs three), float32 on the FMA units (``fma``)."""
+    return {"wgmma": TENSOR_FLOPS_PER_CLOCK_PER_SM,
+            "tf32": TF32_FLOPS_PER_CLOCK_PER_SM / 3,
+            "fma": FMA_FLOPS_PER_CLOCK_PER_SM}[route]
 
 
 def flash_pairs(causal, b, h, s):
@@ -1520,20 +1540,22 @@ def flash_pairs(causal, b, h, s):
     return pairs(causal, b, h, s, s)
 
 
-def flash_bound(dtype, causal, b, h, s, d, sms, clock):
+def flash_bound(dtype, causal, b, h, s, d, sms, clock, route=None):
     """(bytes s, operations s) of one attention call: q, k, v, out once
     over the memory rate; the larger of its flops (4 D per pair kept)
-    over the tensor (bf16) or FMA (f32) rate and its exps over the MUFU
-    rate.  The work is ``roofline.analysis.flash_work``'s."""
+    over the rate of ``route`` (``route_rate``; by default the one
+    ``flash_plan`` gives the call: bf16 on the tensor cores, float32 in
+    three TF32 passes there or on the FMA units) and its exps over the
+    MUFU rate.  The work is ``roofline.analysis.flash_work``'s."""
     import torch
 
+    from repro_torch.kernels.flash import flash_plan
     from repro_torch.roofline.analysis import flash_work
 
     pairs = flash_pairs(causal, b, h, s)
     size = torch.tensor([], dtype=dtype).element_size()
     flops, nbytes = flash_work(b, h, h, s, s, d, size, causal)
-    per_clock = (TENSOR_FLOPS_PER_CLOCK_PER_SM if dtype == torch.bfloat16
-                 else FMA_FLOPS_PER_CLOCK_PER_SM)
+    per_clock = route_rate(route or flash_plan(d, dtype).kernel)
     flops_s = flops / (per_clock * sms * clock)
     exps_s = pairs / (EX2_PER_CLOCK_PER_SM * sms * clock)
     return nbytes / HBM_BYTES_PER_S, max(flops_s, exps_s)
@@ -1566,6 +1588,7 @@ def flash_phase(dev, flush, sms, clock):
         flash_attention,
         flash_cuda,
         flash_plain,
+        flash_plan,
     )
 
     t0 = time.perf_counter()
@@ -1648,8 +1671,9 @@ def flash_phase(dev, flush, sms, clock):
         p_ms = time_cuda(lambda: plain(qkv, causal), flush, **reps)
         l_ms = time_cuda(lambda: F.scaled_dot_product_attention(
             *qkv, is_causal=causal), flush, **reps)
-        b_s, o_s = flash_bound(getattr(torch, dtype_name), causal, b, h, s,
-                               d, sms, clock)
+        dtype = getattr(torch, dtype_name)
+        route = flash_plan(d, dtype).kernel
+        b_s, o_s = flash_bound(dtype, causal, b, h, s, d, sms, clock)
         for key, val in (("ms", k_ms), ("plain_ms", p_ms),
                          ("library_ms", l_ms)):
             ent[key] += val
@@ -1659,10 +1683,18 @@ def flash_phase(dev, flush, sms, clock):
         kind = "bytes" if b_s >= o_s else "operations"
         bound_ms = max(b_s, o_s) * 1e3
         tflops = 4 * d * flash_pairs(causal, b, h, s) / (k_ms * 1e-3) / 1e12
-        log(f"  {label} ({dtype_name}, {mask}, B={b} H={h} S={s} D={d}): "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({kind}); {bound_ms / k_ms:.1%} of "
-            f"the bound, {tflops:.1f} TFLOP/s, {k_ms / l_ms:.2f}x sdpa")
+        both = ""
+        if dtype == torch.float32:
+            both = "; float32 bounds: " + ", ".join(
+                f"{r} {ms:.4f} ms ({ms / k_ms:.1%})" for r, ms in (
+                    (r, max(flash_bound(dtype, causal, b, h, s, d, sms,
+                                        clock, route=r)) * 1e3)
+                    for r in ("fma", "tf32")))
+        log(f"  {label} ({dtype_name}, {mask}, B={b} H={h} S={s} D={d}, "
+            f"route {route}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"sdpa {l_ms:.4f} ms, bound {bound_ms:.4f} ms ({kind}); "
+            f"{bound_ms / k_ms:.1%} of the bound, {tflops:.1f} TFLOP/s, "
+            f"{k_ms / l_ms:.2f}x sdpa{both}")
     log(f"phase 8: timed in {time.perf_counter() - t0:.1f} s (median of 3;"
         f" {sms} SMs at {clock / 1e6:.0f} MHz)")
     ent["bound_ms"] = max(bytes_s, ops_s) * 1e3
@@ -3600,7 +3632,8 @@ BWD_MAX_MS = 10.0  # (c) at BWD_FULL: 5x under the FMA tiles' 49.1 ms
 LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # (c) smaller shapes: (dtype, B, H, KvH, S, D), D 8 / 36 / 64 / 128 / 256
 # and S ragged against the 64-, 128- and 32-row tiles; bfloat16 D 8, 64
-# and 128 take the tensor-core route, D 36 and 256 the FMA one.
+# and 128 take the tensor-core route, D 36 and 256 the FMA one; float32 D
+# 8 and 64 the three-pass TF32 route, D 128 and 256 the FMA one.
 BWD_CASES = (("float32", 2, 8, 2, 333, 8), ("float32", 1, 4, 4, 257, 128),
              ("float32", 1, 4, 1, 130, 256), ("float32", 2, 8, 2, 1000, 64),
              ("bfloat16", 2, 8, 2, 333, 8), ("bfloat16", 1, 4, 4, 257, 128),
@@ -3667,22 +3700,23 @@ def optimizer_events():
     return ctx()
 
 
-def bwd_bound(dtype, b, h, kvh, s, d, sms, clock, causal=True):
+def bwd_bound(dtype, b, h, kvh, s, d, sms, clock, causal=True, route=None):
     """(bytes s, operations s) of one backward call (causal unless
     ``causal=False``): q, o, dO, dQ with H heads and k, v, dK, dV with
     KvH once each, the lse; its operations 2.5 x the forward's 4 D per
-    kept pair (five products against the forward's two) over the type's
-    rate, or its exps (one a pair) over the MUFU's, whichever is
-    larger.  The work is ``roofline.analysis.flash_bwd_work``'s."""
+    kept pair (five products against the forward's two) over the rate
+    of ``route`` (by default ``flash_bwd_plan``'s), or its exps (one a
+    pair) over the MUFU's, whichever is larger.  The work is
+    ``roofline.analysis.flash_bwd_work``'s."""
     import torch
 
+    from repro_torch.kernels.flash import flash_bwd_plan
     from repro_torch.roofline.analysis import flash_bwd_work
 
     size = torch.tensor([], dtype=dtype).element_size()
     pairs = flash_pairs(causal, b, h, s)
     flops, nbytes = flash_bwd_work(b, h, kvh, s, s, d, size, causal)
-    per_clock = (TENSOR_FLOPS_PER_CLOCK_PER_SM if dtype == torch.bfloat16
-                 else FMA_FLOPS_PER_CLOCK_PER_SM)
+    per_clock = route_rate(route or flash_bwd_plan(d, dtype).kernel)
     flops_s = flops / (per_clock * sms * clock)
     exps_s = pairs / (EX2_PER_CLOCK_PER_SM * sms * clock)
     return nbytes / HBM_BYTES_PER_S, max(flops_s, exps_s)
@@ -4011,7 +4045,8 @@ def train_phase(dev, flush, sms, clock, smi):
         return sum(ms for k, ms in kern
                    if any(w in k.lower() for w in words)) / busy
 
-    shares = {"K4 forward": share("flash_wgmma", "flash_kernel"),
+    shares = {"K4 forward": share("flash_wgmma", "flash_kernel",
+                                  "flash_tf32"),
               "K4 backward": share("flash_bwd"),
               "matmuls": share("gemm", "nvjet", "xmma", "cutlass"),
               "optimizer": opt_ms / busy}
@@ -5010,9 +5045,11 @@ def recsys_k4(dev, flush, sms, clock, train_b):
 
     from repro_torch.kernels.flash import (
         flash_backward_cuda,
+        flash_bwd_plan,
         flash_cuda,
         flash_plain,
         flash_plain_backward,
+        flash_plan,
     )
 
     gen = torch.Generator(device=dev).manual_seed(19)
@@ -5053,23 +5090,40 @@ def recsys_k4(dev, flush, sms, clock, train_b):
         bb, bo = bwd_bound(torch.float32, b, h, h, s, d, sms, clock,
                            causal=False)
         row = dict(b=b, fwd_ms=f_ms, fwd_plain_ms=fp_ms, fwd_sdpa_ms=fl_ms,
+                   fwd_route=flash_plan(d, torch.float32).kernel,
                    fwd_bound_ms=max(fb, fo) * 1e3,
                    fwd_bound_by="bytes" if fb >= fo else "operations",
                    bwd_ms=b_ms, bwd_plain_ms=bp_ms, bwd_sdpa_ms=bl_ms,
+                   bwd_route=flash_bwd_plan(d, torch.float32).kernel,
                    bwd_bound_ms=max(bb, bo) * 1e3,
                    bwd_bound_by="bytes" if bb >= bo else "operations",
                    fwd_rel_err=fwd_err, bwd_rel_err=bwd_err,
                    bwd_max_abs_err=max_err)
+        # Both float32 bounds: the FMA units' and three TF32 passes'.
+        for r in ("fma", "tf32"):
+            row[f"fwd_bound_{r}_ms"] = max(flash_bound(
+                torch.float32, False, b, h, s, d, sms, clock, route=r)) * 1e3
+            row[f"bwd_bound_{r}_ms"] = max(bwd_bound(
+                torch.float32, b, h, h, s, d, sms, clock, causal=False,
+                route=r)) * 1e3
         out[label] = row
+
+        def shares(w, ms):
+            return ", ".join(f"{r} {row[f'{w}_bound_{r}_ms']:.4f} "
+                             f"({row[f'{w}_bound_{r}_ms'] / ms:.1%})"
+                             for r in ("fma", "tf32"))
+
         log(f"  (c) K4 float32 bidirectional [{b}, {h}, {s}, {d}]: == plain "
             f"(forward {fwd_err:.3g}, backward {bwd_err:.3g} of the largest "
-            f"magnitude); forward {f_ms:.4f} ms (bound "
-            f"{row['fwd_bound_ms']:.4f}, {row['fwd_bound_by']}; "
-            f"{row['fwd_bound_ms'] / f_ms:.1%}), sdpa {fl_ms:.4f}, plain "
-            f"{fp_ms:.4f}; backward {b_ms:.4f} ms (bound "
+            f"magnitude); forward (route {row['fwd_route']}) {f_ms:.4f} ms "
+            f"(bound {row['fwd_bound_ms']:.4f}, {row['fwd_bound_by']}; "
+            f"{row['fwd_bound_ms'] / f_ms:.1%}; float32 bounds "
+            f"{shares('fwd', f_ms)}), sdpa {fl_ms:.4f}, plain {fp_ms:.4f}; "
+            f"backward (route {row['bwd_route']}) {b_ms:.4f} ms (bound "
             f"{row['bwd_bound_ms']:.4f}, {row['bwd_bound_by']}; "
-            f"{row['bwd_bound_ms'] / b_ms:.1%}), sdpa backward {bl_ms:.4f}, "
-            f"plain {bp_ms:.4f}")
+            f"{row['bwd_bound_ms'] / b_ms:.1%}; float32 bounds "
+            f"{shares('bwd', b_ms)}), sdpa backward {bl_ms:.4f}, plain "
+            f"{bp_ms:.4f}")
         del args, q, k, v, o, lse, dout, qs, ks, vs, so
         torch.cuda.empty_cache()
     return out
@@ -5625,14 +5679,18 @@ def main() -> int:
     for name, regs, st, ld, smem in ptxas_summary(flash_log):
         log(f"  ptxas flash {name}: {regs} registers, spills {st} B stored "
             f"/ {ld} B loaded, {smem} B static smem")
+        if "tf32" in name and st + ld > 0:
+            fail(f"ptxas: {name} spills ({st} B stored, {ld} B loaded)")
     for line in flash_log.splitlines():
         if "wgmma" in line and "Performance Loss" in line:
             log(f"  ptxas: {line.strip()}")
+            if "tf32" in line:
+                fail(f"ptxas, flash: {line.strip()}")
     bwd_log = _nvcc.build_log("flash_bwd", ("flash_bwd.cu",))
     for name, regs, st, ld, smem in ptxas_summary(bwd_log):
         log(f"  ptxas flash_bwd {name}: {regs} registers, spills {st} B "
             f"stored / {ld} B loaded, {smem} B static smem")
-        if "wgmma" in name and st + ld > 0:
+        if ("wgmma" in name or "tf32" in name) and st + ld > 0:
             fail(f"ptxas: {name} spills ({st} B stored, {ld} B loaded)")
     for line in bwd_log.splitlines():
         if "wgmma" in line and "Performance Loss" in line:

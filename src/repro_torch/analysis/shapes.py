@@ -31,10 +31,10 @@ model is a TPU's: the H100 has none).
     starts and ``kStage`` staged ids), ``segsum.py``'s ``k2a_geometry``
     (K2a's tile and row bins) and ``k2b_geometry`` (K2b's offsets and
     staged rows), ``isect.cu``'s ring (K3a), ``flash_plan`` at every
-    head dim 1-256 in both types (K4), and ``flash_bwd_plan`` at every
-    head dim in both types for the backward kernels (``flash_bwd.cu``,
-    FMA and tensor-core routes, counted under K4: they have no TPU
-    kernel of their own);
+    head dim 1-256 in both types (K4, its three routes), and
+    ``flash_bwd_plan`` at every head dim in both types for the backward
+    kernels (``flash_bwd.cu``, FMA, bf16 and TF32 tensor-core routes,
+    counted under K4: they have no TPU kernel of their own);
   - whether its launcher calls ``cudaFuncSetAttribute``, read from the
     source.
 
@@ -438,16 +438,28 @@ def instantiations() -> list[LaunchBudget]:
             add("K3a" if mode == "0" else "K3b", "isect.cu", "isect_loop",
                 (mode, v), 0, "launch_persistent", "registers only")
     f32: dict[int, int] = {}
+    tf: dict[tuple, int] = {}
     tc: dict[tuple, int] = {}
     for d in range(1, MAX_HEAD_DIM + 1):
         p = flash_plan(d, torch.float32)
-        nj = p.head_dim // 16
-        f32[nj] = max(f32.get(nj, 0), p.smem_bytes)
+        if p.kernel == "tf32":
+            tf[(p.head_dim, p.block_k)] = p.smem_bytes
+        else:
+            nj = p.head_dim // 16
+            f32[nj] = max(f32.get(nj, 0), p.smem_bytes)
         p = flash_plan(d, torch.bfloat16)
         tc[(p.head_dim, p.block_k)] = p.smem_bytes
-    for nj, dyn in sorted(f32.items()):
-        add("K4", "flash.cu", "flash_kernel", ("float", str(nj)), dyn,
-            "launch_nj", "flash_plan, float32")
+    # The FMA kernel is instantiated at every NJ whatever the route: an NJ
+    # no head dim reaches launches nothing.
+    for nj in (1, 2, 4, 8, 16):
+        add("K4", "flash.cu", "flash_kernel", ("float", str(nj)),
+            f32.get(nj, 0), "launch_nj", "flash_plan fma, float32")
+    for (dp, bk), dyn in sorted(tf.items()):
+        blocks = "2" if dp == 32 else "1"
+        add("K4", "flash.cu", "flash_tf32_kernel", (str(dp), str(bk),
+                                                    blocks),
+            dyn, "launch", "flash_plan tf32, float32",
+            after="namespace tf32")
     for (dp, bk), dyn in sorted(tc.items()):
         blocks = "2" if dp == 64 else "1"
         add("K4", "flash.cu", "flash_wgmma_kernel", (str(dp), str(bk),
@@ -455,15 +467,17 @@ def instantiations() -> list[LaunchBudget]:
             dyn, "launch", "flash_plan, bfloat16", after="namespace tc")
     # K4's backward: the pre-pass; on the FMA route, per (rows a thread R,
     # columns NJ), the dK / dV and dQ kernels at the widest head dim each
-    # admits in either type; on the tensor-core route (bfloat16), per
-    # padded width.
+    # admits in either type; on the tensor-core routes (bfloat16, and
+    # float32 in three-pass TF32), per padded width.
     fma: dict[tuple, tuple] = {}
     wgmma: dict[int, tuple] = {}
+    tf32: dict[int, tuple] = {}
     for d in range(1, MAX_HEAD_DIM + 1):
         for dtype in (torch.float32, torch.bfloat16):
             p = flash_bwd_plan(d, dtype)
-            if p.kernel == "wgmma":
-                wgmma[p.head_dim] = (p.dkdv_smem, p.dq_smem)
+            if p.kernel in ("wgmma", "tf32"):
+                (wgmma if p.kernel == "wgmma" else tf32)[p.head_dim] = (
+                    p.dkdv_smem, p.dq_smem)
                 continue
             key = (p.block_rows // 16, 1 << (-(-d // 16) - 1).bit_length())
             old = fma.get(key, (0, 0))
@@ -481,6 +495,13 @@ def instantiations() -> list[LaunchBudget]:
             "launch", "flash_bwd_plan wgmma, dK / dV", after="namespace tc")
         add("K4", "flash_bwd.cu", "flash_bwd_dq_wgmma", (str(dp),), dq,
             "launch", "flash_bwd_plan wgmma, dQ", after="namespace tc")
+    for dp, (dkdv, dq) in sorted(tf32.items()):
+        blocks = "2" if dp == 32 else "1"
+        add("K4", "flash_bwd.cu", "flash_bwd_dkdv_tf32", (str(dp), blocks),
+            dkdv, "launch", "flash_bwd_plan tf32, dK / dV",
+            after="namespace tf32")
+        add("K4", "flash_bwd.cu", "flash_bwd_dq_tf32", (str(dp), blocks), dq,
+            "launch", "flash_bwd_plan tf32, dQ", after="namespace tf32")
     return rows
 
 
@@ -529,6 +550,10 @@ MIRRORS = (
      lambda c: OPTIN_BYTES),
     ("repro_torch.kernels.flash.flash", "MAX_HEAD_DIM", "flash_bwd.cu",
      lambda c: c["kMaxHeadDim"]),
+    ("repro_torch.kernels.flash.flash", "TF32_MAX_HEAD_DIM", "flash.cu",
+     lambda c: c["tf32::kMaxDim"]),
+    ("repro_torch.kernels.flash.flash", "TF32_BWD_MAX_HEAD_DIM",
+     "flash_bwd.cu", lambda c: c["tf32::kMaxDim"]),
 )
 
 
@@ -571,21 +596,28 @@ def check_mirrors(mirrors=MIRRORS, constants=None) -> list[Finding]:
                  "segsum.cu")
     c = consts("flash.cu")
     fma, wg = flash_plan(256, torch.float32), flash_plan(256, torch.bfloat16)
+    tf = flash_plan(64, torch.float32)
     for scope, got, want in (
             ("flash_plan fma block_q", fma.block_q, c["f32::kBQ"]),
             ("flash_plan fma block_k", fma.block_k, c["f32::kBK"]),
             ("flash_plan wgmma block_q", wg.block_q, c["tc::kBQ"]),
-            ("flash_plan wgmma stages", wg.stages, c["tc::kStages"])):
+            ("flash_plan wgmma stages", wg.stages, c["tc::kStages"]),
+            ("flash_plan tf32 block_q", tf.block_q, c["tf32::kBQ"])):
         if got != want:
             mismatch(scope, got, want, "flash.cu")
     c = consts("flash_bwd.cu")
     bw = flash_bwd_plan(128, torch.bfloat16)
+    bt = flash_bwd_plan(64, torch.float32)
     for scope, got, want in (
             ("flash_bwd_plan wgmma block_rows", bw.block_rows,
              c["tc::kRows"]),
             ("flash_bwd_plan wgmma block_cols", bw.block_cols,
              c["tc::kCols"]),
-            ("flash_bwd_plan wgmma stages", bw.stages, c["tc::kStages"])):
+            ("flash_bwd_plan wgmma stages", bw.stages, c["tc::kStages"]),
+            ("flash_bwd_plan tf32 block_rows", bt.block_rows,
+             c["tf32::kRows"]),
+            ("flash_bwd_plan tf32 block_cols", bt.block_cols,
+             c["tf32::kCols"])):
         if got != want:
             mismatch(scope, got, want, "flash_bwd.cu")
     return findings
@@ -602,9 +634,10 @@ MODELED_ARRAYS = {
     "k2b_kernel": ("s_i", "s_off_i0", "s_wkey", "s_ma", "s_wval",
                    "s_last"),
     "isect_cached": (), "isect_stream": (), "isect_loop": (),
-    "flash_kernel": (), "flash_wgmma_kernel": (),
+    "flash_kernel": (), "flash_wgmma_kernel": (), "flash_tf32_kernel": (),
     "flash_bwd_delta": (), "flash_bwd_dkdv": (), "flash_bwd_dq": (),
     "flash_bwd_dkdv_wgmma": (), "flash_bwd_dq_wgmma": (),
+    "flash_bwd_dkdv_tf32": (), "flash_bwd_dq_tf32": (),
 }
 
 

@@ -24,9 +24,13 @@
 // Bound: for the shapes attention runs at (S in the thousands), the
 // arithmetic: 4 D flops and one exp per (query, key) pair against
 // 2 D (q, k, v, out) elements moved per row.  The card's rate for that
-// arithmetic is its tensor cores (bfloat16) or its float32 FMA units;
-// at D = 64 the exps (16 per clock per SM on the MUFU) take as long as
-// the bfloat16 products.  Two kernels, chosen by the type:
+// arithmetic is its tensor cores: bf16 products at 4,096 flops a clock
+// per SM, float32 ones as three TF32 passes at 2,048 (so 683 float32
+// flops a clock against the FMA units' 256); at D = 64 the exps (16 per
+// clock per SM on the MUFU) take as long as the bfloat16 products.  At
+// BERT4Rec's [B, 2, 200, 32] the float32 call moves as many bytes as its
+// three-pass products take.  Three kernels, chosen by type and head dim
+// (flash_plan mirrors the choice):
 //
 // bfloat16: tc::flash_wgmma_kernel, on the tensor cores.
 //   * one block of two warpgroups (256 threads) per (batch * head,
@@ -76,8 +80,44 @@
 //   softmax of this one (tried: without setmaxnreg its registers do not
 //   fit, and ptxas serialises the wgmma), persistent blocks.
 //
-// float32: f32::flash_kernel, IEEE float32 products on the FMA units
-// (tensor cores would mean TF32):
+// float32 with D % 8 == 0 up to 128: tf32::flash_tf32_kernel, on the
+// tensor cores in three TF32 passes (flash_tc.cuh): every float32
+// operand x is split into hi = tf32(x) and lo = tf32(x - hi), rounded to
+// nearest (cvt.rna's rounding), and a product is lo.hi + hi.lo + hi.hi
+// summed in float32.  The one change from IEEE float32 products is the
+// dropped lo.lo term, about 2^-22 of the product; the errors against
+// the plain version stay at the FMA tiles' order (PERF.md).
+//   * one block of two warpgroups (256 threads) per (batch * head,
+//     128-query tile), longest causal tiles first, as the bf16 kernel; the
+//     head dim is padded to DP = 32, 64 or 128 (the PV product's N), keys
+//     come BK = 64 at a time at DP = 64, else 32 (at DP = 32 a 64-key tile
+//     needs more than the 128 registers two blocks an SM leave; at 128,
+//     more shared memory than there is);
+//   * .tf32 wgmma reads both shared-memory operands K-major only, so V is
+//     stored transposed ([DP][keys]) for O += P V, whose A is P from
+//     registers: S's accumulator fragment serves as the tf32 A fragment
+//     in place, with each group of 8 keys of the V^T tile stored in the
+//     order 0, 2, 4, 6, 1, 3, 5, 7 (perm8; no shuffles);
+//   * the threads load Q, K and V (16 bytes a lane where the rows are
+//     aligned), split them and store hi and lo tiles in the 128-byte
+//     swizzled layout (TMA cannot split or transpose); K and V of tile
+//     t + 1 wait in registers while tile t is in the products (not at
+//     DP = 128, where the registers are the accumulators');
+//   * the softmax as the bf16 kernel's (ex2 on the MUFU, masks from per-row
+//     limits), p split in registers; each tile's P V goes to its own
+//     registers and is added to the output accumulator rounded to nearest
+//     (the tensor cores' accumulation drifts over a long chain of k-steps:
+//     flash_tc.cuh);
+//   * registers capped at 128 at DP = 32 (two blocks an SM), one block an
+//     SM wider; no spills, no wgmma serialisation (ptxas; chip_smoke.py
+//     phase 1 fails on either);
+//   * shared memory 8 DP (128 + 2 BK) + 1,024 bytes: 50,176 / 132,096 /
+//     197,632 at DP = 32 / 64 / 128.
+//   Not done here (later work): TMA into a staging ring, a producer warp,
+//   S of the next tile under the softmax of this one.
+//
+// float32 otherwise: f32::flash_kernel, IEEE float32 products on the FMA
+// units:
 //   * one block of 256 threads per (batch * head, 64-query tile), with
 //     the longest causal tiles launched first; the Q tile stays in shared
 //     memory, and K and V stream through it 64 keys at a time;
@@ -89,7 +129,9 @@
 //   * causal tiles wholly above the diagonal are skipped;
 //   * D up to 256: the three tiles plus the P tile take up to 214,016
 //     bytes of dynamic shared memory, so the launch opts in above 48 KB.
-//   Shared-memory bandwidth, not the FMA units, caps this version.
+//   Shared-memory bandwidth, not the FMA units, caps this version: at
+//   D = 32 it reaches 14% of the FMA bound, a third of the TF32 kernel's
+//   speed (PERF.md).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -641,11 +683,271 @@ int dispatch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace tc
 
+namespace tf32 {
+
+constexpr int kBQ = 128;      // queries per block: two warpgroups of 64
+constexpr int kThreads = 256;
+constexpr int kMaxDim = 128;  // the widest head dim the route takes
+constexpr float kNegInf2 = -1e30f * tc::kLog2e;  // the sentinel, pre-scaled
+
+// The padded head dim (the PV product's N) of a head dim d (d % 8 == 0,
+// d <= kMaxDim), the key tile (the S product's N) and the blocks an SM
+// the registers are capped for.
+__host__ __device__ constexpr int padded_dim(int d) {
+  return d <= 32 ? 32 : d <= 64 ? 64 : 128;
+}
+__host__ __device__ constexpr int key_tile(int dp) {
+  return dp == 64 ? 64 : 32;
+}
+__host__ __device__ constexpr int min_blocks(int dp) {
+  return dp == 32 ? 2 : 1;
+}
+// Dynamic shared memory: the hi and lo tiles of Q (kBQ rows), K (BK rows)
+// and V^T (DP rows of BK keys), float32, and 1 KB to align the base to a
+// 128-byte swizzle atom of 8 rows.
+__host__ __device__ constexpr int smem_bytes(int dp, int bk) {
+  return 2 * 4 * dp * (kBQ + 2 * bk) + 1024;
+}
+
+// vec: q, k, v and o start 16 bytes aligned (16-byte loads, 8-byte
+// stores); otherwise element by element.
+template <int DP, int BK, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int bh, int h, int kvh, int sq,
+                  int sk, int d, float scale_log2, int causal, int n_qtiles,
+                  int vec) {
+  constexpr int kQTile = kBQ * DP * 4;  // bytes of Q's hi or lo tile
+  constexpr int kKTile = BK * DP * 4;   // of K's or V^T's
+  constexpr int kNS = BK / 2;           // score registers per thread
+  constexpr int kNO = DP / 2;           // output registers per thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (tc::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_qh = base, s_ql = s_qh + kQTile;
+  const uint32_t s_kh = s_ql + kQTile, s_kl = s_kh + kKTile;
+  const uint32_t s_vh = s_kl + kKTile, s_vl = s_vh + kKTile;
+
+  const int wg = threadIdx.x >> 7;       // warpgroup: rows 64 wg ..
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // and r0 + 8, of the 64 rows
+  const int cq = 2 * (lane & 3);           // column in each 8-column chunk
+
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);  // longest first
+  const long long g = blockIdx.x % bh;   // batch * head
+  const long long gk = kv_row(g, h, kvh);  // its K/V row
+  const int q0 = qt * kBQ;
+  const int q0w = q0 + 64 * wg;          // this warpgroup's first query
+  const float* kg = k + gk * sk * d;
+  const float* vg = v + gk * sk * d;
+  // A masked score in raw (unscaled) units: -1e30 once scaled.
+  const float neg_raw = kNegInf2 / scale_log2;
+
+  // Causal: keys past the tile's last query are masked for all its rows.
+  const int k_end = causal ? min(sk, q0 + kBQ) : sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  // A of S: this warpgroup's Q rows; B of S: K; B of O: V^T (the hi
+  // tiles; each lo tile follows its hi one).
+  const uint64_t desc_q = tc::make_desc(s_qh + wg * (64 * 128), 16, 1024);
+  const uint64_t desc_k = tc::make_desc(s_kh, 16, 1024);
+  const uint64_t desc_v = tc::make_desc(s_vh, 16, 1024);
+
+  {
+    float4 x[kBQ * DP / 4 / kThreads];
+    tc::fetch_f32<kBQ, DP, kThreads>(x, q + g * sq * d, q0, sq, d, vec);
+    tc::put_f32<kBQ, DP, kThreads>(s_qh, s_ql, x);
+  }
+  // Tile t's K and V are read into registers, up to width 64 tile
+  // t + 1's while tile t is in the products (kPrefetch); at 128 those
+  // registers are not there (the accumulators take them).
+  constexpr bool kPrefetch = DP <= 64;
+  float4 kx[BK * DP / 4 / kThreads], vx[BK * DP / 4 / kThreads];
+  auto fetch = [&](int t) {
+    tc::fetch_f32<BK, DP, kThreads>(kx, kg, t * BK, sk, d, vec);
+    tc::fetch_f32<BK, DP, kThreads>(vx, vg, t * BK, sk, d, vec);
+  };
+  if (kPrefetch) fetch(0);
+
+  float acc[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegInf2, kNegInf2};
+  float l[2] = {0.0f, 0.0f};             // this thread's part of each row
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (!kPrefetch) fetch(t);
+    if (t > 0) __syncthreads();  // the previous tile's K and V are consumed
+    tc::put_f32<BK, DP, kThreads>(s_kh, s_kl, kx);
+    tc::put_f32_t<BK, DP, kThreads>(s_vh, s_vl, vx);
+    tc::fence_proxy_async();
+    __syncthreads();
+    if (kPrefetch && t + 1 < n_tiles) fetch(t + 1);
+    const int k0 = t * BK;
+    // A causal tile wholly above this warpgroup's diagonal is skipped:
+    // every p there is exactly 0 and m does not move.
+    if (causal && k0 > q0w + 63) continue;
+
+    // S = Q K^T in raw units over the padded width, in three passes.
+    float sc[kNS];
+    tc::wgmma_fence();
+    tc::tf32x3_ss<DP / 8, kBQ, BK>(sc, desc_q, kQTile / 16, desc_k,
+                                   kKTile / 16);
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+    tc::fence_regs(sc);
+
+    // Online softmax in the log2 domain, as tc::flash_wgmma_kernel.
+    // Score i of this thread is row r0 + 8 ((i >> 1) & 1) and key
+    // k0 + cq + 8 (i >> 2) + (i & 1).
+    if (k0 + BK > sk || (causal && k0 + BK - 1 > q0w)) {
+      const int key_lim = sk - k0 - cq;     // keys: jc < key_lim
+      const int diag = q0w + r0 - k0 - cq;  // causal: jc <= diag + 8 h
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const int jc = 8 * (i >> 2) + (i & 1);
+        if (jc >= key_lim) {
+          sc[i] = -INFINITY;  // no such key: p = 0
+        } else if (causal && jc > diag + 8 * ((i >> 1) & 1)) {
+          sc[i] = neg_raw;
+        }
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float corr[2], neg_m[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh] * scale_log2);
+      corr[hh] = tc::ex2(m[hh] - m_new);
+      m[hh] = m_new;
+      neg_m[hh] = -m_new;
+      l[hh] *= corr[hh];
+    }
+    // p = 2^(s scale log2 e - m), in place, then split into the A
+    // fragments of the PV product.
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      sc[i] = tc::ex2(fmaf(sc[i], scale_log2, neg_m[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += sc[i];
+    }
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) tc::acc_to_a(sc + 4 * j, ph[j], pl[j]);
+
+    // This tile's P V in three passes, into its own registers (the tensor
+    // cores' accumulation drifts with the chain: see flash_tc.cuh), then
+    // acc = acc e^(m - m') + P V rounded to nearest.  Every k-step is
+    // issued, past the last key too (p = 0 there): a wgmma under a branch
+    // is serialised.
+    float pv[kNO];
+    tc::fence_regs(ph);
+    tc::fence_regs(pl);
+    tc::wgmma_fence();
+    tc::tf32x3_rs<BK / 8, DP>(pv, ph, pl, desc_v, kKTile / 16);
+    tc::wgmma_commit();
+    tc::wgmma_wait_all();
+    tc::fence_regs(pv);
+#pragma unroll
+    for (int i = 0; i < kNO; ++i) {
+      acc[i] = fmaf(acc[i], corr[(i >> 1) & 1], pv[i]);
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0w + r0 + 8 * hh;
+    if (r >= sq) continue;
+    const float den = fmaxf(l[hh], 1e-30f);
+    // The row's log-sum-exp in natural units (m is the log2-domain max).
+    if (lse != nullptr && (lane & 3) == 0) {
+      lse[g * sq + r] = (m[hh] + log2f(den)) * 0.6931471805599453f;
+    }
+    float* orow = o + (g * sq + r) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;  // d % 8 == 0: col < d keeps col + 1
+      if (col >= d) continue;
+      const float a = acc[4 * j + 2 * hh] / den;
+      const float b = acc[4 * j + 2 * hh + 1] / den;
+      if (vec) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(a, b);
+      } else {
+        orow[col] = a;
+        orow[col + 1] = b;
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int bh, int h, int kvh, int sq, int sk, int d,
+           float scale, int causal, cudaStream_t stream) {
+  constexpr int kBK = key_tile(DP);
+  constexpr int kSmem = smem_bytes(DP, kBK);
+  static_assert(kSmem <= 232448, "fits one SM's shared memory");
+  auto kernel = flash_tf32_kernel<DP, kBK, min_blocks(DP)>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qtiles = (sq + kBQ - 1) / kBQ;
+  const long long blocks = (long long)n_qtiles * bh;
+  if (blocks > 0x7fffffffLL) return -1;
+  const int vec = ((reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) |
+                    reinterpret_cast<uintptr_t>(o)) & 15) == 0;
+  kernel<<<(unsigned)blocks, kThreads, kSmem, stream>>>(
+      q, k, v, o, lse, bh, h, kvh, sq, sk, d, scale * tc::kLog2e, causal,
+      n_qtiles, vec);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, int h, int kvh, int sq, int sk, int d,
+             float scale, int causal, cudaStream_t st) {
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(o);
+  switch (padded_dim(d)) {
+    case 32:
+      return launch<32>(qf, kf, vf, of, lse, bh, h, kvh, sq, sk, d, scale,
+                        causal, st);
+    case 64:
+      return launch<64>(qf, kf, vf, of, lse, bh, h, kvh, sq, sk, d, scale,
+                        causal, st);
+    default:
+      return launch<128>(qf, kf, vf, of, lse, bh, h, kvh, sq, sk, d, scale,
+                         causal, st);
+  }
+}
+
+}  // namespace tf32
+
+// The float32 route: the three-pass TF32 kernel at d % 8 == 0 up to
+// tf32::kMaxDim, the FMA tiles otherwise.
+constexpr bool tf32_route(int d) {
+  return d % 8 == 0 && d <= tf32::kMaxDim;
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes.  q, o [bh, sq, d] and k, v
 // [bh / h * kvh, sk, d], contiguous, with bh = B * H and h = H a multiple
-// of kvh = KvH; dtype 0 = float32 (the FMA kernel), 1 = bfloat16 (the
+// of kvh = KvH; dtype 0 = float32 (the three-pass TF32 kernel at
+// d % 8 == 0 up to 128, else the FMA kernel), 1 = bfloat16 (the
 // tensor-core kernel).  lse, if not null, is [bh, sq] float32: each row's
 // log-sum-exp of its scaled, masked scores (m + log l, in natural units),
 // which the backward (flash_bwd.cu) recomputes p from.  Returns -1 for
@@ -660,6 +962,10 @@ extern "C" int flash_launch(const void* q, const void* k, const void* v,
   if (h <= 0 || kvh <= 0 || h % kvh != 0 || bh % h != 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
+  if (dtype == 0 && tf32_route(d)) {
+    return tf32::dispatch(q, k, v, o, lse_f, bh, h, kvh, sq, sk, d, scale,
+                          causal != 0, st);
+  }
   if (dtype == 0) {
     return f32::launch<float>(q, k, v, o, lse_f, bh, h, kvh, sq, sk, d,
                               scale, causal != 0, st);
@@ -675,6 +981,10 @@ extern "C" int flash_launch(const void* q, const void* k, const void* v,
 // dim d and dtype (as above); -1 for what it does not take.
 extern "C" int flash_smem_bytes(int d, int dtype) {
   if (d <= 0 || d > 256) return -1;
+  if (dtype == 0 && tf32_route(d)) {
+    const int dp = tf32::padded_dim(d);
+    return tf32::smem_bytes(dp, tf32::key_tile(dp));
+  }
   if (dtype == 0) return f32::smem_bytes(d);
   if (dtype == 1) {
     const int dp = tc::padded_dim(d);

@@ -23,8 +23,9 @@
 //
 // Bound: 10 D flops (five products of 2 D) and one exp per kept pair
 // against 4 (B H + B KvH) S D elements moved: the arithmetic, on the
-// tensor cores for bfloat16.  Three kernels, queued by one call:
-//   1. flash_bwd_delta: delta, one warp a row (both routes);
+// tensor cores (bfloat16, and float32 as three TF32 passes).  Three
+// kernels, queued by one call:
+//   1. flash_bwd_delta: delta, one warp a row (every route);
 //   2. dK / dV, one block a (key tile, batch * KvH): K and V stay while
 //      the block walks the group's query heads and, causal, the query
 //      tiles from the key tile's diagonal on;
@@ -32,7 +33,7 @@
 //      first: Q and dO stay, K and V stream through.
 // Kernels 2 and 3 each recompute S and dP (14 D flops a pair in all, two
 // exps), which keeps dQ free of atomics.  The route is static, by type
-// and head dim (wgmma_route):
+// and head dim (route_of; flash_bwd_plan mirrors it):
 //
 // bfloat16 with D % 8 == 0 and D <= 128: flash_bwd_dkdv_wgmma and
 // flash_bwd_dq_wgmma, on the tensor cores with the forward's forms
@@ -71,9 +72,37 @@
 //   under the dP product in two wgmma groups, dK / dV blocks ordered by
 //   KV head, three warpgroups a block, two dK / dV blocks an SM.
 //
-// float32, and bfloat16 with D % 8 != 0 (TMA needs 16-byte rows) or
-// D > 128: flash_bwd_dkdv and flash_bwd_dq on the FMA units, IEEE float32
-// products (tensor cores would mean TF32).  256 threads a block; each
+// float32 with D % 8 == 0 and D <= 64: flash_bwd_dkdv_tf32 and
+// flash_bwd_dq_tf32, on the tensor cores in three TF32 passes with the
+// forward's split (flash_tc.cuh: hi = tf32(x), lo = tf32(x - hi),
+// lo.hi + hi.lo + hi.hi in float32; only the lo.lo term, about 2^-22 of
+// a product, is dropped).  The head dim is padded to DP = 32 or 64.
+//   * the bf16 route's two-kernel shape: 128 own rows a block (two
+//     warpgroups), streamed tiles of 32 rows, one stage in shared memory;
+//     the threads load, split and store every tile (TMA cannot split or
+//     transpose), at DP = 64 (one block an SM) tile t + 1 waiting in
+//     registers while tile t is in the products, at DP = 32 (two blocks
+//     an SM, registers capped at 128) the other block hiding the loads;
+//   * .tf32 wgmma reads shared memory K-major only: S^T = K Q^T,
+//     dP^T = V dO^T (dK / dV) and S = Q K^T, dP = dO V^T (dQ) read the
+//     natural tiles; dV += P^T dO, dK += dS^T Q and dQ += dS K read
+//     transposed copies (dO^T, Q^T, K^T, [DP][rows]) with each group of 8
+//     rows in perm8's order, so that P^T, dS^T and dS serve as A
+//     fragments in place from the accumulators;
+//   * dV's products complete before dS^T is split (two sets of fragments
+//     live at once would spill at two blocks an SM); each tile's dV, dK or
+//     dQ goes to its own registers and is added to the running sum
+//     rounded to nearest (the tensor cores' accumulation drifts over a
+//     long chain of k-steps: flash_tc.cuh);
+//   * shared memory, the hi and lo tiles: dK / dV 99,584 / 197,888 bytes
+//     at DP = 32 / 64 (K, V, and Q, dO, Q^T, dO^T of a tile with its lse
+//     and delta), dQ 91,136 / 181,248 (Q, dO, and K, V, K^T); at D = 128
+//     the resident tiles alone would take 256 KB, so D = 128 stays on the
+//     FMA tiles.
+//
+// float32 otherwise, and bfloat16 with D % 8 != 0 (TMA needs 16-byte
+// rows) or D > 128: flash_bwd_dkdv and flash_bwd_dq on the FMA units,
+// IEEE float32 products.  256 threads a block; each
 // holds R keys (or queries) x NJ columns of dK and dV (or dQ) in
 // registers.  Tiles are BT = 16 R rows square (R = 4 up to D = 128, else
 // 2), stored as float32 with an odd row stride (D + 1) so that a warp's
@@ -926,10 +955,466 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace tc
 
-// The route of a call: the tensor-core kernels for bfloat16 (dtype 1)
-// with D % 8 == 0 up to D = 128, the FMA tiles otherwise.
-constexpr bool wgmma_route(int d, int dtype) {
-  return dtype == 1 && d % 8 == 0 && d <= 128;
+namespace tf32 {
+
+using namespace tc;  // the header's helpers; this namespace's names first
+
+constexpr int kThreads = 256;  // 128 a warpgroup, two of them
+constexpr int kRows = 128;     // rows a block owns, 64 a warpgroup
+constexpr int kCols = 32;      // rows of a streamed tile
+constexpr int kMaxDim = 64;    // the widest head dim the route takes
+
+// The padded head dim (the N of the dV, dK and dQ products) of a head dim
+// d the route takes, and the blocks an SM the registers are capped for.
+__host__ __device__ constexpr int padded_dim(int d) {
+  return d <= 32 ? 32 : 64;
+}
+__host__ __device__ constexpr int min_blocks(int dp) {
+  return dp == 32 ? 2 : 1;
+}
+
+// Dynamic shared memory at padded width dp, float32 hi and lo tiles: the
+// two resident ones (kRows rows each); per streamed tile (kCols rows) for
+// dK / dV Q and dO and their transposes, and the tile's kCols lse and
+// delta floats, for dQ K and V and K's transpose; 1,024 bytes to align
+// the base to a 128-byte swizzle atom of 8 rows.
+__host__ __device__ constexpr int dkdv_smem(int dp) {
+  return 2 * 2 * 4 * dp * kRows + 4 * 2 * 4 * dp * kCols + 2 * kCols * 4 +
+         1024;
+}
+__host__ __device__ constexpr int dq_smem(int dp) {
+  return 2 * 2 * 4 * dp * kRows + 3 * 2 * 4 * dp * kCols + 1024;
+}
+
+// dK and dV of kRows keys of one KV head (see the header).  vec: every
+// operand starts 16 bytes aligned (16-byte loads, 8-byte stores).
+template <int DP, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+flash_bwd_dkdv_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int bkv, int h, int kvh, int sq,
+                    int sk, int d, float scale, float scale_log2, int causal,
+                    int vec) {
+  constexpr int kRT = kRows * DP * 4;  // bytes of a resident hi or lo tile
+  constexpr int kCT = kCols * DP * 4;  // of a streamed one
+  constexpr int kNS = kCols / 2;       // S^T registers a thread
+  constexpr int kNO = DP / 2;          // dK or dV registers a thread
+  constexpr int kRF = kRows * DP / 4 / kThreads;  // float4s a thread
+  constexpr int kCF = kCols * DP / 4 / kThreads;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_kh = base, s_kl = s_kh + kRT;
+  const uint32_t s_vh = s_kl + kRT, s_vl = s_vh + kRT;
+  const uint32_t s_qh = s_vl + kRT, s_ql = s_qh + kCT;    // Q
+  const uint32_t s_oh = s_ql + kCT, s_ol = s_oh + kCT;    // dO
+  const uint32_t s_qth = s_ol + kCT, s_qtl = s_qth + kCT;  // Q^T
+  const uint32_t s_oth = s_qtl + kCT, s_otl = s_oth + kCT;  // dO^T
+  const uint32_t s_stat = s_otl + kCT;
+  float* stat = reinterpret_cast<float*>(smem_raw + (s_stat - raw));
+
+  const int wg = threadIdx.x >> 7;         // keys 64 wg .. of the block's
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // and r0 + 8, of the 64 keys
+  const int cq = 2 * (lane & 3);           // column in each 8-column chunk
+
+  const int kt = (int)(blockIdx.x / bkv);  // longest walks first
+  const long long gk = blockIdx.x % bkv;   // batch * KvH + KV head
+  const int k0 = kt * kRows;
+  const int k0w = k0 + 64 * wg;            // this warpgroup's first key
+  const int rep = h / kvh;
+  const long long g0 = (gk / kvh) * h + (gk % kvh) * rep;  // first q head
+  // Causal: query tiles wholly before the key tile see none of its keys.
+  const int n_qt = (sq + kCols - 1) / kCols;
+  const int qt0 = causal ? k0 / kCols : 0;
+  const int per_head = max(n_qt - qt0, 0);
+  const int n_tiles = rep * per_head;      // heads outer, query tiles inner
+  auto head_of = [&](int t) { return g0 + t / per_head; };
+  auto q0_of = [&](int t) { return (qt0 + t % per_head) * kCols; };
+
+  // Descriptors of this warpgroup's rows of the resident tiles and of the
+  // streamed ones; every tile is a constant offset from one of the two.
+  uint64_t d_res = make_desc(s_kh + wg * (64 * 128), 16, 1024);
+  uint64_t d_str = make_desc(s_qh, 16, 1024);
+
+  {
+    float4 x[kRF];
+    fetch_f32<kRows, DP, kThreads>(x, k + gk * sk * d, k0, sk, d, vec);
+    put_f32<kRows, DP, kThreads>(s_kh, s_kl, x);
+    fetch_f32<kRows, DP, kThreads>(x, v + gk * sk * d, k0, sk, d, vec);
+    put_f32<kRows, DP, kThreads>(s_vh, s_vl, x);
+  }
+  // Tile t's Q, dO and row statistic (lse in log2 units for threads below
+  // kCols, delta for the next kCols; 0 past Sq, where Q and dO are zero
+  // rows) are read into registers; at one block an SM (kPrefetch) tile
+  // t + 1's while tile t is in the products, at two the other block's
+  // products hide the reads (and the registers are not there).
+  constexpr bool kPrefetch = MIN_BLOCKS == 1;
+  float4 qx[kCF], ox[kCF];
+  float stv = 0.0f;
+  auto fetch = [&](int t) {
+    const long long g = head_of(t);
+    const int q0 = q0_of(t);
+    fetch_f32<kCols, DP, kThreads>(qx, q + g * sq * d, q0, sq, d, vec);
+    fetch_f32<kCols, DP, kThreads>(ox, dout + g * sq * d, q0, sq, d, vec);
+    const int i = threadIdx.x;
+    const int qpos = q0 + (i % kCols);
+    stv = 0.0f;
+    if (i < 2 * kCols && qpos < sq) {
+      stv = i < kCols ? lse[g * sq + qpos] * kLog2e : delta[g * sq + qpos];
+    }
+  };
+  if (kPrefetch && n_tiles > 0) fetch(0);
+
+  float acc_k[kNO], acc_v[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) {
+    acc_k[i] = 0.0f;
+    acc_v[i] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (!kPrefetch) fetch(t);
+    __syncthreads();  // the previous tile is consumed (K and V are stored)
+    put_f32<kCols, DP, kThreads>(s_qh, s_ql, qx);
+    put_f32<kCols, DP, kThreads>(s_oh, s_ol, ox);
+    put_f32_t<kCols, DP, kThreads>(s_qth, s_qtl, qx);
+    put_f32_t<kCols, DP, kThreads>(s_oth, s_otl, ox);
+    if (threadIdx.x < 2 * kCols) stat[threadIdx.x] = stv;
+    fence_proxy_async();
+    __syncthreads();
+    const int q0 = q0_of(t);
+    if (kPrefetch && t + 1 < n_tiles) fetch(t + 1);
+    // A causal tile wholly above this warpgroup's diagonal (every key
+    // past every query) adds nothing.
+    if (causal && k0w > q0 + kCols - 1) continue;
+
+    // A of S^T and dP^T: this warpgroup's keys of K and V; B: the
+    // streamed Q and dO; B of dV and dK: the transposes dO^T and Q^T
+    // (hi tiles; each lo tile follows its hi one).  The two bases are
+    // pinned here so that the offsets are added where they are used, not
+    // kept live as 64-bit registers.
+    asm volatile("" : "+l"(d_res), "+l"(d_str));
+    constexpr uint32_t kR16 = kRT / 16, kC16 = kCT / 16;
+    float st[kNS], dpt[kNS];
+    wgmma_fence();
+    tf32x3_ss<DP / 8, kRows, kCols>(st, d_res, kR16, d_str, kC16);
+    tf32x3_ss<DP / 8, kRows, kCols>(dpt, d_res + 2 * kR16, kR16,
+                                    d_str + 2 * kC16, kC16);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // Register i is key k0w + r0 + 8 ((i >> 1) & 1) and query
+    // q0 + cq + jc, jc = 8 (i >> 2) + (i & 1); causal, the pair is masked
+    // where the key is past the query: jc < diag + 8 h.  P^T in place of
+    // S^T, dS^T = P^T (dP^T - delta) in place of dP^T.
+    const bool edge = causal && k0w + 63 > q0;
+    const int diag = k0w + r0 - q0 - cq;
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      const int jc = 8 * (i >> 2) + (i & 1);
+      float p = ex2(fmaf(st[i], scale_log2, -stat[jc + cq]));
+      if (edge && jc < diag + 8 * ((i >> 1) & 1)) p = 0.0f;
+      st[i] = p;
+      dpt[i] = p * (dpt[i] - stat[kCols + jc + cq]);
+    }
+    // dV += P^T dO, then dK += dS^T Q, three passes each, one after the
+    // other (P^T's fragments are dead before dS^T's are made: two sets
+    // live at once would spill at two blocks an SM).  Every k-step is
+    // issued, past Sq too (dO and Q are zero rows there): a wgmma under a
+    // branch is serialised.
+    uint32_t ph[kCols / 8][4], pl[kCols / 8][4];
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) acc_to_a(st + 4 * j, ph[j], pl[j]);
+    // Each tile's products go to one set of registers in turn and are
+    // added to dV and dK rounded to nearest (the tensor cores'
+    // accumulation drifts with the chain: see flash_tc.cuh).
+    float tile[kNO];
+    fence_regs(ph);
+    fence_regs(pl);
+    wgmma_fence();
+    tf32x3_rs<kCols / 8, DP>(tile, ph, pl, d_str + 6 * kC16, kC16);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(tile);
+#pragma unroll
+    for (int i = 0; i < kNO; ++i) acc_v[i] += tile[i];
+    uint32_t sh[kCols / 8][4], sl[kCols / 8][4];
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) acc_to_a(dpt + 4 * j, sh[j], sl[j]);
+    fence_regs(sh);
+    fence_regs(sl);
+    wgmma_fence();
+    tf32x3_rs<kCols / 8, DP>(tile, sh, sl, d_str + 4 * kC16, kC16);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(tile);
+#pragma unroll
+    for (int i = 0; i < kNO; ++i) acc_k[i] += tile[i];
+  }
+
+  // Keys past Sk are not stored; d % 8 == 0, so a stored column's pair is
+  // whole.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0w + r0 + 8 * hh;
+    if (key >= sk) continue;
+    float* krow = dk + (gk * sk + key) * d;
+    float* vrow = dv + (gk * sk + key) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col >= d) continue;
+      const int i = 4 * j + 2 * hh;
+      const float2 kk2 = make_float2(acc_k[i] * scale, acc_k[i + 1] * scale);
+      const float2 vv2 = make_float2(acc_v[i], acc_v[i + 1]);
+      if (vec) {
+        *reinterpret_cast<float2*>(krow + col) = kk2;
+        *reinterpret_cast<float2*>(vrow + col) = vv2;
+      } else {
+        krow[col] = kk2.x;
+        krow[col + 1] = kk2.y;
+        vrow[col] = vv2.x;
+        vrow[col + 1] = vv2.y;
+      }
+    }
+  }
+}
+
+// dQ of kRows queries of one head (see the header).
+template <int DP, int MIN_BLOCKS>
+__global__ void __launch_bounds__(kThreads, MIN_BLOCKS)
+flash_bwd_dq_tf32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int bh, int h, int kvh, int sq, int sk, int d, float scale,
+                  float scale_log2, int causal, int n_qtiles, int vec) {
+  constexpr int kRT = kRows * DP * 4;
+  constexpr int kCT = kCols * DP * 4;
+  constexpr int kNS = kCols / 2;       // S registers a thread
+  constexpr int kNO = DP / 2;          // dQ registers a thread
+  constexpr int kRF = kRows * DP / 4 / kThreads;
+  constexpr int kCF = kCols * DP / 4 / kThreads;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_qh = base, s_ql = s_qh + kRT;          // Q
+  const uint32_t s_oh = s_ql + kRT, s_ol = s_oh + kRT;    // dO
+  const uint32_t s_kh = s_ol + kRT, s_kl = s_kh + kCT;    // K
+  const uint32_t s_vh = s_kl + kCT, s_vl = s_vh + kCT;    // V
+  const uint32_t s_kth = s_vl + kCT, s_ktl = s_kth + kCT;  // K^T
+
+  const int wg = threadIdx.x >> 7;         // queries 64 wg .. of the block's
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);  // and r0 + 8, of the 64 queries
+  const int cq = 2 * (lane & 3);
+
+  const int qt = n_qtiles - 1 - (int)(blockIdx.x / bh);  // longest first
+  const long long g = blockIdx.x % bh;     // batch * head
+  const long long gk = kv_row(g, h, kvh);  // its K/V row
+  const int q0 = qt * kRows;
+  const int q0w = q0 + 64 * wg;            // this warpgroup's first query
+  const float* kg = k + gk * sk * d;
+  const float* vg = v + gk * sk * d;
+  // Causal: keys past the tile's last query are masked for all its rows.
+  const int k_end = causal ? min(sk, q0 + kRows) : sk;
+  const int n_tiles = (k_end + kCols - 1) / kCols;
+
+  // Descriptors of this warpgroup's rows of the resident tiles and of the
+  // streamed ones, as in dK / dV.
+  uint64_t d_res = make_desc(s_qh + wg * (64 * 128), 16, 1024);
+  uint64_t d_str = make_desc(s_kh, 16, 1024);
+
+  {
+    float4 x[kRF];
+    fetch_f32<kRows, DP, kThreads>(x, q + g * sq * d, q0, sq, d, vec);
+    put_f32<kRows, DP, kThreads>(s_qh, s_ql, x);
+    fetch_f32<kRows, DP, kThreads>(x, dout + g * sq * d, q0, sq, d, vec);
+    put_f32<kRows, DP, kThreads>(s_oh, s_ol, x);
+  }
+  // Tile t's K and V are read into registers; at one block an SM tile
+  // t + 1's while tile t is in the products (as in dK / dV).
+  constexpr bool kPrefetch = MIN_BLOCKS == 1;
+  float4 kx[kCF], vx[kCF];
+  auto fetch = [&](int t) {
+    fetch_f32<kCols, DP, kThreads>(kx, kg, t * kCols, sk, d, vec);
+    fetch_f32<kCols, DP, kThreads>(vx, vg, t * kCols, sk, d, vec);
+  };
+  if (kPrefetch) fetch(0);
+
+  float acc[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) acc[i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (!kPrefetch) fetch(t);
+    __syncthreads();  // the previous tile is consumed (Q and dO are stored)
+    put_f32<kCols, DP, kThreads>(s_kh, s_kl, kx);
+    put_f32<kCols, DP, kThreads>(s_vh, s_vl, vx);
+    put_f32_t<kCols, DP, kThreads>(s_kth, s_ktl, kx);
+    fence_proxy_async();
+    __syncthreads();
+    if (kPrefetch && t + 1 < n_tiles) fetch(t + 1);
+    const int k0 = t * kCols;
+    // A causal tile wholly above this warpgroup's diagonal adds nothing.
+    if (causal && k0 > q0w + 63) continue;
+
+    // A of S and dP: this warpgroup's rows of Q and dO; B: the streamed
+    // K and V; B of dQ: K^T (pinned bases, as in dK / dV).
+    asm volatile("" : "+l"(d_res), "+l"(d_str));
+    constexpr uint32_t kR16 = kRT / 16, kC16 = kCT / 16;
+    float sc[kNS], dp[kNS];
+    wgmma_fence();
+    tf32x3_ss<DP / 8, kRows, kCols>(sc, d_res, kR16, d_str, kC16);
+    tf32x3_ss<DP / 8, kRows, kCols>(dp, d_res + 2 * kR16, kR16,
+                                    d_str + 2 * kC16, kC16);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // This thread's two rows' statistics, lse in log2 units and delta,
+    // read again each tile (cached) rather than held in four registers
+    // through the products.
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = q0w + r0 + 8 * hh;
+      lse2[hh] = r < sq ? __ldg(lse + g * sq + r) * kLog2e : 0.0f;
+      dl[hh] = r < sq ? __ldg(delta + g * sq + r) : 0.0f;
+    }
+    // Register i is query q0w + r0 + 8 h, h = (i >> 1) & 1, and key
+    // k0 + cq + jc, jc = 8 (i >> 2) + (i & 1): masked at jc >= key_lim
+    // (no such key) or, causal, jc > diag + 8 h.  dS in place of dP.
+    const bool edge = k0 + kCols > sk || (causal && k0 + kCols - 1 > q0w);
+    const int key_lim = sk - k0 - cq;
+    const int diag = q0w + r0 - k0 - cq;
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      const int hh = (i >> 1) & 1;
+      const int jc = 8 * (i >> 2) + (i & 1);
+      float p = ex2(fmaf(sc[i], scale_log2, -lse2[hh]));
+      if (edge && (jc >= key_lim || (causal && jc > diag + 8 * hh))) {
+        p = 0.0f;
+      }
+      dp[i] = p * (dp[i] - dl[hh]);
+    }
+    uint32_t sh[kCols / 8][4], sl[kCols / 8][4];
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j) acc_to_a(dp + 4 * j, sh[j], sl[j]);
+
+    // dQ += dS K, three passes (every k-step: past the last key dS is 0).
+    float tile[kNO];  // this tile's dS K, added rounded to nearest
+    fence_regs(sh);
+    fence_regs(sl);
+    wgmma_fence();
+    tf32x3_rs<kCols / 8, DP>(tile, sh, sl, d_str + 4 * kC16, kC16);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(tile);
+#pragma unroll
+    for (int i = 0; i < kNO; ++i) acc[i] += tile[i];
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = q0w + r0 + 8 * hh;
+    if (r >= sq) continue;
+    float* row = dq + (g * sq + r) * d;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col >= d) continue;
+      const int i = 4 * j + 2 * hh;
+      if (vec) {
+        *reinterpret_cast<float2*>(row + col) =
+            make_float2(acc[i] * scale, acc[i + 1] * scale);
+      } else {
+        row[col] = acc[i] * scale;
+        row[col + 1] = acc[i + 1] * scale;
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch(const float* q, const float* k, const float* v, const float* dout,
+           const float* lse, const float* delta, float* dq, float* dk,
+           float* dv, int bh, int h, int kvh, int sq, int sk, int d,
+           float scale, int causal, cudaStream_t stream) {
+  constexpr int kSmemKV = dkdv_smem(DP);
+  constexpr int kSmemQ = dq_smem(DP);
+  static_assert(kSmemKV <= 232448 && kSmemQ <= 232448,
+                "fits one SM's shared memory");
+  auto dkdv = flash_bwd_dkdv_tf32<DP, min_blocks(DP)>;
+  auto dqk = flash_bwd_dq_tf32<DP, min_blocks(DP)>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemKV);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemQ);
+  if (err != cudaSuccess) return (int)err;
+  const int bkv = bh / h * kvh;  // K and V hold B * KvH rows of [Sk, D]
+  const long long kv_blocks = (long long)((sk + kRows - 1) / kRows) * bkv;
+  const int n_qtiles = (sq + kRows - 1) / kRows;
+  const long long q_blocks = (long long)n_qtiles * bh;
+  if (kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL) return -1;
+  const int vec = ((reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v) |
+                    reinterpret_cast<uintptr_t>(dout) |
+                    reinterpret_cast<uintptr_t>(dq) |
+                    reinterpret_cast<uintptr_t>(dk) |
+                    reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
+  const float scale_log2 = scale * kLog2e;
+  dkdv<<<(unsigned)kv_blocks, kThreads, kSmemKV, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, bkv, h, kvh, sq, sk, d, scale,
+      scale_log2, causal, vec);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dqk<<<(unsigned)q_blocks, kThreads, kSmemQ, stream>>>(
+      q, k, v, dout, lse, delta, dq, bh, h, kvh, sq, sk, d, scale,
+      scale_log2, causal, n_qtiles, vec);
+  return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, void* dq, void* dk,
+             void* dv, int bh, int h, int kvh, int sq, int sk, int d,
+             float scale, int causal, cudaStream_t st) {
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  const float* of = static_cast<const float*>(dout);
+  float* dqf = static_cast<float*>(dq);
+  float* dkf = static_cast<float*>(dk);
+  float* dvf = static_cast<float*>(dv);
+  if (padded_dim(d) == 32) {
+    return launch<32>(qf, kf, vf, of, lse, delta, dqf, dkf, dvf, bh, h, kvh,
+                      sq, sk, d, scale, causal, st);
+  }
+  return launch<64>(qf, kf, vf, of, lse, delta, dqf, dkf, dvf, bh, h, kvh,
+                    sq, sk, d, scale, causal, st);
+}
+
+}  // namespace tf32
+
+// The route of a call: 1, the tensor-core kernels for bfloat16 (dtype 1)
+// with D % 8 == 0 up to D = 128; 2, the three-pass TF32 kernels for
+// float32 (dtype 0) with D % 8 == 0 up to tf32::kMaxDim; 0, the FMA tiles
+// otherwise.
+constexpr int route_of(int d, int dtype) {
+  if (d % 8 != 0) return 0;
+  if (dtype == 1 && d <= 128) return 1;
+  if (dtype == 0 && d <= tf32::kMaxDim) return 2;
+  return 0;
 }
 
 template <typename T>
@@ -949,9 +1434,13 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows, d);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (wgmma_route(d, dtype)) {
+  if (route_of(d, dtype) == 1) {
     return tc::dispatch(q, k, v, dout, lse, delta, dq, dk, dv, bh, h, kvh, sq,
                         sk, d, scale, causal, st);
+  }
+  if (route_of(d, dtype) == 2) {
+    return tf32::dispatch(q, k, v, dout, lse, delta, dq, dk, dv, bh, h, kvh,
+                          sq, sk, d, scale, causal, st);
   }
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -980,8 +1469,9 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // kvh = KvH; lse [bh, sq] float32 from flash_launch; delta a [bh, sq]
 // float32 workspace.  Queues the three kernels of the call's route
 // (flash_bwd_route) on the stream.  Returns -1 for arguments the kernels
-// do not take (on the tensor-core route also q, k, v or dout not 16-byte
-// aligned), -2 if a TMA map cannot be made, else cudaGetLastError().
+// do not take (on the bfloat16 tensor-core route also q, k, v or dout
+// not 16-byte aligned), -2 if a TMA map cannot be made, else
+// cudaGetLastError().
 extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* lse, void* delta, void* dq,
@@ -1006,11 +1496,11 @@ extern "C" int flash_bwd_launch(const void* q, const void* k, const void* v,
 }
 
 // The route flash_bwd_launch takes at head dim d and dtype (as above): 1
-// for the tensor-core kernels, 0 for the FMA tiles, -1 for what it does
-// not take.
+// for the bfloat16 tensor-core kernels, 2 for the three-pass TF32 ones, 0
+// for the FMA tiles, -1 for what it does not take.
 extern "C" int flash_bwd_route(int d, int dtype) {
   if (d <= 0 || d > kMaxHeadDim || (dtype != 0 && dtype != 1)) return -1;
-  return wgmma_route(d, dtype) ? 1 : 0;
+  return route_of(d, dtype);
 }
 
 // Dynamic shared memory, in bytes, of the dK / dV kernel (which = 0) or
@@ -1022,6 +1512,10 @@ extern "C" int flash_bwd_smem_bytes(int d, int dtype, int which) {
   if (route == 1) {
     const int dp = tc::padded_dim(d);
     return which == 0 ? tc::dkdv_smem(dp) : tc::dq_smem(dp);
+  }
+  if (route == 2) {
+    const int dp = tf32::padded_dim(d);
+    return which == 0 ? tf32::dkdv_smem(dp) : tf32::dq_smem(dp);
   }
   const int bt = 16 * rows_per_thread(d);
   return which == 0 ? dkdv_smem_bytes(d, bt) : dq_smem_bytes(d, bt);

@@ -1,6 +1,7 @@
 // Device helpers of K4's tensor-core kernels, shared by csrc/flash.cu (the
 // forward) and csrc/flash_bwd.cu (the backward): shared-memory addresses,
-// mbarriers, TMA loads and maps, the wgmma forms, ex2 and bf16 packing.
+// mbarriers, TMA loads and maps, the wgmma forms (bf16, and tf32 for the
+// three-pass float32 kernels below), ex2 and bf16 packing.
 //
 //   * wgmma_ss: S (+)= A B^T over one k-step of 16, A [64 x 16] and
 //     B [N x 16] both K-major in shared memory, N = 64 or 128;
@@ -181,6 +182,261 @@ WG_SS("128", 64, WG_D64, WG_ACC64, "64", "65", "66")
 WG_RS("64", 32, WG_D32, WG_ACC32_0, "%32, %33, %34, %35", "36", "37")
 WG_RS("128", 64, WG_D64, WG_ACC64, "%64, %65, %66, %67", "68", "69")
 WG_RS("256", 128, WG_D128, WG_ACC128, "%128, %129, %130, %131", "132", "133")
+
+// -- float32 on the tensor cores: three-pass TF32 ------------------------
+//
+// A float32 operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+// (round to nearest, ties away: cvt.rna), and a product is accumulated in
+// float32 as lo.hi + hi.lo + hi.hi; the dropped lo.lo term is about 2^-22
+// of the product (CUTLASS's 3xTF32).  The .tf32 forms take k-steps of 8
+// (32 bytes, as a bf16 k-step of 16) and both shared-memory operands
+// K-major only (no transpose flag for 32-bit types), so a product whose B
+// is MN-major in its natural layout reads a transposed copy.  Tiles are
+// float32 in the same 128-byte-swizzled layout as the bf16 ones: rows of
+// 32 floats (128 bytes), 16-byte chunk c of row r at chunk c ^ (r % 8), in
+// blocks of 32 columns of R rows each; make_desc serves unchanged.
+//
+// The A fragment of a k-step from registers (m64 x k8, one warp's 16
+// rows): a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4)
+// with g = lane / 4, t = lane % 4.  An m64nN float32 accumulator holds
+// columns 8 j + 2 t and 8 j + 2 t + 1 of rows g, g + 8 in registers
+// 4 j .. 4 j + 3, so its registers serve as the A fragment of k-step j in
+// the order (0, 2, 1, 3) with A's column t standing for the accumulator's
+// column 2 t of the group of 8 and t + 4 for 2 t + 1: the B tile's rows
+// are stored in that order (perm8), and the sum over the k dimension is
+// unchanged.  No shuffles.
+
+#define WG_ACC16(c, i) WG_ACC8(c, i), WG_ACC8(c, i + 8)
+#define WG_ACC16_0(c) WG_ACC16(c, 0)
+#define WG_D16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+
+// D (+)= A B^T over one k-step of 8: A [64 x 8] and B [N x 8] tf32, both
+// K-major in shared memory; N = 32 or 64.  The first k-step overwrites D.
+//
+// The tensor cores' float32 accumulation is not an IEEE sum rounded to
+// nearest: measured on an H100 (PERF.md, PR 33), a chain of n k-steps
+// into one accumulator drifts by about n float32 ulps of it, as rounding
+// toward zero would.  So every product in the three-pass kernels is one
+// tile's, started afresh (its first k-step overwrites D), and the kernel
+// adds it to its running sum in float32, rounded to nearest: the drift
+// stays that of one tile's 3 D / 8 or 3 BK / 8 k-steps, whatever the
+// sequence length.
+#define WG_TF32_SS_ASM(NN, DLIST, ACC, C, IA, IB, IP, SCALE_D)            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"           \
+               "wgmma.mma_async.sync.aligned.m64n" NN                     \
+               "k8.f32.tf32.tf32 {" DLIST "}, %" IA ", %" IB              \
+               ", p, 1, 1;\n}\n"                                           \
+               : ACC(C)                                                   \
+               : "l"(da), "l"(db), "r"(SCALE_D))
+#define WG_TF32_SS(NN, R, DLIST, ACC, IA, IB, IP)                          \
+  __device__ __forceinline__ void wgmma_tf32_ss(                          \
+      float(&d)[R], uint64_t da, uint64_t db, bool accumulate) {          \
+    if (accumulate) {                                                     \
+      WG_TF32_SS_ASM(NN, DLIST, ACC, "+f", IA, IB, IP, 1);                \
+    } else {                                                              \
+      WG_TF32_SS_ASM(NN, DLIST, ACC, "=f", IA, IB, IP, 0);                \
+    }                                                                     \
+  }
+WG_TF32_SS("32", 16, WG_D16, WG_ACC16_0, "16", "17", "18")
+WG_TF32_SS("64", 32, WG_D32, WG_ACC32_0, "32", "33", "34")
+
+// D (+)= A B over one k-step of 8: A [64 x 8] tf32 in registers (the
+// fragment above), B [N x 8] tf32 K-major in shared memory; N = 32, 64 or
+// 128.  Without accumulate D is overwritten (a product's first k-step).
+#define WG_TF32_RS_ASM(NN, DLIST, ACC, C, IA, IB, IP, SCALE_D)            \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" IP ", 0;\n"           \
+               "wgmma.mma_async.sync.aligned.m64n" NN                     \
+               "k8.f32.tf32.tf32 {" DLIST "}, {" IA "}, %" IB             \
+               ", p, 1, 1;\n}\n"                                           \
+               : ACC(C)                                                   \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),     \
+                 "r"(SCALE_D))
+#define WG_TF32_RS(NN, R, DLIST, ACC, IA, IB, IP)                          \
+  __device__ __forceinline__ void wgmma_tf32_rs(                          \
+      float(&d)[R], const uint32_t(&a)[4], uint64_t db, bool accumulate) { \
+    if (accumulate) {                                                     \
+      WG_TF32_RS_ASM(NN, DLIST, ACC, "+f", IA, IB, IP, 1);                \
+    } else {                                                              \
+      WG_TF32_RS_ASM(NN, DLIST, ACC, "=f", IA, IB, IP, 0);                \
+    }                                                                     \
+  }
+WG_TF32_RS("32", 16, WG_D16, WG_ACC16_0, "%16, %17, %18, %19", "20", "21")
+WG_TF32_RS("64", 32, WG_D32, WG_ACC32_0, "%32, %33, %34, %35", "36", "37")
+WG_TF32_RS("128", 64, WG_D64, WG_ACC64, "%64, %65, %66, %67", "68", "69")
+
+// x rounded to tf32 (10 mantissa bits, to nearest, ties away), as the
+// .b32 the tensor cores read; its 13 low bits are zero.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y & 0xffffe000u;
+}
+// x = hi + lo.  hi is x rounded as to_tf32 rounds it, by integer
+// arithmetic on its bits (the same value for every finite x, without the
+// conversion's cost, which is what a split of every p pays most for);
+// lo = to_tf32(x - hi), exact in float32 before its rounding, keeps a NaN
+// of x (whatever hi became).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// The A fragment of k-step j, hi and lo, from an accumulator's registers
+// 4 j .. 4 j + 3 (x[0..3]), in the order (0, 2, 1, 3).
+__device__ __forceinline__ void acc_to_a(const float* x, uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[2], hi[1], lo[1]);
+  split_tf32(x[1], hi[2], lo[2]);
+  split_tf32(x[3], hi[3], lo[3]);
+}
+
+// Where row j of a group of 8 goes in a B tile read by such an A: the
+// accumulator's column 2 t is A's column t, 2 t + 1 is t + 4.
+__device__ __forceinline__ int perm8(int j) {
+  return (j & ~7) | ((j & 1) << 2) | ((j >> 1) & 3);
+}
+
+// Byte offset of element (r, c) of a K-major float32 tile of R rows.
+template <int R>
+__device__ __forceinline__ uint32_t f32_offset(int r, int c) {
+  return (c >> 5) * (R * 128) + r * 128 + ((((c >> 2) & 7) ^ (r & 7)) << 4) +
+         ((c & 3) << 2);
+}
+
+// The descriptor offset (16-byte units) of k-step kk in a K-major tile of
+// R rows: 32 bytes a k-step inside a 128-byte row, R * 128 bytes a block
+// of 32 columns.
+template <int R>
+__device__ __forceinline__ uint32_t kstep(int kk) {
+  return (kk >> 2) * (R * 128 / 16) + (kk & 3) * 2;
+}
+
+// D = A B^T over KSTEPS k-steps in three passes, lo.hi, hi.lo, then
+// hi.hi (the first k-step overwrites D): a and b are the descriptors of
+// A's hi tile (RA rows) and B's (RB rows); their lo tiles lie lo_a and
+// lo_b (16-byte units) past them.
+template <int KSTEPS, int RA, int RB, int N>
+__device__ __forceinline__ void tf32x3_ss(float (&d)[N], uint64_t a,
+                                          uint32_t lo_a, uint64_t b,
+                                          uint32_t lo_b) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    wgmma_tf32_ss(d, a + lo_a + kstep<RA>(kk), b + kstep<RB>(kk), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    wgmma_tf32_ss(d, a + kstep<RA>(kk), b + lo_b + kstep<RB>(kk), true);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    wgmma_tf32_ss(d, a + kstep<RA>(kk), b + kstep<RB>(kk), true);
+  }
+}
+
+// D = A B over KSTEPS k-steps in the same three passes, A's hi and lo
+// fragments in registers (acc_to_a), B's hi tile (RB rows) at b and its
+// lo tile lo_b past it.
+template <int KSTEPS, int RB, int N>
+__device__ __forceinline__ void tf32x3_rs(float (&d)[N],
+                                          const uint32_t (&hi)[KSTEPS][4],
+                                          const uint32_t (&lo)[KSTEPS][4],
+                                          uint64_t b, uint32_t lo_b) {
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    wgmma_tf32_rs(d, lo[kk], b + kstep<RB>(kk), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    wgmma_tf32_rs(d, hi[kk], b + lo_b + kstep<RB>(kk), true);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    wgmma_tf32_rs(d, hi[kk], b + kstep<RB>(kk), true);
+  }
+}
+
+// Rows [row0, row0 + R) of a [len, d] float32 slab, DP columns, into
+// registers: chunk c = threadIdx.x + i THREADS of the tile is row c % R,
+// columns 4 (c / R) .. + 3 (a warp's lanes take 32 rows of one column
+// chunk, so the stores below are free of bank conflicts).  Rows at or past
+// len and columns at or past d (d % 4 == 0) are zero.  vec: 16-byte loads
+// (the slab starts 16 bytes aligned).
+template <int R, int DP, int THREADS>
+__device__ __forceinline__ void fetch_f32(float4 (&x)[R * DP / 4 / THREADS],
+                                          const float* __restrict__ src,
+                                          int row0, int len, int d,
+                                          bool vec) {
+  static_assert(R * DP % (4 * THREADS) == 0 && R % 32 == 0, "whole passes");
+#pragma unroll
+  for (int i = 0; i < R * DP / 4 / THREADS; ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    const int row = row0 + c % R;
+    const int col = 4 * (c / R);
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row < len && col < d) {
+      const float* p = src + (long long)row * d + col;
+      if (vec) {
+        v = __ldg(reinterpret_cast<const float4*>(p));
+      } else {
+        v = make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+      }
+    }
+    x[i] = v;
+  }
+}
+
+// fetch_f32's registers split into the hi and lo K-major [R][DP] tiles at
+// shared addresses hi and lo.
+template <int R, int DP, int THREADS>
+__device__ __forceinline__ void put_f32(uint32_t hi, uint32_t lo,
+                                        const float4 (&x)[R * DP / 4 /
+                                                          THREADS]) {
+#pragma unroll
+  for (int i = 0; i < R * DP / 4 / THREADS; ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    const uint32_t off = f32_offset<R>(c % R, 4 * (c / R));
+    uint32_t h[4], l[4];
+    split_tf32(x[i].x, h[0], l[0]);
+    split_tf32(x[i].y, h[1], l[1]);
+    split_tf32(x[i].z, h[2], l[2]);
+    split_tf32(x[i].w, h[3], l[3]);
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(hi + off),
+                 "r"(h[0]), "r"(h[1]), "r"(h[2]), "r"(h[3])
+                 : "memory");
+    asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(lo + off),
+                 "r"(l[0]), "r"(l[1]), "r"(l[2]), "r"(l[3])
+                 : "memory");
+  }
+}
+
+// The same registers split into transposed K-major [DP][R] tiles: element
+// (r, c) at row c, column perm8(r), the B operand of a product whose A is
+// an accumulator fragment (acc_to_a).
+template <int R, int DP, int THREADS>
+__device__ __forceinline__ void put_f32_t(uint32_t hi, uint32_t lo,
+                                          const float4 (&x)[R * DP / 4 /
+                                                            THREADS]) {
+#pragma unroll
+  for (int i = 0; i < R * DP / 4 / THREADS; ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    const int p = perm8(c % R);
+    const int col = 4 * (c / R);
+    const float v[4] = {x[i].x, x[i].y, x[i].z, x[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t off = f32_offset<DP>(col + e, p);
+      uint32_t h, l;
+      split_tf32(v[e], h, l);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(hi + off), "r"(h)
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(lo + off), "r"(l)
+                   : "memory");
+    }
+  }
+}
 
 // 2^x on the MUFU, denormal results flushed to 0.
 __device__ __forceinline__ float ex2(float x) {

@@ -1,7 +1,9 @@
 """Attention: ``flash_attention`` over the hand-written CUDA kernels
-(``csrc/flash.cu``, K4: bfloat16 on the tensor cores, float32 on the FMA
-units; ``csrc/flash_bwd.cu``, its backward, bfloat16 on the tensor cores
-where TMA can read the rows, the rest on the FMA units) and their
+(``csrc/flash.cu``, K4: bfloat16 on the tensor cores, float32 there as
+three TF32 passes at head dims that are multiples of 8 up to 128 and on
+the FMA units otherwise; ``csrc/flash_bwd.cu``, its backward, bfloat16
+on the tensor cores where TMA can read the rows, float32 in three TF32
+passes up to head dim 64, the rest on the FMA units) and their
 plain torch versions."""
 from repro_torch.kernels.flash.flash import (
     FlashAttentionFn,

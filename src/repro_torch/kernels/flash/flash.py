@@ -4,8 +4,12 @@ grouped-query, with an online softmax) in one CUDA kernel per type.
 ``flash_cuda`` (K4, the TPU's ``repro.kernels.flash.flash.flash_pallas``)
 wraps the hand-written Hopper kernels in ``repro_torch/csrc/flash.cu``
 (see the note in the source): bfloat16 on the tensor cores (``wgmma``,
-K and V in a ring of tiles filled by TMA), float32 on the FMA units
-(IEEE float32 products).  ``flash_plan`` is the tiling each one launches with.
+K and V in a ring of tiles filled by TMA); float32 at head dims that are
+multiples of 8 up to ``TF32_MAX_HEAD_DIM`` on the tensor cores too, as
+three TF32 passes (each operand split into a tf32 hi and lo, lo.hi +
+hi.lo + hi.hi summed in float32: the dropped lo.lo term is about 2^-22
+of a product), and at other head dims on the FMA units (IEEE float32
+products).  ``flash_plan`` is the tiling each one launches with.
 ``flash_plain`` is their plain PyTorch version, the same recurrence over
 key blocks in stock torch ops: the CPU path and the oracle the kernels
 are held against on the card.  All use the TPU kernel's numbers: float32
@@ -26,8 +30,9 @@ the same gradient: its forward is K4 with each row's log-sum-exp kept
 (``csrc/flash_bwd.cu``: ``delta = rowsum(dO * O)``, then dK / dV per key
 tile and KV head, then dQ per query tile and head, each recomputing
 ``p = exp(s * scale - lse)``, deterministic; bfloat16 at ``D % 8 == 0``
-up to 128 on the tensor cores with ``wgmma`` and TMA, the rest on the
-FMA units, ``flash_bwd_plan``), and
+up to 128 on the tensor cores with ``wgmma`` and TMA, float32 at
+``D % 8 == 0`` up to ``TF32_BWD_MAX_HEAD_DIM`` there in three TF32
+passes, the rest on the FMA units, ``flash_bwd_plan``), and
 ``flash_plain_backward`` their plain version, the same recurrence over
 key blocks in stock torch.
 """
@@ -43,13 +48,16 @@ from repro_torch.kernels.flash.ref import NEG_INF
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+TF32_MAX_HEAD_DIM = 128      # the forward's three-pass TF32 route
+TF32_BWD_MAX_HEAD_DIM = 64   # the backward's
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block can use
 
 
 class FlashPlan(NamedTuple):
     """How ``csrc/flash.cu`` tiles one head dim and type."""
 
-    kernel: str       # "wgmma" (bfloat16, tensor cores) or "fma" (float32)
+    kernel: str       # "wgmma" (bfloat16), "tf32" (float32, three-pass
+                      # TF32 on the tensor cores) or "fma" (float32)
     head_dim: int     # the width the kernel computes over, >= D
     block_q: int      # queries per block
     block_k: int      # keys per streamed tile
@@ -65,9 +73,16 @@ def flash_plan(d: int, dtype: torch.dtype) -> FlashPlan:
     queries (two warpgroups of 64), 128 keys a tile at width 64 and 64
     above, a ring of two K/V stages, their two mbarriers (64 bytes kept)
     and 1 KB to align the 128-byte swizzle atoms.
-    float32: 64 queries by 64 keys, the accumulator in ``16 * NJ``
-    columns (``NJ`` = ``ceil(d / 16)`` rounded up to a power of two) and
-    Q, K, V, P tiles in float32 with an odd row stride."""
+    float32 with ``d % 8 == 0`` up to ``TF32_MAX_HEAD_DIM``: the
+    three-pass TF32 kernel, ``d`` padded to 32, 64 or 128, 128 queries
+    (two warpgroups of 64), 64 keys a tile at width 64 and 32 otherwise,
+    one stage in shared memory (the next tile waits in registers): the hi
+    and lo float32 tiles of Q, K and V's transpose, and 1 KB of
+    alignment.
+    float32 otherwise: 64 queries by 64 keys on the FMA units, the
+    accumulator in ``16 * NJ`` columns (``NJ`` = ``ceil(d / 16)`` rounded
+    up to a power of two) and Q, K, V, P tiles in float32 with an odd row
+    stride."""
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside [1, {MAX_HEAD_DIM}]")
     if dtype == torch.bfloat16:
@@ -75,6 +90,11 @@ def flash_plan(d: int, dtype: torch.dtype) -> FlashPlan:
         bq, bk, stages = 128, (128 if dp == 64 else 64), 2
         return FlashPlan("wgmma", dp, bq, bk, stages,
                          2 * dp * (bq + 2 * stages * bk) + 64 + 1024)
+    if dtype == torch.float32 and d % 8 == 0 and d <= TF32_MAX_HEAD_DIM:
+        dp = 32 if d <= 32 else 64 if d <= 64 else 128
+        bq, bk = 128, (64 if dp == 64 else 32)
+        return FlashPlan("tf32", dp, bq, bk, 1,
+                         2 * 4 * dp * (bq + 2 * bk) + 1024)
     if dtype == torch.float32:
         nj = 1 << (-(-d // 16) - 1).bit_length()
         return FlashPlan("fma", 16 * nj, 64, 64, 1,
@@ -304,7 +324,8 @@ def _bwd_lib() -> ctypes.CDLL:
 class FlashBwdPlan(NamedTuple):
     """How ``csrc/flash_bwd.cu`` tiles one head dim and type."""
 
-    kernel: str       # "wgmma" (tensor cores) or "fma" (FMA units)
+    kernel: str       # "wgmma" (bfloat16) or "tf32" (float32) on the
+                      # tensor cores, or "fma" (FMA units)
     head_dim: int     # the width the kernels compute over, >= D
     block_rows: int   # a block's own rows: keys (dK / dV), queries (dQ)
     block_cols: int   # rows of a streamed tile: queries (dK / dV), keys
@@ -325,7 +346,15 @@ def flash_bwd_plan(d: int, dtype: torch.dtype) -> FlashBwdPlan:
     the two resident and six streamed bf16 tiles, for dK / dV each
     stage's 64 ``lse`` and ``delta`` floats, three mbarriers (64 bytes
     kept) and 1 KB to align the 128-byte swizzle atoms.
-    float32, and bfloat16 otherwise: the FMA tiles, 64 rows square up to
+    float32 with ``d % 8 == 0`` up to ``TF32_BWD_MAX_HEAD_DIM`` (at 128
+    the hi and lo tiles would not fit one block's shared memory): the
+    three-pass TF32 kernels, ``d`` padded to 32 or 64, 128 rows a block,
+    streamed tiles of 32 rows, one stage in shared memory (the next tile
+    waits in registers); the hi and lo float32 tiles of the two resident
+    operands and of the streamed ones (dK / dV: Q, dO and both
+    transposed, and the tile's 32 ``lse`` and ``delta`` floats; dQ: K, V
+    and K transposed), and 1 KB of alignment.
+    float32 and bfloat16 otherwise: the FMA tiles, 64 rows square up to
     ``d`` = 128, 32 above; four float32 ``[block, d + 1]`` tiles, one
     (dQ) or two (dK / dV) ``[block, block + 1]`` product tiles and
     ``2 block`` row statistics."""
@@ -339,6 +368,14 @@ def flash_bwd_plan(d: int, dtype: torch.dtype) -> FlashBwdPlan:
         dq = 2 * dp * (2 * rows + 2 * stages * cols) + 64 + 1024
         return FlashBwdPlan("wgmma", dp, rows, cols, stages,
                             dq + stages * 2 * cols * 4, dq)
+    if dtype == torch.float32 and d % 8 == 0 and d <= TF32_BWD_MAX_HEAD_DIM:
+        dp = 32 if d <= 32 else 64
+        rows, cols = 128, 32
+        resident = 2 * 2 * 4 * dp * rows
+        return FlashBwdPlan("tf32", dp, rows, cols, 1,
+                            resident + 4 * 2 * 4 * dp * cols + 2 * cols * 4
+                            + 1024,
+                            resident + 3 * 2 * 4 * dp * cols + 1024)
     bt = 64 if d <= 128 else 32
     tiles = 4 * bt * (d + 1) + 2 * bt
     return FlashBwdPlan("fma", d, bt, bt, 1,
@@ -350,10 +387,11 @@ def flash_backward_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True):
     """K4's backward through the CUDA kernels: ``(dq, dk, dv)`` as
-    ``flash_plain_backward`` computes them (the tensor-core route rounds
-    ``dS`` to bfloat16 before the dK and dQ products).  A CPU tensor takes
-    the plain version; a CUDA tensor queues the three kernels of its
-    route (``flash_bwd_plan``) with one call (counted once in
+    ``flash_plain_backward`` computes them (the bfloat16 tensor-core
+    route rounds ``dS`` to bfloat16 before the dK and dQ products; the
+    float32 one takes every product in three TF32 passes).  A CPU tensor
+    takes the plain version; a CUDA tensor queues the three kernels of
+    its route (``flash_bwd_plan``) with one call (counted once in
     ``flash_backward_cuda.launches``) or raises.  ``q, out, dout
     [B, H, Sq, D]``, ``k, v [B, KvH, Sk, D]`` in one type, ``lse [B, H,
     Sq]`` float32 from ``flash_cuda(..., return_lse=True)``.  A fake

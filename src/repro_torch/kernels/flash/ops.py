@@ -14,7 +14,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``h`` reads KV head ``h // (H // KvH)``, the grouped-query order of
     the JAX package's model; float32 or bfloat16) -> ``[B, H, Sq, D]`` in
     the type of ``q``: the hand-written CUDA kernels (``csrc/flash.cu``;
-    bfloat16 on the tensor cores, float32 on the FMA units) on a CUDA
+    bfloat16 on the tensor cores, float32 there in three TF32 passes or
+    on the FMA units, ``flash_plan``) on a CUDA
     tensor, their plain version on a CPU one.  JAX's ``interpret``
     flag has no counterpart.
 

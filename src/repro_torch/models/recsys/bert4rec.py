@@ -8,13 +8,17 @@ the way out.  ``retrieval_score`` is the 1M-candidate retrieval shape:
 one user state against a candidate id list, a gather and one product.
 
 Attention goes through ``models.attention.bidirectional_attention``:
-K4 on a CUDA tensor (``causal=False``, float32 on the FMA tiles, and its
-hand-written backward while a gradient is taken), its plain version on
-a CPU one.  As in the reference's code (its comment says otherwise), no
+K4 on a CUDA tensor (``causal=False``, and its hand-written backward
+while a gradient is taken), its plain version on a CPU one.  K4's
+float32 products at BERT4Rec's head dim of 32 are three TF32 passes on
+the tensor cores (each operand split into a tf32 hi and lo, lo.hi +
+hi.lo + hi.hi summed in float32: only the lo.lo term, about 2^-22 of a
+product, is dropped), held to the float32 limits of the FMA tiles they
+replace.  As in the reference's code (its comment says otherwise), no
 key is masked: PAD positions enter every softmax, and only ``x *
 pad_mask`` after each block zeroes them.  GELU is the tanh form
-(``jax.nn.gelu``'s default).  Products are IEEE float32: TF32 stays off,
-torch's default.
+(``jax.nn.gelu``'s default).  The model's own matmuls are IEEE float32:
+torch's TF32 switch stays off, its default.
 
 Parameters are the reference's pytree as dicts and lists of float32
 tensors (``train.tree`` walks them in ``jax.tree.leaves``' order).

@@ -606,6 +606,24 @@ def test_cuda_segsum_wrapper_rejects_what_the_kernel_does_not_take(card):
         segsum_sorted_cuda(msgs, ids[:4], 3, block_e=0)
 
 
+def _kernel_names(call, runs=2):
+    """The CUDA kernels ``call`` launches, by the profiler's names: the
+    card synchronised first, CPU and CUDA activity (as ``chip_smoke``'s
+    ``profiled``), and the call made ``runs`` times inside the session
+    (a kernel the tracer misses once is still seen)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            call()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
 def _flash_qkv(rng, dev, dtype, sq, sk, d, b=2, h=3):
     return tuple(torch.as_tensor(
         rng.standard_normal((b, h, s, d)).astype(np.float32) * scale,
@@ -614,15 +632,22 @@ def _flash_qkv(rng, dev, dtype, sq, sk, d, b=2, h=3):
 
 
 # Head dims 8, 40, 64, 96, 128 and 256 (every wgmma width, padded and
-# not), and 20 (no multiple of 8: the element-wise tile loads).
+# not), and 20 (no multiple of 8: the element-wise tile loads); float32 D
+# 8, 32, 40, 64, 96 and 128 on the three-pass TF32 route (8 keys, 200 in
+# one 32- or 64-key tile sequence, 256, 257), D 20, 36 and 256 on the FMA
+# tiles.
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,d", [(200, 64), (128, 40), (256, 256), (70, 8),
-                                 (333, 96), (257, 128), (90, 20)])
+                                 (333, 96), (257, 128), (90, 20), (8, 8),
+                                 (200, 32), (256, 32), (257, 64), (100, 36)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_kernel_equals_plain(card, causal, dtype, s, d):
     rng = np.random.default_rng(s + d)
     q, k, v = _flash_qkv(rng, card, dtype, s, s, d)
+    if dtype == torch.float32:
+        assert flash_plan(d, dtype).kernel == (
+            "tf32" if d % 8 == 0 and d <= 128 else "fma")
     before = flash_cuda.launches
     got = flash_attention(q, k, v, causal=causal, block_k=s if not causal
                           else 128)
@@ -637,13 +662,17 @@ def test_cuda_flash_kernel_equals_plain(card, causal, dtype, s, d):
 
 
 # (Sq, Sk, D, causal): causal Sq < Sk and Sq > Sk with a ragged Sk, one
-# query and one key, and Sk no multiple of the 128- or 64-key tile.
+# query and one key, and Sk no multiple of the 128- or 64-key tile; for
+# float32's TF32 route also Sk 8, 200, 256 and 257 against its 32- and
+# 64-key tiles, and causal Sq != Sk at D 8, 32 and 64.
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,sk,d,causal", [
     (100, 300, 64, True), (300, 100, 64, True), (300, 129, 128, True),
     (1, 1, 64, True), (1, 1, 128, False), (1, 77, 256, False),
     (5, 200, 256, True), (64, 130, 64, False), (200, 65, 256, False),
-    (129, 257, 96, True),
+    (129, 257, 96, True), (8, 8, 8, False), (200, 200, 32, False),
+    (64, 256, 32, True), (300, 257, 64, True), (257, 100, 32, True),
+    (33, 8, 8, True),
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_ragged_shapes_equal_plain(card, dtype, sq, sk, d,
@@ -681,6 +710,46 @@ def test_cuda_flash_unaligned_rows_equal_plain(card, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+def test_cuda_flash_float32_unaligned_rows_equal_plain(card, d):
+    """Float32 operands 4 bytes past a 16-byte boundary: the TF32 kernels
+    load and store them element by element, forward and backward."""
+    rng = np.random.default_rng(d + 7)
+    shape = (1, 2, 150, d)
+    n = int(np.prod(shape))
+    q, k, v, dout = (torch.as_tensor(rng.standard_normal(n + 1).astype(
+        np.float32) * scale, device=card)[1:].view(shape)
+        for scale in (0.3, 0.3, 1.0, 1.0))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    assert flash_plan(d, torch.float32).kernel == "tf32"
+    assert flash_bwd_plan(d, torch.float32).kernel == "tf32"
+    out, lse = flash_cuda(q, k, v, causal=True, return_lse=True)
+    p_out, p_lse = flash_plain(q, k, v, causal=True, return_lse=True)
+    torch.testing.assert_close(out, p_out, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, p_lse, rtol=1e-5, atol=1e-5)
+    got = flash_backward_cuda(q, k, v, out, lse, dout, causal=True)
+    want = flash_plain_backward(q, k, v, p_out, p_lse, dout, causal=True)
+    torch.cuda.synchronize()
+    for name, g, w in zip("qkv", got, want):
+        assert _rel_max(g, w) <= 1e-4, (name, _rel_max(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_cuda_flash_float32_tf32_is_bitwise_repeatable(card, d):
+    """The three-pass TF32 forward, output and lse: no atomics, two
+    launches give the same bits."""
+    assert flash_plan(d, torch.float32).kernel == "tf32"
+    rng = np.random.default_rng(d + 1)
+    q, k, v = _flash_qkv(rng, card, torch.float32, 700, 700, d)
+    first = flash_cuda(q, k, v, causal=True, return_lse=True)
+    second = flash_cuda(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_cuda_flash_bf16_is_bitwise_repeatable(card, d):
     """No atomics: two launches give the same bits."""
@@ -694,13 +763,27 @@ def test_cuda_flash_bf16_is_bitwise_repeatable(card, d):
 
 @pytest.mark.cuda
 def test_cuda_flash_plan_matches_the_kernel(card):
-    """``flash_plan``'s shared memory is what the source launches with."""
+    """``flash_plan``'s shared memory is what the source launches with,
+    and its route the kernel the profiler sees launched."""
     lib = flash_lib()
     for dtype, code in FLASH_DTYPES.items():
         for d in range(1, 257):
             assert lib.flash_smem_bytes(d, code) == flash_plan(
                 d, dtype).smem_bytes, (dtype, d)
         assert lib.flash_smem_bytes(257, code) == -1
+    names = {"wgmma": "flash_wgmma_kernel<", "tf32": "flash_tf32_kernel<",
+             "fma": "flash_kernel<"}
+    for dtype, d in ((torch.float32, 8), (torch.float32, 32),
+                     (torch.float32, 64), (torch.float32, 128),
+                     (torch.float32, 36), (torch.float32, 256),
+                     (torch.bfloat16, 64)):
+        q, k, v = _flash_qkv(np.random.default_rng(d), card, dtype, 70, 70,
+                             d)
+        seen = _kernel_names(lambda: flash_cuda(q, k, v, causal=True))
+        launched = {n for n, part in names.items()
+                    for key in seen if part in key}
+        assert launched == {flash_plan(d, dtype).kernel}, (dtype, d,
+                                                            launched)
 
 
 @pytest.mark.cuda
@@ -1549,7 +1632,8 @@ def test_cuda_shape_budget_audit_on_the_card(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,kvh", [(32, 8), (8, 1), (6, 3)])
 @pytest.mark.parametrize("s,d,causal", [(300, 64, True), (257, 128, False),
-                                        (90, 20, True), (130, 256, True)])
+                                        (90, 20, True), (130, 256, True),
+                                        (200, 32, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_gqa_equals_plain(card, dtype, s, d, causal, h, kvh):
     rng = np.random.default_rng(h * 100 + kvh + s + d)
@@ -1651,8 +1735,10 @@ def _rel_max(got, want):
 
 # MHA and GQA (llama3.2-1b's 32:8 and multi-query), head dims 8 to 256
 # (both FMA tile sizes; bfloat16 D 8, 40, 64, 120 and 128 on the tensor
-# cores, D 36 and 256 on the FMA units), S ragged against the 32-, 64-
-# and 128-row tiles, and causal Sq != Sk both ways.
+# cores, D 36 and 256 on the FMA units; float32 D 8, 32, 40 and 64 in
+# three TF32 passes, D 36, 120, 128 and 256 on the FMA units), S ragged
+# against the 32-, 64- and 128-row tiles (Sk 8, 200, 256 and 257 too),
+# and causal Sq != Sk both ways.
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,kvh", [(4, 4), (8, 2), (4, 1), (32, 8)])
 @pytest.mark.parametrize("s,sk,d,causal", [
@@ -1660,7 +1746,8 @@ def _rel_max(got, want):
     (130, 130, 256, True), (96, 96, 40, False), (65, 65, 256, False),
     (129, 129, 128, True), (100, 100, 36, True), (128, 128, 64, True),
     (257, 257, 120, True), (64, 192, 64, True), (300, 100, 128, True),
-    (190, 70, 64, False)])
+    (190, 70, 64, False), (8, 8, 8, False), (200, 200, 32, False),
+    (256, 256, 32, True), (100, 257, 64, True), (257, 100, 32, True)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_backward_equals_plain(card, dtype, s, sk, d, causal, h,
                                           kvh):
@@ -1682,44 +1769,49 @@ def test_cuda_flash_backward_equals_plain(card, dtype, s, sk, d, causal, h,
         assert _rel_max(g, w) <= tol, (name, _rel_max(g, w))
 
 
+# The source's flash_bwd_route codes.
+BWD_ROUTES = {"fma": 0, "wgmma": 1, "tf32": 2}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 40, "wgmma"), (torch.float32, 64, "fma"),
+    (torch.bfloat16, 40, "wgmma"), (torch.float32, 64, "tf32"),
+    (torch.float32, 32, "tf32"), (torch.float32, 8, "tf32"),
+    (torch.float32, 128, "fma"), (torch.float32, 36, "fma"),
     (torch.bfloat16, 36, "fma"), (torch.bfloat16, 256, "fma")])
 def test_cuda_flash_backward_launches_its_routes_kernels(card, dtype, d,
                                                          route):
-    """bfloat16 at D % 8 == 0 up to 128 runs the tensor-core kernels, and
-    float32, D % 8 != 0 and D = 256 the FMA ones: the plan, the source's
-    ``flash_bwd_route`` and the kernels the profiler sees agree."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """bfloat16 at D % 8 == 0 up to 128 runs the bf16 tensor-core
+    kernels, float32 at D % 8 == 0 up to 64 the three-pass TF32 ones, and
+    the rest (D % 8 != 0, D = 256, float32 D = 128) the FMA ones: the
+    plan, the source's ``flash_bwd_route`` and the kernels the profiler
+    sees agree."""
     from repro_torch.kernels.flash.flash import _bwd_lib
 
     assert flash_bwd_plan(d, dtype).kernel == route
-    assert _bwd_lib().flash_bwd_route(d, FLASH_DTYPES[dtype]) == (
-        route == "wgmma")
+    assert _bwd_lib().flash_bwd_route(d, FLASH_DTYPES[dtype]) == \
+        BWD_ROUTES[route]
     rng = np.random.default_rng(d)
     args = _bwd_inputs(rng, card, dtype, 1, 4, 2, 150, d, True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        flash_backward_cuda(*args, causal=True)
-        torch.cuda.synchronize()
-    names = [e.key for e in prof.key_averages() if "flash_bwd" in e.key]
-    tc = [n for n in names if "_wgmma<" in n]
-    fma = [n for n in names if "flash_bwd_dkdv<" in n or "flash_bwd_dq<" in n]
+    names = [n for n in _kernel_names(
+        lambda: flash_backward_cuda(*args, causal=True)) if "flash_bwd" in n]
+    by_route = {
+        "wgmma": [n for n in names if "_wgmma<" in n],
+        "tf32": [n for n in names if "_tf32<" in n],
+        "fma": [n for n in names
+                if "flash_bwd_dkdv<" in n or "flash_bwd_dq<" in n]}
     assert any("flash_bwd_delta<" in n for n in names), names
-    if route == "wgmma":
-        assert len(tc) == 2 and not fma, names
-    else:
-        assert len(fma) == 2 and not tc, names
+    assert {r: len(n) for r, n in by_route.items()} == {
+        r: 2 if r == route else 0 for r in by_route}, names
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_backward_is_bitwise_repeatable(card, dtype, d):
     """No atomics: two calls give the same bits (bfloat16 on the
-    tensor-core route)."""
+    tensor-core route, float32 at D 32 and 64 in three TF32 passes)."""
     rng = np.random.default_rng(11)
     args = _bwd_inputs(rng, card, dtype, 2, 8, 2, 333, d, True)
     first = flash_backward_cuda(*args, causal=True)
@@ -1730,7 +1822,7 @@ def test_cuda_flash_backward_is_bitwise_repeatable(card, dtype, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [8, 64, 128, 256])
+@pytest.mark.parametrize("d", [8, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_lse_equals_plain(card, dtype, d):
     """The forward's row log-sum-exp against ``flash_plain``'s, and its
@@ -1761,7 +1853,7 @@ def test_cuda_flash_bwd_plan_matches_the_kernel(card):
             assert (lib.flash_bwd_smem_bytes(d, code, 0),
                     lib.flash_bwd_smem_bytes(d, code, 1)) == (
                         plan.dkdv_smem, plan.dq_smem), (dtype, d)
-            assert lib.flash_bwd_route(d, code) == (plan.kernel == "wgmma")
+            assert lib.flash_bwd_route(d, code) == BWD_ROUTES[plan.kernel]
         assert lib.flash_bwd_smem_bytes(257, code, 0) == -1
         assert lib.flash_bwd_route(0, code) == -1
     assert lib.flash_bwd_smem_bytes(64, 2, 0) == -1
@@ -1980,11 +2072,13 @@ def _tree_to(tree, dev):
 @pytest.mark.parametrize("b", [4, 1])
 def test_cuda_flash_bidirectional_float32_at_bert4rec_shape(card, b):
     """K4 at BERT4Rec's attention shape (``[B, 2, 200, 32]`` float32,
-    ``causal=False``: the FMA tiles, 200 keys in one ``block_k``) through
-    ``models.attention.bidirectional_attention``: the forward within
-    2e-5 of ``flash_plain`` and ``naive_attention(causal=False)``, the
-    backward kernels within 1e-4 of each tensor's largest magnitude of
-    ``flash_plain_backward``; one forward and one backward launch."""
+    ``causal=False``: the three-pass TF32 kernels, 200 keys in one
+    ``block_k``) through ``models.attention.bidirectional_attention``:
+    the forward within 2e-5 of ``flash_plain`` and
+    ``naive_attention(causal=False)``, the backward kernels within 1e-4 of
+    each tensor's largest magnitude of ``flash_plain_backward``; one
+    forward and one backward launch, of the TF32 kernels (the profiler's
+    names)."""
     from repro_torch.models.attention import (
         bidirectional_attention,
         naive_attention,
@@ -2005,6 +2099,17 @@ def test_cuda_flash_bidirectional_float32_at_bert4rec_shape(card, b):
     torch.cuda.synchronize()
     assert (flash_cuda.launches, flash_backward_cuda.launches) == (
         before[0] + 1, before[1] + 1)
+
+    def step():
+        x, y, z = (t.detach().requires_grad_(True) for t in (qs, ks, vs))
+        bidirectional_attention(x, y, z).backward(dout.transpose(1, 2))
+
+    names = [n for n in _kernel_names(step) if "flash" in n]
+    for kernel in ("flash_tf32_kernel<32, 32, 2>",
+                   "flash_bwd_dkdv_tf32<32, 2>", "flash_bwd_dq_tf32<32, 2>"):
+        assert any(kernel in n for n in names), (kernel, names)
+    assert not any("flash_kernel<" in n or "flash_bwd_dkdv<" in n
+                   for n in names), names
     want = naive_attention(*(t.detach() for t in (qs, ks, vs)),
                            causal=False)
     torch.testing.assert_close(got.detach(), want, rtol=2e-5, atol=2e-5)

@@ -21,6 +21,7 @@ from repro.kernels.flash.ref import attention_ref as j_ref
 from repro_torch.kernels.flash import (
     attention_ref,
     flash_attention,
+    flash_bwd_plan,
     flash_cuda,
     flash_plain,
     flash_plan,
@@ -136,7 +137,8 @@ def test_flash_cpu_takes_the_plain_version():
 def test_flash_plan_fits_one_block_at_every_head_dim(dtype):
     """Every D in 1..256 gets a width that covers it and a tiling whose
     dynamic shared memory one Hopper block can have; bfloat16 takes the
-    tensor-core kernel at a ``wgmma`` width, float32 the FMA kernel."""
+    tensor-core kernel at a ``wgmma`` width, float32 the three-pass TF32
+    kernel at D % 8 == 0 up to 128 and the FMA kernel otherwise."""
     widths = set()
     for d in range(1, 257):
         plan = flash_plan(d, dtype)
@@ -151,6 +153,11 @@ def test_flash_plan_fits_one_block_at_every_head_dim(dtype):
             assert plan.head_dim % 16 == 0 and plan.block_k % 16 == 0
             assert plan.head_dim <= 256 and plan.block_k <= 256
             assert plan.head_dim == min(w for w in (64, 128, 256) if w >= d)
+        elif d % 8 == 0 and d <= 128:
+            assert plan.kernel == "tf32"
+            assert plan.head_dim == min(w for w in (32, 64, 128) if w >= d)
+            assert plan.block_q == 128 and plan.stages == 1
+            assert plan.block_k == (64 if plan.head_dim == 64 else 32)
         else:
             assert plan.kernel == "fma"
     if dtype == torch.bfloat16:
@@ -160,6 +167,37 @@ def test_flash_plan_fits_one_block_at_every_head_dim(dtype):
     else:
         assert widths == {16, 32, 64, 128, 256}
         assert flash_plan(256, dtype).smem_bytes == 214_016
+        # The TF32 route's hi and lo tiles of Q, K and V^T, and 1 KB.
+        assert [flash_plan(d, dtype).smem_bytes for d in (32, 64, 128)] \
+            == [50_176, 132_096, 197_632]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_routes_by_type_and_head_dim(dtype):
+    """The route of each head dim 1..256, forward and backward: float32
+    on the three-pass TF32 kernels where D % 8 == 0 (up to 128 forward,
+    64 backward: at 128 the backward's hi and lo tiles would not fit a
+    block), bfloat16 on the bf16 tensor-core kernels; the FMA tiles
+    elsewhere.  Every plan fits the 232,448 bytes one block may use."""
+    routes = {}
+    for d in range(1, 257):
+        fwd, bwd = flash_plan(d, dtype), flash_bwd_plan(d, dtype)
+        routes.setdefault((fwd.kernel, bwd.kernel), []).append(d)
+        assert fwd.smem_bytes <= SMEM_LIMIT
+        assert bwd.dq_smem <= bwd.dkdv_smem <= SMEM_LIMIT
+    eights = list(range(8, 257, 8))
+    if dtype == torch.float32:
+        assert routes[("tf32", "tf32")] == [d for d in eights if d <= 64]
+        assert routes[("tf32", "fma")] == [72, 80, 88, 96, 104, 112, 120,
+                                           128]
+        assert routes[("fma", "fma")] == [d for d in range(1, 257)
+                                          if d % 8 or d > 128]
+    else:
+        assert routes[("wgmma", "wgmma")] == [d for d in eights if d <= 128]
+        assert routes[("wgmma", "fma")] == [d for d in range(1, 257)
+                                            if d % 8 or d > 128]
+    assert flash_bwd_plan(32, torch.float32)[-2:] == (99_584, 91_136)
+    assert flash_bwd_plan(64, torch.float32)[-2:] == (197_888, 181_248)
 
 
 def test_flash_plan_rejects_what_the_kernels_do_not_take():

@@ -345,17 +345,22 @@ def test_flash_plain_lse_is_the_rows_logsumexp():
 def test_flash_bwd_plan_routes_every_head_dim_within_a_block(dtype):
     """The backward's route over head dims 1-256: bfloat16 on the tensor
     cores wherever TMA reads whole 16-byte rows and dK, dV fit a thread's
-    registers (D % 8 == 0, D <= 128), padded to 64 or 128; everything
-    else on the FMA tiles.  Every plan's shared memory fits the 232,448
-    bytes a block may opt into."""
+    registers (D % 8 == 0, D <= 128), padded to 64 or 128; float32 on
+    them in three TF32 passes at D % 8 == 0 up to 64 (the hi and lo
+    tiles), padded to 32 or 64; everything else on the FMA tiles.  Every
+    plan's shared memory fits the 232,448 bytes a block may opt into."""
     for d in range(1, 257):
         p = flash_bwd_plan(d, dtype)
         tc = dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
-        assert p.kernel == ("wgmma" if tc else "fma"), d
+        tf = dtype == torch.float32 and d % 8 == 0 and d <= 64
+        assert p.kernel == ("wgmma" if tc else "tf32" if tf else "fma"), d
         assert 0 < p.dq_smem <= p.dkdv_smem <= SMEM_LIMIT, d
         if tc:
             assert p.head_dim == (64 if d <= 64 else 128), d
             assert (p.block_rows, p.block_cols, p.stages) == (128, 64, 3)
+        elif tf:
+            assert p.head_dim == (32 if d <= 32 else 64), d
+            assert (p.block_rows, p.block_cols, p.stages) == (128, 32, 1)
         else:
             assert p.head_dim == d
             assert p.block_rows == p.block_cols == (64 if d <= 128 else 32)

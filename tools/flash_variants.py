@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time variants of the bfloat16 attention kernels (K4) side by side.
+"""Time variants of the attention kernels (K4) side by side.
 
     python3 tools/flash_variants.py [--parent DIR]  # the forward, flash.cu
     python3 tools/flash_variants.py --backward      # flash_bwd.cu
+    python3 tools/flash_variants.py --float32       # both, float32
 
 Run from the root of a checkout on a machine with an H100 and the CUDA
 toolkit.  Each variant is ``src/repro_torch/csrc/flash.cu`` (or
 ``flash_bwd.cu``) with a few source substitutions (each must match
-exactly once), built in parallel with the shared ``flash_tc.cuh`` on
-the include path.
+exactly once, in the source or in the shared ``flash_tc.cuh``, which
+each variant gets a copy of), built in parallel.
 
 Forward: the shipped kernel, its loads element by element (the fallback
 for head dims that are no multiple of 8) instead of by TMA, one block
@@ -26,11 +27,22 @@ streamed stages, three warpgroups (192 rows) a block, the dK / dV
 blocks ordered by KV head (one head's Q and dO stay in L2) instead of by
 key tile, and the dK / dV kernel capped for two blocks an SM; with ``--parent DIR`` (repeatable),
 also the ``flash_bwd.cu`` of each checkout at DIR as it is, named by
-DIR's last part;
+DIR's last part, with the shipped kernels' SASS compared to its;
 each checked against ``flash_plain_backward`` at llama3.2-1b's 32:8
 heads (``chip_smoke.BWD_TOL``) and timed at ``chip_smoke.BWD_FULL``
 (CUDA events, L2 flushed, median of 5, in turns: the variants in order,
 then in reverse) beside ``scaled_dot_product_attention``'s backward.
+
+Float32 (the three-pass TF32 kernels): forward and backward, the
+shipped kernels, the FMA tiles (the route forced off by a substitution),
+tf32's hi rounded by ``cvt.rna`` instead of integer arithmetic, lo left
+unrounded (the tensor cores read its top 19 bits), 64-key forward tiles
+at width 32 and the backward at one block per SM at width 32; each
+checked against ``flash_plain`` / ``flash_plain_backward`` (phase 8's
+and ``chip_smoke.BWD_TOL``'s float32 limits) and timed at phase 19 (c)'s
+two BERT4Rec shapes and phase 8's float32 case (CUDA events, L2
+flushed, median of 5, in turns) beside ``scaled_dot_product_attention``
+and its backward in float32.
 
 One process on one card.  Prints the card's name and power limit first
 and ``ptxas``'s registers and spills per variant.
@@ -73,7 +85,8 @@ BWD_VARIANTS = {
     "three warpgroups a block": [
         ("constexpr int kThreads = 256;  // two warpgroups",
          "constexpr int kThreads = 384;  // three warpgroups"),
-        ("constexpr int kRows = 128;", "constexpr int kRows = 192;")],
+        ("constexpr int kRows = 128;     // a block's own rows",
+         "constexpr int kRows = 192;     // a block's own rows")],
     "dK / dV blocks by KV head": [(
         "  const int kt = (int)(blockIdx.x / bkv);  // the first tiles walk "
         "longest\n  const long long gk = blockIdx.x % bkv;   // batch * KvH + "
@@ -90,24 +103,52 @@ BWD_VARIANTS = {
 }
 
 
+# Float32 (``--float32``): substitutions in flash.cu, flash_bwd.cu or the
+# shared header.
+HI_INT = "  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
+LO_CVT = "  lo = to_tf32(x - __uint_as_float(hi));"
+F32_VARIANTS = {
+    "shipped": [],
+    "FMA tiles": [("return d % 8 == 0 && d <= tf32::kMaxDim;",
+                   "return false && d;")],
+    "hi by cvt.rna": [(HI_INT, "  hi = to_tf32(x);")],
+    "lo unrounded": [(LO_CVT, "  lo = __float_as_uint(x - "
+                              "__uint_as_float(hi));")],
+    "64-key tiles at width 32": [("return dp == 64 ? 64 : 32;",
+                                  "return dp == 128 ? 32 : 64;")],
+}
+F32_BWD_VARIANTS = {
+    "shipped": [],
+    "FMA tiles": [("if (dtype == 0 && d <= tf32::kMaxDim) return 2;", "")],
+    "hi by cvt.rna": F32_VARIANTS["hi by cvt.rna"],
+    "lo unrounded": F32_VARIANTS["lo unrounded"],
+    "one block per SM at width 32": [("return dp == 32 ? 2 : 1;",
+                                      "return 1;")],
+}
+
+
 def build(item, source="flash.cu", csrc=CSRC):
     from repro_torch.kernels import _nvcc
 
     name, subs = item
     src = open(os.path.join(csrc, source)).read()
+    header = open(os.path.join(csrc, "flash_tc.cuh")).read()
     for old, new in subs:
-        if src.count(old) != 1:
-            raise SystemExit(f"{name}: {old!r} matches {src.count(old)} "
-                             f"times in {source}")
-        src = src.replace(old, new)
+        if src.count(old) + header.count(old) != 1:
+            raise SystemExit(f"{name}: {old!r} matches "
+                             f"{src.count(old) + header.count(old)} times in "
+                             f"{source} and flash_tc.cuh")
+        src, header = src.replace(old, new), header.replace(old, new)
     stem = os.path.join(OUT, source.split(".")[0] + "_" + "".join(
         c if c.isalnum() else "_" for c in name))
-    with open(stem + ".cu", "w") as f:
-        f.write(src)
-    # The copy includes flash_tc.cuh from its sources' directory.
+    os.makedirs(stem, exist_ok=True)
+    # The copy includes its own flash_tc.cuh, beside it.
+    for text, file in ((src, source), (header, "flash_tc.cuh")):
+        with open(os.path.join(stem, file), "w") as f:
+            f.write(text)
     proc = subprocess.run(
-        [_nvcc.find_nvcc(), *_nvcc.NVCC_FLAGS, "-I", csrc, "-o",
-         stem + ".so", stem + ".cu"], capture_output=True, text=True)
+        [_nvcc.find_nvcc(), *_nvcc.NVCC_FLAGS, "-o", stem + ".so",
+         os.path.join(stem, source)], capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"{name}: nvcc failed\n{proc.stderr[-4000:]}")
     return name, stem + ".so", proc.stdout + proc.stderr
@@ -127,7 +168,7 @@ def build_all(jobs, entry, argtypes):
         getattr(lib, entry).argtypes = argtypes
         libs[name] = lib, path
         for kernel, regs, st, ld, _ in cs.ptxas_summary(log):
-            if "wgmma" in kernel:
+            if "wgmma" in kernel or "tf32" in kernel:
                 print(f"  {name}: {kernel}: {regs} registers, spills {st} B "
                       f"stored / {ld} B loaded")
     return libs
@@ -149,6 +190,24 @@ def parents():
     """The checkouts named by ``--parent DIR`` options, in order."""
     argv = sys.argv[1:]
     return [argv[i + 1] for i, a in enumerate(argv[:-1]) if a == "--parent"]
+
+
+def compare_sass(mine, theirs, source):
+    """Prints which kernels of two builds of ``source`` have the same
+    SASS, and the first differing lines of the others."""
+    mine, theirs = sass(mine), sass(theirs)
+    same = [k for k in mine if theirs.get(k) == mine[k]]
+    differ = sorted(set(mine) ^ set(theirs) | {
+        k for k in mine if k in theirs and theirs[k] != mine[k]})
+    print(f"SASS against the parent's {source}: {len(same)} kernels "
+          f"identical, {len(differ)} differ or are missing: {differ}")
+    for k in differ:
+        a = mine.get(k, "").splitlines()
+        b = theirs.get(k, "").splitlines()
+        diff = [(x, y) for x, y in zip(a, b) if x != y]
+        print(f"  {k[:60]}: {len(a)} / {len(b)} lines, {len(diff)} "
+              "differ; first: " + " || ".join(
+                  f"{x.strip()} <> {y.strip()}" for x, y in diff[:2]))
 
 
 def sass(path):
@@ -195,6 +254,8 @@ def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     if "--backward" in sys.argv[1:]:
         return backward()
+    if "--float32" in sys.argv[1:]:
+        return float32()
     jobs = [(item, "flash.cu") for item in VARIANTS.items()]
     jobs += [(("parent", []), "flash.cu", os.path.join(
         parent, "src", "repro_torch", "csrc")) for parent in parents()[:1]]
@@ -202,19 +263,7 @@ def main() -> int:
         ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                              ctypes.c_void_p])
     if "parent" in libs:
-        mine, theirs = sass(libs["shipped"][1]), sass(libs["parent"][1])
-        same = [k for k in mine if theirs.get(k) == mine[k]]
-        differ = sorted(set(mine) ^ set(theirs) | {
-            k for k in mine if k in theirs and theirs[k] != mine[k]})
-        print(f"SASS against the parent's flash.cu: {len(same)} kernels "
-              f"identical, {len(differ)} differ or are missing: {differ}")
-        for k in differ:
-            a = mine.get(k, "").splitlines()
-            b = theirs.get(k, "").splitlines()
-            diff = [(x, y) for x, y in zip(a, b) if x != y]
-            print(f"  {k[:60]}: {len(a)} / {len(b)} lines, {len(diff)} "
-                  "differ; first: " + " || ".join(
-                      f"{x.strip()} <> {y.strip()}" for x, y in diff[:2]))
+        compare_sass(libs["shipped"][1], libs["parent"][1], "flash.cu")
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -265,6 +314,10 @@ def backward() -> int:
     libs = build_all(jobs, "flash_bwd_launch", [ctypes.c_void_p] * 10 + [
         ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                              ctypes.c_void_p])
+    for parent in parents():
+        compare_sass(libs["shipped"][1],
+                     libs[os.path.basename(os.path.normpath(parent))][1],
+                     "flash_bwd.cu")
 
     dev = torch.device("cuda")
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
@@ -324,6 +377,99 @@ def backward() -> int:
         n_warm=1)
     print(f"backward B={b} H={h} KvH={kvh} S={s} D={d}, ms (in turns): "
           f"{turns} | sdpa enable_gqa backward {sdpa:.4f}")
+    return 0
+
+
+# --float32's shapes: phase 19 (c)'s two (BERT4Rec's attention at
+# serve_p99's 512 sequences and at the training batch of 8,192) and
+# phase 8's float32 case: (label, causal, B, H, S, D).
+F32_CASES = (("bert4rec p99", False, 512, 2, 200, 32),
+             ("bert4rec train", False, 8192, 2, 200, 32)) + tuple(
+    (label, causal, b, h, s, d)
+    for label, dtype_name, causal, b, h, s, d in cs.FLASH_CASES
+    if dtype_name == "float32")
+
+
+def float32() -> int:
+    """The float32 kernels' variants (see the module docstring)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import flash_plain, flash_plain_backward
+
+    fwd = build_all([(item, "flash.cu") for item in F32_VARIANTS.items()],
+                    "flash_launch", [ctypes.c_void_p] * 5 + [
+                        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_void_p])
+    bwd = build_all([(item, "flash_bwd.cu")
+                     for item in F32_BWD_VARIANTS.items()],
+                    "flash_bwd_launch", [ctypes.c_void_p] * 10 + [
+                        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                             ctypes.c_int, ctypes.c_void_p])
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    rtol, atol = cs.FLASH_TOL["float32"]
+    for label, causal, b, h, s, d in F32_CASES:
+        q = torch.randn(b, h, s, d, generator=gen, device=dev) * 0.3
+        k = torch.randn(b, h, s, d, generator=gen, device=dev) * 0.3
+        v = torch.randn(b, h, s, d, generator=gen, device=dev)
+        dout = torch.randn(b, h, s, d, generator=gen, device=dev)
+        out, lse = flash_plain(q, k, v, causal=causal, return_lse=True,
+                               block_q=1024, block_k=1024)
+        want = flash_plain_backward(q, k, v, out, lse, dout, causal=causal,
+                                    block_q=1024, block_k=1024)
+        stream = torch.cuda.current_stream().cuda_stream
+        o = torch.empty_like(q)
+        calls = {}
+        for name, (lib, _) in fwd.items():
+            def call(lib=lib, name=name):
+                rc = lib.flash_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    None, b * h, h, h, s, s, d, 1.0 / d ** 0.5, int(causal),
+                    0, stream)
+                if rc:
+                    raise SystemExit(f"{name}: launch failed: error {rc}")
+            call()
+            torch.cuda.synchronize()
+            err = (o - out).abs() - (atol + rtol * out.abs())
+            rel = cs.row_rel_err(o, out)
+            if err.max().item() > 0 or rel > cs.FLASH_ROW_REL["float32"]:
+                raise SystemExit(f"{name}, {label}: forward outside rtol "
+                                 f"{rtol} atol {atol} or row-relative {rel}")
+            calls[name] = call
+        calls["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
+        print(f"{label} forward (B={b} H={h} S={s} D={d}, "
+              f"{'causal' if causal else 'bidirectional'}, ms, in turns): "
+              f"{in_turns(calls, flush)}", flush=True)
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        delta = torch.empty(lse.shape, dtype=torch.float32, device=dev)
+        calls = {}
+        for name, (lib, _) in bwd.items():
+            def call(lib=lib, name=name):
+                rc = lib.flash_bwd_launch(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    *(g.data_ptr() for g in grads), b * h, h, h, s, s, d,
+                    1.0 / d ** 0.5, int(causal), 0, stream)
+                if rc:
+                    raise SystemExit(f"{name}: launch failed: error {rc}")
+            call()
+            torch.cuda.synchronize()
+            errs = [cs.rel_max(g, w) for g, w in zip(grads, want)]
+            if max(errs) > cs.BWD_TOL["float32"]:
+                raise SystemExit(f"{name}, {label}: dQ, dK, dV {errs}")
+            calls[name] = call
+        qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+        so = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        calls["sdpa backward"] = lambda: torch.autograd.grad(
+            so, (qs, ks, vs), dout, retain_graph=True)
+        print(f"{label} backward (ms, in turns): {in_turns(calls, flush)}",
+              flush=True)
+        del q, k, v, dout, out, lse, want, o, grads, delta, qs, ks, vs, so
+        calls = None
+        torch.cuda.empty_cache()
     return 0
 
 
