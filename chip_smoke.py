@@ -363,6 +363,26 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    kernel and allocate nothing on the card: K4's, its backward's and
    K2a's launch counts and ``torch.cuda.memory_allocated()`` are the
    same after them as before.
+21. the dense LM partitioned by DTensor placements (``launch.tasks``'
+   partitioned cells) over a (data 1, model 1) mesh
+   (``launch.mesh.make_mesh``) on an NCCL group of one: (a) llama3.2-1b
+   at full width on phase 17's weights and batches (``train_4k`` cut to
+   8 x 4,096 in 2 micro-batches) through ``build_task``'s partitioned
+   step, 3 steps in turns with phase 17's plain step on a second state
+   from the same seed, ``flash_plain`` / ``flash_plain_backward`` made
+   to raise: exactly 64 K4 forward launches and 32 backward calls a
+   partitioned step, the first step's loss within 1e-5, ``grad_norm``
+   within 1e-4 and every parameter within 1e-4 of its leaf's largest
+   magnitude of the plain step's, both routes' ms a step, the
+   partitioned step's peak memory over what was held; (b) a
+   partitioned prefill of 4 x 4,096 on phase 16's weights and prompts
+   and 16 partitioned decode steps fed the plain route's greedy ids: 16
+   K4 launches a prefill and none a decode step, logits within 1e-5 of
+   the largest magnitude of the unpartitioned route's and every greedy
+   id the same, both routes timed in turns and profiled (idle share, kernels a call); (c) phase
+   20 (a)'s llama3.2-1b rows partitioned with collectives, and on this
+   1 x 1 mesh each llama3.2-1b cell of phase 20 (b) traced partitioned
+   within 1% of the FLOPs of its global trace, both traces timed.
 
 Prints the kernel line (JSON; every entry carries phase 15's
 ``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
@@ -374,8 +394,9 @@ launches over one step of each GNN; its times at gat-cora's layer-1
 messages on ``ogb_products``) with the rest of phase 18 as ``gnn_*``,
 phase 19's bag pooling as ``bag_*``, phase 7's as ``phase7_*`` and the
 clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase 16's as
-``lm_*``, phase 17's as ``train_*``, its backward's as ``bwd_*`` and
-phase 19's as ``recsys_*``) and, last, the device line
+``lm_*``, phase 17's as ``train_*``, its backward's as ``bwd_*``,
+phase 19's as ``recsys_*`` and phase 21's as ``mesh_*``) and, last, the
+device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
 """
 import json
@@ -5338,12 +5359,18 @@ def dryrun_subprocesses(smi):
         return json.load(f)
 
 
+def cut_shape(spec, name, **dims):
+    """``spec``'s shape ``name`` with ``dims`` replaced (a cell's cut)."""
+    import dataclasses
+
+    shape = spec.shape(name)
+    return dataclasses.replace(shape, dims={**shape.dims, **dims})
+
+
 def card_cells(dev, flash_entry, gnn_entry):
     """Phase 20 (b)'s cells: ``(label, arch, shape spec, reduced, run,
     phase ms, phase peak MiB or None)``; ``run()`` makes the cell's
     inputs as its phase does and returns a call of one step."""
-    import dataclasses
-
     import torch
 
     from repro_torch.configs import get_config
@@ -5407,19 +5434,16 @@ def card_cells(dev, flash_entry, gnn_entry):
                                   RECSYS_TOPK)
         return call
 
-    def cut(spec, name, **dims):
-        shape = spec.shape(name)
-        return dataclasses.replace(shape, dims={**shape.dims, **dims})
-
     models = gnn_entry["gnn_models"]
     cells = [
         ("llama3.2-1b:prefill", LM_ARCH,
-         cut(lm, "prefill_32k", seq_len=LM_PROMPT, global_batch=LM_BATCH),
+         cut_shape(lm, "prefill_32k", seq_len=LM_PROMPT,
+                   global_batch=LM_BATCH),
          f"prefill_32k's 32 x 32,768 -> {LM_BATCH} x {LM_PROMPT:,} "
          "(phase 16 (b))", prefill_run, flash_entry["lm_prefill_ms"], None),
         ("llama3.2-1b:train_4k", LM_ARCH,
-         cut(lm, "train_4k", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-             accum_steps=TRAIN_ACCUM),
+         cut_shape(lm, "train_4k", seq_len=TRAIN_SEQ,
+                   global_batch=TRAIN_BATCH, accum_steps=TRAIN_ACCUM),
          f"train_4k's 256 x 4,096 in 8 micro-batches -> {TRAIN_BATCH} x "
          f"{TRAIN_SEQ:,} in {TRAIN_ACCUM} (phase 17 (a))", train_run,
          flash_entry["train_step_ms"], flash_entry["train_peak_mib"]),
@@ -5431,7 +5455,7 @@ def card_cells(dev, flash_entry, gnn_entry):
                       models[arch]["peak_mib"]))
     cells += [
         ("bert4rec:train_batch", "bert4rec",
-         cut(b4r, "train_batch", batch=recsys_b),
+         cut_shape(b4r, "train_batch", batch=recsys_b),
          f"train_batch's 65,536 -> {recsys_b:,} sequences (phase 19 (a))",
          recsys_train_run, flash_entry["recsys_step_ms"],
          flash_entry["recsys_peak_gib"] * 1024),
@@ -5544,6 +5568,296 @@ def dryrun_phase(dev, flash_entry, gnn_entry, smi):
     torch.cuda.empty_cache()
     log(f"  {at()} phase 20 done")
     return {"dryrun_card": smi, "dryrun_single": rows, "dryrun_cells": out}
+
+
+# Phase 21: the dense LM partitioned by DTensor placements on the card.
+MESH_LOSS_TOL = 1e-5      # (a): of the plain step's loss
+MESH_GNORM_TOL = 1e-4     # (a): of its grad_norm
+MESH_PARAM_TOL = 1e-4     # (a): of each leaf's largest magnitude
+MESH_FLOPS_TOL = 1e-2     # (c): per-device FLOPs against the global trace
+# (b): the partitioned logits against the unpartitioned route's, of the
+# largest magnitude.  On the 1 x 1 mesh both run the same kernels on the
+# same inputs (measured equal), so a wrong cache write or position shows.
+MESH_LOGITS_TOL = 1e-5
+
+
+def whole(x):
+    """A DTensor gathered (on one rank: its local tensor), else ``x``."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def mesh_train(dev, mesh, spec, smi):
+    """Phase 21 (a): the partitioned train step beside phase 17's plain
+    step, in turns, on two states from the same seed."""
+    import torch
+
+    from repro_torch.kernels.flash import flash_backward_cuda, flash_cuda
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.tasks import build_task, distribute_tree
+    from repro_torch.train.tree import leaves
+
+    task = build_task(spec, cut_shape(
+        spec, "train_4k", seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+        accum_steps=TRAIN_ACCUM), mesh)
+    if not (task.partitioned and task.per_device):
+        fail(f"phase 21 (a): {task.name} is not partitioned")
+    cfg, plain = ltrain.build(LM_ARCH, smoke=False, seed=0, device=dev)
+    _, fresh = ltrain.build(LM_ARCH, smoke=False, seed=0, device=dev)
+    state = distribute_tree(fresh, task.placements[0], mesh)
+    del fresh
+    plain_step = ltrain.make_step(cfg, total_steps=TRAIN_STEPS,
+                                  accum_steps=TRAIN_ACCUM)
+    rows, fwd, bwd, peak = [], [], [], 0
+    errs = {}
+    with plain_versions_raise():
+        for i in range(TRAIN_STEPS):
+            batch = ltrain.synthetic_batch(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ,
+                                           i, 0, dev)
+            d_batch = distribute_tree(batch, task.placements[1], mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain, pm = plain_step(plain, batch)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            flash_cuda.launches = flash_backward_cuda.launches = 0
+            t0 = time.perf_counter()
+            state, m = task.fn(state, d_batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            fwd.append(flash_cuda.launches)
+            bwd.append(flash_backward_cuda.launches)
+            peak = max(peak, torch.cuda.max_memory_allocated(dev) - held)
+            got = torch.stack([whole(m[k]) for k in ("loss", "grad_norm",
+                                                     "lr")]).tolist()
+            want = torch.stack([pm[k] for k in ("loss", "grad_norm",
+                                                "lr")]).tolist()
+            rows.append((ms, plain_ms, got, want))
+            if i == 0:
+                errs = {
+                    "loss": abs(got[0] - want[0]) / abs(want[0]),
+                    "grad_norm": abs(got[1] - want[1]) / abs(want[1]),
+                    "params": max(rel_max(whole(a), b) for a, b in zip(
+                        leaves(state.params), leaves(plain.params)))}
+            log(f"  (a) step {i}: partitioned {ms:.1f} ms, plain {plain_ms:.1f}"
+                f" ms; loss {got[0]:.6f} / {want[0]:.6f}, grad_norm "
+                f"{got[1]:.6f} / {want[1]:.6f}; K4 {fwd[-1]} forward "
+                f"launches, {bwd[-1]} backward")
+    if fwd != [TRAIN_FWD_PER_STEP] * TRAIN_STEPS or bwd != [
+            TRAIN_BWD_PER_STEP] * TRAIN_STEPS:
+        fail(f"phase 21 (a): K4 forward launches {fwd} (expected "
+             f"{TRAIN_FWD_PER_STEP} a step), backward {bwd} (expected "
+             f"{TRAIN_BWD_PER_STEP})")
+    if not (errs["loss"] <= MESH_LOSS_TOL
+            and errs["grad_norm"] <= MESH_GNORM_TOL
+            and errs["params"] <= MESH_PARAM_TOL):
+        fail(f"phase 21 (a): the partitioned step against the plain one: "
+             f"{errs} (limits {MESH_LOSS_TOL}, {MESH_GNORM_TOL}, "
+             f"{MESH_PARAM_TOL})")
+    if not all(math.isfinite(x) for r in rows for x in r[2][:2]):
+        fail(f"phase 21 (a): non-finite metrics {rows}")
+    step_ms = statistics.median(r[0] for r in rows[1:])
+    plain_ms = statistics.median(r[1] for r in rows[1:])
+    log(f"  (a) {LM_ARCH} full width partitioned over {mesh}: step "
+        f"{step_ms:.1f} ms against the plain step's {plain_ms:.1f} ms "
+        f"(medians of steps 1-{TRAIN_STEPS - 1}, in turns); first step "
+        f"against the plain one: loss {errs['loss']:.3g}, grad_norm "
+        f"{errs['grad_norm']:.3g}, parameters {errs['params']:.3g} of a "
+        f"leaf's largest magnitude; peak {peak / 2**20:.0f} MiB over the "
+        f"{held / 2**20:.0f} MiB held (both states); no plain attention "
+        f"ran [{smi}]")
+    del state, plain, batch, d_batch
+    torch.cuda.empty_cache()
+    return {"mesh_train_launches_fwd_per_step": fwd[-1],
+            "mesh_train_launches_bwd_per_step": bwd[-1],
+            "mesh_train_step_ms": step_ms,
+            "mesh_train_plain_step_ms": plain_ms,
+            "mesh_train_steps_ms": [r[0] for r in rows],
+            "mesh_train_plain_steps_ms": [r[1] for r in rows],
+            "mesh_train_loss_rel_err": errs["loss"],
+            "mesh_train_grad_norm_rel_err": errs["grad_norm"],
+            "mesh_train_param_rel_err": errs["params"],
+            "mesh_train_peak_mib": peak / 2**20,
+            "mesh_train_held_mib": held / 2**20}
+
+
+def mesh_serve(dev, mesh, spec, flush, smi):
+    """Phase 21 (b): the partitioned prefill and decode beside the
+    unpartitioned route, on phase 16's weights and prompts."""
+    import torch
+
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.launch import serve
+    from repro_torch.launch.tasks import build_task, distribute_tree
+    from repro_torch.models.transformer import init_cache, prefill, serve_step
+
+    cfg, params = serve.build(LM_ARCH, smoke=False, seed=0, device=dev)
+    prompts = serve.make_prompts(cfg, LM_BATCH, LM_PROMPT, device=dev)
+    pre = build_task(spec, cut_shape(spec, "prefill_32k", seq_len=LM_PROMPT,
+                                     global_batch=LM_BATCH), mesh)
+    dec = build_task(spec, cut_shape(spec, "decode_32k",
+                                     seq_len=LM_PROMPT + LM_GEN,
+                                     global_batch=LM_BATCH), mesh)
+    if not (pre.partitioned and dec.partitioned):
+        fail("phase 21 (b): the serving cells are not partitioned")
+    with torch.no_grad(), plain_versions_raise():
+        d_params, d_prompts = pre.distribute((params, prompts))
+        last, cache = prefill(params, cfg, prompts)
+        flash_cuda.launches = 0
+        d_last, d_cache = pre.fn(d_params, d_prompts)
+        torch.cuda.synchronize()
+        per_prefill = flash_cuda.launches
+        pre_err = rel_max(whole(d_last), last)
+        ids_differ = int((whole(d_last).argmax(-1) != last.argmax(-1)).sum())
+        full = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+        d_full = init_cache(cfg, LM_BATCH, LM_PROMPT + LM_GEN, device=dev)
+        for key in full:
+            full[key][:, :, :LM_PROMPT].copy_(cache[key])
+            d_full[key][:, :, :LM_PROMPT].copy_(whole(d_cache[key]))
+        del cache, d_cache
+        d_full = distribute_tree(d_full, dec.placements[1], mesh)
+        tok = torch.argmax(last, dim=-1)
+
+        def d_args(t, pos):
+            return (distribute_tree(t, dec.placements[2], mesh),
+                    distribute_tree(torch.tensor(pos, dtype=torch.int32,
+                                                 device=dev),
+                                    dec.placements[3], mesh))
+
+        per_step, dec_err = [], 0.0
+        for i in range(LM_GEN):
+            lg, full = serve_step(params, cfg, full, tok, LM_PROMPT + i)
+            flash_cuda.launches = 0
+            d_lg, d_full = dec.fn(d_params, d_full, *d_args(
+                tok, LM_PROMPT + i))
+            torch.cuda.synchronize()
+            per_step.append(flash_cuda.launches)
+            dec_err = max(dec_err, rel_max(whole(d_lg), lg))
+            tok = torch.argmax(lg, dim=-1)
+            ids_differ += int((whole(d_lg).argmax(-1) != tok).sum())
+        if per_prefill != cfg.n_layers or any(per_step):
+            fail(f"phase 21 (b): K4 launched {per_prefill} times a "
+                 f"partitioned prefill (expected {cfg.n_layers}) and "
+                 f"{per_step} a decode step (expected none)")
+        if not (pre_err <= MESH_LOGITS_TOL and dec_err <= MESH_LOGITS_TOL
+                and ids_differ == 0 and torch.isfinite(whole(d_last)).all()):
+            fail(f"phase 21 (b): partitioned logits against the "
+                 f"unpartitioned route: prefill {pre_err:.3g}, decode "
+                 f"{dec_err:.3g} of the largest magnitude (limit "
+                 f"{MESH_LOGITS_TOL}); {ids_differ} greedy ids differ")
+        pre_ms, d_pre_ms = time_two(
+            lambda: prefill(params, cfg, prompts),
+            lambda: pre.fn(d_params, d_prompts), flush, n_timed=3, n_warm=1)
+        step_args = d_args(tok, LM_PROMPT)
+        step_ms, d_step_ms = time_two(
+            lambda: serve_step(params, cfg, full, tok, LM_PROMPT),
+            lambda: dec.fn(d_params, d_full, *step_args), flush,
+            n_timed=5, n_warm=1)
+        prof = {}
+        for label, call, n in (
+                ("prefill", lambda: pre.fn(d_params, d_prompts), 2),
+                ("decode step", lambda: dec.fn(d_params, d_full,
+                                               *step_args), 10),
+                ("plain decode step", lambda: serve_step(
+                    params, cfg, full, tok, LM_PROMPT), 10)):
+            wall, busy, n_k, _ = profiled(call, n)
+            prof[label] = (wall, 1.0 - busy / wall, n_k)
+            log(f"  (b) {label} under torch.profiler: wall {wall:.3f} ms, "
+                f"idle {1.0 - busy / wall:.1%}, {n_k:.0f} kernels a call")
+    log(f"  (b) partitioned prefill {LM_BATCH} x {LM_PROMPT}: K4 "
+        f"{per_prefill} launches, logits within {pre_err:.3g} of the "
+        f"unpartitioned route's; {LM_GEN} decode steps: K4 "
+        f"{sum(per_step)} launches, logits within {dec_err:.3g} (limit "
+        f"{MESH_LOGITS_TOL}), every greedy id the same; prefill {d_pre_ms:.2f} ms against "
+        f"{pre_ms:.2f} ms unpartitioned, decode {d_step_ms:.3f} ms a step "
+        f"against {step_ms:.3f} ms (in turns, L2 flushed) [{smi}]")
+    del params, d_params, full, d_full, prompts, d_prompts
+    torch.cuda.empty_cache()
+    return {"mesh_launches_prefill": per_prefill,
+            "mesh_launches_decode": max(per_step),
+            "mesh_prefill_rel_err": pre_err, "mesh_decode_rel_err": dec_err,
+            "mesh_ids_differ": ids_differ,
+            "mesh_prefill_ms": d_pre_ms, "mesh_plain_prefill_ms": pre_ms,
+            "mesh_decode_ms": d_step_ms, "mesh_plain_decode_ms": step_ms,
+            "mesh_prefill_idle_share": prof["prefill"][1],
+            "mesh_decode_idle_share": prof["decode step"][1],
+            "mesh_decode_kernels": prof["decode step"][2],
+            "mesh_plain_decode_kernels": prof["plain decode step"][2],
+            "mesh_plain_decode_idle_share": prof["plain decode step"][1]}
+
+
+def mesh_traces(mesh, spec, dryrun_rows):
+    """Phase 21 (c): phase 20 (a)'s LM rows partitioned, and each
+    llama3.2-1b cell of phase 20 (b) on this 1 x 1 mesh traced
+    partitioned within ``MESH_FLOPS_TOL`` of its global trace."""
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.launch.tasks import build_task
+
+    lm_rows = [r for r in dryrun_rows if r["cell"].startswith(LM_ARCH)
+               and r["status"] == "ok"]
+    for r in lm_rows:
+        counts = r["collective_counts"]
+        if not (r["partitioned"] and counts and sum(counts.values()) > 0
+                and r["memory"]["temp_gb"] is not None):
+            fail(f"phase 21 (c): phase 20 (a)'s row {r['cell']} is not "
+                 f"partitioned with collectives: {r}")
+    log(f"  (c) phase 20 (a): {len(lm_rows)} {LM_ARCH} rows partitioned, "
+        "collectives " + "; ".join(
+            f"{r['cell']} " + ", ".join(
+                f"{k} {n}" for k, n in r["collective_counts"].items() if n)
+            for r in lm_rows))
+    out = {}
+    for label, shape in (
+            ("prefill", cut_shape(spec, "prefill_32k", seq_len=LM_PROMPT,
+                                  global_batch=LM_BATCH)),
+            ("train", cut_shape(spec, "train_4k", seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH,
+                                accum_steps=TRAIN_ACCUM))):
+        part = build_task(spec, shape, mesh).trace()
+        glob = build_task(spec, shape, mesh_shape(mesh)).trace()
+        ratio = part.flops / glob.flops
+        if not abs(ratio - 1) <= MESH_FLOPS_TOL:
+            fail(f"phase 21 (c) {label}: per-device FLOPs {part.flops:.6g}, "
+                 f"global trace {glob.flops:.6g}")
+        log(f"  (c) {LM_ARCH} {label} on {mesh}: per-device FLOPs "
+            f"{part.flops:.6g} = {ratio:.6f} x the global trace's; traced in "
+            f"{part.seconds:.1f} s ({part.n_ops} ops) against "
+            f"{glob.seconds:.1f} s ({glob.n_ops} ops) unpartitioned")
+        out.update({f"mesh_{label}_flops_ratio": ratio,
+                    f"mesh_{label}_trace_s": part.seconds,
+                    f"mesh_{label}_global_trace_s": glob.seconds})
+    return out
+
+
+def mesh_phase(dev, flush, smi, dryrun_rows):
+    """Phase 21: the dense LM partitioned by DTensor placements on a
+    1 x 1 mesh over an NCCL group of one; returns K4's ``mesh_*`` keys."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_local_group, make_mesh
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    spec = get_config(LM_ARCH)
+    init_local_group(0, 1, tempfile.mkdtemp(prefix="chip-smoke-mesh-"),
+                     "cuda")
+    try:
+        mesh = make_mesh((1, 1))
+        keys = mesh_train(dev, mesh, spec, smi)
+        log(f"  {at()} (a) done")
+        keys.update(mesh_serve(dev, mesh, spec, flush, smi))
+        log(f"  {at()} (b) done")
+        keys.update(mesh_traces(mesh, spec, dryrun_rows))
+        log(f"  {at()} phase 21 done")
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return keys
 
 
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"),
@@ -5927,8 +6241,18 @@ def main() -> int:
     t0 = time.perf_counter()
     log("phase 20: the dry-run (fake tensors, a fake world of 512) and its "
         "roofline against the cells of phases 16-19")
-    dryrun_phase(dev, flash_entry, gnn_entry, smi)
+    dryrun = dryrun_phase(dev, flash_entry, gnn_entry, smi)
     log(f"phase 20: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 21: the dense LM partitioned by DTensor placements ------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 21: llama3.2-1b's train step, prefill and decode partitioned "
+        "over a (data 1, model 1) mesh on an NCCL group of one")
+    flash_entry.update(mesh_phase(dev, flush, smi, dryrun["dryrun_single"]))
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -6005,7 +6329,7 @@ def main() -> int:
         })
     next(k for k in kernels if k["name"] == "flash").update(
         {key: val for key, val in flash_entry.items()
-         if key.startswith(("lm_", "train_", "bwd_", "recsys_"))},
+         if key.startswith(("lm_", "train_", "bwd_", "recsys_", "mesh_"))},
         bwd_source="src/repro_torch/csrc/flash_bwd.cu",
         bwd_replaces="none: the JAX package differentiates its stock-op "
                      "attention")

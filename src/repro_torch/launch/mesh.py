@@ -15,6 +15,13 @@ refuses two ranks on one device); on the CPU it is ``gloo``.
   ``spawn`` processes, each on one thread, and kills them all when one
   of them fails or a deadline, if given, passes.
 * ``make_host_mesh`` wraps the initialised world in the mesh.
+* ``make_mesh`` is a ``(data, model)`` or ``(pod, data, model)`` mesh of
+  any shape over the whole initialised world (the counterpart of
+  ``jax.make_mesh``): the partitioned LM's mesh on the CPU's ``gloo``
+  ranks and on the card (an NCCL group of one: a 1 x 1 mesh).
+* ``mesh_shape`` is a stand-in of a mesh: its shape and axis names,
+  no ranks; ``launch.tasks`` traces a cell's whole global step on one
+  (the trace a partitioned one is held against).
 * ``make_production_mesh`` is the LM side's 2-D ``(data, model)`` or
   3-D ``(pod, data, model)`` mesh of the JAX package's production
   layout (16 x 16, or 2 x 16 x 16 across two pods), over the first
@@ -115,6 +122,39 @@ def make_host_mesh(n_devices: int | None = None, axis: str = "data"):
     return DeviceMesh(device_type, list(range(n)), mesh_dim_names=(axis,))
 
 
+def make_mesh(shape, axes=None):
+    """A ``DeviceMesh`` of ``shape`` over every rank of the initialised
+    world (row-major: the last axis varies fastest, as ``jax.make_mesh``
+    lays devices out), its axes ``(data, model)`` for two dimensions and
+    ``(pod, data, model)`` for three unless ``axes`` names them.  Raises
+    when no group is initialised or the shape does not cover the world
+    exactly."""
+    import math
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    shape = tuple(int(n) for n in shape)
+    if axes is None:
+        axes = {2: ("data", "model"),
+                3: ("pod", "data", "model")}.get(len(shape))
+        if axes is None:
+            raise ValueError(f"name the axes of a {len(shape)}-D mesh")
+    if len(axes) != len(shape):
+        raise ValueError(f"{len(axes)} axis names for a {len(shape)}-D mesh")
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "no process group: call init_local_group (or "
+            "torch.distributed.init_process_group) first"
+        )
+    world = dist.get_world_size()
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {shape} holds {math.prod(shape)} ranks, the "
+                         f"world {world}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return DeviceMesh(device_type, torch.arange(world).reshape(shape),
+                      mesh_dim_names=tuple(axes))
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """The production mesh: ``(data=16, model=16)``, or ``(pod=2,
     data=16, model=16)`` with ``multi_pod``, as a ``DeviceMesh`` over
@@ -138,6 +178,29 @@ def make_production_mesh(*, multi_pod: bool = False):
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.arange(need).reshape(shape),
                       mesh_dim_names=axes)
+
+
+class MeshShape:
+    """A mesh's shape and axis names, with no ranks: what ``launch.tasks``
+    reads of a mesh (``mesh_dim_names``, ``size``)."""
+
+    def __init__(self, dims, names):
+        self.dims = tuple(int(n) for n in dims)
+        self.mesh_dim_names = tuple(names)
+
+    def size(self, dim: int | None = None) -> int:
+        import math
+
+        return math.prod(self.dims) if dim is None else self.dims[dim]
+
+    def __repr__(self) -> str:
+        return f"MeshShape({self.dims}, {self.mesh_dim_names})"
+
+
+def mesh_shape(mesh) -> MeshShape:
+    """The stand-in of ``DeviceMesh`` ``mesh``: its shape and axis
+    names."""
+    return MeshShape(mesh.mesh.shape, mesh.mesh_dim_names)
 
 
 def _axis_names(mesh) -> tuple:

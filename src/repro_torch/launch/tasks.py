@@ -14,15 +14,26 @@ partition the step, the port names each leaf's placement (a tuple of
 takes them) by the JAX package's rules (``_lm_param_spec``,
 ``_divisible``), and traces:
 
-* the whole global step on one fake device, where the port does not
-  partition the cell (every cell on a production mesh but the
-  edge-sharded GNN step): the placements then give each device's
-  arguments and outputs, and the trace the step's work;
-* one device's own program where it is one: on a 1 x 1 mesh, and the
-  edge-sharded GNN step (``exec_mode="edge_sharded"``), which runs
-  rank 0 of the mesh's flattened group on a fake world
-  (``launch.mesh.init_fake_world``) and counts the collectives the
-  port's own code issues.
+* one device's own program of a dense-LM cell (train, prefill, decode)
+  on a ``DeviceMesh``: its arguments are DTensors under those
+  placements (fake ones on the dry-run's fake world,
+  ``launch.mesh.init_fake_world``), the step runs on rank 0's own
+  shards with the collectives DTensor and the model's partitioned
+  forms issue (``models.sharding``), and its results are laid out as
+  the JAX package's ``out_shardings`` say.  ``Task.run`` is the same
+  step on real tensors (distributed by the placements) over a real
+  mesh: the counterpart of calling the JAX package's compiled
+  ``Task.lower()``;
+* one device's own program of the edge-sharded GNN step
+  (``exec_mode="edge_sharded"``), rank 0 of the mesh's flattened group
+  on a fake world, counting the collectives the port's own code issues;
+* the whole global step on one fake device for the cells the port does
+  not partition yet (the MoE LM cells, the GNN ``pjit`` cells and
+  BERT4Rec; ``notes`` says so), and for any cell on a stand-in of a
+  mesh (an object with ``mesh_dim_names`` and ``size``, no ranks): the
+  placements then give each device's arguments and outputs, and the
+  trace the step's work; on a one-device mesh that is the device's own
+  program.
 
 Differences from the JAX package, each on purpose:
 
@@ -31,7 +42,10 @@ Differences from the JAX package, each on purpose:
   JAX package stacks;
 * an accumulated LM train step is traced one micro-batch at a time and
   every additive count scaled by ``accum_steps``, as the JAX package's
-  dry-run scales its variants (``Task.trace``);
+  dry-run scales its variants (``Task.trace``); partitioned, its
+  micro-batches are cut from each data rank's own rows
+  (``train.step._micro_batches``: the same rows in another grouping,
+  which an unmasked batch's loss does not see);
 * ``recsys_serve`` takes a global ``topk``: the JAX package's
   ``shard_map`` top-k has no counterpart in an unpartitioned trace;
 * ``recsys_train`` composes BERT4Rec's step with ``accum_steps`` 1 (the
@@ -51,6 +65,7 @@ import torch
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.launch.mesh import (dp_axes, flat_axes, mesh_size,
                                      total_devices)
+from repro_torch.models.sharding import placements
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
 from repro_torch.roofline.analysis import named_tensors
@@ -73,22 +88,53 @@ def _pad_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def placements(spec: tuple, mesh) -> tuple:
-    """A spec (one entry a tensor dim: an axis name, a tuple of them or
-    None, as a ``PartitionSpec``) as DTensor placements, one a mesh
-    dimension: ``Shard(i)`` where the dimension shards tensor dim ``i``,
-    else ``Replicate()``."""
-    from torch.distributed.tensor import Replicate, Shard
+def is_device_mesh(mesh) -> bool:
+    """Is ``mesh`` a ``DeviceMesh`` (ranks a step can run on), not a
+    stand-in of its shape?"""
+    from torch.distributed.device_mesh import DeviceMesh
 
-    out = []
-    for axis in mesh.mesh_dim_names:
-        dim = None
-        for i, entry in enumerate(spec):
-            axes = entry if isinstance(entry, tuple) else (entry,)
-            if axis in axes:
-                dim = i
-        out.append(Shard(dim) if dim is not None else Replicate())
-    return tuple(out)
+    return isinstance(mesh, DeviceMesh)
+
+
+def distribute_tree(tree, pls: dict[str, tuple], mesh):
+    """``tree`` (global tensors, real or fake, the same on every rank)
+    with each leaf a DTensor under its placements ``pls[name]``
+    (``named_tensors``' names); a leaf that required a gradient still
+    does."""
+    from repro_torch.models.sharding import distribute
+    from repro_torch.train.tree import named_leaves, path_str, unflatten
+
+    named = named_leaves(tree)
+    out = unflatten(tree, [distribute(t, mesh, pls[path_str(name)])
+                           for name, t in named])
+    for (_, new), (_, old) in zip(named_leaves(out), named):
+        if old.requires_grad:
+            new.requires_grad_(True)
+    return out
+
+
+def _laid_out(result, pls: dict[str, tuple], mesh):
+    """``result`` (a tuple of tensors and dicts of them) with every
+    DTensor leaf redistributed to its placements ``pls[name]``: the JAX
+    package's ``out_shardings``."""
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.models.sharding import is_dtensor
+
+    def put(x, name):
+        pre = f"{name}/" if name else ""
+        if isinstance(x, dict):
+            return {k: put(v, pre + k) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(put(getattr(x, f), pre + f) for f in x._fields))
+        if isinstance(x, ParamTree):
+            return x  # updated in place: laid out as it was
+        if isinstance(x, tuple):
+            return tuple(put(v, pre + str(i)) for i, v in enumerate(x))
+        if is_dtensor(x) and tuple(x.placements) != pls[name]:
+            return x.redistribute(mesh, pls[name])
+        return x
+
+    return put(result, "")
 
 
 def _tree_placements(tree, mesh, rule) -> dict[str, tuple]:
@@ -135,9 +181,11 @@ class Task:
     # analysis metadata
     model_flops_per_step: float = 0.0
     notes: str = ""
-    # The trace is one device's own program (a 1-device mesh, the
-    # edge-sharded step), not the whole global step.
+    # The trace is one device's own program (a partitioned cell, a
+    # 1-device mesh, the edge-sharded step), not the whole global step.
     per_device: bool = False
+    # The args are DTensors and ``run`` distributes real ones.
+    partitioned: bool = False
     # An accumulated train step: ``(step of one micro-batch, its args,
     # accum_steps)``; traced once, its additive counts scaled.
     micro: tuple | None = None
@@ -166,17 +214,34 @@ class Task:
             self._trace, self._result = trace, result
         return self._trace
 
+    def distribute(self, args) -> tuple:
+        """Real global arguments (the same on every rank of the mesh) as
+        a partitioned cell's DTensors, under the task's placements."""
+        if not self.partitioned:
+            raise ValueError(f"{self.name} is not partitioned")
+        return tuple(distribute_tree(a, pl, self.mesh)
+                     for a, pl in zip(args, self.placements))
+
+    def run(self, *args):
+        """The partitioned step on real global arguments: each rank runs
+        its own shards (the counterpart of calling the JAX package's
+        compiled step); the results as ``out_placements`` lay them
+        out."""
+        return self.fn(*self.distribute(args))
+
     def memory_per_device(self) -> dict[str, float]:
         """Arguments, outputs and aliased outputs a device holds, from
         the placements (bytes), after ``trace``."""
+        from repro_torch.roofline.analysis import local_tensor
+
         trace = self.trace()
         args = sum(per_device_bytes(a, pl, self.mesh)
                    for a, pl in zip(self.abstract_args, self.placements))
-        arg_ids = {id(t.untyped_storage()) for a in self.abstract_args
-                   for _, t in named_tensors(a)}
+        arg_ids = {id(local_tensor(t).untyped_storage())
+                   for a in self.abstract_args for _, t in named_tensors(a)}
         alias = sum(_device_bytes(t, self.out_placements[name], self.mesh)
                     for name, t in named_tensors(self._result)
-                    if id(t.untyped_storage()) in arg_ids)
+                    if id(local_tensor(t).untyped_storage()) in arg_ids)
         return {"argument": args,
                 "output": per_device_bytes(self._result,
                                            self.out_placements, self.mesh),
@@ -276,13 +341,33 @@ def _abstract_lm_params(cfg):
 
 def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
                   accum_steps: int = 1) -> Task:
+    """The LM cell's task: partitioned for a dense cell on a
+    ``DeviceMesh``, the whole global step on a stand-in of one
+    (``launch.mesh.mesh_shape``)."""
     from repro_torch.models import transformer as tfm
 
     cfg = spec.model
     dims = shape.dims
     dp = dp_axes(mesh)
     name = f"{spec.arch_id}:{shape.name}"
-    per_device = total_devices(mesh) == 1
+    # The dense LM is partitioned on a DeviceMesh; the MoE cells' expert
+    # layout is not yet.
+    partitioned = cfg.moe is None and is_device_mesh(mesh)
+    per_device = partitioned or total_devices(mesh) == 1
+    notes = ("not partitioned: the MoE expert layout has no DTensor form "
+             "yet" if cfg.moe is not None and is_device_mesh(mesh)
+             and total_devices(mesh) > 1 else "")
+
+    def placed(mode, tree, pls):
+        if not partitioned:
+            return tree
+        with mode:
+            return distribute_tree(tree, pls, mesh)
+
+    def laid_out(fn, out_pls):
+        if not partitioned:
+            return fn
+        return lambda *a: _laid_out(fn(*a), out_pls, mesh)
 
     if shape.kind == "train":
         seq, batch = dims["seq_len"], dims["global_batch"]
@@ -300,23 +385,27 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
         batch_pl = {k: placements((dp, None), mesh) for k in batch_abs}
         metrics_pl = {k: placements((), mesh)
                       for k in ("grad_norm", "loss", "lr")}
+        state_abs = placed(mode, state_abs, state_pl)
+        out_pl = {**_prefixed("0", state_pl), **_prefixed("1", metrics_pl)}
         micro = None
         if accum > 1:
             n = batch // accum
-            micro = (make_train_step(loss, AdamWConfig(), 1),
-                     (state_abs, {k: v[:n] for k, v in batch_abs.items()}),
+            micro = (laid_out(make_train_step(loss, AdamWConfig(), 1),
+                              out_pl),
+                     (state_abs, placed(mode, {
+                         k: v[:n] for k, v in batch_abs.items()}, batch_pl)),
                      accum)
+        batch_abs = placed(mode, batch_abs, batch_pl)
         model_flops = 3 * 2 * tfm.active_param_count(cfg) * batch * seq
         return Task(
-            name=name, fn=step,
+            name=name, fn=laid_out(step, out_pl),
             abstract_args=(state_abs, batch_abs),
             placements=(state_pl, batch_pl),
-            out_placements={**_prefixed("0", state_pl),
-                            **_prefixed("1", metrics_pl)},
+            out_placements=out_pl,
             mesh=mesh, fake_mode=mode,
             model_flops_per_step=model_flops,
-            notes=f"accum_steps={accum}",
-            per_device=per_device, micro=micro,
+            notes="; ".join(filter(None, (f"accum_steps={accum}", notes))),
+            per_device=per_device, partitioned=partitioned, micro=micro,
         )
 
     if shape.kind == "prefill":
@@ -332,15 +421,19 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
         # the sequence dim sharded over 'model': the split-KV layout
         # decode consumes.
         cache_pl = placements((None, dp, "model", None, None), mesh)
+        tokens_pl = {"": placements((dp, None), mesh)}
+        out_pl = {"0": placements((dp, "model"), mesh),
+                  "1/k": cache_pl, "1/v": cache_pl}
         model_flops = 2 * tfm.active_param_count(cfg) * batch * seq
         return Task(
-            name=name, fn=fn,
-            abstract_args=(params_abs, tokens_abs),
-            placements=(p_pl, {"": placements((dp, None), mesh)}),
-            out_placements={"0": placements((dp, "model"), mesh),
-                            "1/k": cache_pl, "1/v": cache_pl},
-            mesh=mesh, fake_mode=mode,
+            name=name, fn=laid_out(fn, out_pl),
+            abstract_args=(placed(mode, params_abs, p_pl),
+                           placed(mode, tokens_abs, tokens_pl)),
+            placements=(p_pl, tokens_pl),
+            out_placements=out_pl,
+            mesh=mesh, fake_mode=mode, notes=notes,
             model_flops_per_step=model_flops, per_device=per_device,
+            partitioned=partitioned,
         )
 
     if shape.kind == "decode":
@@ -369,16 +462,20 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
 
         logits_spec = (dp, "model") if token_spec else (None, "model")
         model_flops = 2 * tfm.active_param_count(cfg) * batch
+        pls = (p_pl, {"k": cache_pl, "v": cache_pl},
+               {"": placements(token_spec, mesh)}, {"": placements((), mesh)})
+        out_pl = {"0": placements(logits_spec, mesh),
+                  "1/k": cache_pl, "1/v": cache_pl}
         return Task(
-            name=name, fn=fn,
-            abstract_args=(params_abs, cache_abs, token_abs, pos_abs),
-            placements=(p_pl, {"k": cache_pl, "v": cache_pl},
-                        {"": placements(token_spec, mesh)},
-                        {"": placements((), mesh)}),
-            out_placements={"0": placements(logits_spec, mesh),
-                            "1/k": cache_pl, "1/v": cache_pl},
-            mesh=mesh, fake_mode=mode,
+            name=name, fn=laid_out(fn, out_pl),
+            abstract_args=tuple(
+                placed(mode, a, pl) for a, pl in zip(
+                    (params_abs, cache_abs, token_abs, pos_abs), pls)),
+            placements=pls,
+            out_placements=out_pl,
+            mesh=mesh, fake_mode=mode, notes=notes,
             model_flops_per_step=model_flops, per_device=per_device,
+            partitioned=partitioned,
         )
 
     raise ValueError(f"unknown LM shape kind {shape.kind}")

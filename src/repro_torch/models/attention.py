@@ -32,6 +32,16 @@ takes K4's hand-written backward while a gradient is being taken (its
 plain version on a CPU tensor), the gradient the JAX package takes by
 autodiff of its stock-op forms.
 
+Under DTensor placements (the partitioned LM) every route runs on each
+rank's own heads (``on_local_heads``: ``local_map`` over ``[B / dp, S,
+H / tp, hd]``, K4 included, forward and backward), and a rank whose
+query heads are a slice of the replicated KV heads passes the kernel
+only the KV heads those query heads read.  ``decode_attention`` over a
+cache whose sequence is cut over the mesh (split-KV) computes each
+rank's partial softmax over its own positions and merges them by their
+log-sum-exp: a max all-reduce, then sum all-reduces of the softmax's
+denominator and of the output; no rank gathers the cache.
+
 Layouts:
   q:      [B, Sq, H,  hd]
   k, v:   [B, Sk, KvH, hd]     (GQA: H = KvH * rep)
@@ -44,6 +54,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.kernels.flash.ops import flash_attention
+from repro_torch.models.sharding import (all_reduce_over, is_dtensor,
+                                         local_offset, mesh_dims_sharding)
 
 NEG_INF = -1e30
 
@@ -66,11 +78,90 @@ def _inv_sqrt(d: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(d)))
 
 
+def kv_head_slice(h: int, kvh: int, tp: int, rank: int):
+    """The KV heads ``[lo, hi)`` that query heads ``rank * H / tp .. (rank
+    + 1) * H / tp`` read (query head ``j`` reads KV head ``j // (H /
+    KvH)``), or None where those query heads do not read them in K4's
+    grouped order (``H_local`` a multiple of ``hi - lo``, each KV head
+    read by an equal run of query heads)."""
+    rep, hl = h // kvh, h // tp
+    a = rank * hl
+    lo, hi = a // rep, (a + hl - 1) // rep + 1
+    n = hi - lo
+    if hl % n or any((a + j) // rep - lo != j // (hl // n)
+                     for j in range(hl)):
+        return None
+    return lo, hi
+
+
+def on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` (an attention route over ``[B, S, H, hd]`` /
+    ``[B, S, KvH, hd]``) on each rank's own heads when ``q`` is a
+    DTensor (``local_map``), else ``fn`` itself.
+
+    The batch keeps ``q``'s placement on the data axes and the sequence
+    must be whole.  On ``model``: query and KV heads both cut (each
+    rank's KV heads are its query heads' own); or the query heads cut
+    and the KV heads replicated (``H_local % KvH_local`` need not hold
+    for all KvH): the rank slices the KV heads its own query heads read
+    by its coordinate on ``model`` (``kv_head_slice``), and their
+    gradient is a ``Partial`` sum over ``model``; or, where the slice is
+    not in K4's grouped order, the query heads gathered too (the JAX
+    package's replicated fallback)."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    qpl, kpl = list(q.placements), list(k.placements)
+    kgrad = list(kpl)
+    slice_on = None
+    for i, (qp, kp) in enumerate(zip(qpl, kpl)):
+        if qp.is_shard(1) or kp.is_shard(1):
+            raise ValueError("attention on local heads needs the whole "
+                             "sequence on every rank")
+        if qp.is_shard(0) or kp.is_shard(0):      # a data axis
+            qpl[i] = kpl[i] = kgrad[i] = (qp if qp.is_shard(0)
+                                          else Replicate())
+            continue
+        if qp.is_shard(2) and kp.is_shard(2):
+            continue
+        if qp.is_shard(2):                        # KV heads replicated
+            tp = mesh.size(i)
+            coords = [kv_head_slice(h, kvh, tp, r) for r in range(tp)]
+            if all(c is not None for c in coords) and slice_on is None:
+                slice_on = i
+                kpl[i], kgrad[i] = Replicate(), Partial()
+                continue
+        qpl[i] = kpl[i] = kgrad[i] = Replicate()
+    q = q.redistribute(mesh, tuple(qpl))
+    k = k.redistribute(mesh, tuple(kpl))
+    v = v.redistribute(mesh, tuple(kpl))
+
+    def body(q_l, k_l, v_l):
+        if slice_on is not None:
+            lo, hi = kv_head_slice(h, kvh, mesh.size(slice_on),
+                                   mesh.get_local_rank(slice_on))
+            k_l, v_l = k_l[:, :, lo:hi], v_l[:, :, lo:hi]
+        return fn(q_l, k_l, v_l)
+
+    return local_map(body, out_placements=list(qpl),
+                     in_placements=(tuple(qpl), tuple(kpl), tuple(kpl)),
+                     in_grad_placements=(tuple(qpl), tuple(kgrad),
+                                         tuple(kgrad)),
+                     device_mesh=mesh)(q, k, v)
+
+
 def causal_attention(q, k, v):
     """Window-free causal attention from position 0 through K4:
     ``q [B, S, H, hd]``, ``k, v [B, S, KvH, hd]`` -> ``[B, S, H, hd]``.
     The kernel takes ``[B, H, S, hd]``: the operands are transposed into
-    it (copies) and the result transposed back (a view)."""
+    it (copies) and the result transposed back (a view).  DTensors run
+    K4 on each rank's own heads (``on_local_heads``)."""
+    if is_dtensor(q):
+        return on_local_heads(causal_attention, q, k, v)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=True)
     return o.transpose(1, 2)
@@ -225,7 +316,11 @@ def chunked_local_attention(q, k, v, *, window: int):
 def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
     """Single-token decode: q [B, 1, H, hd] against a [B, S, KvH, hd]
     cache filled up to ``cache_len`` (an int or a 0-d tensor).  Window
-    (if set) restricts to the last ``window`` positions."""
+    (if set) restricts to the last ``window`` positions.  A DTensor
+    cache takes ``_decode_split_kv``."""
+    if is_dtensor(k_cache):
+        return _decode_split_kv(q, k_cache, v_cache, cache_len,
+                                window=window)
     b, sq, h, d = q.shape
     _, s, kvh, _ = k_cache.shape
     qg = _split_gqa(q, kvh)
@@ -241,3 +336,64 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None):
     o = torch.einsum("bgrst,btgd->bsgrd", p.float(),
                      v_cache.to(q.dtype).float())
     return _merge_gqa(o).to(q.dtype)
+
+
+def _decode_split_kv(q, k_cache, v_cache, cache_len, *, window=None):
+    """``decode_attention`` over a DTensor cache, its sequence cut over
+    some mesh dims (split-KV) and its batch over others.  ``q`` is
+    gathered to every head (``[B, 1, H, hd]``: a few KB) with the
+    cache's batch placement; each rank scores its own positions (global
+    index = its shard's offset + local index), and the partial softmaxes
+    merge by their log-sum-exp: the row max all-reduced (max), then the
+    float32 sum of ``exp(s - max)`` (sum), so that each rank normalises
+    its probabilities and rounds them to ``q``'s type as
+    ``decode_attention`` does before the product with V, whose partial
+    outputs are summed last (sum).  Where no mesh dim of more than one
+    rank cuts the sequence, each rank runs ``decode_attention`` itself on
+    its rows.  The result has ``q``'s new placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k_cache.device_mesh
+    cpl = tuple(k_cache.placements)
+    if any(p.is_shard() and p.dim not in (0, 1) for p in cpl):
+        raise ValueError("a split-KV cache cuts its batch and sequence only")
+    seq_dims = mesh_dims_sharding(cpl, 1)
+    qpl = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in cpl)
+    q = q.redistribute(mesh, qpl)
+    v_cache = v_cache.redistribute(mesh, cpl)
+    off = local_offset(k_cache, 1)
+    if is_dtensor(cache_len):
+        cache_len = cache_len.full_tensor()
+    d = q.shape[-1]
+    kvh = k_cache.shape[2]
+    scale = _inv_sqrt(d)
+
+    def body(q_l, kc, vc):
+        if not any(mesh.size(i) > 1 for i in seq_dims):
+            # the whole sequence is this rank's: nothing to merge
+            return decode_attention(q_l, kc, vc, cache_len, window=window)
+        s_l = kc.shape[1]
+        qg = _split_gqa(q_l, kvh)
+        scores = torch.einsum("bsgrd,btgd->bgrst", qg.float(),
+                              kc.to(qg.dtype).float()) * scale
+        kpos = off + torch.arange(s_l, device=q_l.device)
+        mask = kpos < cache_len
+        if window is not None:
+            mask = mask & (kpos >= cache_len - window)
+        scores = torch.where(mask[None, None, None, None, :], scores,
+                             NEG_INF)
+        m = all_reduce_over(scores.amax(dim=-1, keepdim=True), "max", mesh,
+                            seq_dims)
+        e = torch.exp(scores - m)
+        l_ = all_reduce_over(e.sum(dim=-1, keepdim=True), "sum", mesh,
+                             seq_dims)
+        p = (e / l_).to(q_l.dtype)
+        o = torch.einsum("bgrst,btgd->bsgrd", p.float(),
+                         vc.to(q_l.dtype).float())
+        o = all_reduce_over(o, "sum", mesh, seq_dims)
+        return _merge_gqa(o).to(q_l.dtype)
+
+    return local_map(body, out_placements=list(qpl),
+                     in_placements=(qpl, cpl, cpl),
+                     device_mesh=mesh)(q, k_cache, v_cache)

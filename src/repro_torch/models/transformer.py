@@ -28,11 +28,24 @@ position into a cache of static length (here in place) and attends over
 that whole length under a mask; ``parallel_block`` adds attention and FFN to
 the same residual.
 
+Partitioned (``launch.tasks``' dense-LM cells on a ``DeviceMesh``): the
+same functions take DTensor weights, batches and caches, placed by the
+JAX package's rules, and every rank computes on its own shards.  The
+``constrain`` calls are the JAX package's ``with_sharding_constraint``
+sites; ``_split_heads`` gathers a projection whose head count does not
+divide the ``model`` axis before it is viewed as heads (the JAX
+package's replicated fallback); the attention routes run on each rank's
+own heads (``attention.on_local_heads``); the loss is vocab-parallel;
+``serve_step`` writes position ``pos`` only on the rank whose sequence
+shard holds it and decodes over the split-KV cache
+(``attention.decode_attention``).
+
 Layouts: activations [B, S, D]; caches {k,v}: [L, B, S, KvH, hd].
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -56,7 +69,8 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.models.moe import MoEConfig, moe_ffn, moe_init
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import (_divides, _resolve, constrain,
+                                         is_dtensor, local_offset)
 
 Params = Any
 
@@ -258,13 +272,40 @@ def active_param_count(cfg: LMConfig) -> int:
 # layer bodies
 # --------------------------------------------------------------------------
 
+def _head_axis(y, n: int):
+    """``"tp"`` where ``n`` heads divide the ``model`` axis of DTensor
+    ``y``'s mesh, else None (the heads replicated)."""
+    mesh = y.device_mesh
+    return "tp" if _divides(n, _resolve(mesh, "tp"), mesh) else None
+
+
+def _split_heads(y, n: int, hd: int):
+    """``[B, S, n hd] -> [B, S, n, hd]``.  A DTensor is first laid out as
+    ``constrain`` will want the heads: cut over ``model`` only where
+    ``n`` divides it, else gathered, so no view splits a sharded dim
+    unevenly."""
+    b, s, _ = y.shape
+    if is_dtensor(y):
+        y = constrain(y, "dp", None, _head_axis(y, n))
+    return y.reshape(b, s, n, hd)
+
+
+def _merge_heads(o):
+    """``[B, S, H, hd] -> [B, S, H hd]``; a DTensor's gradient is laid out
+    by heads as the forward was before the view splits it again."""
+    b, s, h, hd = o.shape
+    flat = o.reshape(b, s, h * hd)
+    if is_dtensor(flat):
+        flat = constrain(flat, "dp", None, _head_axis(o, h))
+    return flat
+
+
 def _qkv(lp, x, cfg: LMConfig, positions):
-    b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     xn = rmsnorm(lp["ln_attn"], x)
-    q = dense(lp["wq"], xn, cfg.compute_dtype).reshape(b, s, h, hd)
-    k = dense(lp["wk"], xn, cfg.compute_dtype).reshape(b, s, kvh, hd)
-    v = dense(lp["wv"], xn, cfg.compute_dtype).reshape(b, s, kvh, hd)
+    q = _split_heads(dense(lp["wq"], xn, cfg.compute_dtype), h, hd)
+    k = _split_heads(dense(lp["wk"], xn, cfg.compute_dtype), kvh, hd)
+    v = _split_heads(dense(lp["wv"], xn, cfg.compute_dtype), kvh, hd)
     q = constrain(q, "dp", None, "tp", None)
     k = constrain(k, "dp", None, "tp", None)
     v = constrain(v, "dp", None, "tp", None)
@@ -274,20 +315,24 @@ def _qkv(lp, x, cfg: LMConfig, positions):
 
 
 def _attention_block(lp, x, cfg: LMConfig, is_local: bool, positions):
-    b, s, _ = x.shape
+    s = x.shape[1]
     q, k, v = _qkv(lp, x, cfg, positions)
     if is_local and s > cfg.window:
-        o = attn.chunked_local_attention(q, k, v, window=cfg.window)
+        route = functools.partial(attn.chunked_local_attention,
+                                  window=cfg.window)
     elif not is_local:
-        o = attn.causal_attention(q, k, v)
+        route = attn.causal_attention
     elif s <= 2 * cfg.attn_block_size:
-        o = attn.naive_attention(q, k, v, causal=True, window=cfg.window)
+        route = functools.partial(attn.naive_attention, causal=True,
+                                  window=cfg.window)
     else:
-        o = attn.blocked_attention(q, k, v, causal=True, window=cfg.window,
-                                   block_size=cfg.attn_block_size,
-                                   use_scan=cfg.scan_layers)
-    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    out = constrain(dense(lp["wo"], o, cfg.compute_dtype), "dp", None, None)
+        route = functools.partial(attn.blocked_attention, causal=True,
+                                  window=cfg.window,
+                                  block_size=cfg.attn_block_size,
+                                  use_scan=cfg.scan_layers)
+    o = attn.on_local_heads(route, q, k, v)
+    out = constrain(dense(lp["wo"], _merge_heads(o), cfg.compute_dtype),
+                    "dp", None, None)
     return out, (k, v)
 
 
@@ -384,6 +429,8 @@ def loss_fn(params, cfg: LMConfig, batch) -> torch.Tensor:
         table, x, batch["labels"], batch.get("mask"),
         compute_dtype=cfg.compute_dtype,
     )
+    if cfg.moe is None:
+        return ce  # the aux loss is 0 (a plain tensor beside a DTensor)
     return ce + 1e-2 * aux
 
 
@@ -413,8 +460,11 @@ def prefill(params, cfg: LMConfig, tokens: torch.Tensor):
         is_local, is_moe = cfg.kind(i)
         a, (k, v) = _attention_block(lp, x, cfg, is_local, positions)
         x, _ = _residual(lp, x, a, cfg, is_moe)
-        ks.append(k.to(torch.bfloat16))
-        vs.append(v.to(torch.bfloat16))
+        # A DTensor layer's K/V go to the split-KV layout (the sequence
+        # over 'model', as the JAX package's out_shardings lay the cache
+        # out) as they are made, not after the stack.
+        ks.append(constrain(k.to(torch.bfloat16), "dp", "tp", None, None))
+        vs.append(constrain(v.to(torch.bfloat16), "dp", "tp", None, None))
     cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     return _logits(params, cfg, x[:, -1:])[:, 0], cache
 
@@ -426,24 +476,21 @@ def serve_step(params, cfg: LMConfig, cache, token: torch.Tensor, pos):
     b = token.shape[0]
     dev = token.device
     x = embed(params["embed"], token[:, None], cfg.compute_dtype)
+    if is_dtensor(pos):
+        pos = pos.to_local()  # replicated
     if isinstance(pos, torch.Tensor):
         at = pos.to(device=dev, dtype=torch.long).reshape(1)
         positions = at.reshape(1, 1).to(torch.int32)
-
-        def write(c, new):
-            c.index_copy_(1, at, new.to(c.dtype))
     else:  # a host int: nothing copied to the card
+        at = None
         positions = torch.full((1, 1), pos, dtype=torch.int32, device=dev)
-
-        def write(c, new):
-            c[:, pos:pos + 1].copy_(new)
     h, hd = cfg.n_heads, cfg.head_dim
     for i, lp in enumerate(params["layers"]):
         is_local, is_moe = cfg.kind(i)
         q, k, v = _qkv(lp, x, cfg, positions)
+        _write_position(cache["k"], i, k, pos, at)
+        _write_position(cache["v"], i, v, pos, at)
         kc, vc = cache["k"][i], cache["v"][i]
-        write(kc, k)
-        write(vc, v)
         o = attn.decode_attention(
             q, kc, vc, pos + 1,
             window=cfg.window if is_local else None,
@@ -451,3 +498,40 @@ def serve_step(params, cfg: LMConfig, cache, token: torch.Tensor, pos):
         a = dense(lp["wo"], o.reshape(b, 1, h * hd), cfg.compute_dtype)
         x, _ = _residual(lp, x, a, cfg, is_moe)
     return _logits(params, cfg, x)[:, 0], cache
+
+
+def _write_position(cache, layer: int, new, pos, at) -> None:
+    """Write ``new [B, 1, KvH, hd]`` into layer ``layer`` of ``cache [L,
+    B, S, KvH, hd]`` at position ``pos`` (a host int, or a 0-d tensor
+    whose ``[1]`` long copy is ``at``), in place.  A DTensor cache is
+    written on its ranks' own shards: ``new`` with every KV head and the
+    cache's batch placement, and position ``pos`` only on the rank whose
+    sequence shard holds it (with a tensor ``pos``, a masked write of
+    the old value elsewhere: no host read)."""
+    seq = cache.shape[2]
+    if is_dtensor(cache):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = cache.device_mesh
+        want = tuple(Shard(0) if p.is_shard(1) else Replicate()
+                     for p in cache.placements)
+        new = new.redistribute(mesh, want).to_local()
+        off = local_offset(cache, 2)
+        cache = cache.to_local()
+    else:
+        off = 0
+    c = cache[layer]
+    s_l = c.shape[1]
+    if at is None:
+        if off <= pos < off + s_l:
+            c[:, pos - off:pos - off + 1].copy_(new)
+        return
+    if s_l == seq:  # every position is this rank's
+        c.index_copy_(1, at, new.to(c.dtype))
+        return
+    new = new.to(c.dtype)
+    idx = at - off
+    inside = (idx >= 0) & (idx < s_l)
+    idx = idx.clamp(0, s_l - 1)
+    c.index_copy_(1, idx, torch.where(inside.view(1, 1, 1, 1), new,
+                                      c.index_select(1, idx)))

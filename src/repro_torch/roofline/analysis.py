@@ -7,11 +7,12 @@ collectives.  Eager torch has no compiler, no HLO and no SPMD
 partitioner, so the port traces the step itself:
 
 * ``TraceCounter`` runs the step on fake tensors (``FakeTensorMode``:
-  full shapes, no memory) under ``torch.utils.flop_counter.
-  FlopCounterMode`` and its own dispatch mode, which records
-  - FLOPs: ``FlopCounterMode``'s count of the matrix products, plus the
-    work the kernels' fake routes charge (``kernel_work``: K4 forward
-    and backward, K2a), which no aten op carries;
+  full shapes, no memory) under its own dispatch mode, which records
+  - FLOPs: the matrix products by ``FlopCounterMode``'s formulas
+    (``torch.utils.flop_counter.flop_registry``; the same count as
+    ``FlopCounterMode`` on every unpartitioned cell), plus the work the
+    kernels' fake routes charge (``kernel_work``: K4 forward and
+    backward, K2a), which no aten op carries;
   - bytes: every non-view aten op's input and output bytes, the eager
     program's memory traffic with no fusion at all (a compiler that
     fused the elementwise chains would move fewer), plus the kernels'
@@ -22,6 +23,20 @@ partitioner, so the port traces the step itself:
   - the outputs, and the ones that alias an argument (the train step
     updates its state in place);
   - each ``c10d`` collective's kind and result bytes.
+* A partitioned step (DTensor arguments, ``launch.tasks``) is one
+  device's own program.  A dispatch mode sees an op on DTensors at its
+  global shapes, and DTensor then runs the local op on the device's
+  shard (which a mode may or may not see, by torch version): the
+  counter counts each DTensor op once, as its local work (the
+  matrix-product FLOPs at the global shapes over the mesh extent that
+  cuts its output, as ``Shard`` or ``Partial``; the bytes and storages
+  of the local shards), skips any op it sees inside a DTensor op's
+  dispatch (that op's local op), and counts the plain ops outside one
+  (the ``local_map`` bodies: the kernels, the vocab-parallel loss) as
+  they are (``FlopCounterMode`` itself would count a DTensor op at its
+  global shape, and its local op again where it sees it).  DTensor's
+  redistributions and the model's own all-reduces are
+  functional collectives, recorded with their process group.
 * Eager tracing runs every layer, so the while-body undercount the JAX
   package corrects by compiling 1- and 2-period variants
   (``extrapolate``) does not arise: ``analyze_task`` has no such option.
@@ -33,10 +48,11 @@ partitioner, so the port traces the step itself:
   port does not partition) gives no collectives: its report takes
   ``collective_bytes_per_dev = None`` (never 0) and ``partitioned:
   false``, and its ``dominant`` and ``step_time_s`` read the compute and
-  memory terms only.  A trace of one device's own program (a 1 x 1
-  mesh, or the edge-sharded GNN step on rank 0 of a fake world) is
-  partitioned: its FLOPs and bytes scale by the device count, as the
-  JAX package scales its per-device cost analysis.
+  memory terms only.  A trace of one device's own program (a
+  partitioned dense-LM cell, a 1 x 1 mesh, or the edge-sharded GNN
+  step on rank 0 of a fake world) is partitioned: its FLOPs and bytes
+  scale by the device count, as the JAX package scales its per-device
+  cost analysis.
 
 Hardware: an NVIDIA H100 SXM5 80GB at 700 W (``HW``).  Collectives are
 charged per device against one link's lane, as the JAX package charges
@@ -49,6 +65,7 @@ to the trace, and ``chip_smoke.py``'s bounds read them.
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 import weakref
 from typing import Any
@@ -110,10 +127,56 @@ _NO_TRAFFIC = {
 @dataclasses.dataclass(frozen=True)
 class CollectiveRecord:
     """One collective the traced program issued: its kind (one of the
-    JAX package's five) and the bytes of its result on this device."""
+    JAX package's five), the bytes of its result on this device, and
+    the ranks of its process group (0 where not known)."""
 
     kind: str
     nbytes: int
+    group_size: int = 0
+
+
+def _group_size(func, args, kwargs) -> int:
+    """The size of the process group a c10d or functional collective
+    ran over (its ``ProcessGroup`` or ``group_name`` argument; 0 where
+    none resolves)."""
+    import torch.distributed as dist
+
+    named = dict(zip((a.name for a in func._schema.arguments), args))
+    named.update(kwargs)
+    for a in named.values():
+        if isinstance(a, dist.ProcessGroup):
+            return int(a.size())
+    name = named.get("group_name", named.get("tag"))
+    if isinstance(name, str):
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        try:
+            return int(_resolve_process_group(name).size())
+        except (RuntimeError, ValueError, KeyError):
+            return 0
+    return 0
+
+
+def local_tensor(t):
+    """A DTensor's local shard, any other tensor itself."""
+    from torch.distributed.tensor import DTensor
+
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+def _op_flops(func, args, kwargs, out) -> float:
+    """``FlopCounterMode``'s formula for ``func`` (0 where it has none),
+    at the shapes of ``args`` as given."""
+    from torch.utils.flop_counter import flop_registry
+
+    fn = flop_registry.get(func._overloadpacket)
+    return float(fn(*args, **kwargs, out_val=out)) if fn is not None else 0.0
+
+
+def _has_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(t, DTensor) for t in _tensors(x))
 
 
 @dataclasses.dataclass
@@ -240,7 +303,7 @@ def _storage_bytes(tensors) -> dict[int, int]:
 class Trace:
     """What ``TraceCounter`` recorded of one step."""
 
-    flops: float              # FlopCounterMode's + the kernels'
+    flops: float              # the matrix products' + the kernels'
     bytes: float              # non-view ops' inputs + outputs, + kernels'
     peak_bytes: float         # most bytes live at once, arguments included
     argument_bytes: float
@@ -261,8 +324,8 @@ class Trace:
 
 class TraceCounter(TorchDispatchMode):
     """Counts the aten ops of a step (see the module docstring).  Use as
-    ``TraceCounter().run(fn, args, fake_mode)``; it enters
-    ``FlopCounterMode`` and itself inside ``fake_mode``."""
+    ``TraceCounter().run(fn, args, fake_mode)``; it enters itself inside
+    ``fake_mode``."""
 
     def __init__(self):
         super().__init__()
@@ -272,6 +335,8 @@ class TraceCounter(TorchDispatchMode):
         self.kernel_calls: dict[str, int] = {}
         self.collectives: list[CollectiveRecord] = []
         self.n_ops = 0
+        self.flops = 0.0
+        self._dt_depth = 0     # > 0 inside a DTensor op's dispatch
         self._live = 0
         self._peak = 0
         self._seen: set[int] = set()
@@ -296,20 +361,33 @@ class TraceCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _has_dtensor((args, kwargs)):
+            self._dt_depth += 1
+            try:
+                out = func(*args, **kwargs)
+            finally:
+                self._dt_depth -= 1
+            self._count_dtensor_op(func, args, kwargs, out)
+            return out
         out = func(*args, **kwargs)
-        self.n_ops += 1
         name = func._schema.name.split("::")[-1]
         ns = func.namespace
         if ns in ("c10d", "_c10d_functional"):
+            self.n_ops += 1
             kind = _C10D_KINDS.get(name)
             if kind is not None:
                 res = out if ns == "_c10d_functional" else args[0]
                 self.collectives.append(CollectiveRecord(
-                    kind, sum(_nbytes(t) for t in _tensors(res))))
+                    kind, sum(_nbytes(t) for t in _tensors(res)),
+                    _group_size(func, args, kwargs)))
             return out
+        if self._dt_depth:
+            return out  # a DTensor op's local op: counted with it
+        self.n_ops += 1
         outs = _tensors(out)
         if not outs:
             return out
+        self.flops += _op_flops(func, args, kwargs, out)
         if not func.is_view and name not in _NO_TRAFFIC:
             self.bytes += sum(_nbytes(t) for t in _tensors(args))
             self.bytes += sum(_nbytes(t) for t in _tensors(kwargs))
@@ -317,30 +395,51 @@ class TraceCounter(TorchDispatchMode):
         self._track(outs)
         return out
 
-    def run(self, fn, args: tuple, fake_mode) -> tuple[Any, Trace]:
-        """``fn(*args)`` under ``fake_mode``, ``FlopCounterMode`` and this
-        counter: ``(its result, the Trace)``."""
-        from torch.utils.flop_counter import FlopCounterMode
+    def _count_dtensor_op(self, func, args, kwargs, out) -> None:
+        """One op on DTensors as its local work (module docstring)."""
+        self.n_ops += 1
+        outs = _tensors(out)
+        if not outs:
+            return
+        flops = _op_flops(func, args, kwargs, out)
+        if flops:
+            from torch.distributed.tensor import DTensor
 
-        arg_tensors = [t for _, t in named_tensors(args)]
+            first = next((t for t in outs if isinstance(t, DTensor)), None)
+            if first is not None:
+                mesh = first.device_mesh
+                flops /= math.prod(mesh.size(i) for i, p in enumerate(
+                    first.placements) if not p.is_replicate())
+            self.flops += flops
+        local = [local_tensor(t) for t in outs]
+        if not func.is_view and func._schema.name.split("::")[-1] \
+                not in _NO_TRAFFIC:
+            self.bytes += sum(_nbytes(local_tensor(t))
+                              for t in _tensors((args, kwargs)))
+            self.bytes += sum(_nbytes(t) for t in local)
+        self._track(local)
+
+    def run(self, fn, args: tuple, fake_mode) -> tuple[Any, Trace]:
+        """``fn(*args)`` under ``fake_mode`` and this counter: ``(its
+        result, the Trace)``."""
+        arg_tensors = [local_tensor(t) for _, t in named_tensors(args)]
         arg_storages = _storage_bytes(arg_tensors)
         t0 = time.perf_counter()
-        flop_mode = FlopCounterMode(display=False)
         self._open = True
         _ACTIVE.append(self)
         try:
             # The arguments are live throughout.
             self._track(arg_tensors)
-            with fake_mode, flop_mode, self:
+            with fake_mode, self:
                 result = fn(*args)
             out_storages = _storage_bytes(
-                [t for _, t in named_tensors(result)])
+                [local_tensor(t) for _, t in named_tensors(result)])
         finally:
             _ACTIVE.remove(self)
             self._open = False
         alias = sum(n for k, n in out_storages.items() if k in arg_storages)
         return result, Trace(
-            flops=float(flop_mode.get_total_flops()) + self.kernel_flops,
+            flops=self.flops + self.kernel_flops,
             bytes=self.bytes + self.kernel_bytes,
             peak_bytes=float(self._peak),
             argument_bytes=float(sum(arg_storages.values())),
@@ -356,7 +455,9 @@ class TraceCounter(TorchDispatchMode):
 def _path_str(name: str) -> str:
     """``train.tree``'s leaf name as ``'a/b/0/c'`` (the JAX package's
     ``_path_str``)."""
-    return "/".join(part.strip(".[]'") for part in name.split("/"))
+    from repro_torch.train.tree import path_str
+
+    return path_str(name)
 
 
 def named_tensors(tree) -> list[tuple[str, torch.Tensor]]:

@@ -12,7 +12,9 @@ as 0-d tensors on the parameters' device: nothing is read to the host.
 
 A tree is a ``ParamTree``, a dict, a list or a tuple of tensors (see
 ``train.tree``; a gradient list in the parameters' leaf order will do
-for ``grads``).
+for ``grads``).  Leaves may be DTensors (a partitioned state): the
+update then runs on each rank's own shards, and ``global_norm`` is one
+replicated scalar from one all-reduce per mesh dim.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.models.sharding import is_dtensor
 from repro_torch.train.tree import leaves, unflatten
 
 Params = Any
@@ -41,20 +44,30 @@ class AdamWConfig:
 
 def zeros_like_tree(tree):
     """A tree of ``tree``'s structure with float32 zeros on its devices
-    and no gradient: a ``ParamTree`` for a ``ParamTree``."""
+    and no gradient: a ``ParamTree`` for a ``ParamTree``; a DTensor's
+    zeros in its placements."""
     return unflatten(tree, [
-        torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        torch.zeros_like(t, dtype=torch.float32).detach() if is_dtensor(t)
+        else torch.zeros(t.shape, dtype=torch.float32, device=t.device)
         for t in leaves(tree)])
 
 
 def adamw_init(params: Params):
     """``{"mu", "nu"}``: float32 zeros in ``params``' structure, and
-    ``"step"``: a 0-d int32 zero, on the parameters' device."""
-    dev = leaves(params)[0].device
+    ``"step"``: a 0-d int32 zero, on the parameters' device (replicated
+    on their mesh, for DTensor parameters)."""
+    first = leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if is_dtensor(first):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = first.device_mesh
+        step = DTensor.from_local(step, mesh, (Replicate(),) * mesh.ndim,
+                                  run_check=False)
     return {
         "mu": zeros_like_tree(params),
         "nu": zeros_like_tree(params),
-        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        "step": step,
     }
 
 
@@ -73,9 +86,31 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """The float32 2-norm of every tensor of ``tree`` together."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves(tree)))
+    """The float32 2-norm of every tensor of ``tree`` together.  Of
+    DTensor leaves: each rank sums the squares of its own shards, a
+    leaf's replicated copies weighted by one over their count (a power
+    of two on the production meshes: exact), and the sum is all-reduced
+    once per mesh dim into one replicated scalar; no host read."""
+    xs = leaves(tree)
+    if not any(is_dtensor(x) for x in xs):
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in xs))
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = next(x for x in xs if is_dtensor(x)).device_mesh
+    total = None
+    for x in xs:
+        local = x.to_local() if is_dtensor(x) else x
+        sq = torch.sum(torch.square(local.float()))
+        copies = (math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                            if not p.is_shard())
+                  if is_dtensor(x) else mesh.size())
+        if copies > 1:
+            sq = sq / copies
+        total = sq if total is None else total + sq
+    total = DTensor.from_local(total, mesh, (Partial(),) * mesh.ndim,
+                               run_check=False)
+    return torch.sqrt(total.redistribute(mesh, (Replicate(),) * mesh.ndim))
 
 
 @torch.no_grad()

@@ -9,6 +9,18 @@ Gradient (micro-batch) accumulation: the batch is cut into
 the loss are divided by ``accum_steps``.  The step updates the state in
 place (``adamw_update``) and returns it; its metrics are 0-d tensors
 (nothing is read to the host).
+
+A partitioned state (DTensor parameters and moments) and batch take the
+same step: the gradients accumulate into DTensor ``.grad``s and are
+laid out as their parameters before the update.  Without a ``"mask"``,
+a DTensor leaf's micro-batches are cut from each rank's own rows
+(``_micro``: micro-batch ``i`` is every data rank's ``i``-th slice);
+every micro-batch then averages over as many tokens, so the grouping
+changes neither the loss nor the summed gradient.  A masked batch
+(each micro-batch averaged over its own mask count, which depends on
+the grouping) is gathered once and cut into the JAX package's
+contiguous rows, each rank keeping its shard of each micro-batch
+(``_micro_batches``).
 """
 from __future__ import annotations
 
@@ -17,6 +29,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.models.sharding import is_dtensor
 from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
 from repro_torch.train.tree import leaves
 
@@ -47,20 +60,17 @@ def make_train_step(
         p_leaves = leaves(params)
         for p in p_leaves:
             p.grad = None
-        if accum_steps == 1:
-            micro = [batch]
-        else:
-            n = next(iter(batch.values())).shape[0] // accum_steps
-            micro = [{key: x[i * n:(i + 1) * n] for key, x in batch.items()}
-                     for i in range(accum_steps)]
+        micro = [batch] if accum_steps == 1 else _micro_batches(
+            batch, accum_steps)
         loss = None
         for mb in micro:
             mb_loss = loss_fn(params, mb)
             mb_loss.backward()
             mb_loss = mb_loss.detach().float()
             loss = mb_loss if loss is None else loss + mb_loss
-        grads = [p.grad if p.grad is not None else torch.zeros_like(
-            p, dtype=torch.float32) for p in p_leaves]
+        grads = [_laid_out_as(p.grad, p) if p.grad is not None
+                 else torch.zeros_like(p, dtype=torch.float32)
+                 for p in p_leaves]
         if accum_steps > 1:
             loss = loss / accum_steps
             for g in grads:
@@ -72,6 +82,49 @@ def make_train_step(
         return TrainState(params, opt_state), {"loss": loss, **opt_metrics}
 
     return train_step
+
+
+def _micro_batches(batch: dict, n: int) -> list[dict]:
+    """``batch`` cut into ``n`` micro-batches on dim 0 (see the module's
+    docstring for a partitioned batch)."""
+    if "mask" in batch and any(is_dtensor(x) for x in batch.values()):
+        from repro_torch.models.sharding import distribute
+
+        whole = {key: x.full_tensor() if is_dtensor(x) else x
+                 for key, x in batch.items()}
+        m = next(iter(whole.values())).shape[0] // n
+        return [{key: distribute(x[i * m:(i + 1) * m], batch[key].device_mesh,
+                                 batch[key].placements)
+                 if is_dtensor(batch[key]) else x[i * m:(i + 1) * m]
+                 for key, x in whole.items()} for i in range(n)]
+    return [{key: _micro(x, i, n) for key, x in batch.items()}
+            for i in range(n)]
+
+
+def _micro(x, i: int, n: int):
+    """Micro-batch ``i`` of ``n`` of leaf ``x`` on dim 0: rows ``i * B / n
+    .. (i + 1) * B / n``; of a DTensor, the same slice of each rank's
+    own rows (a slice across a sharded dim 0 would gather the batch)."""
+    if not is_dtensor(x):
+        m = x.shape[0] // n
+        return x[i * m:(i + 1) * m]
+    from torch.distributed.tensor import DTensor
+
+    local = x.to_local()
+    m = local.shape[0] // n
+    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
+    part = local[i * m:(i + 1) * m]
+    return DTensor.from_local(part, x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=part.stride())
+
+
+def _laid_out_as(g, p):
+    """Gradient ``g`` in parameter ``p``'s placements (a DTensor gradient
+    may come out ``Partial`` or laid out otherwise)."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def train_state_from_jax(state, cfg, device=None,

@@ -5,8 +5,8 @@ containers.
 A node is a ``NamedTuple`` (its fields), a ``ParamTree`` (its weights and
 children by sorted key), an ``nn.ModuleList`` or a list or tuple (by
 index), or a dict (by sorted key, as ``jax.tree.leaves``); anything else
-is a leaf.  Leaves are named as ``jax.tree_util`` names key paths
-(``.params``, ``['embed']``, ``[3]``, joined by ``/``).
+is a leaf (a DTensor too).  Leaves are named as ``jax.tree_util`` names
+key paths (``.params``, ``['embed']``, ``[3]``, joined by ``/``).
 """
 from __future__ import annotations
 
@@ -40,6 +40,12 @@ def named_leaves(tree, prefix=()) -> list:
         return [("/".join(prefix), tree)]
     return [item for key, child in kids
             for item in named_leaves(child, prefix + (key,))]
+
+
+def path_str(name: str) -> str:
+    """A leaf's name as ``'a/b/0/c'`` (the JAX package's ``_path_str``),
+    the keys of a placements dict (``launch.tasks``)."""
+    return "/".join(part.strip(".[]'") for part in name.split("/"))
 
 
 def leaves(tree) -> list:

@@ -1529,6 +1529,48 @@ def test_cuda_distributed_world1_equals_local_and_captures(card, backend,
         dist.destroy_process_group()
 
 
+@pytest.mark.cuda
+def test_cuda_partitioned_lm_step_on_a_1x1_mesh_equals_plain(card,
+                                                             tmp_path):
+    # The dense LM's partitioned train step (DTensor placements, K4 on
+    # local heads through local_map, the vocab-parallel CE) on one NCCL
+    # rank: the plain step's loss, grad_norm and parameters, bitwise,
+    # with K4's kernels, forward and backward, launched.
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.mesh import init_local_group, make_mesh
+    from repro_torch.launch.tasks import build_task
+    from repro_torch.train.tree import leaves
+
+    spec = get_config("llama3.2-1b", smoke=True)
+    shape = dataclasses.replace(spec.shape("train_4k"), dims={
+        "seq_len": 64, "global_batch": 4, "accum_steps": 2})
+    cfg, plain = ltrain.build("llama3.2-1b", smoke=True, seed=0,
+                              device=card)
+    _, fresh = ltrain.build("llama3.2-1b", smoke=True, seed=0, device=card)
+    batch = ltrain.synthetic_batch(cfg.vocab, 4, 64, 0, 0, card)
+    plain, want = ltrain.make_step(cfg, accum_steps=2)(plain, batch)
+    init_local_group(0, 1, str(tmp_path / "store"), "cuda")
+    try:
+        task = build_task(spec, shape, make_mesh((1, 1)))
+        assert task.partitioned
+        flash_cuda.launches = flash_backward_cuda.launches = 0
+        state, got = task.run(fresh, batch)
+        torch.cuda.synchronize()
+        assert flash_cuda.launches == 2 * cfg.n_layers
+        assert flash_backward_cuda.launches == 2 * cfg.n_layers
+        for key in ("loss", "grad_norm", "lr"):
+            assert torch.equal(got[key].full_tensor(), want[key]), key
+        for a, b in zip(leaves(state), leaves(plain)):
+            assert torch.equal(a.full_tensor(), b)
+    finally:
+        dist.destroy_process_group()
+
+
 # -- static analysis on the card: the shared-memory budgets ---------------
 
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"), ("isect", "isect.cu"),

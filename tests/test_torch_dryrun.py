@@ -4,8 +4,11 @@ the JAX package's smoke call (``tests/test_dryrun_smoke.py``): 3 cells x
 6 ``[ok`` labels as the reference's cells (reckoned from
 ``repro.configs``: ``repro.launch.dryrun`` sets ``XLA_FLAGS`` at import
 and is not imported here), no JAX in the child, the roofline columns
-and ``--out``, and exit 1 when a cell fails.  Every call runs in a
-subprocess (the fake world is a process group)."""
+and ``--out``, and exit 1 when a cell fails.  The dense LM's rows
+(llama3.2-1b, gemma3-12b, command-r-plus-104b) are partitioned: one
+device's own program, its temp and its collectives; the MoE LM, GNN and
+BERT4Rec rows still trace the global step and say so.  Every call runs
+in a subprocess (the fake world is a process group)."""
 import json
 import os
 import subprocess
@@ -56,7 +59,9 @@ def test_dryrun_smoke_single_and_multi_without_jax():
     assert not {m for m in modules if m.split(".")[0] in ("jax", "repro")}
     for ln in proc.stdout.splitlines():
         if ln.startswith("[ok"):
-            assert "compile=" in ln and "args=" in ln and "temp=n/a" in ln
+            assert "compile=" in ln and "args=" in ln
+            # a partitioned row knows its temp; a global trace does not
+            assert ("temp=n/a" in ln) == ("llama3.2-1b" not in ln), ln
             assert "dom=" not in ln
 
 
@@ -79,21 +84,69 @@ def test_dryrun_roofline_and_out(tmp_path):
             "collective_bytes_per_dev_static", "notes"}
     for r in rows:
         assert keys <= set(r), r
-        assert r["status"] == "ok" and r["partitioned"] is False
+        dense = r["cell"].startswith("llama3.2-1b")
+        assert r["status"] == "ok" and r["partitioned"] is dense
         assert r["devices"] == (256 if r["mesh"] == "single" else 512)
-        assert r["memory"]["temp_gb"] is None
-        assert r["collective_counts"] is None
-        assert "not partitioned" in r["notes"]
         assert r["cost_flops_per_dev"] > 0 and r["memory"]["argument_gb"] > 0
+        if dense:
+            _hold_partitioned_row(r)
+        else:
+            assert r["memory"]["temp_gb"] is None
+            assert r["collective_counts"] is None
+            assert "not partitioned" in r["notes"]
         if r["mesh"] == "single":
             roof = r["roofline"]
-            assert roof["partitioned"] is False
-            assert roof["coll_bytes_dev"] is None
-            assert roof["dominant"] in ("compute", "memory")
+            assert roof["partitioned"] is dense
+            assert (roof["coll_bytes_dev"] is None) is not dense
+            assert roof["dominant"] in (("compute", "memory", "collective")
+                                        if dense else ("compute", "memory"))
             assert roof["hlo_flops"] == r["cost_flops_per_dev"] * 256
             assert 0 < roof["roofline_fraction"] <= 1
         else:
             assert "roofline" not in r
+
+
+def _hold_partitioned_row(r):
+    """A dense-LM row: one device's own program, its temp, collectives
+    of the JAX partitioner's kinds only, and no global-trace note."""
+    assert r["partitioned"] is True
+    assert r["memory"]["temp_gb"] is not None and r["memory"]["temp_gb"] > 0
+    counts = r["collective_counts"]
+    assert counts is not None and sum(counts.values()) > 0
+    assert {k for k, n in counts.items() if n} <= {
+        "all-reduce", "all-gather", "reduce-scatter"}
+    assert r["collective_bytes_per_dev_static"] > 0
+    assert "not partitioned" not in r["notes"]
+
+
+def test_dryrun_dense_lm_rows_are_partitioned(tmp_path):
+    """The three dense LMs' serving cells on both meshes (their train
+    cells: ``test_torch_tasks.py`` and ``test_torch_roofline.py``)."""
+    out = tmp_path / "dense.json"
+    proc = _run(["-m", "repro_torch.launch.dryrun", "--arch", "llama3.2-1b",
+                 "--arch", "gemma3-12b", "--arch", "command-r-plus-104b",
+                 "--shape", "prefill_32k", "--shape", "decode_32k",
+                 "--shape", "long_500k", "--mesh", "both", "--smoke",
+                 "--no-roofline", "--out", str(out)])
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    rows = [r for r in json.loads(out.read_text()) if r["status"] == "ok"]
+    # long_500k runs on gemma3-12b only (the others skip it at smoke)
+    assert len(rows) == 2 * (3 * 2 + 1)
+    for r in rows:
+        _hold_partitioned_row(r)
+
+
+def test_dryrun_moe_rows_say_they_are_not_partitioned(tmp_path):
+    out = tmp_path / "moe.json"
+    proc = _run(["-m", "repro_torch.launch.dryrun", "--arch",
+                 "qwen3-moe-235b-a22b", "--shape", "decode_32k", "--smoke",
+                 "--no-roofline", "--out", str(out)])
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    (r,) = json.loads(out.read_text())
+    assert r["status"] == "ok" and r["partitioned"] is False
+    assert r["collective_counts"] is None and r["memory"]["temp_gb"] is None
+    assert "MoE expert layout" in r["notes"]
+    assert "not partitioned: the global step was traced" in r["notes"]
 
 
 FAILING = """

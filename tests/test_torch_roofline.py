@@ -270,3 +270,34 @@ def test_kernel_work_formulas():
     assert flops == 10 * 32 * 8 * 64 * 65 // 2
     assert nbytes == 2 * 32 * (4 * 8 * 64 + 4 * 2 * 64) + 4 * 8 * 64
     assert port.segsum_work(100, 7, 16, 4) == (1600.0, 6400 + 400 + 448)
+
+
+# --------------------------------------------------------------------------
+# the partitioned dense LM's report on the multi-pod mesh
+# --------------------------------------------------------------------------
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_fake_world_cells import (DENSE_CELLS, fake_world_cells,  # noqa: E402
+                                    hold_partitioned)
+
+
+@pytest.fixture(scope="module")
+def multi_cells():
+    return fake_world_cells("multi")
+
+
+@pytest.mark.parametrize("cell", DENSE_CELLS)
+def test_dense_lm_report_is_partitioned_on_the_multi_pod_mesh(multi_cells,
+                                                              cell):
+    """Each dense-LM cell on the 2 x 16 x 16 mesh: one device's program
+    (``hold_partitioned``), collectives over the pod
+    axis (2) and the 16-way ones, and a report with its collective term:
+    ``partitioned``, the device's wire bytes, FLOPs scaled by the 512
+    devices, the device's peak."""
+    r = multi_cells[cell]
+    hold_partitioned(r)
+    assert set(r["groups"]) <= {2, 16}
+    rep = r["report"]
+    assert rep["partitioned"] is True and rep["coll_bytes_dev"] > 0
+    assert rep["hlo_flops"] == r["flops"] * 512
+    assert rep["peak_mem_gb"] > 0

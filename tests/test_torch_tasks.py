@@ -341,3 +341,51 @@ def test_edge_sharded_gat_collectives_on_fake_world():
     stats = collective_stats([CollectiveRecord(k, b) for k, b in records])
     assert stats.counts["all-reduce"] == 2 * 7 + 1
     assert stats.total_bytes == 2 * sum(want)
+
+
+# --------------------------------------------------------------------------
+# the partitioned dense LM on the fake world (tests/torch_fake_world_cells.py)
+# --------------------------------------------------------------------------
+
+sys.path.insert(0, os.path.dirname(__file__))
+from torch_fake_world_cells import (DENSE_CELLS, fake_world_cells,  # noqa: E402
+                                    hold_partitioned)
+
+FULL_CELLS = ("llama3.2-1b:prefill_32k", "llama3.2-1b:decode_32k")
+
+
+@pytest.fixture(scope="module")
+def single_cells():
+    return fake_world_cells("single", "--full", *FULL_CELLS)
+
+
+@pytest.fixture(scope="module")
+def one_cells():
+    return fake_world_cells("one")
+
+
+@pytest.mark.parametrize("cell", DENSE_CELLS)
+def test_dense_lm_cell_is_partitioned_on_the_single_pod_mesh(single_cells,
+                                                             cell):
+    hold_partitioned(single_cells[cell])
+    assert single_cells[cell]["groups"] == [16]
+
+
+@pytest.mark.parametrize("cell", FULL_CELLS)
+def test_full_width_llama_counts_each_flop_once(single_cells, cell):
+    """At full width every head divides 'model' (32 heads, 8 KV heads
+    sliced per rank): the devices' work is the global step's."""
+    r = single_cells[f"{cell}@full"]
+    hold_partitioned(r)
+    assert abs(r["flops"] * 256 / r["global_flops"] - 1) <= 1e-2
+
+
+@pytest.mark.parametrize("cell", DENSE_CELLS)
+def test_one_by_one_mesh_equals_the_global_trace(one_cells, cell):
+    """On a 1 x 1 mesh the device's program is the whole step: its FLOPs
+    equal the global trace's within 1%, with no collective."""
+    r = one_cells[cell]
+    assert r["per_device"] is True and r["partitioned"] is True
+    assert abs(r["flops"] / r["global_flops"] - 1) <= 1e-2
+    assert r["kinds"] == []
+    assert r["argument_bytes"] == r["placed_argument_bytes"]

@@ -1,0 +1,135 @@
+"""Every dense-LM cell traced on a production mesh over a fake world of
+512 ranks, partitioned and whole, for ``test_torch_tasks.py`` and
+``test_torch_roofline.py``.  Run as ``python tests/torch_fake_world_cells.py
+single|multi [--full ARCH:SHAPE ...]`` (a fake world is a process group:
+never in the pytest process); prints one JSON object on its last line,
+``{cell: {...}}``.  Imports ``repro_torch`` only (no JAX).
+
+Each cell is built by ``launch.tasks.build_task`` twice: on the mesh,
+as the partitioned task (DTensor arguments, rank 0's own program), and
+on its stand-in (``launch.mesh.mesh_shape``: the whole global step, the
+count it is held against).  ``smoke()`` configs, and at full size the cells ``--full``
+names.  ``one`` is a 1 x 1 mesh over rank 0.  The tests import
+``fake_world_cells`` and ``hold_partitioned`` from here.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import torch
+import torch.distributed as dist
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DENSE = ("llama3.2-1b", "gemma3-12b", "command-r-plus-104b")
+# What the JAX package's partitioner emits, and no more.
+PARTITIONER_KINDS = {"all-reduce", "all-gather", "reduce-scatter"}
+# The most a device's work times the devices exceeds the global step's:
+# a fallback (heads that do not divide 'model', as the smoke configs'
+# 8, 4 and 6 heads over 16 do) replicates work over 'model' only.  The
+# traces show 9.37x (gemma3-12b train_4k) to 15.59x (llama3.2-1b
+# prefill_32k), and 1.00x where every head divides.
+MODEL_EXTENT = 16
+
+
+def _dense_cells():
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
+
+    return [f"{a}:{s}" for a in DENSE
+            for s, shape in get_config(a, smoke=True).shapes.items()
+            if not shape.skip]
+
+
+DENSE_CELLS = _dense_cells()
+
+
+def fake_world_cells(kind, *extra):
+    """This script's rows for ``kind`` (``single``, ``multi``, ``one``),
+    run in a subprocess."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), kind, *extra],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def hold_partitioned(r):
+    """A dense-LM cell traced as one device's own program: no FLOP
+    counted at both the global and the local shape (a device's count
+    times the devices at least the global step's, at most
+    ``MODEL_EXTENT`` times), the partitioner's kinds of collective,
+    every argument byte the placements give a device, a temp."""
+    assert r["per_device"] is True and r["partitioned"] is True
+    ratio = r["flops"] * r["devices"] / r["global_flops"]
+    assert 1 - 1e-9 <= ratio <= MODEL_EXTENT, ratio
+    assert r["kinds"] and set(r["kinds"]) <= PARTITIONER_KINDS
+    assert r["argument_bytes"] == r["placed_argument_bytes"]
+    assert r["memory"]["temp"] is not None and r["memory"]["temp"] > 0
+    assert "not partitioned" not in r["notes"]
+
+
+def row(spec, shape, mesh):
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.launch.tasks import build_task, per_device_bytes
+    from repro_torch.roofline.analysis import analyze_task
+
+    task = build_task(spec, shape, mesh)
+    whole = build_task(spec, shape, mesh_shape(mesh))
+    trace = task.trace()
+    rep = analyze_task(task).row()
+    traced = task.micro[1] if task.micro else task.abstract_args
+    return {
+        "per_device": task.per_device, "partitioned": task.partitioned,
+        "devices": task.n_devices, "flops": trace.flops,
+        "global_flops": whole.trace().flops,
+        "kinds": sorted({r.kind for r in trace.collectives}),
+        "groups": sorted({r.group_size for r in trace.collectives}),
+        "argument_bytes": trace.argument_bytes,
+        # what the placements give the arguments the trace ran on (one
+        # micro-batch of an accumulated train step)
+        "placed_argument_bytes": sum(
+            per_device_bytes(a, pl, mesh)
+            for a, pl in zip(traced, task.placements)),
+        "memory": task.memory_per_device(),
+        "kernel_calls": trace.kernel_calls,
+        "report": {k: rep[k] for k in ("partitioned", "coll_bytes_dev",
+                                       "dominant", "hlo_flops",
+                                       "peak_mem_gb")},
+        "notes": task.notes,
+    }
+
+
+def main(argv):
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_fake_world, make_production_mesh
+
+    kind, full = argv[0], argv[argv.index("--full") + 1:] if (
+        "--full" in argv) else []
+    init_fake_world(512)
+    try:
+        mesh = {"single": lambda: make_production_mesh(),
+                "multi": lambda: make_production_mesh(multi_pod=True),
+                "one": lambda: DeviceMesh(
+                    "cpu", torch.arange(1).reshape(1, 1),
+                    mesh_dim_names=("data", "model"))}[kind]()
+        out = {}
+        for arch in DENSE:
+            spec = get_config(arch, smoke=True)
+            for name, shape in spec.shapes.items():
+                if not shape.skip:
+                    out[f"{arch}:{name}"] = row(spec, shape, mesh)
+        for cell in full:
+            arch, name = cell.split(":")
+            spec = get_config(arch)
+            out[f"{cell}@full"] = row(spec, spec.shape(name), mesh)
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])
