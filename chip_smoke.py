@@ -345,7 +345,9 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    cells of ``DRYRUN_ARCHS`` x ``DRYRUN_SHAPES`` (the JAX package's
    smoke test's three cells and one cell of every other shape kind;
    ``--all`` takes longer than the phase's five minutes, on the MoE
-   trains above all): both exit 0,
+   trains above all), and beside them a third, ``--mesh single
+   --no-roofline --out`` over ``MOE_ARCH`` x ``DRYRUN_MOE_SHAPES`` (phase
+   22 (c) reads its rows): each exits 0,
    every cell not skipped ``ok``, the table and the seconds printed; (b)
    the cells phases 16-19 ran, at their cuts (printed as ``reduced``),
    built on a 1 x 1 mesh over an NCCL group of one and traced: the
@@ -383,6 +385,30 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    20 (a)'s llama3.2-1b rows partitioned with collectives, and on this
    1 x 1 mesh each llama3.2-1b cell of phase 20 (b) traced partitioned
    within 1% of the FLOPs of its global trace, both traces timed.
+22. the MoE LM partitioned by DTensor placements over a (data 1, model
+   1) mesh on an NCCL group of one, qwen3-moe-235b-a22b at its full
+   width (d_model 4,096, 64 heads over 4 KV heads of 128, 128 experts
+   top-8 of d_ff 1,536, vocab 151,936, 32 dispatch groups) with its 94
+   layers cut (printed as ``reduced``), random weights from seed 0,
+   ``flash_plain`` / ``flash_plain_backward`` made to raise: (a) at 2
+   layers, a partitioned prefill of 4 x 4,096 (16,384 tokens: 32 groups
+   of 512, capacity 48) and 16 partitioned decode steps (the global
+   route) fed the plain route's greedy ids: 2 K4 launches a prefill and
+   none a decode step, logits within 1e-5 of the largest magnitude of
+   the plain route's (or of what two plain prefills differ by) and
+   every greedy id the same, both routes timed in turns and profiled
+   (idle share, kernels a call); (b) at 1 layer, the ``train_4k`` step
+   cut to 4 x 4,096 in 2 micro-batches (8,192 tokens each: 32 groups
+   of 256, capacity 24) with float32 masters and AdamW, the plain step
+   first (its updated leaves kept on the host: two states do not fit),
+   then the partitioned step on a state rebuilt from the same seed: 4
+   K4 forward and 2 backward launches a step, loss within 1e-5,
+   ``grad_norm`` within 1e-4 and every parameter within 1e-4 of its
+   leaf's largest magnitude of the plain step's, each route's second
+   step timed, peaks over what was held; (c) phase 20 (a)'s MoE rows
+   partitioned with collectives, and (a)'s and (b)'s cells traced
+   partitioned on this 1 x 1 mesh within 1% of the FLOPs of their
+   global traces.
 
 Prints the kernel line (JSON; every entry carries phase 15's
 ``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
@@ -395,7 +421,8 @@ messages on ``ogb_products``) with the rest of phase 18 as ``gnn_*``,
 phase 19's bag pooling as ``bag_*``, phase 7's as ``phase7_*`` and the
 clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase 16's as
 ``lm_*``, phase 17's as ``train_*``, its backward's as ``bwd_*``,
-phase 19's as ``recsys_*`` and phase 21's as ``mesh_*``) and, last, the
+phase 19's as ``recsys_*``, phase 21's as ``mesh_*`` and phase 22's as
+``moe_*``) and, last, the
 device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
 """
@@ -5305,22 +5332,33 @@ def recsys_phase(dev, flush, sms, clock, smi):
 DRYRUN_ARCHS = ("llama3.2-1b", "gat-cora", "bert4rec")
 DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "molecule",
                  "train_batch", "serve_p99", "retrieval_cand")
+# (a)'s MoE cells (phase 22 (c) reads them): full size on the single
+# pod's mesh (its global and its grouped route), in a third subprocess
+# beside the two (~30 s of trace on an H100 machine's host; both meshes
+# took 92.7 s; PERF.md §6).
+DRYRUN_MOE_SHAPES = ("prefill_32k", "decode_32k")
 DRYRUN_TIMEOUT_S = 300     # (a): each subprocess
 MEMORY_RATIO_MAX = 2.0     # (b): predicted against measured peak, either way
 
 
 def dryrun_subprocesses(smi):
     """Phase 20 (a): the dry-run CLI over ``DRYRUN_ARCHS`` x
-    ``DRYRUN_SHAPES`` on both meshes, in two subprocesses side by side.
-    Returns the single mesh's rows."""
+    ``DRYRUN_SHAPES`` on both meshes, and ``MOE_ARCH`` x
+    ``DRYRUN_MOE_SHAPES`` on the single one, in three subprocesses side
+    by side.
+    Returns the single mesh's rows and the MoE rows."""
     import tempfile
 
-    out = os.path.join(tempfile.mkdtemp(prefix="chip-smoke-dryrun-"),
-                       "single.json")
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-dryrun-")
+    out, moe_out = (os.path.join(tmp, f"{name}.json")
+                    for name in ("single", "moe"))
     cells = [a for arch in DRYRUN_ARCHS for a in ("--arch", arch)] + [
         a for shape in DRYRUN_SHAPES for a in ("--shape", shape)]
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
-    base = [sys.executable, "-m", "repro_torch.launch.dryrun", *cells]
+    run = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+    base = run + cells
+    moe_cells = ["--arch", MOE_ARCH] + [
+        a for shape in DRYRUN_MOE_SHAPES for a in ("--shape", shape)]
     t0 = time.perf_counter()
     procs = {
         "single": subprocess.Popen(base + ["--mesh", "single", "--out", out],
@@ -5331,6 +5369,11 @@ def dryrun_subprocesses(smi):
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True,
                                   env=env, cwd=ROOT),
+        "single (MoE)": subprocess.Popen(
+            run + moe_cells + ["--mesh", "single", "--no-roofline",
+                               "--out", moe_out],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT),
     }
     results = {}
     try:
@@ -5355,8 +5398,8 @@ def dryrun_subprocesses(smi):
         if rc != 0 or bad or not lines:
             fail(f"phase 20 (a) --mesh {kind}: exit {rc}, {bad}: "
                  f"{stderr[-2000:]}")
-    with open(out) as f:
-        return json.load(f)
+    with open(out) as f, open(moe_out) as g:
+        return json.load(f), json.load(g)
 
 
 def cut_shape(spec, name, **dims):
@@ -5485,7 +5528,7 @@ def dryrun_phase(dev, flash_entry, gnn_entry, smi):
 
     t_phase = time.perf_counter()
     at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
-    rows = dryrun_subprocesses(smi)
+    rows, moe_rows = dryrun_subprocesses(smi)
     log(f"  {at()} (a) done")
 
     # (b) the predictions: each cell traced in this process on a 1 x 1
@@ -5567,7 +5610,8 @@ def dryrun_phase(dev, flash_entry, gnn_entry, smi):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  {at()} phase 20 done")
-    return {"dryrun_card": smi, "dryrun_single": rows, "dryrun_cells": out}
+    return {"dryrun_card": smi, "dryrun_single": rows,
+            "dryrun_moe": moe_rows, "dryrun_cells": out}
 
 
 # Phase 21: the dense LM partitioned by DTensor placements on the card.
@@ -5854,6 +5898,371 @@ def mesh_phase(dev, flush, smi, dryrun_rows):
         log(f"  {at()} (b) done")
         keys.update(mesh_traces(mesh, spec, dryrun_rows))
         log(f"  {at()} phase 21 done")
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return keys
+
+
+# Phase 22: the MoE LM partitioned by DTensor placements on the card.
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_SERVE_LAYERS = 2      # (a): of the model's 94, printed as reduced
+MOE_TRAIN_LAYERS = 1      # (b)
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 4096, 16       # (a)
+MOE_TRAIN_BATCH, MOE_TRAIN_ACCUM = 4, 2            # (b): train_4k's 256
+MOE_TRAIN_FWD = 4          # (b) 1 layer x (forward + remat) x 2 micro-batches
+MOE_TRAIN_BWD = 2          # (b) 1 layer x 2 micro-batches
+# (a), (b): the partitioned route against the plain one; on the 1 x 1
+# mesh both run the same kernels on the same inputs (the combine adds
+# each token's slots in a fixed order: no atomics), so a limit is
+# widened only to what two plain runs themselves differ by.
+MOE_LOGITS_TOL = 1e-5     # of the largest magnitude
+MOE_LOSS_TOL = 1e-5
+MOE_GNORM_TOL = 1e-4
+MOE_PARAM_TOL = 1e-4      # of each leaf's largest magnitude
+
+
+def moe_spec(layers):
+    """``MOE_ARCH``'s full-width spec at depth ``layers``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    spec = get_config(MOE_ARCH)
+    return dataclasses.replace(spec, model=dataclasses.replace(
+        spec.model, n_layers=layers))
+
+
+def moe_params(cfg, dev):
+    """Random float32 weights of ``cfg`` from seed 0 on ``dev``."""
+    import torch
+
+    from repro_torch.models.transformer import init_params
+
+    return init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+
+
+def moe_serve(dev, mesh, flush, smi):
+    """Phase 22 (a): the partitioned prefill and decode beside the plain
+    route on the same weights, at depth ``MOE_SERVE_LAYERS``."""
+    import torch
+
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.launch import serve
+    from repro_torch.launch.tasks import build_task, distribute_tree
+    from repro_torch.models.moe import capacity, n_groups
+    from repro_torch.models.transformer import init_cache, prefill, serve_step
+
+    spec = moe_spec(MOE_SERVE_LAYERS)
+    cfg = spec.model
+    params = moe_params(cfg, dev)
+    prompts = serve.make_prompts(cfg, MOE_BATCH, MOE_PROMPT, device=dev)
+    pre = build_task(spec, cut_shape(spec, "prefill_32k", seq_len=MOE_PROMPT,
+                                     global_batch=MOE_BATCH), mesh)
+    dec = build_task(spec, cut_shape(spec, "decode_32k",
+                                     seq_len=MOE_PROMPT + MOE_GEN,
+                                     global_batch=MOE_BATCH), mesh)
+    if not (pre.partitioned and dec.partitioned):
+        fail("phase 22 (a): the serving cells are not partitioned")
+    t = MOE_BATCH * MOE_PROMPT
+    g = n_groups(cfg.moe, t)
+    route = (f"prefill {t} tokens in {g} groups of {t // g} (capacity "
+             f"{capacity(cfg.moe, t // g)}), a decode step's {MOE_BATCH} "
+             f"tokens in {n_groups(cfg.moe, MOE_BATCH)} (capacity "
+             f"{capacity(cfg.moe, MOE_BATCH)})")
+    with torch.no_grad(), plain_versions_raise():
+        d_params, d_prompts = pre.distribute((params, prompts))
+        last, cache = prefill(params, cfg, prompts)
+        again, _ = prefill(params, cfg, prompts)
+        plain_spread = rel_max(again, last)
+        del again
+        flash_cuda.launches = 0
+        d_last, d_cache = pre.fn(d_params, d_prompts)
+        torch.cuda.synchronize()
+        per_prefill = flash_cuda.launches
+        pre_err = rel_max(whole(d_last), last)
+        ids_differ = int((whole(d_last).argmax(-1) != last.argmax(-1)).sum())
+        full = init_cache(cfg, MOE_BATCH, MOE_PROMPT + MOE_GEN, device=dev)
+        d_full = init_cache(cfg, MOE_BATCH, MOE_PROMPT + MOE_GEN, device=dev)
+        for key in full:
+            full[key][:, :, :MOE_PROMPT].copy_(cache[key])
+            d_full[key][:, :, :MOE_PROMPT].copy_(whole(d_cache[key]))
+        del cache, d_cache
+        d_full = distribute_tree(d_full, dec.placements[1], mesh)
+        tok = torch.argmax(last, dim=-1)
+
+        def d_args(tk, pos):
+            return (distribute_tree(tk, dec.placements[2], mesh),
+                    distribute_tree(torch.tensor(pos, dtype=torch.int32,
+                                                 device=dev),
+                                    dec.placements[3], mesh))
+
+        per_step, dec_err = [], 0.0
+        for i in range(MOE_GEN):
+            lg, full = serve_step(params, cfg, full, tok, MOE_PROMPT + i)
+            flash_cuda.launches = 0
+            d_lg, d_full = dec.fn(d_params, d_full, *d_args(
+                tok, MOE_PROMPT + i))
+            torch.cuda.synchronize()
+            per_step.append(flash_cuda.launches)
+            dec_err = max(dec_err, rel_max(whole(d_lg), lg))
+            tok = torch.argmax(lg, dim=-1)
+            ids_differ += int((whole(d_lg).argmax(-1) != tok).sum())
+        limit = max(MOE_LOGITS_TOL, plain_spread)
+        if per_prefill != cfg.n_layers or any(per_step):
+            fail(f"phase 22 (a): K4 launched {per_prefill} times a "
+                 f"partitioned prefill (expected {cfg.n_layers}) and "
+                 f"{per_step} a decode step (expected none)")
+        if not (pre_err <= limit and dec_err <= limit and ids_differ == 0
+                and torch.isfinite(whole(d_last)).all()):
+            fail(f"phase 22 (a): partitioned logits against the plain "
+                 f"route: prefill {pre_err:.3g}, decode {dec_err:.3g} of the "
+                 f"largest magnitude (limit {limit:.3g}); {ids_differ} "
+                 "greedy ids differ")
+        pre_ms, d_pre_ms = time_two(
+            lambda: prefill(params, cfg, prompts),
+            lambda: pre.fn(d_params, d_prompts), flush, n_timed=3, n_warm=1)
+        step_args = d_args(tok, MOE_PROMPT)
+        step_ms, d_step_ms = time_two(
+            lambda: serve_step(params, cfg, full, tok, MOE_PROMPT),
+            lambda: dec.fn(d_params, d_full, *step_args), flush,
+            n_timed=5, n_warm=1)
+        prof = {}
+        for label, call, n in (
+                ("prefill", lambda: pre.fn(d_params, d_prompts), 1),
+                ("plain prefill", lambda: prefill(params, cfg, prompts), 1),
+                ("decode step", lambda: dec.fn(d_params, d_full,
+                                               *step_args), 5),
+                ("plain decode step", lambda: serve_step(
+                    params, cfg, full, tok, MOE_PROMPT), 5)):
+            wall, busy, n_k, rows = profiled(call, n)
+            prof[label] = (wall, 1.0 - busy / wall, n_k)
+            log(f"  (a) {label} under torch.profiler: wall {wall:.3f} ms, "
+                f"idle {1.0 - busy / wall:.1%}, {n_k:.0f} kernels a call; "
+                "most device time: " + "; ".join(
+                    f"{name[:60]} {ms:.3f} ms" for name, ms in rows[:4]))
+        peak = torch.cuda.max_memory_allocated(dev)
+    log(f"  (a) {MOE_ARCH} reduced: {cfg.n_layers} of 94 layers, full width "
+        f"(d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV "
+        f"of {cfg.head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
+        f"of d_ff {cfg.moe.d_ff}, vocab {cfg.vocab}); {route}")
+    log(f"  (a) partitioned prefill {MOE_BATCH} x {MOE_PROMPT}: K4 "
+        f"{per_prefill} launches, logits within {pre_err:.3g} of the plain "
+        f"route's (two plain runs {plain_spread:.3g}); {MOE_GEN} decode "
+        f"steps: K4 {sum(per_step)} launches, logits within {dec_err:.3g} "
+        f"(limit {limit:.3g}), every greedy id the same; prefill "
+        f"{d_pre_ms:.2f} ms against {pre_ms:.2f} ms plain, decode "
+        f"{d_step_ms:.3f} ms a step against {step_ms:.3f} ms (in turns, L2 "
+        f"flushed); peak {peak / 2**30:.1f} GiB [{smi}]")
+    del params, d_params, full, d_full, prompts, d_prompts
+    torch.cuda.empty_cache()
+    return {"moe_launches_prefill": per_prefill,
+            "moe_launches_decode": max(per_step),
+            "moe_prefill_rel_err": pre_err, "moe_decode_rel_err": dec_err,
+            "moe_plain_spread": plain_spread, "moe_ids_differ": ids_differ,
+            "moe_prefill_ms": d_pre_ms, "moe_plain_prefill_ms": pre_ms,
+            "moe_decode_ms": d_step_ms, "moe_plain_decode_ms": step_ms,
+            "moe_prefill_idle_share": prof["prefill"][1],
+            "moe_plain_prefill_idle_share": prof["plain prefill"][1],
+            "moe_prefill_kernels": prof["prefill"][2],
+            "moe_decode_idle_share": prof["decode step"][1],
+            "moe_plain_decode_idle_share": prof["plain decode step"][1],
+            "moe_decode_kernels": prof["decode step"][2],
+            "moe_plain_decode_kernels": prof["plain decode step"][2],
+            "moe_serve_peak_gib": peak / 2**30}
+
+
+def moe_train(dev, mesh, smi):
+    """Phase 22 (b): the partitioned ``train_4k`` step at depth
+    ``MOE_TRAIN_LAYERS`` beside the plain step.  Two states do not fit:
+    the plain step runs first from seed 0 and its updated leaves wait on
+    the host; the partitioned step then runs on a state rebuilt from the
+    same seed.  Each route's second step is its timed one."""
+    import gc
+
+    import torch
+
+    from repro_torch.kernels.flash import flash_backward_cuda, flash_cuda
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.tasks import build_task, distribute_tree
+    from repro_torch.models.moe import capacity, n_groups
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import leaves
+
+    spec = moe_spec(MOE_TRAIN_LAYERS)
+    cfg = spec.model
+    task = build_task(spec, cut_shape(
+        spec, "train_4k", seq_len=TRAIN_SEQ, global_batch=MOE_TRAIN_BATCH,
+        accum_steps=MOE_TRAIN_ACCUM), mesh)
+    if not (task.partitioned and task.per_device):
+        fail(f"phase 22 (b): {task.name} is not partitioned")
+    t = MOE_TRAIN_BATCH * TRAIN_SEQ // MOE_TRAIN_ACCUM
+    g = n_groups(cfg.moe, t)
+    plain_step = make_train_step(lambda p, b: loss_fn(p, cfg, b),
+                                 AdamWConfig(), MOE_TRAIN_ACCUM)
+    batches = [ltrain.synthetic_batch(cfg.vocab, MOE_TRAIN_BATCH, TRAIN_SEQ,
+                                      i, 0, dev) for i in range(2)]
+
+    def run(step, state, batch):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        flash_cuda.launches = flash_backward_cuda.launches = 0
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return state, m, ms, (flash_cuda.launches,
+                              flash_backward_cuda.launches), (
+            torch.cuda.max_memory_allocated(dev) - held, held)
+
+    rows = {}
+    with plain_versions_raise():
+        state = init_train_state(moe_params(cfg, dev))
+        state, pm, ms0, _, _ = run(plain_step, state, batches[0])
+        want = [p.detach().to("cpu", copy=True)
+                for p in leaves(state.params)]
+        metrics = torch.stack([pm[k] for k in ("loss", "grad_norm",
+                                               "lr")]).tolist()
+        state, _, ms1, counts, (peak, held) = run(plain_step, state,
+                                                  batches[1])
+        rows["plain"] = (ms0, ms1, counts, peak, held)
+        del state, pm
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = distribute_tree(init_train_state(moe_params(cfg, dev)),
+                                task.placements[0], mesh)
+        d_batches = [distribute_tree(b, task.placements[1], mesh)
+                     for b in batches]
+        state, m, ms0, counts0, _ = run(task.fn, state, d_batches[0])
+        got = torch.stack([whole(m[k]) for k in ("loss", "grad_norm",
+                                                 "lr")]).tolist()
+        errs = {"loss": abs(got[0] - metrics[0]) / abs(metrics[0]),
+                "grad_norm": abs(got[1] - metrics[1]) / abs(metrics[1]),
+                "params": max(rel_max(whole(a), b.to(dev)) for a, b in zip(
+                    leaves(state.params), want))}
+        del want
+        state, _, ms1, counts, (peak, held) = run(task.fn, state,
+                                                  d_batches[1])
+        rows["partitioned"] = (ms0, ms1, counts, peak, held)
+        wall, busy, _, kernels = profiled(
+            lambda: task.fn(state, d_batches[1]), 1)
+    if counts0 != (MOE_TRAIN_FWD, MOE_TRAIN_BWD) or counts != counts0:
+        fail(f"phase 22 (b): K4 forward / backward launches a partitioned "
+             f"step {counts0}, {counts} (expected {MOE_TRAIN_FWD}, "
+             f"{MOE_TRAIN_BWD})")
+    if not (errs["loss"] <= MOE_LOSS_TOL and errs["grad_norm"]
+            <= MOE_GNORM_TOL and errs["params"] <= MOE_PARAM_TOL
+            and all(math.isfinite(x) for x in got[:2])):
+        fail(f"phase 22 (b): the partitioned step against the plain one: "
+             f"{errs} (limits {MOE_LOSS_TOL}, {MOE_GNORM_TOL}, "
+             f"{MOE_PARAM_TOL}); metrics {got} / {metrics}")
+    log(f"  (b) a partitioned step under torch.profiler: wall {wall:.1f} ms, "
+        f"idle {1.0 - busy / wall:.1%}; most device time: " + "; ".join(
+            f"{name[:60]} {ms:.1f} ms" for name, ms in kernels[:5]))
+    for route, (ms0, ms1, counts, peak, held) in rows.items():
+        log(f"  (b) {route} step: {ms0:.1f} ms first, {ms1:.1f} ms second; "
+            f"K4 {counts[0]} forward launches, {counts[1]} backward; peak "
+            f"{peak / 2**30:.2f} GiB over the {held / 2**30:.2f} GiB held")
+    log(f"  (b) {MOE_ARCH} reduced: {cfg.n_layers} of 94 layers, train_4k's "
+        f"256 x {TRAIN_SEQ} in 8 micro-batches -> {MOE_TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} in {MOE_TRAIN_ACCUM} ({t} tokens each: {g} groups of "
+        f"{t // g}, capacity {capacity(cfg.moe, t // g)}); first step against "
+        f"the plain one: loss {errs['loss']:.3g}, grad_norm "
+        f"{errs['grad_norm']:.3g}, parameters {errs['params']:.3g} of a "
+        f"leaf's largest magnitude; no plain attention ran [{smi}]")
+    del state, d_batches, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    part, plain = rows["partitioned"], rows["plain"]
+    return {"moe_train_launches_fwd_per_step": counts[0],
+            "moe_train_launches_bwd_per_step": counts[1],
+            "moe_train_step_ms": part[1], "moe_train_plain_step_ms": plain[1],
+            "moe_train_first_step_ms": part[0],
+            "moe_train_plain_first_step_ms": plain[0],
+            "moe_train_loss_rel_err": errs["loss"],
+            "moe_train_grad_norm_rel_err": errs["grad_norm"],
+            "moe_train_param_rel_err": errs["params"],
+            "moe_train_idle_share": 1.0 - busy / wall,
+            "moe_train_peak_gib": part[3] / 2**30,
+            "moe_train_plain_peak_gib": plain[3] / 2**30,
+            "moe_train_held_gib": part[4] / 2**30}
+
+
+def moe_traces(mesh, moe_rows):
+    """Phase 22 (c): phase 20 (a)'s MoE rows partitioned with
+    collectives, and (a)'s and (b)'s cells traced partitioned on this
+    1 x 1 mesh within ``MESH_FLOPS_TOL`` of their global traces."""
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.launch.tasks import build_task
+
+    ok = [r for r in moe_rows if r["status"] == "ok"]
+    for r in ok:
+        counts = r["collective_counts"]
+        if not (r["partitioned"] and counts and sum(counts.values()) > 0
+                and r["memory"]["temp_gb"] is not None):
+            fail(f"phase 22 (c): phase 20 (a)'s row {r['cell']} is not "
+                 f"partitioned with collectives: {r}")
+    if not ok:
+        fail("phase 22 (c): phase 20 (a) has no MoE row")
+    log(f"  (c) phase 20 (a): {len(ok)} {MOE_ARCH} rows partitioned, "
+        "collectives " + "; ".join(
+            f"{r['cell']}@{r['mesh']} " + ", ".join(
+                f"{k} {n}" for k, n in r["collective_counts"].items() if n)
+            for r in ok))
+    serve_spec, train_spec = (moe_spec(MOE_SERVE_LAYERS),
+                              moe_spec(MOE_TRAIN_LAYERS))
+    out = {}
+    for label, spec, shape in (
+            ("prefill", serve_spec, cut_shape(
+                serve_spec, "prefill_32k", seq_len=MOE_PROMPT,
+                global_batch=MOE_BATCH)),
+            ("decode", serve_spec, cut_shape(
+                serve_spec, "decode_32k", seq_len=MOE_PROMPT + MOE_GEN,
+                global_batch=MOE_BATCH)),
+            ("train", train_spec, cut_shape(
+                train_spec, "train_4k", seq_len=TRAIN_SEQ,
+                global_batch=MOE_TRAIN_BATCH, accum_steps=MOE_TRAIN_ACCUM))):
+        part = build_task(spec, shape, mesh).trace()
+        glob = build_task(spec, shape, mesh_shape(mesh)).trace()
+        ratio = part.flops / glob.flops
+        if not abs(ratio - 1) <= MESH_FLOPS_TOL:
+            fail(f"phase 22 (c) {label}: per-device FLOPs {part.flops:.6g}, "
+                 f"global trace {glob.flops:.6g}")
+        log(f"  (c) {MOE_ARCH} {label} on {mesh}: per-device FLOPs "
+            f"{part.flops:.6g} = {ratio:.6f} x the global trace's; traced in "
+            f"{part.seconds:.1f} s ({part.n_ops} ops) against "
+            f"{glob.seconds:.1f} s ({glob.n_ops} ops) unpartitioned")
+        out.update({f"moe_{label}_flops_ratio": ratio,
+                    f"moe_{label}_trace_s": part.seconds,
+                    f"moe_{label}_global_trace_s": glob.seconds})
+    return out
+
+
+def moe_phase(dev, flush, smi, moe_rows):
+    """Phase 22: the MoE LM partitioned by DTensor placements on a
+    1 x 1 mesh over an NCCL group of one; returns K4's ``moe_*`` keys."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_local_group, make_mesh
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    init_local_group(0, 1, tempfile.mkdtemp(prefix="chip-smoke-moe-"),
+                     "cuda")
+    try:
+        mesh = make_mesh((1, 1))
+        keys = moe_serve(dev, mesh, flush, smi)
+        log(f"  {at()} (a) done")
+        keys.update(moe_train(dev, mesh, smi))
+        log(f"  {at()} (b) done")
+        keys.update(moe_traces(mesh, moe_rows))
+        log(f"  {at()} phase 22 done")
     finally:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
@@ -6255,6 +6664,16 @@ def main() -> int:
     log(f"phase 21: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 22: the MoE LM partitioned by DTensor placements --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 22: qwen3-moe-235b-a22b's prefill, decode and train step "
+        "partitioned over a (data 1, model 1) mesh on an NCCL group of one")
+    flash_entry.update(moe_phase(dev, flush, smi, dryrun["dryrun_moe"]))
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
     kernels = [{
         "name": "deliver_fused",
         "route": "cuda",
@@ -6329,7 +6748,8 @@ def main() -> int:
         })
     next(k for k in kernels if k["name"] == "flash").update(
         {key: val for key, val in flash_entry.items()
-         if key.startswith(("lm_", "train_", "bwd_", "recsys_", "mesh_"))},
+         if key.startswith(("lm_", "train_", "bwd_", "recsys_", "mesh_",
+                            "moe_"))},
         bwd_source="src/repro_torch/csrc/flash_bwd.cu",
         bwd_replaces="none: the JAX package differentiates its stock-op "
                      "attention")

@@ -132,8 +132,9 @@ HOT_PATHS: dict[str, tuple[str, ...]] = {
         "chunked_local_attention", "decode_attention",
     ),
     "models/moe.py": (
-        "moe_ffn", "_dispatch_group", "_combine_group", "_experts",
-        "_top_k",
+        "moe_ffn", "_dispatch", "_dispatch_group", "_combine", "_experts",
+        "_swiglu_experts", "_top_k", "_router_sums", "_router_losses",
+        "_moe_ffn_partitioned", "partitioned_router_losses",
     ),
     "models/layers.py": (
         "cast_weight", "dense", "rmsnorm", "swiglu", "rope", "embed",

@@ -14,8 +14,9 @@ partition the step, the port names each leaf's placement (a tuple of
 takes them) by the JAX package's rules (``_lm_param_spec``,
 ``_divisible``), and traces:
 
-* one device's own program of a dense-LM cell (train, prefill, decode)
-  on a ``DeviceMesh``: its arguments are DTensors under those
+* one device's own program of an LM cell (dense or MoE; train,
+  prefill, decode) on a ``DeviceMesh``: its arguments are DTensors
+  under those
   placements (fake ones on the dry-run's fake world,
   ``launch.mesh.init_fake_world``), the step runs on rank 0's own
   shards with the collectives DTensor and the model's partitioned
@@ -28,9 +29,9 @@ takes them) by the JAX package's rules (``_lm_param_spec``,
   (``exec_mode="edge_sharded"``), rank 0 of the mesh's flattened group
   on a fake world, counting the collectives the port's own code issues;
 * the whole global step on one fake device for the cells the port does
-  not partition yet (the MoE LM cells, the GNN ``pjit`` cells and
-  BERT4Rec; ``notes`` says so), and for any cell on a stand-in of a
-  mesh (an object with ``mesh_dim_names`` and ``size``, no ranks): the
+  not partition yet (the GNN ``pjit`` cells and BERT4Rec; the dry-run's
+  ``notes`` says so), and for any cell on a stand-in of a mesh (an
+  object with ``mesh_dim_names`` and ``size``, no ranks): the
   placements then give each device's arguments and outputs, and the
   trace the step's work; on a one-device mesh that is the device's own
   program.
@@ -42,10 +43,9 @@ Differences from the JAX package, each on purpose:
   JAX package stacks;
 * an accumulated LM train step is traced one micro-batch at a time and
   every additive count scaled by ``accum_steps``, as the JAX package's
-  dry-run scales its variants (``Task.trace``); partitioned, its
-  micro-batches are cut from each data rank's own rows
-  (``train.step._micro_batches``: the same rows in another grouping,
-  which an unmasked batch's loss does not see);
+  dry-run scales its variants (``Task.trace``: the trace holds one
+  micro-batch's step, not the gather of the batch's token ids that
+  ``train.step._micro_batches`` cuts partitioned micro-batches from);
 * ``recsys_serve`` takes a global ``topk``: the JAX package's
   ``shard_map`` top-k has no counterpart in an unpartitioned trace;
 * ``recsys_train`` composes BERT4Rec's step with ``accum_steps`` 1 (the
@@ -341,7 +341,7 @@ def _abstract_lm_params(cfg):
 
 def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
                   accum_steps: int = 1) -> Task:
-    """The LM cell's task: partitioned for a dense cell on a
+    """The LM cell's task (dense or MoE): partitioned on a
     ``DeviceMesh``, the whole global step on a stand-in of one
     (``launch.mesh.mesh_shape``)."""
     from repro_torch.models import transformer as tfm
@@ -350,13 +350,8 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
     dims = shape.dims
     dp = dp_axes(mesh)
     name = f"{spec.arch_id}:{shape.name}"
-    # The dense LM is partitioned on a DeviceMesh; the MoE cells' expert
-    # layout is not yet.
-    partitioned = cfg.moe is None and is_device_mesh(mesh)
+    partitioned = is_device_mesh(mesh)
     per_device = partitioned or total_devices(mesh) == 1
-    notes = ("not partitioned: the MoE expert layout has no DTensor form "
-             "yet" if cfg.moe is not None and is_device_mesh(mesh)
-             and total_devices(mesh) > 1 else "")
 
     def placed(mode, tree, pls):
         if not partitioned:
@@ -404,7 +399,7 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
             out_placements=out_pl,
             mesh=mesh, fake_mode=mode,
             model_flops_per_step=model_flops,
-            notes="; ".join(filter(None, (f"accum_steps={accum}", notes))),
+            notes=f"accum_steps={accum}",
             per_device=per_device, partitioned=partitioned, micro=micro,
         )
 
@@ -431,7 +426,7 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
                            placed(mode, tokens_abs, tokens_pl)),
             placements=(p_pl, tokens_pl),
             out_placements=out_pl,
-            mesh=mesh, fake_mode=mode, notes=notes,
+            mesh=mesh, fake_mode=mode,
             model_flops_per_step=model_flops, per_device=per_device,
             partitioned=partitioned,
         )
@@ -473,7 +468,7 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
                     (params_abs, cache_abs, token_abs, pos_abs), pls)),
             placements=pls,
             out_placements=out_pl,
-            mesh=mesh, fake_mode=mode, notes=notes,
+            mesh=mesh, fake_mode=mode,
             model_flops_per_step=model_flops, per_device=per_device,
             partitioned=partitioned,
         )

@@ -28,9 +28,9 @@ position into a cache of static length (here in place) and attends over
 that whole length under a mask; ``parallel_block`` adds attention and FFN to
 the same residual.
 
-Partitioned (``launch.tasks``' dense-LM cells on a ``DeviceMesh``): the
-same functions take DTensor weights, batches and caches, placed by the
-JAX package's rules, and every rank computes on its own shards.  The
+Partitioned (``launch.tasks``' LM cells on a ``DeviceMesh``): the same
+functions take DTensor weights, batches and caches, placed by the JAX
+package's rules, and every rank computes on its own shards.  The
 ``constrain`` calls are the JAX package's ``with_sharding_constraint``
 sites; ``_split_heads`` gathers a projection whose head count does not
 divide the ``model`` axis before it is viewed as heads (the JAX
@@ -38,7 +38,9 @@ package's replicated fallback); the attention routes run on each rank's
 own heads (``attention.on_local_heads``); the loss is vocab-parallel;
 ``serve_step`` writes position ``pos`` only on the rank whose sequence
 shard holds it and decodes over the split-KV cache
-(``attention.decode_attention``).
+(``attention.decode_attention``); a MoE layer routes and runs its
+rank's own experts (``moe.moe_ffn``) and its aux loss is a replicated
+scalar, beside a dense layer's replicated 0 (``_no_aux``).
 
 Layouts: activations [B, S, D]; caches {k,v}: [L, B, S, KvH, hd].
 """
@@ -342,8 +344,21 @@ def _ffn_block(lp, x, cfg: LMConfig, is_moe: bool):
         y, aux = moe_ffn(lp["moe"], xn, cfg.moe, cfg.compute_dtype)
         return constrain(y, "dp", None, None), aux["lb_loss"] + aux["z_loss"]
     y = swiglu(lp["ffn"], xn, cfg.compute_dtype)
-    return (constrain(y, "dp", None, None),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return constrain(y, "dp", None, None), _no_aux(x)
+
+
+def _no_aux(x):
+    """A dense layer's aux loss: 0, replicated beside DTensor activations
+    (a MoE layer's aux is then a replicated DTensor, and llama4 adds the
+    two in turn)."""
+    if not is_dtensor(x):
+        return torch.zeros((), dtype=torch.float32, device=x.device)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x.device_mesh
+    zero = torch.zeros((), dtype=torch.float32, device=x.to_local().device)
+    return DTensor.from_local(zero, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
 
 
 def _residual(lp, x, a, cfg: LMConfig, is_moe: bool):
@@ -395,7 +410,7 @@ def encode(params, cfg: LMConfig, tokens: torch.Tensor):
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     x = constrain(x, "dp", None, None)
     positions = _positions(s, tokens.device)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    aux = None
     for i, lp in enumerate(params["layers"]):
         is_local, is_moe = cfg.kind(i)
         if cfg.remat and _grad_taken(x, lp):
@@ -404,7 +419,7 @@ def encode(params, cfg: LMConfig, tokens: torch.Tensor):
                 use_reentrant=False)
         else:
             x, a_aux = _layer(lp, x, cfg, is_local, is_moe, positions)
-        aux = aux + a_aux
+        aux = a_aux if aux is None else aux + a_aux
     return x, aux
 
 
@@ -430,8 +445,8 @@ def loss_fn(params, cfg: LMConfig, batch) -> torch.Tensor:
         compute_dtype=cfg.compute_dtype,
     )
     if cfg.moe is None:
-        return ce  # the aux loss is 0 (a plain tensor beside a DTensor)
-    return ce + 1e-2 * aux
+        return ce  # the aux loss is 0
+    return ce + 1e-2 * aux  # partitioned: both replicated scalars
 
 
 # --------------------------------------------------------------------------

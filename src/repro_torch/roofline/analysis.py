@@ -32,8 +32,9 @@ partitioner, so the port traces the step itself:
   cuts its output, as ``Shard`` or ``Partial``; the bytes and storages
   of the local shards), skips any op it sees inside a DTensor op's
   dispatch (that op's local op), and counts the plain ops outside one
-  (the ``local_map`` bodies: the kernels, the vocab-parallel loss) as
-  they are (``FlopCounterMode`` itself would count a DTensor op at its
+  (the ``local_map`` bodies: the kernels, the vocab-parallel loss, a
+  MoE layer's routing, dispatch gathers, expert products and combine
+  at the rank's own groups and experts) as they are (``FlopCounterMode`` itself would count a DTensor op at its
   global shape, and its local op again where it sees it).  DTensor's
   redistributions and the model's own all-reduces are
   functional collectives, recorded with their process group.
@@ -49,7 +50,7 @@ partitioner, so the port traces the step itself:
   ``collective_bytes_per_dev = None`` (never 0) and ``partitioned:
   false``, and its ``dominant`` and ``step_time_s`` read the compute and
   memory terms only.  A trace of one device's own program (a
-  partitioned dense-LM cell, a 1 x 1 mesh, or the edge-sharded GNN
+  partitioned LM cell, a 1 x 1 mesh, or the edge-sharded GNN
   step on rank 0 of a fake world) is partitioned: its FLOPs and bytes
   scale by the device count, as the JAX package scales its per-device
   cost analysis.

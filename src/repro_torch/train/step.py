@@ -12,15 +12,14 @@ place (``adamw_update``) and returns it; its metrics are 0-d tensors
 
 A partitioned state (DTensor parameters and moments) and batch take the
 same step: the gradients accumulate into DTensor ``.grad``s and are
-laid out as their parameters before the update.  Without a ``"mask"``,
-a DTensor leaf's micro-batches are cut from each rank's own rows
-(``_micro``: micro-batch ``i`` is every data rank's ``i``-th slice);
-every micro-batch then averages over as many tokens, so the grouping
-changes neither the loss nor the summed gradient.  A masked batch
-(each micro-batch averaged over its own mask count, which depends on
-the grouping) is gathered once and cut into the JAX package's
-contiguous rows, each rank keeping its shard of each micro-batch
-(``_micro_batches``).
+laid out as their parameters before the update.  A partitioned
+micro-batch holds the JAX package's contiguous rows ``x[i n:(i + 1)
+n]`` (``_micro_batches``): the batch's leaves (token ids, labels, a
+mask: no activation) are gathered once and each rank keeps its shard of
+each micro-batch.  Other rows would change the loss wherever it sees
+the grouping: a masked batch averages each micro-batch over its own
+mask count, and a MoE LM's load-balance loss is a product of two means
+over each micro-batch's tokens.
 """
 from __future__ import annotations
 
@@ -85,38 +84,17 @@ def make_train_step(
 
 
 def _micro_batches(batch: dict, n: int) -> list[dict]:
-    """``batch`` cut into ``n`` micro-batches on dim 0 (see the module's
-    docstring for a partitioned batch)."""
-    if "mask" in batch and any(is_dtensor(x) for x in batch.values()):
-        from repro_torch.models.sharding import distribute
+    """``batch`` cut into ``n`` micro-batches of contiguous rows on dim 0
+    (a partitioned batch: see the module's docstring)."""
+    from repro_torch.models.sharding import distribute
 
-        whole = {key: x.full_tensor() if is_dtensor(x) else x
-                 for key, x in batch.items()}
-        m = next(iter(whole.values())).shape[0] // n
-        return [{key: distribute(x[i * m:(i + 1) * m], batch[key].device_mesh,
-                                 batch[key].placements)
-                 if is_dtensor(batch[key]) else x[i * m:(i + 1) * m]
-                 for key, x in whole.items()} for i in range(n)]
-    return [{key: _micro(x, i, n) for key, x in batch.items()}
-            for i in range(n)]
-
-
-def _micro(x, i: int, n: int):
-    """Micro-batch ``i`` of ``n`` of leaf ``x`` on dim 0: rows ``i * B / n
-    .. (i + 1) * B / n``; of a DTensor, the same slice of each rank's
-    own rows (a slice across a sharded dim 0 would gather the batch)."""
-    if not is_dtensor(x):
-        m = x.shape[0] // n
-        return x[i * m:(i + 1) * m]
-    from torch.distributed.tensor import DTensor
-
-    local = x.to_local()
-    m = local.shape[0] // n
-    shape = (x.shape[0] // n,) + tuple(x.shape[1:])
-    part = local[i * m:(i + 1) * m]
-    return DTensor.from_local(part, x.device_mesh, x.placements,
-                              run_check=False, shape=shape,
-                              stride=part.stride())
+    whole = {key: x.full_tensor() if is_dtensor(x) else x
+             for key, x in batch.items()}
+    m = next(iter(whole.values())).shape[0] // n
+    return [{key: distribute(x[i * m:(i + 1) * m], batch[key].device_mesh,
+                             batch[key].placements)
+             if is_dtensor(batch[key]) else x[i * m:(i + 1) * m]
+             for key, x in whole.items()} for i in range(n)]
 
 
 def _laid_out_as(g, p):

@@ -1571,6 +1571,65 @@ def test_cuda_partitioned_lm_step_on_a_1x1_mesh_equals_plain(card,
         dist.destroy_process_group()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,moe", [
+    ("qwen3-moe-235b-a22b", {"n_groups": 4}),
+    ("llama4-maverick-400b-a17b", {})])
+def test_cuda_partitioned_moe_step_on_a_1x1_mesh_equals_plain(card, tmp_path,
+                                                              arch, moe):
+    # The MoE LM's partitioned train step (the routing and the experts
+    # on local tensors through local_map, the router's sums and the
+    # combine as DTensors) on one NCCL rank: the plain step's loss,
+    # grad_norm and parameters, bitwise (the combine adds each token's
+    # slots in a fixed order), with K4 launched on the global layers.
+    # qwen3-moe routes 4 groups of a micro-batch's 512 tokens; llama4
+    # its one global layer of four and a shared expert.
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.mesh import init_local_group, make_mesh
+    from repro_torch.launch.tasks import build_task
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train.step import make_train_step
+    from repro_torch.train.tree import leaves
+
+    spec = get_config(arch, smoke=True)
+    cfg = dataclasses.replace(spec.model, moe=dataclasses.replace(
+        spec.model.moe, **moe))
+    spec = dataclasses.replace(spec, model=cfg)
+    shape = dataclasses.replace(spec.shape("train_4k"), dims={
+        "seq_len": 256, "global_batch": 4, "accum_steps": 2})
+
+    def state():
+        gen = torch.Generator(device=card).manual_seed(0)
+        return init_train_state(init_params(gen, cfg))
+
+    batch = ltrain.synthetic_batch(cfg.vocab, 4, 256, 0, 0, card)
+    step = make_train_step(lambda p, b: loss_fn(p, cfg, b),
+                           AdamWConfig(), 2)
+    plain, want = step(state(), batch)
+    n_global = sum(not cfg.kind(i)[0] for i in range(cfg.n_layers))
+    init_local_group(0, 1, str(tmp_path / "store"), "cuda")
+    try:
+        task = build_task(spec, shape, make_mesh((1, 1)))
+        assert task.partitioned
+        flash_cuda.launches = flash_backward_cuda.launches = 0
+        got_state, got = task.run(state(), batch)
+        torch.cuda.synchronize()
+        assert flash_cuda.launches == 2 * n_global
+        assert flash_backward_cuda.launches == 2 * n_global
+        for key in ("loss", "grad_norm", "lr"):
+            assert torch.equal(got[key].full_tensor(), want[key]), key
+        for a, b in zip(leaves(got_state), leaves(plain)):
+            assert torch.equal(a.full_tensor(), b)
+    finally:
+        dist.destroy_process_group()
+
+
 # -- static analysis on the card: the shared-memory budgets ---------------
 
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"), ("isect", "isect.cu"),

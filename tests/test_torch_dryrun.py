@@ -6,8 +6,9 @@ the JAX package's smoke call (``tests/test_dryrun_smoke.py``): 3 cells x
 and is not imported here), no JAX in the child, the roofline columns
 and ``--out``, and exit 1 when a cell fails.  The dense LM's rows
 (llama3.2-1b, gemma3-12b, command-r-plus-104b) are partitioned: one
-device's own program, its temp and its collectives; the MoE LM, GNN and
-BERT4Rec rows still trace the global step and say so.  Every call runs
+device's own program, its temp and its collectives, and so are the MoE
+LM's (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b); the GNN ``pjit``
+and BERT4Rec rows still trace the global step and say so.  Every call runs
 in a subprocess (the fake world is a process group)."""
 import json
 import os
@@ -107,7 +108,7 @@ def test_dryrun_roofline_and_out(tmp_path):
 
 
 def _hold_partitioned_row(r):
-    """A dense-LM row: one device's own program, its temp, collectives
+    """An LM row: one device's own program, its temp, collectives
     of the JAX partitioner's kinds only, and no global-trace note."""
     assert r["partitioned"] is True
     assert r["memory"]["temp_gb"] is not None and r["memory"]["temp_gb"] > 0
@@ -136,16 +137,31 @@ def test_dryrun_dense_lm_rows_are_partitioned(tmp_path):
         _hold_partitioned_row(r)
 
 
-def test_dryrun_moe_rows_say_they_are_not_partitioned(tmp_path):
+def test_dryrun_moe_lm_rows_are_partitioned(tmp_path):
+    """Every MoE LM cell on both meshes: one device's own program, with
+    its temp and its collectives."""
     out = tmp_path / "moe.json"
     proc = _run(["-m", "repro_torch.launch.dryrun", "--arch",
-                 "qwen3-moe-235b-a22b", "--shape", "decode_32k", "--smoke",
+                 "qwen3-moe-235b-a22b", "--arch",
+                 "llama4-maverick-400b-a17b", "--mesh", "both", "--smoke",
                  "--no-roofline", "--out", str(out)])
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
+    rows = [r for r in json.loads(out.read_text()) if r["status"] == "ok"]
+    # long_500k runs on llama4-maverick only (qwen3-moe skips it)
+    assert len(rows) == 2 * (3 + 4)
+    for r in rows:
+        _hold_partitioned_row(r)
+
+
+def test_dryrun_bert4rec_rows_say_they_are_not_partitioned(tmp_path):
+    out = tmp_path / "bert4rec.json"
+    proc = _run(["-m", "repro_torch.launch.dryrun", "--arch", "bert4rec",
+                 "--shape", "serve_p99", "--smoke", "--no-roofline", "--out",
+                 str(out)])
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
     (r,) = json.loads(out.read_text())
     assert r["status"] == "ok" and r["partitioned"] is False
     assert r["collective_counts"] is None and r["memory"]["temp_gb"] is None
-    assert "MoE expert layout" in r["notes"]
     assert "not partitioned: the global step was traced" in r["notes"]
 
 

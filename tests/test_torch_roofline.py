@@ -277,8 +277,8 @@ def test_kernel_work_formulas():
 # --------------------------------------------------------------------------
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_fake_world_cells import (DENSE_CELLS, fake_world_cells,  # noqa: E402
-                                    hold_partitioned)
+from torch_fake_world_cells import (DENSE_CELLS, MOE_CELLS,  # noqa: E402
+                                    fake_world_cells, hold_partitioned)
 
 
 @pytest.fixture(scope="module")
@@ -296,6 +296,22 @@ def test_dense_lm_report_is_partitioned_on_the_multi_pod_mesh(multi_cells,
     devices, the device's peak."""
     r = multi_cells[cell]
     hold_partitioned(r)
+    assert set(r["groups"]) <= {2, 16}
+    rep = r["report"]
+    assert rep["partitioned"] is True and rep["coll_bytes_dev"] > 0
+    assert rep["hlo_flops"] == r["flops"] * 512
+    assert rep["peak_mem_gb"] > 0
+
+
+@pytest.mark.parametrize("cell", MOE_CELLS)
+def test_moe_lm_report_is_partitioned_on_the_multi_pod_mesh(multi_cells,
+                                                            cell):
+    """Each MoE cell on the 2 x 16 x 16 mesh: one device's program (no
+    device doing more than the whole step), the partitioner's
+    collectives over the pod axis and the 16-way ones, and a report
+    with its collective term and the device's peak."""
+    r = multi_cells[cell]
+    hold_partitioned(r, most=r["devices"])
     assert set(r["groups"]) <= {2, 16}
     rep = r["report"]
     assert rep["partitioned"] is True and rep["coll_bytes_dev"] > 0

@@ -348,15 +348,16 @@ def test_edge_sharded_gat_collectives_on_fake_world():
 # --------------------------------------------------------------------------
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_fake_world_cells import (DENSE_CELLS, fake_world_cells,  # noqa: E402
-                                    hold_partitioned)
+from torch_fake_world_cells import (DENSE_CELLS, MOE_CELLS,  # noqa: E402
+                                    fake_world_cells, hold_partitioned)
 
 FULL_CELLS = ("llama3.2-1b:prefill_32k", "llama3.2-1b:decode_32k")
+MOE_FULL = "qwen3-moe-235b-a22b:prefill_32k"
 
 
 @pytest.fixture(scope="module")
 def single_cells():
-    return fake_world_cells("single", "--full", *FULL_CELLS)
+    return fake_world_cells("single", "--full", *FULL_CELLS, MOE_FULL)
 
 
 @pytest.fixture(scope="module")
@@ -371,6 +372,20 @@ def test_dense_lm_cell_is_partitioned_on_the_single_pod_mesh(single_cells,
     assert single_cells[cell]["groups"] == [16]
 
 
+@pytest.mark.parametrize("cell", MOE_CELLS)
+def test_moe_lm_cell_is_partitioned_on_the_single_pod_mesh(single_cells,
+                                                           cell):
+    """Each MoE cell on the 16 x 16 mesh: one device's own program, its
+    work at least its share of the global step's and at most the whole
+    step (``torch_fake_world_cells``: the smoke configs' global route
+    and experts that do not divide 'model' replicate it), the
+    partitioner's collectives over 16 ranks, every argument byte, a
+    temp."""
+    r = single_cells[cell]
+    hold_partitioned(r, most=r["devices"])
+    assert single_cells[cell]["groups"] == [16]
+
+
 @pytest.mark.parametrize("cell", FULL_CELLS)
 def test_full_width_llama_counts_each_flop_once(single_cells, cell):
     """At full width every head divides 'model' (32 heads, 8 KV heads
@@ -380,7 +395,25 @@ def test_full_width_llama_counts_each_flop_once(single_cells, cell):
     assert abs(r["flops"] * 256 / r["global_flops"] - 1) <= 1e-2
 
 
-@pytest.mark.parametrize("cell", DENSE_CELLS)
+def test_full_width_moe_prefill_counts_each_flop_once(single_cells):
+    """qwen3-moe-235b-a22b's prefill at full width on 16 x 16: 32 groups,
+    two a data rank, 8 experts a ``model`` rank, 4 query heads and the
+    KV head they read.  The devices' work is the global step's but for
+    the router's logits, which every ``model`` rank computes for its
+    tokens (the JAX layout: tokens whole over ``model``): 15 more copies
+    of 2 t d E a layer."""
+    r = single_cells[f"{MOE_FULL}@full"]
+    hold_partitioned(r)
+    cfg = configs.get_config("qwen3-moe-235b-a22b").model
+    dims = configs.get_config("qwen3-moe-235b-a22b").shape(
+        "prefill_32k").dims
+    t = dims["global_batch"] * dims["seq_len"]
+    router = 2 * t * cfg.d_model * cfg.moe.n_experts * cfg.n_layers
+    want = 1 + 15 * router / r["global_flops"]
+    assert abs(r["flops"] * 256 / r["global_flops"] - want) <= 1e-6 * want
+
+
+@pytest.mark.parametrize("cell", DENSE_CELLS + MOE_CELLS)
 def test_one_by_one_mesh_equals_the_global_trace(one_cells, cell):
     """On a 1 x 1 mesh the device's program is the whole step: its FLOPs
     equal the global trace's within 1%, with no collective."""
