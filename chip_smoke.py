@@ -409,6 +409,22 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    partitioned with collectives, and (a)'s and (b)'s cells traced
    partitioned on this 1 x 1 mesh within 1% of the FLOPs of their
    global traces.
+23. BERT4Rec's cells partitioned by DTensor placements (the item table
+   over ``model``, vocab-parallel lookups, K4 on each rank's own rows)
+   over a (data 1, model 1) mesh on an NCCL group of one, at published
+   width with random weights from seed 0, ``flash_plain`` /
+   ``flash_plain_backward`` made to raise: (a) the ``train_batch`` step
+   at phase 19 (a)'s batch, 3 steps in turns with phase 19's plain step
+   on a second state from the same seed: 2 K4 forward and 2 backward
+   launches a partitioned step, loss, ``grad_norm`` and every parameter
+   bitwise the plain step's after each step, both routes' ms a step,
+   the partitioned step's peak over what was held; (b) ``serve_p99``
+   (512 sequences, the top-100 of each device's own rows under
+   ``local_map``) and ``retrieval_cand`` (1 x 1,000,000 candidates, one
+   top-100 over the gathered scores): scores and top-100 values and ids
+   bitwise the plain route's, both routes timed in turns; (c) (a)'s and
+   (b)'s cells traced partitioned on this 1 x 1 mesh within 1e-6 of the
+   FLOPs of their global traces.
 
 Prints the kernel line (JSON; every entry carries phase 15's
 ``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
@@ -421,8 +437,8 @@ messages on ``ogb_products``) with the rest of phase 18 as ``gnn_*``,
 phase 19's bag pooling as ``bag_*``, phase 7's as ``phase7_*`` and the
 clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase 16's as
 ``lm_*``, phase 17's as ``train_*``, its backward's as ``bwd_*``,
-phase 19's as ``recsys_*``, phase 21's as ``mesh_*`` and phase 22's as
-``moe_*``) and, last, the
+phase 19's as ``recsys_*``, phase 21's as ``mesh_*``, phase 22's as
+``moe_*`` and phase 23's as ``recsys_mesh_*``) and, last, the
 device line
 (JSON).  Exits non-zero, printing no result, when there is no card.
 """
@@ -6269,6 +6285,241 @@ def moe_phase(dev, flush, smi, moe_rows):
     return keys
 
 
+# Phase 23: BERT4Rec's cells partitioned by DTensor placements on the card.
+RECSYS_MESH_TIMED = 5     # (b): pairs in turns, medians
+
+
+def recsys_mesh_train(dev, mesh, spec, b, smi):
+    """Phase 23 (a): the partitioned ``train_batch`` step at phase 19
+    (a)'s batch beside phase 19's plain step, in turns, on two states
+    from the same seed and one batch: loss, ``grad_norm`` and every
+    parameter bitwise the plain step's after each step, 2 K4 forward
+    and 2 backward launches a partitioned step."""
+    import torch
+
+    from repro_torch.kernels.flash import flash_backward_cuda, flash_cuda
+    from repro_torch.launch.tasks import build_task, distribute_tree
+    from repro_torch.models.recsys import bert4rec
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.tree import leaves
+
+    cfg = spec.model
+    task = build_task(spec, cut_shape(spec, "train_batch", batch=b), mesh)
+    if not (task.partitioned and task.per_device):
+        fail(f"phase 23 (a): {task.name} is not partitioned")
+    batch = recsys_batch(cfg, b, torch.Generator(device=dev).manual_seed(1),
+                         dev)
+    plain = init_train_state(recsys_params(cfg, dev))
+    state = distribute_tree(init_train_state(recsys_params(cfg, dev)),
+                            task.placements[0], mesh)
+    d_batch = distribute_tree(batch, task.placements[1], mesh)
+    plain_step = make_train_step(
+        lambda p, x: bert4rec.loss_sampled(p, cfg, x), AdamWConfig())
+    rows, launches, differ, peak = [], [], [], 0
+    with plain_versions_raise():
+        for i in range(RECSYS_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain, pm = plain_step(plain, batch)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            held = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            flash_cuda.launches = flash_backward_cuda.launches = 0
+            t0 = time.perf_counter()
+            state, m = task.fn(state, d_batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches.append((flash_cuda.launches,
+                             flash_backward_cuda.launches))
+            peak = max(peak, torch.cuda.max_memory_allocated(dev) - held)
+            differ.append([k for k in ("loss", "grad_norm", "lr")
+                           if not same_bits(whole(m[k]), pm[k])]
+                          + [f"parameter {j}" for j, (a, p) in enumerate(
+                              zip(leaves(state.params), leaves(plain.params)))
+                             if not same_bits(whole(a), p)])
+            rows.append((ms, plain_ms, float(whole(m["loss"])),
+                         float(pm["loss"])))
+            log(f"  (a) step {i}: partitioned {ms:.1f} ms, plain "
+                f"{plain_ms:.1f} ms; loss {rows[-1][2]:.7g} / "
+                f"{rows[-1][3]:.7g}; K4 launches {launches[-1]}; not "
+                f"bitwise: {differ[-1] or 'none'}")
+    if set(launches) != {(2, 2)}:
+        fail(f"phase 23 (a): K4 launches a partitioned step {launches} "
+             "(expected 2 forward and 2 backward: one a block)")
+    if any(differ):
+        fail(f"phase 23 (a): the partitioned step is not bitwise the plain "
+             f"one's: {differ}")
+    if not all(math.isfinite(r[2]) for r in rows):
+        fail(f"phase 23 (a): losses {rows}")
+    step_ms = statistics.median(r[0] for r in rows[1:])
+    plain_ms = statistics.median(r[1] for r in rows[1:])
+    log(f"  (a) bert4rec train_batch at {b:,} x {cfg.max_seq} partitioned "
+        f"over {mesh}: step {step_ms:.1f} ms against the plain step's "
+        f"{plain_ms:.1f} ms (medians of steps 1-{RECSYS_STEPS - 1}, in "
+        f"turns); loss, grad_norm and every parameter bitwise the plain "
+        f"step's after each of {RECSYS_STEPS} steps; peak {peak / 2**30:.2f}"
+        f" GiB over the {held / 2**30:.2f} GiB held (both states); no "
+        f"plain attention ran [{smi}]")
+    del state, plain, batch, d_batch
+    torch.cuda.empty_cache()
+    return {"recsys_mesh_train_batch": b,
+            "recsys_mesh_launches_fwd_per_step": launches[-1][0],
+            "recsys_mesh_launches_bwd_per_step": launches[-1][1],
+            "recsys_mesh_step_ms": step_ms,
+            "recsys_mesh_plain_step_ms": plain_ms,
+            "recsys_mesh_steps_ms": [r[0] for r in rows],
+            "recsys_mesh_plain_steps_ms": [r[1] for r in rows],
+            "recsys_mesh_losses": [r[2] for r in rows],
+            "recsys_mesh_peak_gib": peak / 2**30,
+            "recsys_mesh_held_gib": held / 2**30}
+
+
+def recsys_mesh_serve(dev, mesh, spec, flush, smi):
+    """Phase 23 (b): the partitioned ``serve_p99`` (512 sequences, the
+    top-100 of each device's own rows) and ``retrieval_cand`` (one
+    sequence against 1,000,000 candidates, the table over ``model``)
+    beside phase 19's plain route: the scores and the top-100 values and
+    ids bitwise, both routes timed in turns."""
+    import torch
+
+    from repro_torch.kernels.flash import flash_cuda
+    from repro_torch.launch.tasks import build_task
+    from repro_torch.models.recsys import bert4rec
+
+    cfg = spec.model
+    p99 = spec.shape("serve_p99").dims["batch"]
+    n_cand = spec.shape("retrieval_cand").dims["n_candidates"]
+    serve = build_task(spec, spec.shape("serve_p99"), mesh)
+    retrieve = build_task(spec, spec.shape("retrieval_cand"), mesh)
+    if not (serve.partitioned and retrieve.partitioned):
+        fail("phase 23 (b): the serving cells are not partitioned")
+    params = recsys_params(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    items = recsys_batch(cfg, p99, gen, dev)["items"]
+    cand = torch.randint(1, cfg.n_items + 1, (n_cand,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    out, differ = {}, []
+    with torch.no_grad(), plain_versions_raise():
+        d_params, d_items = serve.distribute((params, items))
+        r_params, r_one, r_cand = retrieve.distribute((params, items[:1],
+                                                       cand))
+
+        def plain_serve():
+            return torch.topk(bert4rec.serve_score(params, cfg, items),
+                              RECSYS_TOPK)
+
+        def plain_retrieve():
+            return torch.topk(bert4rec.retrieval_score(params, cfg,
+                                                       items[:1], cand),
+                              RECSYS_TOPK)
+
+        for label, plain, part, scores in (
+                ("serve_p99", plain_serve,
+                 lambda: serve.fn(d_params, d_items),
+                 lambda p, x: bert4rec.serve_score(p, cfg, x)),
+                ("retrieval", plain_retrieve,
+                 lambda: retrieve.fn(r_params, r_one, r_cand), None)):
+            want = plain()
+            flash_cuda.launches = 0
+            got = part()
+            torch.cuda.synchronize()
+            out[f"{label}_launches"] = flash_cuda.launches
+            if not (same_bits(whole(got[0]), want[0])
+                    and same_bits(whole(got[1]), want[1])):
+                differ.append(f"{label} top-{RECSYS_TOPK}")
+            if scores is not None and not same_bits(
+                    whole(scores(d_params, d_items)),
+                    scores(params, items)):
+                differ.append(f"{label} scores")
+            out[f"{label}_ms"], out[f"{label}_plain_ms"] = time_two(
+                part, plain, flush, n_timed=RECSYS_MESH_TIMED, n_warm=1)
+        r_scores = bert4rec.retrieval_score(r_params, cfg, r_one, r_cand)
+        if not same_bits(whole(r_scores),
+                         bert4rec.retrieval_score(params, cfg, items[:1],
+                                                  cand)):
+            differ.append("retrieval scores")
+        del r_scores
+    if differ:
+        fail(f"phase 23 (b): not bitwise the plain route's: {differ}")
+    if out["serve_p99_launches"] != cfg.n_blocks or out[
+            "retrieval_launches"] != cfg.n_blocks:
+        fail(f"phase 23 (b): K4 launches a call {out} (expected "
+             f"{cfg.n_blocks}: one a block)")
+    log(f"  (b) serve_p99 partitioned ({p99} sequences over the mesh's "
+        f"every axis, each device's own rows' top-{RECSYS_TOPK}): "
+        f"{out['serve_p99_ms']:.3f} ms against the plain route's "
+        f"{out['serve_p99_plain_ms']:.3f} ms; retrieval_cand ({n_cand:,} "
+        f"candidates, the table over 'model'): {out['retrieval_ms']:.3f} ms "
+        f"against {out['retrieval_plain_ms']:.3f} ms (medians of "
+        f"{RECSYS_MESH_TIMED}, in turns, L2 flushed); scores and top-"
+        f"{RECSYS_TOPK} values and ids bitwise the plain route's; K4 "
+        f"{out['serve_p99_launches']} launches a call [{smi}]")
+    del params, d_params, r_params, items, d_items
+    torch.cuda.empty_cache()
+    return {f"recsys_mesh_{k}": v for k, v in out.items()}
+
+
+def recsys_mesh_traces(mesh, spec, b):
+    """Phase 23 (c): (a)'s and (b)'s cells traced partitioned on this
+    1 x 1 mesh, their per-device FLOPs within 1e-6 of their global
+    traces'."""
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.launch.tasks import build_task
+
+    out = {}
+    for label, shape in (("train", cut_shape(spec, "train_batch", batch=b)),
+                         ("serve_p99", spec.shape("serve_p99")),
+                         ("retrieval", spec.shape("retrieval_cand"))):
+        part = build_task(spec, shape, mesh).trace()
+        glob = build_task(spec, shape, mesh_shape(mesh)).trace()
+        ratio = part.flops / glob.flops
+        if not abs(ratio - 1) <= 1e-6:
+            fail(f"phase 23 (c) {label}: per-device FLOPs {part.flops:.9g}, "
+                 f"global trace {glob.flops:.9g}")
+        log(f"  (c) bert4rec {label} on {mesh}: per-device FLOPs "
+            f"{part.flops:.9g} = {ratio:.9f} x the global trace's; "
+            f"collectives {len(part.collectives)}; traced in "
+            f"{part.seconds:.1f} s ({part.n_ops} ops) against "
+            f"{glob.seconds:.1f} s ({glob.n_ops} ops) unpartitioned")
+        out.update({f"recsys_mesh_{label}_flops_ratio": ratio,
+                    f"recsys_mesh_{label}_trace_s": part.seconds})
+    return out
+
+
+def recsys_mesh_phase(dev, flush, smi, train_b):
+    """Phase 23: BERT4Rec's cells partitioned by DTensor placements on a
+    1 x 1 mesh over an NCCL group of one, at published width; returns
+    K4's ``recsys_mesh_*`` keys."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_local_group, make_mesh
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    spec = get_config("bert4rec")
+    init_local_group(0, 1, tempfile.mkdtemp(prefix="chip-smoke-recsys-"),
+                     "cuda")
+    try:
+        mesh = make_mesh((1, 1))
+        keys = recsys_mesh_train(dev, mesh, spec, train_b, smi)
+        log(f"  {at()} (a) done")
+        keys.update(recsys_mesh_serve(dev, mesh, spec, flush, smi))
+        log(f"  {at()} (b) done")
+        keys.update(recsys_mesh_traces(mesh, spec, train_b))
+        log(f"  {at()} phase 23 done")
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    keys["recsys_mesh_card"] = smi
+    return keys
+
+
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"),
                   ("isect", "isect.cu"), ("segsum", "segsum.cu"),
                   ("flash", "flash.cu"), ("flash_bwd", "flash_bwd.cu"))
@@ -6672,6 +6923,17 @@ def main() -> int:
         "partitioned over a (data 1, model 1) mesh on an NCCL group of one")
     flash_entry.update(moe_phase(dev, flush, smi, dryrun["dryrun_moe"]))
     log(f"phase 22: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 23: BERT4Rec partitioned by DTensor placements ---------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 23: bert4rec's train step, serving and retrieval partitioned "
+        "over a (data 1, model 1) mesh on an NCCL group of one")
+    flash_entry.update(recsys_mesh_phase(dev, flush, smi,
+                                         flash_entry["recsys_train_batch"]))
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [{

@@ -15,8 +15,8 @@ takes them) by the JAX package's rules (``_lm_param_spec``,
 ``_divisible``), and traces:
 
 * one device's own program of an LM cell (dense or MoE; train,
-  prefill, decode) on a ``DeviceMesh``: its arguments are DTensors
-  under those
+  prefill, decode) or a BERT4Rec cell (train, serve, retrieval) on a
+  ``DeviceMesh``: its arguments are DTensors under those
   placements (fake ones on the dry-run's fake world,
   ``launch.mesh.init_fake_world``), the step runs on rank 0's own
   shards with the collectives DTensor and the model's partitioned
@@ -29,8 +29,8 @@ takes them) by the JAX package's rules (``_lm_param_spec``,
   (``exec_mode="edge_sharded"``), rank 0 of the mesh's flattened group
   on a fake world, counting the collectives the port's own code issues;
 * the whole global step on one fake device for the cells the port does
-  not partition yet (the GNN ``pjit`` cells and BERT4Rec; the dry-run's
-  ``notes`` says so), and for any cell on a stand-in of a mesh (an
+  not partition yet (the GNN ``pjit`` cells; the dry-run's ``notes``
+  says so), and for any cell on a stand-in of a mesh (an
   object with ``mesh_dim_names`` and ``size``, no ranks): the
   placements then give each device's arguments and outputs, and the
   trace the step's work; on a one-device mesh that is the device's own
@@ -46,8 +46,6 @@ Differences from the JAX package, each on purpose:
   dry-run scales its variants (``Task.trace``: the trace holds one
   micro-batch's step, not the gather of the batch's token ids that
   ``train.step._micro_batches`` cuts partitioned micro-batches from);
-* ``recsys_serve`` takes a global ``topk``: the JAX package's
-  ``shard_map`` top-k has no counterpart in an unpartitioned trace;
 * ``recsys_train`` composes BERT4Rec's step with ``accum_steps`` 1 (the
   port's micro-batching cuts every leaf on dim 0, the shared negatives
   too), as the JAX package does.
@@ -65,7 +63,7 @@ import torch
 from repro_torch.configs.base import ArchSpec, ShapeSpec
 from repro_torch.launch.mesh import (dp_axes, flat_axes, mesh_size,
                                      total_devices)
-from repro_torch.models.sharding import placements
+from repro_torch.models.sharding import is_dtensor, placements
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
 from repro_torch.roofline.analysis import named_tensors
@@ -118,7 +116,6 @@ def _laid_out(result, pls: dict[str, tuple], mesh):
     DTensor leaf redistributed to its placements ``pls[name]``: the JAX
     package's ``out_shardings``."""
     from repro_torch.models.layers import ParamTree
-    from repro_torch.models.sharding import is_dtensor
 
     def put(x, name):
         pre = f"{name}/" if name else ""
@@ -135,6 +132,23 @@ def _laid_out(result, pls: dict[str, tuple], mesh):
         return x
 
     return put(result, "")
+
+
+def _placed(mesh, fake_mode, tree, pls: dict[str, tuple]):
+    """``tree`` as DTensors under ``pls`` (made under ``fake_mode``) on a
+    ``DeviceMesh``; itself on a stand-in of one."""
+    if not is_device_mesh(mesh):
+        return tree
+    with fake_mode:
+        return distribute_tree(tree, pls, mesh)
+
+
+def _laid_out_step(mesh, fn, out_pls: dict[str, tuple]):
+    """``fn`` with its results laid out by ``out_pls`` (``_laid_out``) on
+    a ``DeviceMesh``; ``fn`` itself on a stand-in of one."""
+    if not is_device_mesh(mesh):
+        return fn
+    return lambda *a: _laid_out(fn(*a), out_pls, mesh)
 
 
 def _tree_placements(tree, mesh, rule) -> dict[str, tuple]:
@@ -353,17 +367,6 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
     partitioned = is_device_mesh(mesh)
     per_device = partitioned or total_devices(mesh) == 1
 
-    def placed(mode, tree, pls):
-        if not partitioned:
-            return tree
-        with mode:
-            return distribute_tree(tree, pls, mesh)
-
-    def laid_out(fn, out_pls):
-        if not partitioned:
-            return fn
-        return lambda *a: _laid_out(fn(*a), out_pls, mesh)
-
     if shape.kind == "train":
         seq, batch = dims["seq_len"], dims["global_batch"]
         accum = dims.get("accum_steps", accum_steps)
@@ -380,20 +383,20 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
         batch_pl = {k: placements((dp, None), mesh) for k in batch_abs}
         metrics_pl = {k: placements((), mesh)
                       for k in ("grad_norm", "loss", "lr")}
-        state_abs = placed(mode, state_abs, state_pl)
+        state_abs = _placed(mesh, mode, state_abs, state_pl)
         out_pl = {**_prefixed("0", state_pl), **_prefixed("1", metrics_pl)}
         micro = None
         if accum > 1:
             n = batch // accum
-            micro = (laid_out(make_train_step(loss, AdamWConfig(), 1),
-                              out_pl),
-                     (state_abs, placed(mode, {
+            micro_step = make_train_step(loss, AdamWConfig(), 1)
+            micro = (_laid_out_step(mesh, micro_step, out_pl),
+                     (state_abs, _placed(mesh, mode, {
                          k: v[:n] for k, v in batch_abs.items()}, batch_pl)),
                      accum)
-        batch_abs = placed(mode, batch_abs, batch_pl)
+        batch_abs = _placed(mesh, mode, batch_abs, batch_pl)
         model_flops = 3 * 2 * tfm.active_param_count(cfg) * batch * seq
         return Task(
-            name=name, fn=laid_out(step, out_pl),
+            name=name, fn=_laid_out_step(mesh, step, out_pl),
             abstract_args=(state_abs, batch_abs),
             placements=(state_pl, batch_pl),
             out_placements=out_pl,
@@ -421,9 +424,9 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
                   "1/k": cache_pl, "1/v": cache_pl}
         model_flops = 2 * tfm.active_param_count(cfg) * batch * seq
         return Task(
-            name=name, fn=laid_out(fn, out_pl),
-            abstract_args=(placed(mode, params_abs, p_pl),
-                           placed(mode, tokens_abs, tokens_pl)),
+            name=name, fn=_laid_out_step(mesh, fn, out_pl),
+            abstract_args=(_placed(mesh, mode, params_abs, p_pl),
+                           _placed(mesh, mode, tokens_abs, tokens_pl)),
             placements=(p_pl, tokens_pl),
             out_placements=out_pl,
             mesh=mesh, fake_mode=mode,
@@ -462,9 +465,9 @@ def build_lm_task(spec: ArchSpec, shape: ShapeSpec, mesh,
         out_pl = {"0": placements(logits_spec, mesh),
                   "1/k": cache_pl, "1/v": cache_pl}
         return Task(
-            name=name, fn=laid_out(fn, out_pl),
+            name=name, fn=_laid_out_step(mesh, fn, out_pl),
             abstract_args=tuple(
-                placed(mode, a, pl) for a, pl in zip(
+                _placed(mesh, mode, a, pl) for a, pl in zip(
                     (params_abs, cache_abs, token_abs, pos_abs), pls)),
             placements=pls,
             out_placements=out_pl,
@@ -661,9 +664,28 @@ def build_gnn_task(spec: ArchSpec, shape: ShapeSpec, mesh,
 # RecSys family
 # ==========================================================================
 
+def own_rows_top_k(scores, k: int):
+    """``(values, ids)`` of the ``k`` largest scores of each row:
+    ``torch.topk``; for DTensor scores, each rank's over its own rows
+    (``local_map``, the JAX package's ``shard_map`` of ``lax.top_k``),
+    laid out as the scores' rows are (whole rows: the last dim uncut)."""
+    if not is_dtensor(scores):
+        return tuple(torch.topk(scores, k))
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(scores.placements)
+    return local_map(lambda s: tuple(torch.topk(s, k)),
+                     out_placements=(pl, pl), in_placements=(pl,),
+                     device_mesh=scores.device_mesh)(scores)
+
+
 def build_recsys_task(spec: ArchSpec, shape: ShapeSpec, mesh,
                       n_masked: int = 20, n_neg: int = 8192) -> Task:
+    """BERT4Rec's cell: partitioned on a ``DeviceMesh`` (the JAX
+    package's placements), the whole global step on a stand-in of
+    one."""
     from repro_torch.models.recsys import bert4rec as b4r
+    from repro_torch.models.sharding import constrain
 
     cfg = spec.model
     dims = shape.dims
@@ -671,7 +693,8 @@ def build_recsys_task(spec: ArchSpec, shape: ShapeSpec, mesh,
     fa = flat_axes(mesh)
     name = f"{spec.arch_id}:{shape.name}"
     mode = _fake_mode()
-    per_device = total_devices(mesh) == 1
+    partitioned = is_device_mesh(mesh)
+    per_device = partitioned or total_devices(mesh) == 1
     with mode:
         params_abs = b4r.init_params(torch.Generator(), cfg)
 
@@ -702,23 +725,25 @@ def build_recsys_task(spec: ArchSpec, shape: ShapeSpec, mesh,
         step = make_train_step(loss, AdamWConfig())
         with mode:
             state_abs = init_train_state(params_abs)
+        # the table and its moments over 'model', the rest replicated
         state_pl = _tree_placements(state_abs, mesh, param_spec)
         batch_pl = {"items": placements((dp, None), mesh),
                     "masked_pos": placements((dp, None), mesh),
                     "labels": placements((dp, None), mesh),
                     "negatives": repl}
         metrics_pl = {k: repl for k in ("grad_norm", "loss", "lr")}
+        out_pl = {**_prefixed("0", state_pl), **_prefixed("1", metrics_pl)}
         sampled_softmax = 2 * batch * n_masked * (1 + n_neg) * cfg.embed_dim
         return Task(
-            name=name, fn=step,
-            abstract_args=(state_abs, batch_abs),
+            name=name, fn=_laid_out_step(mesh, step, out_pl),
+            abstract_args=(_placed(mesh, mode, state_abs, state_pl),
+                           _placed(mesh, mode, batch_abs, batch_pl)),
             placements=(state_pl, batch_pl),
-            out_placements={**_prefixed("0", state_pl),
-                            **_prefixed("1", metrics_pl)},
+            out_placements=out_pl,
             mesh=mesh, fake_mode=mode,
             model_flops_per_step=3 * (_b4r_fwd_flops(batch)
                                       + sampled_softmax),
-            per_device=per_device,
+            per_device=per_device, partitioned=partitioned,
         )
 
     if shape.kind == "recsys_serve":
@@ -726,24 +751,28 @@ def build_recsys_task(spec: ArchSpec, shape: ShapeSpec, mesh,
         items_abs = _sds(mode, (batch, cfg.max_seq), torch.int32)
 
         # serving shards the batch over EVERY axis and replicates the
-        # table (the JAX package's layout); the top-k is global here.
+        # table (the JAX package's layout); each device sorts only its
+        # own rows' scores.
         def fn(p, items):
             with torch.no_grad():
                 scores = b4r.serve_score(p, cfg, items)      # [B, V]
-                vals, idx = torch.topk(scores, 100)
-            return vals, idx
+                scores = constrain(scores, "flat", None)
+                return own_rows_top_k(scores, 100)
 
+        p_pl = _replicated(params_abs, mesh)
+        items_pl = {"": placements((fa, None), mesh)}
+        out_pl = {"0": placements((fa, None), mesh),
+                  "1": placements((fa, None), mesh)}
         return Task(
-            name=name, fn=fn,
-            abstract_args=(params_abs, items_abs),
-            placements=(_replicated(params_abs, mesh),
-                        {"": placements((fa, None), mesh)}),
-            out_placements={"0": placements((fa, None), mesh),
-                            "1": placements((fa, None), mesh)},
+            name=name, fn=_laid_out_step(mesh, fn, out_pl),
+            abstract_args=(_placed(mesh, mode, params_abs, p_pl),
+                           _placed(mesh, mode, items_abs, items_pl)),
+            placements=(p_pl, items_pl),
+            out_placements=out_pl,
             mesh=mesh, fake_mode=mode,
             model_flops_per_step=_b4r_fwd_flops(batch)
             + 2 * batch * cfg.vocab * cfg.embed_dim,
-            per_device=per_device,
+            per_device=per_device, partitioned=partitioned,
         )
 
     if shape.kind == "recsys_retrieval":
@@ -752,19 +781,27 @@ def build_recsys_task(spec: ArchSpec, shape: ShapeSpec, mesh,
         cand_abs = _sds(mode, (_pad_up(n_cand, total_devices(mesh)),),
                         torch.int32)
 
+        # the table over 'model' (training's layout), the candidates over
+        # every axis: the scores gathered whole, one top-k over them all
         def fn(p, items, cand):
             with torch.no_grad():
-                scores = b4r.retrieval_score(p, cfg, items, cand)
+                scores = constrain(b4r.retrieval_score(p, cfg, items, cand),
+                                   None)
                 vals, idx = torch.topk(scores, 100)
             return vals, idx
 
+        p_pl = _tree_placements(params_abs, mesh, param_spec)
+        pls = (p_pl, {"": repl}, {"": placements((fa,), mesh)})
+        out_pl = {"0": repl, "1": repl}
         return Task(
-            name=name, fn=fn,
-            abstract_args=(params_abs, items_abs, cand_abs),
-            placements=(_tree_placements(params_abs, mesh, param_spec),
-                        {"": repl}, {"": placements((fa,), mesh)}),
-            out_placements={"0": repl, "1": repl},
+            name=name, fn=_laid_out_step(mesh, fn, out_pl),
+            abstract_args=tuple(
+                _placed(mesh, mode, a, pl) for a, pl in zip(
+                    (params_abs, items_abs, cand_abs), pls)),
+            placements=pls,
+            out_placements=out_pl,
             mesh=mesh, fake_mode=mode, per_device=per_device,
+            partitioned=partitioned,
         )
 
     raise ValueError(f"unknown recsys shape kind {shape.kind}")

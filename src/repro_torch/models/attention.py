@@ -174,7 +174,11 @@ def bidirectional_attention(q, k, v):
     ``causal_attention``.  ``block_k`` is ``Sk``: ``flash_attention``
     refuses a bidirectional ``Sk`` that is no multiple of its
     ``block_k``, since the JAX kernel would pad keys into the softmax;
-    K4 pads none, so one block of all the keys is the exact call."""
+    K4 pads none, so one block of all the keys is the exact call.
+    DTensors run K4 on each rank's own rows and heads
+    (``on_local_heads``)."""
+    if is_dtensor(q):
+        return on_local_heads(bidirectional_attention, q, k, v)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=False,
                         block_k=max(k.shape[1], 1))

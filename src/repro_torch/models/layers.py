@@ -231,9 +231,15 @@ def embed(params, ids, compute_dtype=DEFAULT_COMPUTE_DTYPE):
     in ``[-V, 0)`` counts from the end, and a row for an id outside
     ``[-V, V)`` is NaN (``sparse.gather.take_rows``).  A DTensor table
     (and DTensor ids) takes ``_embed_partitioned``."""
-    if is_dtensor(params["table"]):
-        return _embed_partitioned(params["table"], ids).to(compute_dtype)
-    return take_rows(params["table"], ids).to(compute_dtype)
+    return gather_rows(params["table"], ids).to(compute_dtype)
+
+
+def gather_rows(table, ids):
+    """``take_rows(table, ids)``; for a DTensor table (and DTensor ids),
+    its vocab-parallel form ``_embed_partitioned``."""
+    if is_dtensor(table):
+        return _embed_partitioned(table, ids)
+    return take_rows(table, ids)
 
 
 def _vocab_split(table, vocab_dim: int):
@@ -253,8 +259,12 @@ def _embed_partitioned(table, ids):
     vocab shard (zero for an id another rank holds, NaN for one outside
     ``[-V, V)`` on every rank), and the ``Partial`` sum over the vocab's
     mesh dims is all-reduced: the rows are whole over them, and follow
-    ``ids``' placements elsewhere."""
-    from torch.distributed.tensor import Partial
+    ``ids``' placements elsewhere.  Ids cut over a mesh dim that also
+    cuts the vocab (a retrieval's candidates over every axis) are first
+    gathered over it, so that each rank of it looks up its group's ids,
+    and the summed rows are scattered back to the ids' layout (a
+    reduce-scatter); ids cut over other dims alone gather nothing."""
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
 
     mesh = table.device_mesh
@@ -262,10 +272,13 @@ def _embed_partitioned(table, ids):
     tpl, vdims = _vocab_split(table, 0)
     table = table.redistribute(mesh, tpl)
     ipl = tuple(ids.placements)
+    gpl = tuple(Replicate() if i in vdims else p for i, p in enumerate(ipl))
+    if gpl != ipl:
+        ids = ids.redistribute(mesh, gpl)
     lo = local_offset(table, 0)
-    out_pl = tuple(Partial() if i in vdims else ipl[i]
+    out_pl = tuple(Partial() if i in vdims else gpl[i]
                    for i in range(mesh.ndim))
-    grad_pl = tuple(tpl[i] if i in vdims or not ipl[i].is_shard()
+    grad_pl = tuple(tpl[i] if i in vdims or not gpl[i].is_shard()
                     else Partial() for i in range(mesh.ndim))
 
     def body(tbl, idx):
@@ -280,8 +293,8 @@ def _embed_partitioned(table, ids):
             (), math.nan, dtype=rows.dtype, device=rows.device))
 
     rows = local_map(body, out_placements=list(out_pl),
-                     in_placements=(tpl, ipl),
-                     in_grad_placements=(grad_pl, ipl),
+                     in_placements=(tpl, gpl),
+                     in_grad_placements=(grad_pl, gpl),
                      device_mesh=mesh)(table, ids)
     return rows.redistribute(mesh, ipl)
 

@@ -22,6 +22,12 @@ torch's TF32 switch stays off, its default.
 
 Parameters are the reference's pytree as dicts and lists of float32
 tensors (``train.tree`` walks them in ``jax.tree.leaves``' order).
+
+Under DTensor placements (``launch.tasks``' partitioned cells) the same
+functions take DTensors: each table lookup is vocab-parallel where the
+table's rows are cut over ``model`` (``layers.gather_rows``), and K4
+runs on each rank's own rows (``bidirectional_attention``).  A plain
+table keeps ``take_rows``.
 """
 from __future__ import annotations
 
@@ -32,9 +38,9 @@ import torch.nn.functional as F
 
 from repro_torch.core.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import cross_entropy, layernorm, layernorm_init
+from repro_torch.models.layers import (cross_entropy, gather_rows,
+                                      layernorm, layernorm_init)
 from repro_torch.models.params import tree_from_jax
-from repro_torch.sparse.gather import take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +110,7 @@ def encode(params, cfg: BERT4RecConfig, items: torch.Tensor) -> torch.Tensor:
     b, s = items.shape
     d = cfg.embed_dim
     h = cfg.n_heads
-    x = take_rows(params["item_embed"], items)
+    x = gather_rows(params["item_embed"], items)
     x = x + params["pos_embed"][None, :s]
     x = layernorm(params["ln_in"], x)
     pad_mask = (items != 0).to(torch.float32)          # PAD=0
@@ -154,8 +160,8 @@ def loss_sampled(params, cfg: BERT4RecConfig, batch) -> torch.Tensor:
     h = encode(params, cfg, batch["items"])            # [B, S, D]
     pos = batch["masked_pos"].long()
     hm = torch.gather(h, 1, pos[..., None].expand(-1, -1, h.shape[-1]))
-    pos_emb = take_rows(params["item_embed"], batch["labels"])
-    neg_emb = take_rows(params["item_embed"], batch["negatives"])
+    pos_emb = gather_rows(params["item_embed"], batch["labels"])
+    neg_emb = gather_rows(params["item_embed"], batch["negatives"])
     pos_logit = (hm * pos_emb).sum(dim=-1).float()     # [B, M]
     neg_logit = (hm @ neg_emb.T).float()               # [B, M, Nneg]
     lse = torch.logaddexp(pos_logit, torch.logsumexp(neg_logit, dim=-1))
@@ -174,5 +180,5 @@ def retrieval_score(params, cfg: BERT4RecConfig, items: torch.Tensor,
     """Retrieval shape: 1 user sequence vs ``n_candidates`` item ids.
     items [1, S]; candidate_ids [C] -> scores [C]."""
     h = encode(params, cfg, items)[:, -1]              # [1, D]
-    cand = take_rows(params["item_embed"], candidate_ids)  # [C, D]
+    cand = gather_rows(params["item_embed"], candidate_ids)  # [C, D]
     return (h @ cand.T)[0]

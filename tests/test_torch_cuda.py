@@ -1572,6 +1572,83 @@ def test_cuda_partitioned_lm_step_on_a_1x1_mesh_equals_plain(card,
 
 
 @pytest.mark.cuda
+def test_cuda_partitioned_bert4rec_on_a_1x1_mesh_equals_plain(card,
+                                                             tmp_path):
+    # BERT4Rec's partitioned cells (the vocab-parallel lookups, K4 on
+    # each rank's own rows through local_map, the top-100 of each
+    # device's own rows) on one NCCL rank at the smoke config: the plain
+    # step's loss, grad_norm and parameters, and the plain serving and
+    # retrieval top-100, bitwise, with K4's kernels launched.
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_local_group, make_mesh
+    from repro_torch.launch.tasks import build_task
+    from repro_torch.models.recsys import bert4rec
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.tree import leaves
+
+    spec = get_config("bert4rec", smoke=True)
+    cfg = spec.model
+    b, s = 16, cfg.max_seq
+    gen = torch.Generator(device=card).manual_seed(0)
+    items = torch.randint(1, cfg.n_items + 1, (b, s), generator=gen,
+                          device=card, dtype=torch.int32)
+    batch = {"items": items,
+             "masked_pos": torch.argsort(torch.rand(
+                 b, s, generator=gen, device=card))[:, :4].int(),
+             "labels": items[:, :4].clone(),
+             "negatives": torch.randint(1, cfg.n_items + 1, (8192,),
+                                        generator=gen, device=card,
+                                        dtype=torch.int32)}
+    cand = torch.randint(1, cfg.n_items + 1, (1000,), generator=gen,
+                         device=card, dtype=torch.int32)
+
+    def params():
+        return bert4rec.init_params(
+            torch.Generator(device=card).manual_seed(1), cfg)
+
+    plain, want = make_train_step(
+        lambda p, x: bert4rec.loss_sampled(p, cfg, x), AdamWConfig())(
+            init_train_state(params()), batch)
+    p = params()
+    with torch.no_grad():
+        serve_want = torch.topk(bert4rec.serve_score(p, cfg, items), 100)
+        retr_want = torch.topk(bert4rec.retrieval_score(p, cfg, items[:1],
+                                                        cand), 100)
+    init_local_group(0, 1, str(tmp_path / "store"), "cuda")
+    try:
+        mesh = make_mesh((1, 1))
+        task = build_task(spec, dataclasses.replace(
+            spec.shape("train_batch"), dims={"batch": b}), mesh)
+        assert task.partitioned
+        flash_cuda.launches = flash_backward_cuda.launches = 0
+        state, got = task.run(init_train_state(params()), batch)
+        torch.cuda.synchronize()
+        assert flash_cuda.launches == flash_backward_cuda.launches == 2
+        for key in ("loss", "grad_norm", "lr"):
+            assert torch.equal(got[key].full_tensor(), want[key]), key
+        for x, y in zip(leaves(state), leaves(plain)):
+            assert torch.equal(x.full_tensor(), y)
+        serve = build_task(spec, dataclasses.replace(
+            spec.shape("serve_p99"), dims={"batch": b}), mesh)
+        retrieve = build_task(spec, dataclasses.replace(
+            spec.shape("retrieval_cand"), dims={"batch": 1,
+                                                "n_candidates": 1000}),
+            mesh)
+        for (vals, ids), (w_vals, w_ids) in (
+                (serve.run(p, items), serve_want),
+                (retrieve.run(p, items[:1], cand), retr_want)):
+            assert torch.equal(vals.full_tensor(), w_vals)
+            assert torch.equal(ids.full_tensor(), w_ids)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch,moe", [
     ("qwen3-moe-235b-a22b", {"n_groups": 4}),
     ("llama4-maverick-400b-a17b", {})])

@@ -7,9 +7,9 @@ and is not imported here), no JAX in the child, the roofline columns
 and ``--out``, and exit 1 when a cell fails.  The dense LM's rows
 (llama3.2-1b, gemma3-12b, command-r-plus-104b) are partitioned: one
 device's own program, its temp and its collectives, and so are the MoE
-LM's (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b); the GNN ``pjit``
-and BERT4Rec rows still trace the global step and say so.  Every call runs
-in a subprocess (the fake world is a process group)."""
+LM's (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b) and BERT4Rec's;
+the GNN ``pjit`` rows still trace the global step and say so.  Every
+call runs in a subprocess (the fake world is a process group)."""
 import json
 import os
 import subprocess
@@ -62,7 +62,7 @@ def test_dryrun_smoke_single_and_multi_without_jax():
         if ln.startswith("[ok"):
             assert "compile=" in ln and "args=" in ln
             # a partitioned row knows its temp; a global trace does not
-            assert ("temp=n/a" in ln) == ("llama3.2-1b" not in ln), ln
+            assert ("temp=n/a" in ln) == ("gat-cora" in ln), ln
             assert "dom=" not in ln
 
 
@@ -107,13 +107,20 @@ def test_dryrun_roofline_and_out(tmp_path):
             assert "roofline" not in r
 
 
-def _hold_partitioned_row(r):
-    """An LM row: one device's own program, its temp, collectives
-    of the JAX partitioner's kinds only, and no global-trace note."""
+def _hold_partitioned_row(r, collectives=True):
+    """A partitioned row: one device's own program, its temp, collectives
+    of the JAX partitioner's kinds only (none where ``collectives`` is
+    false), and no global-trace note."""
     assert r["partitioned"] is True
     assert r["memory"]["temp_gb"] is not None and r["memory"]["temp_gb"] > 0
     counts = r["collective_counts"]
-    assert counts is not None and sum(counts.values()) > 0
+    assert counts is not None
+    if not collectives:
+        assert sum(counts.values()) == 0
+        assert r["collective_bytes_per_dev_static"] == 0
+        assert "not partitioned" not in r["notes"]
+        return
+    assert sum(counts.values()) > 0
     assert {k for k, n in counts.items() if n} <= {
         "all-reduce", "all-gather", "reduce-scatter"}
     assert r["collective_bytes_per_dev_static"] > 0
@@ -153,16 +160,30 @@ def test_dryrun_moe_lm_rows_are_partitioned(tmp_path):
         _hold_partitioned_row(r)
 
 
-def test_dryrun_bert4rec_rows_say_they_are_not_partitioned(tmp_path):
+def test_dryrun_bert4rec_rows_are_partitioned(tmp_path):
+    """BERT4Rec's four cells at full size on both meshes: one device's
+    own program, with its temp; the train step and retrieval with their
+    collectives (the looked-up rows summed over ``model``, the
+    gradients over the data axes; retrieval's candidate ids gathered
+    over ``model`` and its scores over every axis), serving with none
+    (each device scores its own rows against the replicated table), and
+    no all-gather of the item table: none at all in the train step and
+    serving, and retrieval's collectives move less than the table."""
     out = tmp_path / "bert4rec.json"
     proc = _run(["-m", "repro_torch.launch.dryrun", "--arch", "bert4rec",
-                 "--shape", "serve_p99", "--smoke", "--no-roofline", "--out",
-                 str(out)])
+                 "--mesh", "both", "--no-roofline", "--out", str(out)])
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-3000:]
-    (r,) = json.loads(out.read_text())
-    assert r["status"] == "ok" and r["partitioned"] is False
-    assert r["collective_counts"] is None and r["memory"]["temp_gb"] is None
-    assert "not partitioned: the global step was traced" in r["notes"]
+    rows = json.loads(out.read_text())
+    assert len(rows) == 2 * 4 and {r["status"] for r in rows} == {"ok"}
+    cfg = ref_configs.get_config("bert4rec").model
+    table_bytes = cfg.vocab * cfg.embed_dim * 4
+    for r in rows:
+        serve = "serve" in r["cell"]
+        _hold_partitioned_row(r, collectives=not serve)
+        if r["cell"].endswith("retrieval_cand"):
+            assert r["collective_bytes_per_dev_static"] < table_bytes
+        else:
+            assert r["collective_counts"]["all-gather"] == 0, r
 
 
 FAILING = """

@@ -233,16 +233,19 @@ def _port_leaves(tree, arch) -> dict:
         tt.params_from_jax(tree, cfg, device="cpu"))}
 
 
-def _hold_step(got, ref_metrics, ref_state, arch):
-    """``tests/test_torch_lm_train.py``'s bounds on one train step."""
+def _hold_step(got, ref_metrics, ref_state, arch, port_leaves=None):
+    """``tests/test_torch_lm_train.py``'s bounds on one train step;
+    ``port_leaves`` maps a JAX parameter tree to the port's named leaves
+    (``arch``'s LM by default)."""
     np.testing.assert_allclose(got["loss"], ref_metrics["loss"],
                                rtol=LOSS_RTOL)
     np.testing.assert_allclose(got["grad_norm"], ref_metrics["grad_norm"],
                                rtol=GNORM_RTOL)
     np.testing.assert_allclose(got["lr"], ref_metrics["lr"], rtol=1e-6)
     leaves = got["leaves"]
-    want_mu = _port_leaves(ref_state.opt_state["mu"], arch)
-    want_p = _port_leaves(ref_state.params, arch)
+    port_leaves = port_leaves or (lambda tree: _port_leaves(tree, arch))
+    want_mu = port_leaves(ref_state.opt_state["mu"])
+    want_p = port_leaves(ref_state.params)
     assert {f".opt_state/['mu']/{k}" for k in want_mu} <= set(leaves)
     for name, w in want_mu.items():
         assert _rel(leaves[f".opt_state/['mu']/{name}"], w) <= GRAD_REL, \

@@ -278,7 +278,8 @@ def test_kernel_work_formulas():
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_fake_world_cells import (DENSE_CELLS, MOE_CELLS,  # noqa: E402
-                                    fake_world_cells, hold_partitioned)
+                                    RECSYS_CELLS, fake_world_cells,
+                                    hold_partitioned, recsys_flops_ratio)
 
 
 @pytest.fixture(scope="module")
@@ -315,5 +316,27 @@ def test_moe_lm_report_is_partitioned_on_the_multi_pod_mesh(multi_cells,
     assert set(r["groups"]) <= {2, 16}
     rep = r["report"]
     assert rep["partitioned"] is True and rep["coll_bytes_dev"] > 0
+    assert rep["hlo_flops"] == r["flops"] * 512
+    assert rep["peak_mem_gb"] > 0
+
+
+@pytest.mark.parametrize("cell", RECSYS_CELLS)
+def test_recsys_report_is_partitioned_on_the_multi_pod_mesh(multi_cells,
+                                                            cell):
+    """BERT4Rec's cells at full size on the 2 x 16 x 16 mesh: one
+    device's program, its FLOPs times 512 within 1e-6 of
+    ``recsys_flops_ratio`` over the global trace's, collectives over the
+    pod axis and the 16-way ones (none in serving), and a report with
+    its collective term and the device's peak."""
+    r = multi_cells[cell]
+    serve = "serve" in cell
+    hold_partitioned(r, most=r["devices"], collectives=not serve)
+    ratio = r["flops"] * 512 / r["global_flops"]
+    want = recsys_flops_ratio(cell, 512, 16)
+    assert abs(ratio - want) <= 1e-6 * want, (ratio, want)
+    assert set(r["groups"]) <= {2, 16}
+    rep = r["report"]
+    assert rep["partitioned"] is True
+    assert (rep["coll_bytes_dev"] > 0) is not serve
     assert rep["hlo_flops"] == r["flops"] * 512
     assert rep["peak_mem_gb"] > 0

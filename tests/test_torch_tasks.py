@@ -349,7 +349,8 @@ def test_edge_sharded_gat_collectives_on_fake_world():
 
 sys.path.insert(0, os.path.dirname(__file__))
 from torch_fake_world_cells import (DENSE_CELLS, MOE_CELLS,  # noqa: E402
-                                    fake_world_cells, hold_partitioned)
+                                    RECSYS_CELLS, fake_world_cells,
+                                    hold_partitioned, recsys_flops_ratio)
 
 FULL_CELLS = ("llama3.2-1b:prefill_32k", "llama3.2-1b:decode_32k")
 MOE_FULL = "qwen3-moe-235b-a22b:prefill_32k"
@@ -413,7 +414,28 @@ def test_full_width_moe_prefill_counts_each_flop_once(single_cells):
     assert abs(r["flops"] * 256 / r["global_flops"] - want) <= 1e-6 * want
 
 
-@pytest.mark.parametrize("cell", DENSE_CELLS + MOE_CELLS)
+@pytest.mark.parametrize("cell", RECSYS_CELLS)
+def test_recsys_cell_is_partitioned_on_the_single_pod_mesh(single_cells,
+                                                           cell):
+    """BERT4Rec's cells at full size on the 16 x 16 mesh: one device's own
+    program, its FLOPs times 256 within 1e-6 of the reckoning of
+    ``recsys_flops_ratio`` over the global trace's (16 for the train
+    step, whose encode runs on every ``model`` rank; 1 for serving; about
+    82 for retrieval, whose one sequence every device encodes), the
+    train step's and retrieval's collectives over 16 ranks and none in
+    serving, and no all-gather of the item table."""
+    r = single_cells[cell]
+    serve = "serve" in cell
+    hold_partitioned(r, most=r["devices"], collectives=not serve)
+    ratio = r["flops"] * r["devices"] / r["global_flops"]
+    want = recsys_flops_ratio(cell, r["devices"], 16)
+    assert abs(ratio - want) <= 1e-6 * want, (ratio, want)
+    assert r["groups"] == ([] if serve else [16])
+    cfg = configs.get_config("bert4rec").model
+    assert r["all_gather_bytes"] < cfg.vocab * cfg.embed_dim * 4 / 16
+
+
+@pytest.mark.parametrize("cell", DENSE_CELLS + MOE_CELLS + RECSYS_CELLS)
 def test_one_by_one_mesh_equals_the_global_trace(one_cells, cell):
     """On a 1 x 1 mesh the device's program is the whole step: its FLOPs
     equal the global trace's within 1%, with no collective."""

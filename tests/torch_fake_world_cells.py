@@ -1,5 +1,6 @@
-"""Every LM cell (dense and MoE) traced on a production mesh over a fake
-world of 512 ranks, partitioned and whole, for ``test_torch_tasks.py`` and
+"""Every LM cell (dense and MoE) and BERT4Rec's four cells at full size
+traced on a production mesh over a fake world of 512 ranks, partitioned
+and whole, for ``test_torch_tasks.py`` and
 ``test_torch_roofline.py``.  Run as ``python tests/torch_fake_world_cells.py
 single|multi [--full ARCH:SHAPE ...]`` (a fake world is a process group:
 never in the pytest process); prints one JSON object on its last line,
@@ -8,9 +9,10 @@ never in the pytest process); prints one JSON object on its last line,
 Each cell is built by ``launch.tasks.build_task`` twice: on the mesh,
 as the partitioned task (DTensor arguments, rank 0's own program), and
 on its stand-in (``launch.mesh.mesh_shape``: the whole global step, the
-count it is held against).  ``smoke()`` configs, and at full size the cells ``--full``
-names.  ``one`` is a 1 x 1 mesh over rank 0.  The tests import
-``fake_world_cells`` and ``hold_partitioned`` from here.
+count it is held against).  ``smoke()`` configs (BERT4Rec's at full
+size), and at full size the cells ``--full`` names.  ``one`` is a 1 x 1
+mesh over rank 0.  The tests import ``fake_world_cells`` and
+``hold_partitioned`` from here.
 """
 import json
 import os
@@ -23,6 +25,7 @@ import torch.distributed as dist
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE = ("llama3.2-1b", "gemma3-12b", "command-r-plus-104b")
 MOE = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
+RECSYS = "bert4rec"
 # What the JAX package's partitioner emits, and no more.
 PARTITIONER_KINDS = {"all-reduce", "all-gather", "reduce-scatter"}
 # The most a device's work times the devices exceeds the global step's:
@@ -52,6 +55,40 @@ def _cells(archs):
 
 DENSE_CELLS = _cells(DENSE)
 MOE_CELLS = _cells(MOE)
+# at full size (published widths): a cell's trace is a few hundred ops
+RECSYS_CELLS = _cells((RECSYS,))
+
+
+def recsys_flops_ratio(cell, devices, model_extent):
+    """The builder's reckoning of a BERT4Rec cell's per-device FLOPs times
+    the devices over the global trace's, at full size: the train step
+    runs every matrix product and K4 call on the device's own rows over
+    the data axes, replicated over ``model`` (the JAX layout: the batch
+    whole over ``model``), so ``model_extent``; serving cuts every
+    product by its rows over every axis, so 1; retrieval encodes the one
+    sequence on every device (``E``: its products and K4's forward) and
+    scores its own candidates (``C``: one product over the padded list),
+    so ``(devices E + C) / (E + C)``."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.roofline.analysis import flash_work
+
+    spec = get_config(RECSYS)
+    kind = spec.shape(cell.split(":")[1]).kind
+    if kind == "recsys_train":
+        return float(model_extent)
+    if kind == "recsys_serve":
+        return 1.0
+    cfg = spec.model
+    s, d = cfg.max_seq, cfg.embed_dim
+    f = cfg.d_ff_mult * d
+    products = 2 * s * d * (3 * d + d + f) + 2 * s * f * d
+    attention, _ = flash_work(1, cfg.n_heads, cfg.n_heads, s, s,
+                              d // cfg.n_heads, 4, causal=False)
+    e = cfg.n_blocks * (products + attention)
+    n_cand = spec.shape(cell.split(":")[1]).dims["n_candidates"]
+    c = 2 * d * (-(-n_cand // devices) * devices)
+    return (devices * e + c) / (e + c)
 
 
 def fake_world_cells(kind, *extra):
@@ -65,17 +102,22 @@ def fake_world_cells(kind, *extra):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def hold_partitioned(r, most=MODEL_EXTENT):
-    """An LM cell traced as one device's own program: no FLOP counted at
+def hold_partitioned(r, most=MODEL_EXTENT, collectives=True):
+    """A cell traced as one device's own program: no FLOP counted at
     both the global and the local shape (a device's count times the
     devices at least the global step's, at most ``most`` times: a dense
     cell's ``MODEL_EXTENT``, a MoE cell's device count), the
-    partitioner's kinds of collective, every argument byte the
-    placements give a device, a temp."""
+    partitioner's kinds of collective (none where ``collectives`` is
+    false: a serving cell of BERT4Rec, each device on its own rows
+    against a replicated table), every argument byte the placements give
+    a device, a temp."""
     assert r["per_device"] is True and r["partitioned"] is True
     ratio = r["flops"] * r["devices"] / r["global_flops"]
     assert 1 - 1e-9 <= ratio <= most, ratio
-    assert r["kinds"] and set(r["kinds"]) <= PARTITIONER_KINDS
+    if collectives:
+        assert r["kinds"] and set(r["kinds"]) <= PARTITIONER_KINDS
+    else:
+        assert r["kinds"] == []
     assert r["argument_bytes"] == r["placed_argument_bytes"]
     assert r["memory"]["temp"] is not None and r["memory"]["temp"] > 0
     assert "not partitioned" not in r["notes"]
@@ -97,6 +139,8 @@ def row(spec, shape, mesh):
         "global_flops": whole.trace().flops,
         "kinds": sorted({r.kind for r in trace.collectives}),
         "groups": sorted({r.group_size for r in trace.collectives}),
+        "all_gather_bytes": max([r.nbytes for r in trace.collectives
+                                 if r.kind == "all-gather"], default=0),
         "argument_bytes": trace.argument_bytes,
         # what the placements give the arguments the trace ran on (one
         # micro-batch of an accumulated train step)
@@ -133,6 +177,9 @@ def main(argv):
             for name, shape in spec.shapes.items():
                 if not shape.skip:
                     out[f"{arch}:{name}"] = row(spec, shape, mesh)
+        spec = get_config(RECSYS)
+        for name, shape in spec.shapes.items():
+            out[f"{RECSYS}:{name}"] = row(spec, shape, mesh)
         for cell in full:
             arch, name = cell.split(":")
             spec = get_config(arch)
