@@ -425,6 +425,23 @@ and nothing of the JAX package.  Phases, each fatal on failure:
    bitwise the plain route's, both routes timed in turns; (c) (a)'s and
    (b)'s cells traced partitioned on this 1 x 1 mesh within 1e-6 of the
    FLOPs of their global traces.
+24. The GNN ``pjit`` cells partitioned by DTensor placements (edges and
+   node rows over the flattened axes, node rows all-gathered for the
+   gathers, K2a on each rank's own edges reduce-scattered to its rows)
+   over a (data 1, model 1) mesh on an NCCL group of one: (a) gat-cora
+   on ``full_graph_sm`` and PNA, NequIP and MACE on ``molecule``, each
+   at its ``CONFIG`` from random weights of seed 0, ``GNN_STEPS`` steps
+   in turns with the plain step on a second state from the same seed
+   (the task's ``AdamWConfig()``): loss, ``grad_norm`` and every
+   parameter within ``GNN_SHARD_TOL`` of the plain step's after each
+   step (K2a's atomics move the last bits between runs), K2a launches a
+   partitioned step equal to the plain step's (4 / 13 / 75 / 30), both
+   routes' ms and the partitioned step's peak; (b) gat-cora on
+   ``ogb_products`` at phase 18 (b)'s edge cut (cut further by 5% a
+   try while the partitioned step does not fit, printed as
+   ``reduced``), both routes in turns, their ms and peaks; (c) (a)'s
+   and (b)'s cells traced partitioned on this 1 x 1 mesh within 1e-6
+   of the FLOPs of their global traces.
 
 Prints the kernel line (JSON; every entry carries phase 15's
 ``smem_static`` / ``smem_dynamic_worst``; K1's carries phase 9's compiled
@@ -434,7 +451,7 @@ entries carry phase 14's ``dist_census_launches``; K2b's, phase 11's launches an
 clique's shapes, with phase 7's as ``phase7_*``; K2a's, phase 18's (its
 launches over one step of each GNN; its times at gat-cora's layer-1
 messages on ``ogb_products``) with the rest of phase 18 as ``gnn_*``,
-phase 19's bag pooling as ``bag_*``, phase 7's as ``phase7_*`` and the
+phase 24's as ``gnn_mesh_*``, phase 19's bag pooling as ``bag_*``, phase 7's as ``phase7_*`` and the
 clique out-weights' as ``out_w_*``; K4's, phase 8's, with phase 16's as
 ``lm_*``, phase 17's as ``train_*``, its backward's as ``bwd_*``,
 phase 19's as ``recsys_*``, phase 21's as ``mesh_*``, phase 22's as
@@ -6520,6 +6537,266 @@ def recsys_mesh_phase(dev, flush, smi, train_b):
     return keys
 
 
+# Phase 24: the GNN pjit cells partitioned by DTensor placements on the
+# card.
+GNN_MESH_CELLS = (("gat-cora", "full_graph_sm"), ("pna", "molecule"),
+                  ("nequip", "molecule"), ("mace", "molecule"))
+
+
+def gnn_mesh_close(tag, metrics, plain_metrics, state, plain):
+    """``(loss, grad_norm, parameters)`` errors of the partitioned steps
+    against the plain ones (step by step; the loss of max(1, |loss|),
+    ``grad_norm`` and each parameter of its own largest magnitude, the
+    parameters after the last step of both); fails past
+    ``GNN_SHARD_TOL``."""
+    from repro_torch.train.tree import leaves
+
+    loss = grad_norm = 0.0
+    for m, pm in zip(metrics, plain_metrics, strict=True):
+        want = float(pm["loss"])
+        loss = max(loss, abs(float(whole(m["loss"])) - want)
+                   / max(1.0, abs(want)))
+        grad_norm = max(grad_norm, abs(float(whole(m["grad_norm"]))
+                                       - float(pm["grad_norm"]))
+                        / max(float(pm["grad_norm"]), 1e-30))
+    errs = (loss, grad_norm, max(rel_max(whole(a), b) for a, b in zip(
+        leaves(state.params), leaves(plain.params))))
+    if not (all(math.isfinite(e) for e in errs)
+            and max(errs) <= GNN_SHARD_TOL):
+        fail(f"phase 24 {tag}: partitioned vs plain (loss, grad_norm, "
+             f"parameters) {errs}, limit {GNN_SHARD_TOL}")
+    return errs
+
+
+def gnn_mesh_step(dev, task, mod, cfg, g, params_fn, timed_order):
+    """The partitioned step of ``task`` and the plain step on two states
+    from ``params_fn()``, in the order ``timed_order`` gives ("plain" /
+    "mesh", as many of each): each step's ms, K2a launches and peak
+    over what was held, and the partitioned steps' errors against the
+    plain steps (``gnn_mesh_close``)."""
+    import torch
+
+    from repro_torch.kernels.segsum import segsum_cuda
+    from repro_torch.launch.tasks import distribute_tree
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+
+    plain = init_train_state(params_fn())
+    state = distribute_tree(init_train_state(params_fn()),
+                            task.placements[0], task.mesh)
+    d_graph = distribute_tree(g, task.placements[1], task.mesh)
+    # the task's own optimizer (``launch.tasks``: ``AdamWConfig()``)
+    plain_step = make_train_step(lambda p, b: mod.loss_fn(p, cfg, b),
+                                 AdamWConfig())
+    out = {"plain": [], "mesh": [], "launches": [], "plain_launches": [],
+           "peak": 0, "plain_peak": 0}
+    metrics = {"plain": [], "mesh": []}
+    for route in timed_order:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        segsum_cuda.launches = 0
+        t0 = time.perf_counter()
+        if route == "plain":
+            plain, m = plain_step(plain, g)
+        else:
+            state, m = task.fn(state, d_graph)
+        torch.cuda.synchronize()
+        out[route].append((time.perf_counter() - t0) * 1e3)
+        metrics[route].append(m)
+        key = "" if route == "mesh" else "plain_"
+        out[key + "launches"].append(segsum_cuda.launches)
+        out[key + "peak"] = max(out[key + "peak"],
+                                torch.cuda.max_memory_allocated(dev) - held)
+        out["held"] = held
+    out["errs"] = gnn_mesh_close(task.name, metrics["mesh"],
+                                 metrics["plain"], state, plain)
+    out["loss"] = float(whole(metrics["mesh"][-1]["loss"]))
+    del state, plain, d_graph
+    return out
+
+
+def gnn_mesh_models(dev, mesh, smi):
+    """Phase 24 (a): each GNN at its ``CONFIG`` on its published shape,
+    ``GNN_STEPS`` partitioned steps in turns with the plain step, from
+    the same weights."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.tasks import build_task
+
+    rows = {}
+    for arch, shape in GNN_MESH_CELLS:
+        spec = get_config(arch)
+        task = build_task(spec, spec.shape(shape), mesh)
+        if not (task.partitioned and task.per_device):
+            fail(f"phase 24 (a): {task.name} is not partitioned")
+        mod, cfg, g = gnn_inputs(arch, dev)
+        res = gnn_mesh_step(
+            dev, task, mod, cfg, g,
+            lambda: mod.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg),
+            ("plain", "mesh") * GNN_STEPS)
+        if set(res["launches"]) != set(res["plain_launches"]) or len(
+                set(res["launches"])) != 1 or res["launches"][0] == 0:
+            fail(f"phase 24 (a) {arch}: K2a launches a partitioned step "
+                 f"{res['launches']}, plain {res['plain_launches']}")
+        worst = res["errs"]
+        row = dict(cell=task.name, launches=res["launches"][0],
+                   step_ms=statistics.median(res["mesh"][1:]),
+                   plain_ms=statistics.median(res["plain"][1:]),
+                   steps_ms=res["mesh"], plain_steps_ms=res["plain"],
+                   loss_err=worst[0], grad_norm_err=worst[1],
+                   param_err=worst[2], peak_mib=res["peak"] / 2**20,
+                   plain_peak_mib=res["plain_peak"] / 2**20,
+                   held_mib=res["held"] / 2**20)
+        rows[arch] = row
+        log(f"  (a) {task.name} partitioned over {mesh}: step "
+            f"{row['step_ms']:.2f} ms against the plain step's "
+            f"{row['plain_ms']:.2f} ms (medians of steps 1-{GNN_STEPS - 1},"
+            f" in turns); {row['launches']} K2a launches a step, as the "
+            f"plain step's; against the plain steps: loss {worst[0]:.3g}, "
+            f"grad_norm {worst[1]:.3g} (worst of {GNN_STEPS}), parameters "
+            f"{worst[2]:.3g} after the last; peak {row['peak_mib']:.0f} MiB "
+            f"(plain {row['plain_peak_mib']:.0f}) over the "
+            f"{row['held_mib']:.0f} MiB held [{smi}]")
+        del g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def gnn_mesh_ogb(dev, mesh, smi, edges):
+    """Phase 24 (b): gat-cora on ``ogb_products`` at ``edges`` (phase 18
+    (b)'s cut), cut by 5% a try while the partitioned step does not
+    fit: three steps of each route in turns (plain, partitioned,
+    partitioned, plain, plain, partitioned), the first of each warm."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.tasks import build_task
+    from repro_torch.models.gnn import gat
+
+    spec = get_config("gat-cora")
+    cfg = dataclasses.replace(spec.model, d_in=OGB_FEAT,
+                              n_classes=OGB_CLASSES)
+    e, reduced = edges, None
+    if edges != OGB_EDGES:
+        reduced = f"n_edges {OGB_EDGES:,} -> {edges:,} (phase 18 (b)'s cut)"
+    for _ in range(OGB_CUTS + 1):
+        try:
+            task = build_task(spec, cut_shape(spec, "ogb_products",
+                                              n_edges=e), mesh)
+            gen = torch.Generator(device=dev).manual_seed(0)
+            g = ogb_graph(dev, OGB_NODES, e, gen)
+            res = gnn_mesh_step(
+                dev, task, gat, cfg, g,
+                lambda: gat.init_params(
+                    torch.Generator(device=dev).manual_seed(1), cfg),
+                ("plain", "mesh", "mesh", "plain", "plain", "mesh"))
+            break
+        except torch.cuda.OutOfMemoryError:
+            pass
+        g = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        e = int(e * OGB_CUT)
+        reduced = (f"n_edges {OGB_EDGES:,} -> {e:,}: the partitioned step "
+                   "did not fit")
+        log(f"  (b) out of memory; cutting to {e:,} edges")
+    else:
+        fail("phase 24 (b): no edge count tried fits the card")
+    if set(res["launches"]) != {4} or set(res["plain_launches"]) != {4}:
+        fail(f"phase 24 (b): K2a launches a step {res['launches']}, plain "
+             f"{res['plain_launches']} (expected 4: two per layer)")
+    out = dict(edges=e, nodes=OGB_NODES, reduced=reduced,
+               step_ms=statistics.median(res["mesh"][1:]),
+               plain_ms=statistics.median(res["plain"][1:]),
+               steps_ms=res["mesh"], plain_steps_ms=res["plain"],
+               loss=res["loss"], peak_gib=res["peak"] / 2**30,
+               plain_peak_gib=res["plain_peak"] / 2**30,
+               held_gib=res["held"] / 2**30,
+               worst_err=max(res["errs"]))
+    log(f"  (b) gat-cora on ogb_products, {e:,} edges, partitioned over "
+        f"{mesh}: step {out['step_ms']:.1f} ms against the plain step's "
+        f"{out['plain_ms']:.1f} ms (medians of the last two of each, in "
+        f"turns); loss {out['loss']:.5f}, worst error against the plain "
+        f"step {out['worst_err']:.3g}; 4 K2a launches a step; peak "
+        f"{out['peak_gib']:.2f} GiB (plain {out['plain_peak_gib']:.2f}) "
+        f"over the {out['held_gib']:.2f} GiB held; reduced: {reduced} "
+        f"[{smi}]")
+    del g, task
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_mesh_traces(mesh, edges):
+    """Phase 24 (c): (a)'s and (b)'s cells traced partitioned on this 1 x
+    1 mesh, their per-device FLOPs within 1e-6 of their global
+    traces'."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_shape
+    from repro_torch.launch.tasks import build_task
+
+    out = {}
+    cells = GNN_MESH_CELLS + (("gat-cora", "ogb_products"),)
+    for arch, name in cells:
+        spec = get_config(arch)
+        shape = (cut_shape(spec, name, n_edges=edges)
+                 if name == "ogb_products" else spec.shape(name))
+        part = build_task(spec, shape, mesh).trace()
+        glob = build_task(spec, shape, mesh_shape(mesh)).trace()
+        ratio = part.flops / glob.flops
+        if not abs(ratio - 1) <= 1e-6:
+            fail(f"phase 24 (c) {arch}:{name}: per-device FLOPs "
+                 f"{part.flops:.9g}, global trace {glob.flops:.9g}")
+        log(f"  (c) {arch}:{name} on {mesh}: per-device FLOPs "
+            f"{part.flops:.9g} = {ratio:.9f} x the global trace's; "
+            f"collectives {len(part.collectives)}; traced in "
+            f"{part.seconds:.1f} s ({part.n_ops} ops) against "
+            f"{glob.seconds:.1f} s ({glob.n_ops} ops) unpartitioned")
+        out[f"{arch}:{name}"] = dict(flops_ratio=ratio,
+                                     collectives=len(part.collectives),
+                                     trace_s=part.seconds)
+    return out
+
+
+def gnn_mesh_phase(dev, smi, ogb_edges):
+    """Phase 24: the GNN ``pjit`` cells partitioned by DTensor placements
+    on a 1 x 1 mesh over an NCCL group of one, at each ``CONFIG``;
+    returns K2a's ``gnn_mesh_*`` keys."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_local_group, make_mesh
+
+    t_phase = time.perf_counter()
+    at = lambda: f"[{time.perf_counter() - t_phase:.1f} s]"
+    init_local_group(0, 1, tempfile.mkdtemp(prefix="chip-smoke-gnn-mesh-"),
+                     "cuda")
+    try:
+        mesh = make_mesh((1, 1))
+        models = gnn_mesh_models(dev, mesh, smi)
+        log(f"  {at()} (a) done")
+        ogb = gnn_mesh_ogb(dev, mesh, smi, ogb_edges)
+        log(f"  {at()} (b) done")
+        traces = gnn_mesh_traces(mesh, ogb["edges"])
+        log(f"  {at()} phase 24 done")
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return {"gnn_mesh_models": models, "gnn_mesh_ogb": ogb,
+            "gnn_mesh_traces": traces,
+            "gnn_mesh_launches": {a: r["launches"]
+                                  for a, r in models.items()},
+            "gnn_mesh_card": smi}
+
+
 KERNEL_SOURCES = (("deliver_fused", "deliver_fused.cu"),
                   ("isect", "isect.cu"), ("segsum", "segsum.cu"),
                   ("flash", "flash.cu"), ("flash_bwd", "flash_bwd.cu"))
@@ -6934,6 +7211,16 @@ def main() -> int:
     flash_entry.update(recsys_mesh_phase(dev, flush, smi,
                                          flash_entry["recsys_train_batch"]))
     log(f"phase 23: {time.perf_counter() - t0:.1f} s in all; total "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 24: the GNN pjit cells partitioned by DTensor placements -----
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 24: gat-cora, pna, nequip and mace's pjit cells partitioned "
+        "over a (data 1, model 1) mesh on an NCCL group of one")
+    gnn_entry.update(gnn_mesh_phase(dev, smi, gnn_entry["gnn_ogb"]["edges"]))
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s in all; total "
         f"{time.perf_counter() - t_start:.1f} s")
 
     kernels = [{

@@ -18,14 +18,15 @@ on, or launched to, a card.
 
 Each row keeps the JAX package's keys: ``lower_s`` is the build of the
 fake state, ``compile_s`` the trace.  ``partitioned`` says whether the
-trace is one device's own program (an LM cell, dense or MoE, or a
-BERT4Rec cell, partitioned by DTensor placements; a 1-device mesh; the
-edge-sharded GNN step), with its temp and its collectives, or the whole
-global step of a cell the port does not partition yet (the GNN ``pjit``
-cells): there ``memory`` gives each device's arguments and outputs
-from the placements, ``temp_gb`` and the collectives are null (the
-reason in ``notes``), and ``cost_*_per_dev`` are the step's counts
-spread evenly over the devices.
+trace is one device's own program (an LM cell, dense or MoE, a BERT4Rec
+cell or a GNN ``pjit`` cell, partitioned by DTensor placements; a
+1-device mesh; the edge-sharded GNN step), with its temp and its
+collectives: on the production meshes every cell is.  A cell built on
+a stand-in of a mesh (``launch.tasks``) traces the whole global step:
+its ``memory`` gives each device's arguments and outputs from the
+placements, ``temp_gb`` and the collectives are null (the reason in
+``notes``), and ``cost_*_per_dev`` are the step's counts spread evenly
+over the devices.
 """
 from __future__ import annotations
 

@@ -25,16 +25,19 @@ takes them) by the JAX package's rules (``_lm_param_spec``,
   step on real tensors (distributed by the placements) over a real
   mesh: the counterpart of calling the JAX package's compiled
   ``Task.lower()``;
+* one device's own program of a GNN ``pjit`` cell (gat-cora, PNA,
+  NequIP, MACE) on a ``DeviceMesh`` the same way: the edges and the
+  node arrays over the mesh's flattened axes, each rank on its own
+  edges and node rows (node rows all-gathered for the gathers, message
+  sums reduce-scattered to the rank's rows), the state replicated;
 * one device's own program of the edge-sharded GNN step
   (``exec_mode="edge_sharded"``), rank 0 of the mesh's flattened group
   on a fake world, counting the collectives the port's own code issues;
-* the whole global step on one fake device for the cells the port does
-  not partition yet (the GNN ``pjit`` cells; the dry-run's ``notes``
-  says so), and for any cell on a stand-in of a mesh (an
-  object with ``mesh_dim_names`` and ``size``, no ranks): the
-  placements then give each device's arguments and outputs, and the
-  trace the step's work; on a one-device mesh that is the device's own
-  program.
+* the whole global step on one fake device for any cell on a stand-in
+  of a mesh (an object with ``mesh_dim_names`` and ``size``, no
+  ranks): the placements then give each device's arguments and
+  outputs, and the trace the step's work; on a one-device mesh that is
+  the device's own program.
 
 Differences from the JAX package, each on purpose:
 
@@ -97,16 +100,25 @@ def is_device_mesh(mesh) -> bool:
 def distribute_tree(tree, pls: dict[str, tuple], mesh):
     """``tree`` (global tensors, real or fake, the same on every rank)
     with each leaf a DTensor under its placements ``pls[name]``
-    (``named_tensors``' names); a leaf that required a gradient still
-    does."""
+    (``named_tensors``' names: a dataclass leaf, a ``GraphBatch``, by
+    its tensor fields); a leaf that required a gradient still does."""
     from repro_torch.models.sharding import distribute
     from repro_torch.train.tree import named_leaves, path_str, unflatten
 
+    def put(leaf, name):
+        if dataclasses.is_dataclass(leaf) and not isinstance(leaf, type):
+            # a GraphBatch: its tensor fields, named as ``named_tensors``
+            pre = f"{name}/" if name else ""
+            return dataclasses.replace(leaf, **{
+                f.name: put(getattr(leaf, f.name), pre + f.name)
+                for f in dataclasses.fields(leaf)
+                if isinstance(getattr(leaf, f.name), torch.Tensor)})
+        return distribute(leaf, mesh, pls[name])
+
     named = named_leaves(tree)
-    out = unflatten(tree, [distribute(t, mesh, pls[path_str(name)])
-                           for name, t in named])
+    out = unflatten(tree, [put(t, path_str(name)) for name, t in named])
     for (_, new), (_, old) in zip(named_leaves(out), named):
-        if old.requires_grad:
+        if isinstance(old, torch.Tensor) and old.requires_grad:
             new.requires_grad_(True)
     return out
 
@@ -564,11 +576,17 @@ def flat_group(mesh):
 
 def build_gnn_task(spec: ArchSpec, shape: ShapeSpec, mesh,
                    exec_mode: str = "pjit") -> Task:
-    """exec_mode: 'pjit' (the whole step, the edges and nodes placed
-    over the mesh) or 'edge_sharded' (``launch.gnn_sharded``'s step: the
-    edges cut over the mesh's flattened group, node arrays and
-    parameters replicated; traced as rank 0's own program, so the mesh
-    must lie on an initialised world, a fake one in the dry-run)."""
+    """exec_mode: 'pjit' (the JAX package's placements: the edges and the
+    node arrays over the mesh's flattened axes, the state and metrics
+    replicated; partitioned on a ``DeviceMesh``, each rank running its
+    own edges and node rows through the models' partitioned forms,
+    ``sparse.gather.gather_nodes`` and ``sparse.segment``'s DTensor
+    branches; the whole global step on a stand-in of one) or
+    'edge_sharded' (``launch.gnn_sharded``'s step: the edges cut over
+    the mesh's flattened group, node arrays and parameters replicated;
+    traced as rank 0's own program, so the mesh must lie on an
+    initialised world, a fake one in the dry-run).  ``n_nodes`` and
+    ``n_graphs`` stay global, N and E padded to the device count."""
     from repro_torch.models.gnn import equivariant, gat, pna
     from repro_torch.models.gnn.graph import GraphBatch
 
@@ -623,7 +641,8 @@ def build_gnn_task(spec: ArchSpec, shape: ShapeSpec, mesh,
     with mode:
         params_abs = mod.init_params(torch.Generator(), cfg)
         state_abs = init_train_state(params_abs)
-    per_device = n_dev == 1
+    partitioned = exec_mode == "pjit" and is_device_mesh(mesh)
+    per_device = partitioned or n_dev == 1
     if exec_mode == "edge_sharded":
         from repro_torch.launch.gnn_sharded import make_edge_sharded_step
 
@@ -644,19 +663,26 @@ def build_gnn_task(spec: ArchSpec, shape: ShapeSpec, mesh,
             return label_spec
         return ()
 
+    # The state replicated: its gradients are sums over every rank's own
+    # edges and nodes, reduced before the update (``train.step``).
     state_pl = _replicated(state_abs, mesh)
     batch_pl = _tree_placements(batch_abs, mesh, batch_spec)
     metrics_pl = {k: placements((), mesh) for k in ("grad_norm", "loss", "lr")}
+    out_pl = {**_prefixed("0", state_pl), **_prefixed("1", metrics_pl)}
+    args = (state_abs, batch_abs)
+    if partitioned:
+        step = _laid_out_step(mesh, step, out_pl)
+        args = (_placed(mesh, mode, state_abs, state_pl),
+                _placed(mesh, mode, batch_abs, batch_pl))
     return Task(
         name=name, fn=step,
-        abstract_args=(state_abs, batch_abs),
+        abstract_args=args,
         placements=(state_pl, batch_pl),
-        out_placements={**_prefixed("0", state_pl),
-                        **_prefixed("1", metrics_pl)},
+        out_placements=out_pl,
         mesh=mesh, fake_mode=mode,
         model_flops_per_step=_gnn_model_flops(spec, cfg, n_nodes, n_edges),
         notes=f"padded nodes={n_nodes} edges={n_edges} exec={exec_mode}",
-        per_device=per_device,
+        per_device=per_device, partitioned=partitioned,
     )
 
 

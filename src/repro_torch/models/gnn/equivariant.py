@@ -10,6 +10,13 @@ a CG path (15 paths at ``l_max = 2``: up to 15 K2a launches a layer on
 the card).  MACE adds the many-body expansion: its A-basis (one message
 pass) is self-coupled ``correlation_order - 1`` times through CG
 products on the nodes.
+
+Node rows reach the edges through ``sparse.gather.gather_nodes``, the
+species through ``take_local``, the CG products run on each rank's own
+rows (``models.sharding.rows_einsum``), the per-molecule energies fold
+through ``sparse.graph_segment``, and zero features are made as the
+graph's arrays are laid out, so a graph of DTensors (a partitioned
+cell) runs on each rank's own edges and nodes.
 """
 from __future__ import annotations
 
@@ -28,7 +35,9 @@ from repro_torch.models.gnn.irreps import (
     sph_harm,
 )
 from repro_torch.models.params import normal, tree_from_jax
-from repro_torch.sparse.segment import MONOIDS, mp_segment_sum
+from repro_torch.models.sharding import rows_einsum, zeros_like_rows
+from repro_torch.sparse.gather import gather_nodes, take_local
+from repro_torch.sparse.segment import graph_segment, mp_segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,14 +117,14 @@ def _tensor_product_msg(cfg, lp, feats, g, sh, radial):
     n = g.n_nodes
     w = F.silu(radial @ lp["radial_w1"]) @ lp["radial_w2"]
     w = w.reshape(-1, len(paths), c) * g.edge_mask[:, None, None]
-    src = {l: feats[l][g.edge_src] for l in feats}     # [E, C, 2l+1]
-    out = {str(l): torch.zeros((n, c, 2 * l + 1), dtype=w.dtype,
-                               device=w.device)
+    src = {l: gather_nodes(feats[l], g.edge_src)
+           for l in feats}                             # [E, C, 2l+1]
+    out = {str(l): zeros_like_rows(feats["0"], (n, c, 2 * l + 1), w.dtype)
            for l in range(cfg.l_max + 1)}
     for pi, (l1, l2, l3) in enumerate(paths):
         cg = _cg_const(l1, l2, l3, w.device, w.dtype)
-        msg = torch.einsum("eci,ej,ijk->eck", src[str(l1)], sh[str(l2)],
-                           cg) * w[:, pi, :, None]
+        msg = rows_einsum("eci,ej,ijk->eck", src[str(l1)], sh[str(l2)],
+                          cg) * w[:, pi, :, None]
         out[str(l3)] = out[str(l3)] + mp_segment_sum(msg, g.edge_dst, n)
     return out
 
@@ -133,7 +142,7 @@ def _self_product(cfg, lp, a_basis):
         for (l1, l2, l3) in paths:
             cg = _cg_const(l1, l2, l3, a_basis["0"].device,
                            a_basis["0"].dtype)
-            prod = torch.einsum(
+            prod = rows_einsum(
                 "nci,ncj,ijk->nck", current[str(l1)], a_basis[str(l2)], cg,
             ) * weights[f"{l1}_{l2}_{l3}"][None, :, None]
             nxt[str(l3)] = nxt[str(l3)] + prod
@@ -168,19 +177,19 @@ def forward(params, cfg: EquivariantConfig, g: GraphBatch) -> torch.Tensor:
     """Returns per-graph energies ``[n_graphs]``."""
     n = g.n_nodes
     c = cfg.d_hidden
-    rel = g.positions[g.edge_src] - g.positions[g.edge_dst]
+    rel = (gather_nodes(g.positions, g.edge_src)
+           - gather_nodes(g.positions, g.edge_dst))
     dist = torch.sqrt(torch.sum(rel**2, -1).clamp(min=1e-12))
     unit = rel / dist[:, None]
     sh = {str(l): sph_harm(l, unit) for l in range(cfg.l_max + 1)}
     radial = bessel_basis(dist, cfg.n_rbf, cfg.cutoff)
 
     dt = params["species_embed"].dtype
-    feats = {"0": params["species_embed"][g.species][..., None]}
+    feats = {"0": take_local(params["species_embed"], g.species)[..., None]}
     for l in range(1, cfg.l_max + 1):
-        feats[str(l)] = torch.zeros((n, c, 2 * l + 1), dtype=dt,
-                                    device=rel.device)
+        feats[str(l)] = zeros_like_rows(g.positions, (n, c, 2 * l + 1), dt)
 
-    site_energy = torch.zeros((n,), dtype=dt, device=rel.device)
+    site_energy = zeros_like_rows(g.positions, (n,), dt)
     for lp in params["layers"]:
         msgs = _tensor_product_msg(cfg, lp, feats, g, sh, radial)
         if cfg.kind == "mace" and cfg.correlation_order > 1:
@@ -193,7 +202,7 @@ def forward(params, cfg: EquivariantConfig, g: GraphBatch) -> torch.Tensor:
     if g.node_mask is not None:
         site_energy = site_energy * g.node_mask
     if g.graph_ids is not None and g.n_graphs > 1:
-        return MONOIDS["sum"].segment(site_energy, g.graph_ids, g.n_graphs)
+        return graph_segment(site_energy, g.graph_ids, g.n_graphs)
     return site_energy.sum()[None]
 
 

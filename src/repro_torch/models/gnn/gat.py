@@ -1,7 +1,9 @@
 """GAT (Veličković et al., arXiv:1710.10903), the counterpart of the JAX
 package's ``repro.models.gnn.gat``: edge scores from the two endpoints'
 projections -> segment softmax over each destination's edges -> the
-weighted message sum (``mp_segment_sum``: K2a on the card)."""
+weighted message sum (``mp_segment_sum``: K2a on the card).  Node rows
+reach the edges through ``sparse.gather.gather_nodes``, so a graph of
+DTensors (a partitioned cell) runs on each rank's own edges and nodes."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +13,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.gnn.graph import GraphBatch
 from repro_torch.models.params import normal, tree_from_jax
+from repro_torch.sparse.gather import gather_nodes
 from repro_torch.sparse.segment import mp_segment_sum, segment_softmax
 
 
@@ -58,12 +61,13 @@ def forward(params, cfg: GATConfig, g: GraphBatch) -> torch.Tensor:
         h = torch.einsum("nf,fhd->nhd", x, lp["w"])      # [N, H, D]
         e_src = (h * lp["a_src"]).sum(-1)                # [N, H]
         e_dst = (h * lp["a_dst"]).sum(-1)
-        logits = F.leaky_relu(e_src[src] + e_dst[dst],
+        logits = F.leaky_relu(gather_nodes(e_src, src)
+                              + gather_nodes(e_dst, dst),
                               cfg.negative_slope)       # [E, H]
         logits = torch.where(live, logits, -1e30)
         alpha = segment_softmax(logits, dst, n)          # [E, H]
         alpha = alpha * g.edge_mask[:, None]
-        msg = h[src] * alpha[..., None]                  # [E, H, D]
+        msg = gather_nodes(h, src) * alpha[..., None]    # [E, H, D]
         agg = mp_segment_sum(msg, dst, n)                # [N, H, D]
         if i == cfg.n_layers - 1:
             x = agg.mean(dim=1)                          # average heads

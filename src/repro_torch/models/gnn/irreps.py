@@ -15,7 +15,8 @@ product).  The tables are float64 numpy, built once and cached; this
 module holds its own copy of the JAX package's numpy construction (the
 port imports nothing of that package), with the same seeds, so the
 tables are the same numbers.  ``sph_harm`` and ``bessel_basis`` are the
-torch forms the models call.
+torch forms the models call (on DTensor edges too: their constants are
+made replicated on the edges' mesh).
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from repro_torch.models.sharding import replicate_like
 
 
 def sph_harm_np(l: int, v: np.ndarray) -> np.ndarray:
@@ -143,13 +146,16 @@ def allowed_paths(l_max: int) -> list[tuple[int, int, int]]:
 
 
 def sph_harm(l: int, v: torch.Tensor) -> torch.Tensor:
-    """Torch form of :func:`sph_harm_np` (differentiable)."""
+    """Torch form of :func:`sph_harm_np` (differentiable).  The components
+    stack on a non-negative dim: given ``-1``, torch 2.11's DTensor stack
+    labelled a result cut over its rows ``Shard(1)`` (four ``gloo``
+    ranks)."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    last = x.dim()
     if l == 0:
-        return torch.ones(v.shape[:-1] + (1,), dtype=v.dtype,
-                          device=v.device)
+        return torch.ones_like(v[..., :1])
     if l == 1:
-        return math.sqrt(3.0) * torch.stack([y, z, x], dim=-1)
+        return math.sqrt(3.0) * torch.stack([y, z, x], dim=last)
     if l == 2:
         return torch.stack(
             [
@@ -159,7 +165,7 @@ def sph_harm(l: int, v: torch.Tensor) -> torch.Tensor:
                 math.sqrt(15.0) * x * z,
                 math.sqrt(15.0) / 2.0 * (x**2 - y**2),
             ],
-            dim=-1,
+            dim=last,
         )
     if l == 3:
         return torch.stack(
@@ -172,7 +178,7 @@ def sph_harm(l: int, v: torch.Tensor) -> torch.Tensor:
                 math.sqrt(105.0) / 2.0 * z * (x**2 - y**2),
                 math.sqrt(35.0 / 8.0) * x * (x**2 - 3 * y**2),
             ],
-            dim=-1,
+            dim=last,
         )
     raise NotImplementedError(f"l={l}")
 
@@ -181,7 +187,8 @@ def bessel_basis(r: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
     """NequIP's Bessel radial basis with a smooth polynomial cutoff
     envelope (p = 6, from DimeNet).  r: [...]; returns [..., n_rbf]."""
     r = r.clamp(min=1e-6)
-    n = torch.arange(1, n_rbf + 1, dtype=torch.float32, device=r.device)
+    n = replicate_like(torch.arange(1, n_rbf + 1, dtype=torch.float32,
+                                    device=r.device), r)
     basis = math.sqrt(2.0 / cutoff) * torch.sin(
         n * math.pi * r[..., None] / cutoff) / r[..., None]
     x = (r / cutoff).clamp(0.0, 1.0)

@@ -1,7 +1,11 @@
 """PNA (Corso et al., arXiv:2004.05718), the counterpart of the JAX
 package's ``repro.models.gnn.pna``: multi-aggregator message passing,
 4 aggregators (mean / max / min / std) x 3 degree scalers (identity /
-amplification / attenuation) -> a 12-fold concat -> a linear tower."""
+amplification / attenuation) -> a 12-fold concat -> a linear tower.
+Node rows reach the edges through ``sparse.gather.gather_nodes`` and
+the per-molecule readout folds through ``sparse.graph_segment``, so a
+graph of DTensors (a partitioned cell) runs on each rank's own edges
+and nodes."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,8 +14,9 @@ import torch
 
 from repro_torch.models.gnn.graph import GraphBatch
 from repro_torch.models.params import normal, tree_from_jax
+from repro_torch.sparse.gather import gather_nodes
 from repro_torch.sparse.segment import (
-    MONOIDS,
+    graph_segment,
     mp_segment_max,
     mp_segment_min,
     mp_segment_sum,
@@ -69,7 +74,8 @@ def forward(params, cfg: PNAConfig, g: GraphBatch) -> torch.Tensor:
     att = (cfg.delta / logd.clamp(min=1e-3))[:, None]
 
     for lp in params["layers"]:
-        msg_in = torch.cat([x[src], x[dst]], dim=-1)
+        msg_in = torch.cat([gather_nodes(x, src), gather_nodes(x, dst)],
+                           dim=-1)
         msg = torch.relu(msg_in @ lp["w_pre"]) * g.edge_mask[:, None]
         mean = segment_mean(msg, dst, n)
         mx = _finite_or_zero(mp_segment_max(msg, dst, n))
@@ -87,12 +93,12 @@ def loss_fn(params, cfg: PNAConfig, g: GraphBatch) -> torch.Tensor:
     logits = forward(params, cfg, g)
     if g.graph_ids is not None and g.n_graphs > 1:
         # graph-level readout: mean-pool nodes per molecule
-        pooled = MONOIDS["sum"].segment(logits, g.graph_ids, g.n_graphs)
-        count = MONOIDS["sum"].segment(
-            torch.ones((g.n_nodes,), device=logits.device), g.graph_ids,
+        pooled = graph_segment(logits, g.graph_ids, g.n_graphs)
+        count = graph_segment(
+            torch.ones_like(g.graph_ids, dtype=torch.float32), g.graph_ids,
             g.n_graphs)
         logits = pooled / count.clamp(min=1.0)[:, None]
-        labels = MONOIDS["max"].segment(g.labels, g.graph_ids, g.n_graphs)
+        labels = graph_segment(g.labels, g.graph_ids, g.n_graphs, "max")
     else:
         labels = g.labels
     logp = torch.log_softmax(logits.float(), dim=-1)

@@ -170,6 +170,114 @@ def all_reduce_over(t, op: str, mesh, dims) -> torch.Tensor:
     return t
 
 
+def row_mesh(mesh, placements_):
+    """The 1-D mesh over the dimensions of ``mesh`` whose placement
+    shards tensor dim 0, those of extent 1 left out, flattened in mesh
+    order (the order in which ``Shard(0)`` on several dimensions nests
+    its pieces: the flattened rank is the index of this rank's rows);
+    None where no such dimension cuts the rows.  Made once a mesh and
+    set of dimensions (``DeviceMesh._flatten``: one process group over
+    them, so a collective over the rows is one call, not one a mesh
+    dimension)."""
+    dims = tuple(i for i in mesh_dims_sharding(placements_, 0)
+                 if mesh.size(i) > 1)
+    if not dims:
+        return None
+    # Kept on the mesh itself: a cache keyed by meshes would take a later
+    # group's equal mesh for this one.
+    kept = mesh.__dict__.setdefault("_row_meshes", {})
+    if dims not in kept:
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        names = tuple(mesh.mesh_dim_names[i] for i in dims)
+        # Built on the mesh's real rank tensor: outside a trace's fake
+        # mode and its counter.
+        with _disable_current_modes():
+            kept[dims] = (mesh[names[0]] if len(names) == 1
+                          else mesh[names]._flatten())
+    return kept[dims]
+
+
+def waited(t):
+    """A functional collective's result, waited on (its plain tensor)."""
+    return t.wait() if hasattr(t, "wait") else t
+
+
+def all_gather_rows(t, rows) -> torch.Tensor:
+    """Every rank's ``t`` stacked along dim 0 in ``rows``' rank order,
+    by one functional all-gather over the 1-D mesh ``rows``."""
+    from torch.distributed import _functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) or \
+        funcol.all_gather_tensor
+    return waited(gather(t.contiguous(), 0, rows))
+
+
+def reduce_scatter_rows(t, rows) -> torch.Tensor:
+    """``t`` summed over the ranks of the 1-D mesh ``rows``, this rank's
+    piece of dim 0 kept (the rows ``all_gather_rows`` would put at its
+    rank), by one functional reduce-scatter."""
+    from torch.distributed import _functional_collectives as funcol
+
+    scatter = getattr(funcol, "reduce_scatter_single", None) or \
+        funcol.reduce_scatter_tensor
+    return waited(scatter(t.contiguous(), "sum", 0, rows))
+
+
+def replicate_like(t, like):
+    """Plain tensor ``t`` (a constant: a table, an index range) as a
+    DTensor replicated on ``like``'s mesh where ``like`` is a DTensor,
+    so that the two can meet in one op; ``t`` itself otherwise."""
+    if not is_dtensor(like):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def rows_einsum(equation: str, *operands) -> torch.Tensor:
+    """``torch.einsum(equation, *operands)`` whose first operand's dim 0
+    (edges or nodes) is the output's dim 0.  On a DTensor first operand
+    each rank contracts its own rows under ``local_map``, no collective:
+    an operand laid out as the first keeps its rows, a replicated one
+    (a weight) takes ``Partial`` gradients over the rows' cut, a plain
+    one (a constant table) passes as it is.  DTensor's own einsum
+    decomposes a three-operand product into views that some torch
+    versions shape at the global size over a rank's rows."""
+    first = operands[0]
+    if not is_dtensor(first):
+        return torch.einsum(equation, *operands)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = first.device_mesh, tuple(first.placements)
+    whole = (Replicate(),) * mesh.ndim
+    summed = tuple(Partial() if p.is_shard() else Replicate() for p in pl)
+    in_pl, grad_pl = [], []
+    for x in operands:
+        rows = is_dtensor(x) and tuple(x.placements) == pl
+        in_pl.append(pl if rows else whole if is_dtensor(x) else None)
+        grad_pl.append(pl if rows else summed if is_dtensor(x) else None)
+    return local_map(lambda *xs: torch.einsum(equation, *xs),
+                     out_placements=list(pl), in_placements=tuple(in_pl),
+                     in_grad_placements=tuple(grad_pl),
+                     device_mesh=mesh)(*operands)
+
+
+def zeros_like_rows(like, shape, dtype):
+    """``torch.zeros(shape, dtype)`` on ``like``'s device; for a DTensor
+    ``like``, a DTensor under ``like``'s placements (rows laid out as
+    its rows: each rank makes its own)."""
+    if not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import zeros
+
+    return zeros(*shape, dtype=dtype, device_mesh=like.device_mesh,
+                 placements=like.placements)
+
+
 def distribute(t, mesh, placements_):
     """The DTensor of global tensor ``t`` (real or fake, the same on every
     rank) under ``placements_`` on ``mesh``: each rank keeps its own

@@ -45,12 +45,12 @@ partitioner, so the port traces the step itself:
   package parses HLO text, with its kinds and its convention:
   all-reduce counts 2x (ring = reduce-scatter + all-gather), the others
   their result bytes.
-* A trace of the whole global step (a cell on a production mesh the
-  port does not partition) gives no collectives: its report takes
+* A trace of the whole global step (a cell built on a stand-in of a
+  mesh) gives no collectives: its report takes
   ``collective_bytes_per_dev = None`` (never 0) and ``partitioned:
   false``, and its ``dominant`` and ``step_time_s`` read the compute and
   memory terms only.  A trace of one device's own program (a
-  partitioned LM cell, a 1 x 1 mesh, or the edge-sharded GNN
+  partitioned cell, a 1 x 1 mesh, or the edge-sharded GNN
   step on rank 0 of a fake world) is partitioned: its FLOPs and bytes
   scale by the device count, as the JAX package scales its per-device
   cost analysis.
@@ -128,12 +128,15 @@ _NO_TRAFFIC = {
 @dataclasses.dataclass(frozen=True)
 class CollectiveRecord:
     """One collective the traced program issued: its kind (one of the
-    JAX package's five), the bytes of its result on this device, and
-    the ranks of its process group (0 where not known)."""
+    JAX package's five), the bytes of its result on this device, the
+    ranks of its process group (0 where not known), and the leading
+    extent of its (first) result tensor (0 for a scalar: an all-gather's
+    rows tell a node array from an edge array)."""
 
     kind: str
     nbytes: int
     group_size: int = 0
+    rows: int = 0
 
 
 def _group_size(func, args, kwargs) -> int:
@@ -144,9 +147,12 @@ def _group_size(func, args, kwargs) -> int:
 
     named = dict(zip((a.name for a in func._schema.arguments), args))
     named.update(kwargs)
-    for a in named.values():
+    for key, a in named.items():
         if isinstance(a, dist.ProcessGroup):
             return int(a.size())
+        if key == "process_group" and isinstance(a, torch.ScriptObject):
+            # a c10d op's group, boxed
+            return int(dist.ProcessGroup.unbox(a).size())
     name = named.get("group_name", named.get("tag"))
     if isinstance(name, str):
         from torch.distributed.distributed_c10d import _resolve_process_group
@@ -377,10 +383,12 @@ class TraceCounter(TorchDispatchMode):
             self.n_ops += 1
             kind = _C10D_KINDS.get(name)
             if kind is not None:
-                res = out if ns == "_c10d_functional" else args[0]
+                res = _tensors(out if ns == "_c10d_functional"
+                               else args[0])
                 self.collectives.append(CollectiveRecord(
-                    kind, sum(_nbytes(t) for t in _tensors(res)),
-                    _group_size(func, args, kwargs)))
+                    kind, sum(_nbytes(t) for t in res),
+                    _group_size(func, args, kwargs),
+                    int(res[0].shape[0]) if res and res[0].dim() else 0))
             return out
         if self._dt_depth:
             return out  # a DTensor op's local op: counted with it

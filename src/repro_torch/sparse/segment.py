@@ -17,6 +17,15 @@ The GNN side's message-passing reductions (``mp_segment_sum`` /
 ``mp_segment_sum`` of float32 or bfloat16 rows runs on K2a
 (``kernels.segsum.SegmentSumFn``: the hand-written kernel on the card,
 its plain version on the CPU); max and min take the scatter.
+
+On DTensors (a partitioned GNN cell, ``launch.tasks``: messages and
+ids over the edges, node rows over the same mesh dims) each reduction
+runs on the rank's own edges under ``local_map`` and hands back the
+rank's own node rows: the sum reduce-scatters its partial ``[N, ...]``
+over the flattened dims (``_own_rows_sum``), max and min all-reduce it
+(``_MergeExtreme``) and keep their rows; ``graph_segment`` folds node
+rows into whole graphs, replicated.  Plain tensors take the paths
+above, bit for bit.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.kernels.segsum.ops import SegmentSumFn
+from repro_torch.sparse.gather import clamped_ids, gather_nodes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,6 +251,9 @@ def _merge_sum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mp_extreme(name: str, op, data, segment_ids, num_segments):
+    if _is_dtensor(segment_ids):
+        return _extreme_partitioned(name, op, data, segment_ids,
+                                    num_segments)
     local = MONOIDS[name].segment(data, segment_ids, num_segments)
     group = _merge_group()
     if group is None:
@@ -266,16 +279,17 @@ def _segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
 
 def _take(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``x[ids]`` with the JAX package's indexing rule: negative ids
-    count from the end, then every id is clamped into range."""
-    n = x.shape[0]
-    idx = ids.long()
-    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, max(n - 1, 0))
-    return x[idx]
+    count from the end, then every id is clamped into range
+    (``sparse.gather.gather_nodes``, which takes DTensors too)."""
+    return gather_nodes(x, ids, jax_rule=True)
 
 
 def mp_segment_sum(data, segment_ids, num_segments):
     """Segment sum that merges across edge shards when inside
-    ``edge_sharded`` (this rank's partial + ``all_reduce`` SUM)."""
+    ``edge_sharded`` (this rank's partial + ``all_reduce`` SUM); of
+    DTensors, the rank's own node rows (``_segment_sum_partitioned``)."""
+    if _is_dtensor(segment_ids):
+        return _segment_sum_partitioned(data, segment_ids, num_segments)
     return _merge_sum(_segment_sum(data, segment_ids, num_segments))
 
 
@@ -349,3 +363,147 @@ def segment_normalize(data: torch.Tensor, segment_ids: torch.Tensor,
     denom = _segment_sum(data, segment_ids, num_segments)
     denom = torch.where(denom.abs() < 1e-30, 1.0, denom)
     return data / _take(denom, segment_ids)
+
+
+# ---------------------------------------------------------------------------
+# Partitioned execution: DTensor messages and ids over the edges, node
+# rows over the same mesh dims (``launch.tasks``' GNN ``pjit`` cells,
+# the JAX package's placements).  Each reduction's body runs on the
+# rank's own edges under ``local_map``; its collectives run over those
+# mesh dims flattened (``models.sharding.row_mesh``: one call each).
+# ---------------------------------------------------------------------------
+
+def _is_dtensor(x) -> bool:
+    from repro_torch.models.sharding import is_dtensor
+
+    return is_dtensor(x)
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    """This rank's node rows of the ranks' partials summed (one
+    reduce-scatter over the 1-D mesh ``rows``); the backward all-gathers
+    the cotangent of the rows (the partial's cotangent is the whole
+    sum's)."""
+
+    @staticmethod
+    def forward(ctx, partial, rows):
+        from repro_torch.models.sharding import reduce_scatter_rows
+
+        ctx.rows = rows
+        return reduce_scatter_rows(partial, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from repro_torch.models.sharding import all_gather_rows
+
+        return all_gather_rows(grad, ctx.rows), None
+
+
+def _own_rows_sum(partial: torch.Tensor, rows) -> torch.Tensor:
+    """This rank's rows of the sum of every rank's ``partial [N, ...]``
+    over ``rows`` (``partial`` itself where nothing cuts the rows)."""
+    return partial if rows is None else _ReduceScatterRows.apply(partial,
+                                                                 rows)
+
+
+def _own_rows(x: torch.Tensor, rows) -> torch.Tensor:
+    """This rank's piece of the whole ``x [N, ...]`` (the rows of its
+    rank in ``rows``)."""
+    if rows is None:
+        return x
+    k = x.shape[0] // rows.size()
+    return x.narrow(0, rows.get_local_rank() * k, k)
+
+
+def _partitioned_reduction(body, data, ids, num_segments):
+    """``body(data_local, ids_local, rows)`` under ``local_map`` over the
+    edges' layout, its result laid out as the node rows (the same
+    placements, over ``num_segments`` rows)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sparse.gather import _edge_layout
+
+    mesh, pl, rows = _edge_layout(ids, num_segments)
+    return local_map(lambda d, i: body(d, i, rows), out_placements=list(pl),
+                     in_placements=(pl, pl), device_mesh=mesh)(data, ids)
+
+
+def _segment_sum_partitioned(data, ids, num_segments):
+    """``mp_segment_sum`` of DTensors: the rank's partial over its own
+    edges into ``[N, ...]`` (K2a for float rows, the scatter for
+    integer counts), reduce-scattered to its node rows; backward one
+    all-gather of the cotangent, then ``SegmentSumFn``'s gather."""
+
+    def body(d, i, rows):
+        return _own_rows_sum(_segment_sum(d, i, num_segments), rows)
+
+    return _partitioned_reduction(body, data, ids, num_segments)
+
+
+def _extreme_partitioned(name, op, data, ids, num_segments):
+    """``mp_segment_max`` / ``_min`` of DTensors: the rank's partial over
+    its own edges merged by ``_MergeExtreme`` over the flattened group
+    (its tie-split backward: the plain scatter's gradient), then the
+    rank's own rows kept."""
+
+    def body(d, i, rows):
+        local = MONOIDS[name].segment(d, i, num_segments)
+        if rows is None:
+            return local
+        reach = (d == local[clamped_ids(i, num_segments)]).to(torch.int32)
+        ties = MONOIDS["sum"].segment(reach, i, num_segments)
+        return _own_rows(_MergeExtreme.apply(local, ties, op,
+                                             rows.get_group()), rows)
+
+    return _partitioned_reduction(body, data, ids, num_segments)
+
+
+class _AllReducedSum(torch.autograd.Function):
+    """Every rank's partial summed, on every rank (one all-reduce over
+    the 1-D mesh ``rows``).  The result is replicated and so is what
+    consumes it: each rank's partial takes the cotangent as it is."""
+
+    @staticmethod
+    def forward(ctx, partial, rows):
+        from torch.distributed import _functional_collectives as funcol
+
+        from repro_torch.models.sharding import waited
+
+        return waited(funcol.all_reduce(partial.contiguous(), "sum", rows))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def graph_segment(x: torch.Tensor, graph_ids: torch.Tensor, n_graphs: int,
+                  monoid: str = "sum") -> torch.Tensor:
+    """Node rows folded into their graphs: ``MONOIDS[monoid].segment(x,
+    graph_ids, n_graphs)`` (``sum``, or ``max`` of integer labels).  Of
+    DTensors (nodes over some mesh dims), each rank folds its own rows
+    and the partials are all-reduced once over those dims flattened:
+    the ``[n_graphs, ...]`` result is replicated, the layout of the JAX
+    package's per-graph loss."""
+    if not _is_dtensor(x):
+        return MONOIDS[monoid].segment(x, graph_ids, n_graphs)
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.sharding import row_mesh, waited
+
+    mesh, pl = x.device_mesh, tuple(x.placements)
+    rows = row_mesh(mesh, pl)
+
+    def body(v, gid):
+        part = MONOIDS[monoid].segment(v, gid, n_graphs)
+        if rows is None:
+            return part
+        if monoid == "sum":
+            return _AllReducedSum.apply(part, rows)
+        if part.is_floating_point() and part.requires_grad:
+            raise ValueError(f"graph_segment: no gradient through {monoid}")
+        return waited(funcol.all_reduce(part.contiguous(), monoid, rows))
+
+    return local_map(body, out_placements=[Replicate()] * mesh.ndim,
+                     in_placements=(pl, pl), device_mesh=mesh)(x, graph_ids)

@@ -1649,6 +1649,77 @@ def test_cuda_partitioned_bert4rec_on_a_1x1_mesh_equals_plain(card,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gat-cora", "pna", "nequip", "mace"])
+def test_cuda_partitioned_gnn_step_on_a_1x1_mesh_equals_plain(card, tmp_path,
+                                                              arch):
+    # A GNN pjit cell's partitioned train step (the node gathers, the
+    # message sums on K2a and the max / min merges under local_map) on
+    # one NCCL rank at the smoke config, on 8 molecules of 6 nodes and
+    # 12 edges: the plain step's loss, grad_norm and parameters within
+    # 5e-4 (K2a's atomics move the last bits between runs), with K2a
+    # launched as often as in the plain step.
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_local_group, make_mesh
+    from repro_torch.launch.tasks import build_task
+    from repro_torch.models.gnn import equivariant, gat, pna, random_graph
+    from repro_torch.train import AdamWConfig, init_train_state
+    from repro_torch.train import make_train_step
+    from repro_torch.train.tree import leaves
+
+    spec = get_config(arch, smoke=True)
+    cfg = spec.model
+    mod = {"gat-cora": gat, "pna": pna}.get(arch, equivariant)
+    if mod is equivariant:
+        g = random_graph(48, 96, with_positions=True,
+                         n_species=cfg.n_species, n_graphs=8, seed=4,
+                         device=card)
+        g = dataclasses.replace(g, labels=torch.randn(
+            8, generator=torch.Generator(device=card).manual_seed(2),
+            device=card))
+    else:
+        g = random_graph(48, 96, d_feat=cfg.d_in, n_classes=cfg.n_classes,
+                         n_graphs=8, seed=4, device=card)
+    shape = dataclasses.replace(spec.shape("molecule"), dims={
+        "n_nodes": 6, "n_edges": 12, "batch": 8,
+        "d_feat": getattr(cfg, "d_in", 16),
+        "n_classes": getattr(cfg, "n_classes", 8)})
+
+    def params():
+        return mod.init_params(torch.Generator(device=card).manual_seed(0),
+                               cfg)
+
+    segsum_cuda.launches = 0
+    plain, want = make_train_step(lambda p, b: mod.loss_fn(p, cfg, b),
+                                  AdamWConfig())(init_train_state(params()),
+                                                 g)
+    torch.cuda.synchronize()
+    plain_launches = segsum_cuda.launches
+    init_local_group(0, 1, str(tmp_path / "store"), "cuda")
+    try:
+        task = build_task(spec, shape, make_mesh((1, 1)))
+        assert task.partitioned
+        segsum_cuda.launches = 0
+        state, got = task.run(init_train_state(params()), g)
+        torch.cuda.synchronize()
+        assert segsum_cuda.launches == plain_launches > 0
+        loss = float(want["loss"])
+        assert abs(float(got["loss"].full_tensor()) - loss) <= 5e-4 * max(
+            1.0, abs(loss))
+        assert abs(float(got["grad_norm"].full_tensor())
+                   - float(want["grad_norm"])) <= 5e-4 * float(
+                       want["grad_norm"])
+        for x, y in zip(leaves(state.params), leaves(plain.params)):
+            x = x.full_tensor()
+            assert (x - y).abs().max() <= 5e-4 * y.abs().max()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("arch,moe", [
     ("qwen3-moe-235b-a22b", {"n_groups": 4}),
     ("llama4-maverick-400b-a17b", {})])

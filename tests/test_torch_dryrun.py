@@ -7,9 +7,9 @@ and is not imported here), no JAX in the child, the roofline columns
 and ``--out``, and exit 1 when a cell fails.  The dense LM's rows
 (llama3.2-1b, gemma3-12b, command-r-plus-104b) are partitioned: one
 device's own program, its temp and its collectives, and so are the MoE
-LM's (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b) and BERT4Rec's;
-the GNN ``pjit`` rows still trace the global step and say so.  Every
-call runs in a subprocess (the fake world is a process group)."""
+LM's (qwen3-moe-235b-a22b, llama4-maverick-400b-a17b), BERT4Rec's and
+the GNN ``pjit`` rows (gat-cora, PNA, NequIP, MACE).  Every call runs
+in a subprocess (the fake world is a process group)."""
 import json
 import os
 import subprocess
@@ -61,8 +61,8 @@ def test_dryrun_smoke_single_and_multi_without_jax():
     for ln in proc.stdout.splitlines():
         if ln.startswith("[ok"):
             assert "compile=" in ln and "args=" in ln
-            # a partitioned row knows its temp; a global trace does not
-            assert ("temp=n/a" in ln) == ("gat-cora" in ln), ln
+            # every row is partitioned: it knows its temp
+            assert "temp=n/a" not in ln, ln
             assert "dom=" not in ln
 
 
@@ -85,22 +85,16 @@ def test_dryrun_roofline_and_out(tmp_path):
             "collective_bytes_per_dev_static", "notes"}
     for r in rows:
         assert keys <= set(r), r
-        dense = r["cell"].startswith("llama3.2-1b")
-        assert r["status"] == "ok" and r["partitioned"] is dense
+        assert r["status"] == "ok"
         assert r["devices"] == (256 if r["mesh"] == "single" else 512)
         assert r["cost_flops_per_dev"] > 0 and r["memory"]["argument_gb"] > 0
-        if dense:
-            _hold_partitioned_row(r)
-        else:
-            assert r["memory"]["temp_gb"] is None
-            assert r["collective_counts"] is None
-            assert "not partitioned" in r["notes"]
+        # the dense LM's train step and gat-cora's molecule batch alike
+        _hold_partitioned_row(r)
         if r["mesh"] == "single":
             roof = r["roofline"]
-            assert roof["partitioned"] is dense
-            assert (roof["coll_bytes_dev"] is None) is not dense
-            assert roof["dominant"] in (("compute", "memory", "collective")
-                                        if dense else ("compute", "memory"))
+            assert roof["partitioned"] is True
+            assert roof["coll_bytes_dev"] is not None
+            assert roof["dominant"] in ("compute", "memory", "collective")
             assert roof["hlo_flops"] == r["cost_flops_per_dev"] * 256
             assert 0 < roof["roofline_fraction"] <= 1
         else:

@@ -277,7 +277,9 @@ def test_kernel_work_formulas():
 # --------------------------------------------------------------------------
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_fake_world_cells import (DENSE_CELLS, MOE_CELLS,  # noqa: E402
+from torch_fake_world_cells import (DENSE_CELLS,  # noqa: E402
+                                    GNN_FLOPS_RATIO, GNN_MULTI_CELLS,
+                                    MOE_CELLS,
                                     RECSYS_CELLS, fake_world_cells,
                                     hold_partitioned, recsys_flops_ratio)
 
@@ -338,5 +340,24 @@ def test_recsys_report_is_partitioned_on_the_multi_pod_mesh(multi_cells,
     rep = r["report"]
     assert rep["partitioned"] is True
     assert (rep["coll_bytes_dev"] > 0) is not serve
+    assert rep["hlo_flops"] == r["flops"] * 512
+    assert rep["peak_mem_gb"] > 0
+
+
+@pytest.mark.parametrize("cell", GNN_MULTI_CELLS)
+def test_gnn_report_is_partitioned_on_the_multi_pod_mesh(multi_cells, cell):
+    """Each GNN's ``molecule`` cell on the 2 x 16 x 16 mesh: one device's
+    program, its FLOPs times 512 the reckoning's (``GNN_FLOPS_RATIO``)
+    within 1e-6, every collective over the 512 ranks of the flattened
+    axes, every all-gather a node array's, and a report with its
+    collective term and the device's peak."""
+    r = multi_cells[cell]
+    hold_partitioned(r, most=1 + 1e-6)
+    ratio = r["flops"] * 512 / r["global_flops"]
+    assert abs(ratio - GNN_FLOPS_RATIO) <= 1e-6 * GNN_FLOPS_RATIO, ratio
+    assert r["groups"] == [512]
+    assert r["all_gather_rows"] == [r["graph"][0]]
+    rep = r["report"]
+    assert rep["partitioned"] is True and rep["coll_bytes_dev"] > 0
     assert rep["hlo_flops"] == r["flops"] * 512
     assert rep["peak_mem_gb"] > 0

@@ -10,7 +10,8 @@ runs in a subprocess (no process group in the pytest process).
 The reference's tasks are built on a 1 x 1 ``jax.make_mesh`` and never
 lowered; the port's on a stand-in of a mesh's shape (its tasks read
 only ``mesh_dim_names`` and ``size``).  Each arch's tasks are built
-once for the module."""
+once for the module.  The partitioned cells (LM, BERT4Rec, GNN
+``pjit``) traced on a fake world of 512: ``torch_fake_world_cells``."""
 import dataclasses
 import functools
 import json
@@ -348,17 +349,20 @@ def test_edge_sharded_gat_collectives_on_fake_world():
 # --------------------------------------------------------------------------
 
 sys.path.insert(0, os.path.dirname(__file__))
-from torch_fake_world_cells import (DENSE_CELLS, MOE_CELLS,  # noqa: E402
+from torch_fake_world_cells import (DENSE_CELLS, GNN_CELLS,  # noqa: E402
+                                    GNN_FLOPS_RATIO, MOE_CELLS,
                                     RECSYS_CELLS, fake_world_cells,
                                     hold_partitioned, recsys_flops_ratio)
 
 FULL_CELLS = ("llama3.2-1b:prefill_32k", "llama3.2-1b:decode_32k")
 MOE_FULL = "qwen3-moe-235b-a22b:prefill_32k"
+GNN_FULL = "gat-cora:ogb_products"
 
 
 @pytest.fixture(scope="module")
 def single_cells():
-    return fake_world_cells("single", "--full", *FULL_CELLS, MOE_FULL)
+    return fake_world_cells("single", "--full", *FULL_CELLS, MOE_FULL,
+                            GNN_FULL)
 
 
 @pytest.fixture(scope="module")
@@ -435,7 +439,44 @@ def test_recsys_cell_is_partitioned_on_the_single_pod_mesh(single_cells,
     assert r["all_gather_bytes"] < cfg.vocab * cfg.embed_dim * 4 / 16
 
 
-@pytest.mark.parametrize("cell", DENSE_CELLS + MOE_CELLS + RECSYS_CELLS)
+def _hold_gnn_row(r):
+    """A GNN ``pjit`` cell on 16 x 16: one device's own program, its FLOPs
+    times 256 within 1e-6 of the reckoning (``GNN_FLOPS_RATIO``), the
+    partitioner's collectives over the 256 ranks of the flattened axes
+    (one group, not one a mesh dim), and every all-gather a node array's
+    (its rows the padded node count): none of an ``[E, ...]`` array."""
+    hold_partitioned(r, most=1 + 1e-6)
+    ratio = r["flops"] * r["devices"] / r["global_flops"]
+    assert abs(ratio - GNN_FLOPS_RATIO) <= 1e-6 * GNN_FLOPS_RATIO, ratio
+    assert r["groups"] == [256]
+    n_nodes, n_edges = r["graph"]
+    assert n_edges not in r["all_gather_rows"]
+    assert r["all_gather_rows"] == [n_nodes]
+    assert "exec=pjit" in r["notes"]
+
+
+@pytest.mark.parametrize("cell", GNN_CELLS)
+def test_gnn_cell_is_partitioned_on_the_single_pod_mesh(single_cells, cell):
+    """Each GNN smoke cell (gat-cora, PNA, NequIP, MACE on the four
+    shapes) on the 16 x 16 mesh: the edges and node rows over both
+    axes, node rows all-gathered for the gathers and each message sum
+    reduce-scattered to the device's rows."""
+    _hold_gnn_row(single_cells[cell])
+
+
+def test_full_width_gat_ogb_products_is_partitioned(single_cells):
+    """gat-cora at ``CONFIG`` on ``ogb_products`` (N padded to 2,449,152,
+    E to 61,859,328) on 16 x 16: a device holds 241,638 edges and a few
+    GB of temp (its largest items the all-gathered ``h`` and the
+    ``[N, 64]`` partials, 627 MB each)."""
+    r = single_cells[f"{GNN_FULL}@full"]
+    _hold_gnn_row(r)
+    assert r["graph"] == [2_449_152, 61_859_328]
+    assert 627e6 < r["memory"]["temp"] < 5e9
+
+
+@pytest.mark.parametrize("cell", DENSE_CELLS + MOE_CELLS + RECSYS_CELLS
+                         + GNN_CELLS)
 def test_one_by_one_mesh_equals_the_global_trace(one_cells, cell):
     """On a 1 x 1 mesh the device's program is the whole step: its FLOPs
     equal the global trace's within 1%, with no collective."""

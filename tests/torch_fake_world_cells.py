@@ -1,8 +1,9 @@
-"""Every LM cell (dense and MoE) and BERT4Rec's four cells at full size
-traced on a production mesh over a fake world of 512 ranks, partitioned
-and whole, for ``test_torch_tasks.py`` and
-``test_torch_roofline.py``.  Run as ``python tests/torch_fake_world_cells.py
-single|multi [--full ARCH:SHAPE ...]`` (a fake world is a process group:
+"""Every LM cell (dense and MoE), BERT4Rec's four cells at full size and
+every GNN ``pjit`` cell (gat-cora, PNA, NequIP, MACE) traced on a
+production mesh over a fake world of 512 ranks, partitioned and whole,
+for ``test_torch_tasks.py`` and ``test_torch_roofline.py``.  Run as
+``python tests/torch_fake_world_cells.py single|multi [--full
+ARCH:SHAPE ...]`` (a fake world is a process group:
 never in the pytest process); prints one JSON object on its last line,
 ``{cell: {...}}``.  Imports ``repro_torch`` only (no JAX).
 
@@ -10,7 +11,8 @@ Each cell is built by ``launch.tasks.build_task`` twice: on the mesh,
 as the partitioned task (DTensor arguments, rank 0's own program), and
 on its stand-in (``launch.mesh.mesh_shape``: the whole global step, the
 count it is held against).  ``smoke()`` configs (BERT4Rec's at full
-size), and at full size the cells ``--full`` names.  ``one`` is a 1 x 1
+size; the GNN cells' ``molecule`` shape alone on ``multi``), and at full
+size the cells ``--full`` names.  ``one`` is a 1 x 1
 mesh over rank 0.  The tests import ``fake_world_cells`` and
 ``hold_partitioned`` from here.
 """
@@ -26,6 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DENSE = ("llama3.2-1b", "gemma3-12b", "command-r-plus-104b")
 MOE = ("qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
 RECSYS = "bert4rec"
+GNN = ("gat-cora", "pna", "nequip", "mace")
 # What the JAX package's partitioner emits, and no more.
 PARTITIONER_KINDS = {"all-reduce", "all-gather", "reduce-scatter"}
 # The most a device's work times the devices exceeds the global step's:
@@ -57,6 +60,20 @@ DENSE_CELLS = _cells(DENSE)
 MOE_CELLS = _cells(MOE)
 # at full size (published widths): a cell's trace is a few hundred ops
 RECSYS_CELLS = _cells((RECSYS,))
+GNN_CELLS = _cells(GNN)
+# on the multi-pod mesh, one shape an arch (its traces take ~3x the
+# single pod's)
+GNN_MULTI_CELLS = [c for c in GNN_CELLS if c.endswith(":molecule")]
+
+
+# The reckoning of a GNN ``pjit`` cell's per-device FLOPs
+# times the devices over the global trace's: 1.  The trace counts the
+# matrix products and K2a's work; every product of these models acts on
+# node or edge rows, each device's on its own (the gathers and the
+# reductions on its own edges), and the work every device repeats (the
+# AdamW update, the loss and the per-graph readout over ``[n_graphs]``
+# rows, the degree counts' scatter) holds no product.
+GNN_FLOPS_RATIO = 1.0
 
 
 def recsys_flops_ratio(cell, devices, model_extent):
@@ -141,6 +158,12 @@ def row(spec, shape, mesh):
         "groups": sorted({r.group_size for r in trace.collectives}),
         "all_gather_bytes": max([r.nbytes for r in trace.collectives
                                  if r.kind == "all-gather"], default=0),
+        "all_gather_rows": sorted({r.rows for r in trace.collectives
+                                   if r.kind == "all-gather"}),
+        # a GNN cell's padded node and edge counts
+        "graph": ([task.abstract_args[1].n_nodes,
+                   int(task.abstract_args[1].edge_src.shape[0])]
+                  if spec.family == "gnn" else None),
         "argument_bytes": trace.argument_bytes,
         # what the placements give the arguments the trace ran on (one
         # micro-batch of an accumulated train step)
@@ -180,6 +203,10 @@ def main(argv):
         spec = get_config(RECSYS)
         for name, shape in spec.shapes.items():
             out[f"{RECSYS}:{name}"] = row(spec, shape, mesh)
+        for cell in GNN_MULTI_CELLS if kind == "multi" else GNN_CELLS:
+            arch, name = cell.split(":")
+            spec = get_config(arch, smoke=True)
+            out[cell] = row(spec, spec.shape(name), mesh)
         for cell in full:
             arch, name = cell.split(":")
             spec = get_config(arch)
